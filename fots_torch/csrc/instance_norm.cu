@@ -1,0 +1,239 @@
+// Fused instance norm (+ affine + optional leaky-relu) over channels-last
+// activations x [B, H, W, C], optionally with per-sample column masks.
+//
+// Replaces fots/ops/instance_norm.py:_instance_norm_pallas (the TPU kernel
+// keeps a whole (H, W, channel-tile) block in VMEM and does statistics and
+// normalisation in one read).  It also serves masked_instance_norm_jnp
+// (statistics over columns < valid_w[n], output zero past them), which is
+// XLA in the JAX package.
+//
+// What bounds it on an H100: bytes.  About five flops per element against 2
+// to 8 bytes moved, far below the card's ~295 flops per byte.  A (H, W)
+// channel plane at the serving shapes is tens of MB and does not fit the
+// 227 KB of shared memory, so the kernel is two passes over x:
+//   (a) in_stats_kernel: blocks over (pixel chunk, sample).  Threads run
+//       along C (contiguous in channels-last), 16-byte loads, f32 sum and
+//       sum of squares per channel, reduced over the block's rows in shared
+//       memory and written as a per-block partial [B, S, 2, C].  The last
+//       block of each sample to finish (atomic ticket) folds the S partials
+//       in a fixed order into y = x * a + c coefficients [B, 2, C]: results
+//       are identical from run to run.
+//   (b) in_apply_kernel: y = x * a + c, optional leaky, zero past valid_w,
+//       16-byte loads and stores, f32 math, output in the input's dtype.
+// Two reads and one write of x: the floor for a norm whose plane does not
+// stay on chip.
+//
+// Statistics follow instance_norm_jnp exactly (not Welford):
+//   mean = s1 / n, var = max(s2 / n - mean^2, 0), a = rsqrt(var + eps) * scale,
+//   c = bias - mean * a, with n = H * valid_w[n] (H * W unmasked).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void from_f32(float x, float& o) { o = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16& o) { o = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ int clamp_width(const int* valid_w, int n, int W) {
+  if (valid_w == nullptr) return W;
+  return min(max(valid_w[n], 0), W);
+}
+
+// grid (S, B); block = rows * lanes threads, lanes = C / V.
+// smem: 2 * blockDim.x * V floats.
+template <typename T, int V>
+__global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__ valid_w,
+                                const float* __restrict__ scale, const float* __restrict__ bias,
+                                float* __restrict__ partial, float* __restrict__ coef,
+                                int* __restrict__ counter, int H, int W, int C, int S,
+                                float eps) {
+  extern __shared__ float sm[];
+  const int n = blockIdx.y, s = blockIdx.x;
+  const int lanes = C / V;
+  const int lane = threadIdx.x % lanes;
+  const int row = threadIdx.x / lanes;
+  const int rows = blockDim.x / lanes;
+  const int vw = clamp_width(valid_w, n, W);
+  const long long npix = (long long)H * vw;
+  const long long chunk = (npix + S - 1) / S;
+  const long long p0 = (long long)s * chunk;
+  const long long p1 = min(npix, p0 + chunk);
+  const T* xs = x + (long long)n * H * W * C + lane * V;
+
+  float s1[V], s2[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) s1[i] = s2[i] = 0.f;
+  for (long long q = p0 + row; q < p1; q += rows) {
+    const long long pix = (vw == W) ? q : (q / vw) * W + q % vw;
+    const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(xs + pix * C);
+#pragma unroll
+    for (int i = 0; i < V; i++) {
+      const float f = to_f32(pk.v[i]);
+      s1[i] += f;
+      s2[i] += f * f;
+    }
+  }
+  float* sm1 = sm;
+  float* sm2 = sm + blockDim.x * V;
+#pragma unroll
+  for (int i = 0; i < V; i++) {
+    sm1[row * C + lane * V + i] = s1[i];
+    sm2[row * C + lane * V + i] = s2[i];
+  }
+  __syncthreads();
+  float* part = partial + ((long long)n * S + s) * 2 * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int r = 0; r < rows; r++) {
+      a += sm1[r * C + c];
+      b += sm2[r * C + c];
+    }
+    part[c] = a;
+    part[C + c] = b;
+  }
+
+  // the last block of sample n folds the S partials, in order s = 0..S-1
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = (atomicAdd(counter + n, 1) == S - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const float cnt = (float)npix;
+  const float* pn = partial + (long long)n * S * 2 * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    for (int k = 0; k < S; k++) {
+      a += __ldcg(pn + (long long)k * 2 * C + c);
+      b += __ldcg(pn + (long long)k * 2 * C + C + c);
+    }
+    const float mean = a / cnt;
+    const float var = fmaxf(b / cnt - mean * mean, 0.f);
+    const float mul = rsqrtf(var + eps) * scale[c];
+    coef[(long long)n * 2 * C + c] = mul;
+    coef[(long long)n * 2 * C + C + c] = bias[c] - mean * mul;
+  }
+}
+
+// grid (ceil(H*W / chunk_pix), B); block = rows * lanes threads.
+// smem: 2 * C floats.
+template <typename T, int V>
+__global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__ valid_w,
+                                const float* __restrict__ coef, T* __restrict__ y, int H,
+                                int W, int C, int chunk_pix, float slope, int has_slope) {
+  extern __shared__ float cs[];
+  const int n = blockIdx.y;
+  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) cs[c] = coef[(long long)n * 2 * C + c];
+  __syncthreads();
+  const int lanes = C / V;
+  const int lane = threadIdx.x % lanes;
+  const int row = threadIdx.x / lanes;
+  const int rows = blockDim.x / lanes;
+  if (row >= rows) return;
+  const int vw = clamp_width(valid_w, n, W);
+  const long long hw = (long long)H * W;
+  const long long p0 = (long long)blockIdx.x * chunk_pix;
+  const long long p1 = min(hw, p0 + chunk_pix);
+  const long long base = (long long)n * hw * C + lane * V;
+  float a[V], b[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) {
+    a[i] = cs[lane * V + i];
+    b[i] = cs[C + lane * V + i];
+  }
+  for (long long p = p0 + row; p < p1; p += rows) {
+    Pack<T, V> out;
+    if ((int)(p % W) < vw) {
+      const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(x + base + p * C);
+#pragma unroll
+      for (int i = 0; i < V; i++) {
+        float f = to_f32(pk.v[i]) * a[i] + b[i];
+        if (has_slope && f < 0.f) f *= slope;
+        from_f32(f, out.v[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; i++) from_f32(0.f, out.v[i]);
+    }
+    *reinterpret_cast<Pack<T, V>*>(y + base + p * C) = out;
+  }
+}
+
+constexpr int kBlockThreads = 256;
+constexpr int kPixPerThread = 8;
+
+template <typename T, int V>
+int launch(const void* x, void* y, int B, int H, int W, int C, const int* valid_w,
+           const float* scale, const float* bias, float eps, float slope, int has_slope,
+           float* partial, float* coef, int* counter, int S, cudaStream_t stream) {
+  const int lanes = C / V;
+  const int rows = lanes >= kBlockThreads ? 1 : kBlockThreads / lanes;
+  const int threads = lanes * rows;
+  if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem_stats = 2 * (size_t)threads * V * sizeof(float);
+  const size_t smem_apply = 2 * (size_t)C * sizeof(float);
+  if (smem_stats > 48 * 1024 || smem_apply > 48 * 1024) return (int)cudaErrorInvalidConfiguration;
+  in_stats_kernel<T, V><<<dim3(S, B), threads, smem_stats, stream>>>(
+      static_cast<const T*>(x), valid_w, scale, bias, partial, coef, counter, H, W, C, S, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int chunk_pix = rows * kPixPerThread;
+  const long long blocks = ((long long)H * W + chunk_pix - 1) / chunk_pix;
+  in_apply_kernel<T, V><<<dim3((unsigned)blocks, B), threads, smem_apply, stream>>>(
+      static_cast<const T*>(x), valid_w, coef, static_cast<T*>(y), H, W, C, chunk_pix, slope,
+      has_slope);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16.  x, y: [B, H, W, C] contiguous.
+// valid_w: int32 [B] device pointer or null.  scale, bias: f32 [C].
+// Workspaces: partial f32 [B, S, 2, C], coef f32 [B, 2, C], counter int32
+// [B] zeroed.  Returns a cudaError_t code (0 = launched).
+int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, int C,
+                       const int* valid_w, const float* scale, const float* bias, float eps,
+                       float slope, int has_slope, float* partial, float* coef, int* counter,
+                       int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t itemsize = dtype == 0 ? 4 : 2;
+  const bool vec = (C * itemsize) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (dtype == 0) {
+    if (vec)
+      return launch<float, 4>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope, has_slope,
+                              partial, coef, counter, S, st);
+    return launch<float, 1>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope, has_slope,
+                            partial, coef, counter, S, st);
+  }
+  if (dtype == 1) {
+    if (vec)
+      return launch<__nv_bfloat16, 8>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
+                                      has_slope, partial, coef, counter, S, st);
+    return launch<__nv_bfloat16, 1>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
+                                    has_slope, partial, coef, counter, S, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// rows of the stats block for this (dtype, C): the wrapper sizes S with it
+int fots_instance_norm_rows(int dtype, int C) {
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const int v = (C * itemsize) % 16 == 0 ? 16 / itemsize : 1;
+  const int lanes = C / v;
+  return lanes >= kBlockThreads ? 1 : kBlockThreads / lanes;
+}
+
+}  // extern "C"

@@ -1,0 +1,148 @@
+"""Build the port's native code at first use and load it with ctypes.
+
+CUDA kernels (``fots_torch/csrc/*.cu``) compile with ``nvcc`` for
+``sm_90a`` into shared libraries with a plain C interface; the host NMS
+(``csrc/nms_core.cpp``) compiles with ``g++``.  Outputs go to
+``build/fots_torch/`` beside the package, named by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one is
+reused.  Builds start together (one compiler process per source) and a
+finished library is moved into place atomically, so concurrent processes
+never load a half-written file.
+
+No PyTorch headers are compiled (``torch.utils.cpp_extension`` would need
+``ninja`` and minutes per build): the Python wrappers pass
+``tensor.data_ptr()``, sizes and ``torch.cuda.current_stream().cuda_stream``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "fots_torch")
+
+SOURCES = {
+    "instance_norm": "instance_norm.cu",
+    "pack_neighbors": "pack_neighbors.cu",
+    "nms_core": "nms_core.cpp",
+}
+CUDA_KERNELS = ("instance_norm", "pack_neighbors")
+
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+
+#: launches of each CUDA kernel wrapper in this process (one per launch of
+#: its kernel; never incremented by the plain versions)
+launch_counts: Dict[str, int] = {name: 0 for name in CUDA_KERNELS}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or "
+                           "/usr/local/cuda/bin: the CUDA kernels cannot be built")
+    return path
+
+
+def _compile_command(name: str, out: str) -> list:
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    if src.endswith(".cu"):
+        return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    return [shutil.which("g++") or "g++", *GXX_FLAGS, "-o", out, src]
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    flags = NVCC_FLAGS if src.endswith(".cu") else GXX_FLAGS
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every library in ``names`` (default: all) that is not built
+    yet, all compilers running at once.  Returns the compiler output of each
+    library built now; raises with that output if a compile fails."""
+    names = list(SOURCES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.Popen(_compile_command(name, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append((name, out, tmp, proc, time.perf_counter()))
+    logs = {}
+    for name, out, tmp, proc, t0 in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {SOURCES[name]} failed "
+                               f"(exit {proc.returncode}):\n{text}")
+        os.replace(tmp, out)
+        logs[name] = f"[{time.perf_counter() - t0:.1f} s] {text}"
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``name``, built first if needed (thread-safe:
+    the NMS pool's threads may ask for the same library at once)."""
+    with _load_lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(library_path(name))
+        return _loaded[name]
+
+
+def check_kernel_input(x, what: str, dtypes) -> None:
+    """What every CUDA wrapper requires of its main input: a CUDA tensor of
+    an accepted dtype, contiguous in the layout the kernel indexes (NHWC
+    for the 4-D activations), and no autograd (the kernels are forward
+    only)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
+                         f"one on {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {x.dtype} not in {tuple(dtypes)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous NHWC (a "
+                         "channels_last NCHW tensor viewed with "
+                         "permute(0, 2, 3, 1)); got strides "
+                         f"{tuple(x.stride())} for shape {tuple(x.shape)}")
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(f"{what}: the CUDA kernel is forward-only; "
+                                  "run under torch.inference_mode()")
+
+
+def current_stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,0 +1,108 @@
+"""fots_torch package rules: no JAX or fots imports, CUDA by default, the
+kernel wrappers refuse CPU tensors, and the smoke images are the committed
+scenes."""
+
+import os
+import re
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from fots_torch.kernels import build
+from fots_torch.ops.instance_norm import instance_norm_cuda
+from fots_torch.ops.rroi_align import pack_neighbors_cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|cv2|fots)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "fots_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_port_sources_import_no_jax_cv2_or_fots():
+    paths = _port_sources()
+    assert len(paths) >= 15
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            hits = FORBIDDEN.findall(f.read())
+        assert not hits, (path, hits)
+
+
+def test_importing_the_port_loads_no_jax_or_fots():
+    code = (
+        "import sys\n"
+        "import chip_smoke, fots_torch, fots_torch.pipeline, fots_torch.checkpoint\n"
+        "import fots_torch.ops.nms, fots_torch.kernels.build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'orbax', 'cv2', 'fots')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fots_torch import resolve_device
+    from fots_torch.models import FOTSDetector
+    from fots_torch.pipeline import FOTSInference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FOTSInference(FOTSDetector())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrappers_refuse_cpu_tensors(dtype):
+    x = torch.zeros((1, 4, 8, 64), dtype=dtype)
+    before = dict(build.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        instance_norm_cuda(x, torch.ones(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pack_neighbors_cuda(x)
+    assert build.launch_counts == before
+
+
+def test_builds_are_keyed_by_source_and_flags():
+    paths = {name: build.library_path(name) for name in build.SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    for name, path in paths.items():
+        assert os.path.dirname(path) == build.BUILD_DIR
+        assert re.fullmatch(rf"lib{name}_[0-9a-f]{{16}}\.so", os.path.basename(path))
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_concurrent_first_loads_build_once(tmp_path, monkeypatch):
+    """The NMS pool's threads may ask for the host library at once on a
+    fresh checkout: every thread must get the one built library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_loaded", {})
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda _: build.load("nms_core"), range(4)))
+    assert all(lib is libs[0] for lib in libs)
+    assert os.listdir(tmp_path) == [os.path.basename(build.library_path("nms_core"))]
+
+
+def test_smoke_images_are_the_committed_scenes():
+    with np.load(os.path.join(REPO, "fots_torch", "assets", "smoke_images_u8.npz")) as z:
+        images, names = z["images"], [str(n) for n in z["names"]]
+    assert images.shape == (4, 640, 960, 3) and images.dtype == np.uint8
+    for im, name in zip(images, names):
+        np.testing.assert_array_equal(
+            im, cv2.imread(os.path.join(REPO, "data", "synth", name)))
