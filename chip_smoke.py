@@ -1,37 +1,54 @@
 """Chip smoke test of the PyTorch/CUDA port (``fots_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase, as the check runs it
+    python3 chip_smoke.py --phases build,kernels   # a subset (no result line)
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
-1. build every native library of the serving path from the sources in
-   this checkout (nvcc for the CUDA kernels, g++ for the host NMS);
+1. build every native library from the sources in this checkout (nvcc for
+   the CUDA kernels, all started together; g++ for the host NMS);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it at batch 16, 704x1280 (f32 and bf16),
-   plus odd shapes; then its median time at the serving shape beside the
-   plain version's, a library call's where one computes the same
-   function, and the least time the card could take (bytes moved over the
-   memory rate, or operations over the f32 rate, whichever is larger);
+   shapes the serving path (batch 16, 704x1280) and the training path
+   (batch 8, 640x960) give it, plus odd shapes; then its median time
+   beside the plain version's, a library call's where one PyTorch call
+   computes the same function, and the least time the card could take
+   (bytes moved over the memory rate, or operations over the f32 rate,
+   whichever is larger);
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
-   on one batch of two smoke images at 704x1280 with the shipped snapshot:
-   same box count per image, quad corners within 1 px, identical texts;
-4. serving at full width: bf16, the snapshot's masked_norm, device
-   letterbox, u16 candidates, batch 16 at 704x1280, ``stream`` over 6
-   batches with the kernel launch counts zeroed just before; every image
-   must yield text, every kernel must have launched; images/s over the
-   steady batches on the host clock (PyTorch's default math settings:
-   cuDNN may use TF32 for the f32 parts of the FPN).
+   on one serving batch of two smoke images at 704x1280 with the shipped
+   snapshot: same box count per image, quad corners within 1 px,
+   identical texts;
+4. serving at full width (a main path): bf16, the snapshot's masked_norm,
+   device letterbox, u16 candidates, batch 16 at 704x1280, ``stream`` over
+   6 batches with the launch counts zeroed just before; every image must
+   yield text, every serving kernel must have launched; images/s over the
+   steady batches on the host clock (PyTorch's default math settings);
+5. one training step, CUDA port against CPU port (f32, TF32 off for this
+   phase only): two asset scenes at 640x960, ground-truth rois from one
+   seed, dropout masks from equally seeded CPU generators; the five loss
+   terms, every parameter gradient, the BatchNorm running statistics and
+   every parameter after one Adam step must agree;
+6. training at full width (a main path): the snapshot as warm start, f32,
+   batch 8 at 640x960 (the four asset scenes twice, one repeated batch),
+   predicted-roi sampling pipelined on a prefetch thread, masked_norm,
+   12 steps of ``Trainer.train`` with the launch counts zeroed just
+   before; every loss finite, every training kernel launched, the total
+   loss after 10 updates below the first step's; images/s over steps
+   3..12 on the host clock (PyTorch's default math settings: cuDNN may use
+   TF32 for the convolutions).
 
-Then it prints a ``{"kernels": [...]}`` JSON line, an end-to-end JSON
-line, the card's name and power limit from nvidia-smi, and last the
-``{"ok": true, "device": {...}}`` line.  Needs one CUDA card; exits
-non-zero without one.
+Then it prints a ``{"kernels": [...]}`` JSON line, the serving and
+training JSON lines, the card's name and power limit from nvidia-smi, and
+last the ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
+exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,14 +61,31 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(REPO, "artifacts", "serving_params.npz")
 SMOKE_IMAGES = os.path.join(REPO, "fots_torch", "assets", "smoke_images_u8.npz")
+TRAIN_TARGETS = os.path.join(REPO, "fots_torch", "assets", "train_targets.npz")
 SERVE_HW = (704, 1280)
 BATCH = 16
 STREAM_BATCHES = 6
+TRAIN_HW = (640, 960)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12
+TRAIN_LR = 1e-4
+PHASES = ("build", "kernels", "serve_parity", "serve", "train_parity", "train")
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s and f32 (non-tensor-core) flop/s, by card name.
 _PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
           ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+
+# where each kernel's source lives and which TPU kernel it replaces
+KERNEL_META = {
+    "instance_norm": ("fots_torch/csrc/instance_norm.cu", "fots/ops/instance_norm.py:126"),
+    "instance_norm_bwd": ("fots_torch/csrc/instance_norm_bwd.cu",
+                          "fots/ops/instance_norm.py:126"),
+    "spatial_stats": ("fots_torch/csrc/spatial_norm.cu", "fots/ops/instance_norm.py:243"),
+    "spatial_norm": ("fots_torch/csrc/spatial_norm.cu", "fots/ops/instance_norm.py:263"),
+    "pack_neighbors": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
+    "pack_neighbors_bwd": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
+}
 
 
 def card_peaks(name: str):
@@ -89,28 +123,61 @@ def errors(got, want):
     return d, d / max(float(want.float().abs().max()), 1e-30)
 
 
+class no_tf32:
+    """f32 convolutions and matmuls in full f32 inside the block."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def load_assets():
+    with np.load(SMOKE_IMAGES) as z:
+        images = z["images"]
+    with np.load(TRAIN_TARGETS) as z:
+        targets = {k: z[k] for k in z.files}
+    return images, targets
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions, and their times
+# --------------------------------------------------------------------------
+
 def phase_kernels(dev, peaks):
-    """Kernels against their plain versions; timings at the serving shape."""
     from fots_torch.ops import instance_norm as tin
     from fots_torch.ops import rroi_align as trr
     from fots_torch.pipeline import FOTSInference
 
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = SERVE_HW
-    # (h, w, c, affine, slope) of every InstanceNorm of the detector at
-    # 704x1280 (stem CReLU-INs, then layer1..layer4 in1/in2/sep1 norms)
-    in_shapes = [(H, W, 32, True, 0.01), (H // 2, W // 2, 64, True, 0.01),
-                 (H // 4, W // 4, 64, True, 0.0), (H // 4, W // 4, 64, True, None),
-                 (H // 8, W // 8, 128, True, 0.0), (H // 8, W // 8, 128, True, None),
-                 (H // 16, W // 16, 256, False, 0.01), (H // 16, W // 16, 256, True, 0.01),
-                 (H // 16, W // 16, 256, True, None), (H // 32, W // 32, 512, False, 0.01),
-                 (H // 32, W // 32, 512, True, 0.01), (H // 32, W // 32, 512, True, None)]
-    worst = {"instance_norm": 0.0, "pack_neighbors": 0.0}
+    TH, TW = TRAIN_HW
+    worst = {name: 0.0 for name in KERNEL_META}
+
+    def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def report(name, tag, ok, ab, rel):
+        print(f"  {name} {tag}: max abs err {ab:.3e} ({rel:.2e} of max |ref|)"
+              f"{'' if ok else '  MISS'}")
+        check(ok, f"{name} {tag} outside tolerance")
+        worst[name] = max(worst[name], ab)
+
+    def forward_ok(got, want, dtype):
+        # f32: sums over up to 0.9 M pixels in another order and the affine
+        # folded into x*a + c; bf16: one bf16 ulp (2^-8 relative) plus the
+        # f32 slack before the final rounding
+        d = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            return bool((d <= 1e-4 * (1 + want.float().abs())).all())
+        return bool((d <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
 
     def in_case(b, h, w, c, dtype, affine, slope, valid_w=None):
-        x = (torch.randn((b, h, w, c), generator=gen, device=dev) * 3 + 1.5).to(dtype)
-        scale = torch.randn(c, generator=gen, device=dev) if affine else None
-        bias = torch.randn(c, generator=gen, device=dev) if affine else None
+        x = rand((b, h, w, c), dtype, 3, 1.5)
+        scale = rand(c) if affine else None
+        bias = rand(c) if affine else None
         got = tin.instance_norm(x, scale, bias, 1e-5, slope, valid_w)
         if scale is None:
             scale, bias = torch.ones(c, device=dev), torch.zeros(c, device=dev)
@@ -120,28 +187,109 @@ def phase_kernels(dev, peaks):
             want = tin.masked_instance_norm_ref(x, valid_w, scale, bias, 1e-5, slope)
         torch.cuda.synchronize()
         check(got.dtype == dtype and got.shape == x.shape, "instance_norm shape/dtype")
-        ab, rel = errors(got, want)
-        # f32: sums over up to 0.9 M pixels in another order and the affine
-        # folded into x*a + c; bf16: one bf16 ulp (2^-8 relative) plus the
-        # f32 slack before the final rounding
-        d = (got.float() - want.float()).abs()
-        if dtype == torch.float32:
-            ok = bool((d <= 1e-4 * (1 + want.float().abs())).all())
-        else:
-            ok = bool((d <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
-        tag = "masked " if valid_w is not None else ""
-        print(f"  instance_norm {tag}{str(dtype)[6:]:8s} {(b, h, w, c)} "
-              f"affine={affine} slope={slope}: max abs err {ab:.3e} ({rel:.2e} of max |ref|)"
-              f"{'' if ok else '  MISS'}")
-        check(ok, f"instance_norm {tag}{dtype} {(b, h, w, c)} outside tolerance")
-        worst["instance_norm"] = max(worst["instance_norm"], ab)
-        del x, got, want, d
+        tag = (f"{'masked ' if valid_w is not None else ''}{str(dtype)[6:]} "
+               f"{(b, h, w, c)} affine={affine} slope={slope}")
+        report("instance_norm", tag, forward_ok(got, want, dtype), *errors(got, want))
 
-    print("phase 2: kernels vs plain versions (tolerance: instance_norm f32 "
-          "|err| <= 1e-4 (1 + |ref|), bf16 |err| <= 2^-7 |ref| + 1e-3; "
-          "pack_neighbors bit-exact)")
+    def bwd_case(b, h, w, c, affine, slope, valid_w=None, halves=1, groups=1):
+        """K1'-bwd (and K1' / K2'+K3' for the saved statistics) at one shape."""
+        x = rand((b, h, w, c), torch.float32, 3, 1.5)
+        g = rand((b, h, w, halves * c))
+        if halves == 1:
+            scale = rand(c) if affine else torch.ones(c, device=dev)
+            bias = rand(c) if affine else torch.zeros(c, device=dev)
+            _, stats = tin.instance_norm_cuda(x, scale, bias, 1e-5, slope, valid_w, True)
+            want_stats = tin.instance_norm_stats_ref(x, 1e-5, valid_w)
+            report("instance_norm", f"saved (mean, rstd) {(b, h, w, c)}",
+                   bool(((stats - want_stats).abs() <= 1e-4 * (1 + want_stats.abs())).all()),
+                   *errors(stats, want_stats))
+        else:
+            cg = c // groups
+            scale, bias = rand(2 * cg), rand(2 * cg)
+            _, stats_g = tin._crelu_forward(x, scale, bias, groups, 1e-5, slope)
+            stats, scale, bias = tin._crelu_u_params(stats_g, scale, bias, groups)
+        dx, dsb = tin.instance_norm_bwd_cuda(x, g, stats, scale, bias, slope, valid_w,
+                                             halves, groups)
+        want_dx, want_dsb = tin.instance_norm_bwd_ref(x, g, stats, scale, bias, slope,
+                                                      valid_w, halves, groups)
+        torch.cuda.synchronize()
+        tag = (f"{'crelu ' if halves == 2 else ''}{'masked ' if valid_w is not None else ''}"
+               f"{(b, h, w, c)} groups={groups} slope={slope}")
+        for what, got, want in (("dx", dx, want_dx), ("per-sample sums", dsb, want_dsb)):
+            ab, rel = errors(got, want)
+            # f32 reductions over up to 0.6 M pixels in another order feed
+            # the per-(b, c) coefficients: within 1e-4 of the tensor's scale
+            ok = ab <= 1e-4 * float(want.abs().max()) + 1e-6
+            report("instance_norm_bwd", f"{tag} {what}", ok, ab, rel)
+
+    def stats_case(shape, dtype):
+        x = rand(shape, dtype, 3, 1.5)
+        got = tin.spatial_stats_cuda(x)
+        want = tin.spatial_stats_ref(x)
+        # f32 sums of up to 0.9 M values in another order: within 1e-5 of
+        # the sum of |x| (and of the sum of x^2)
+        scale = tin.spatial_stats_ref(x.float().abs())
+        torch.cuda.synchronize()
+        ok = bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+        report("spatial_stats", f"{str(dtype)[6:]} {shape}", ok, *errors(got, want))
+
+    def norm_case(shape, dtype, out_mul, slope):
+        x = rand(shape, dtype, 3, 1.5)
+        vecs = rand((shape[0], 2 * out_mul, shape[-1]))
+        got = tin.spatial_norm_cuda(x, vecs, slope, out_mul)
+        want = tin.spatial_norm_ref(x, vecs, slope, out_mul)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        report("spatial_norm", f"{str(dtype)[6:]} {shape} out_mul={out_mul} slope={slope} "
+               f"bit-exact={equal}", equal, *errors(got, want))
+
+    def crelu_case(shape, dtype, groups=1):
+        """The stem's whole CReLU-IN (K2' + fold + K3') against the plain
+        copy of ``_crelu_half_jnp``."""
+        x = rand(shape, dtype, 3, 1.5)
+        cg = shape[-1] // groups
+        scale, bias = rand(2 * cg), rand(2 * cg)
+        got = tin.crelu_instance_norm(x, scale, bias, groups)
+        want = tin.crelu_instance_norm_ref(x, scale, bias, groups)
+        torch.cuda.synchronize()
+        report("spatial_norm", f"CReLU-IN {str(dtype)[6:]} {shape} groups={groups}",
+               forward_ok(got, want, dtype), *errors(got, want))
+
+    def pack_case(shape, dtype):
+        f = rand(shape, dtype)
+        got = trr.pack_neighbors(f)
+        want = trr.pack_neighbors_ref(f)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        report("pack_neighbors", f"{str(dtype)[6:]} {shape} bit-exact={equal}", equal,
+               *errors(got, want))
+
+    def pack_bwd_case(shape):
+        n = shape[0] * shape[1] * shape[2]
+        g = rand((n, 4 * shape[3]))
+        got = trr.pack_neighbors_bwd_cuda(g, shape)
+        want = trr.pack_neighbors_bwd_ref(g, shape)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        report("pack_neighbors_bwd", f"f32 {shape} bit-exact={equal}", equal,
+               *errors(got, want))
+
+    print("phase 2: kernels vs plain versions (tolerances: instance_norm and the "
+          "CReLU-IN f32 |err| <= 1e-4 (1 + |ref|), bf16 |err| <= 2^-7 |ref| + 1e-3; "
+          "instance_norm_bwd max |err| <= 1e-4 max |ref| + 1e-6 per tensor; "
+          "spatial_stats |err| <= 1e-5 sum|x| + 1e-6; spatial_norm, pack_neighbors "
+          "and pack_neighbors_bwd bit-exact)")
+    # (h, w, c, affine, slope) of every K1' InstanceNorm of the detector
+    # (layer1..layer4 in1/in2/sep1 norms), at a scale's fraction of (h0, w0)
+    def in_shapes(h0, w0):
+        return [(h0 // 4, w0 // 4, 64, True, 0.0), (h0 // 4, w0 // 4, 64, True, None),
+                (h0 // 8, w0 // 8, 128, True, 0.0), (h0 // 8, w0 // 8, 128, True, None),
+                (h0 // 16, w0 // 16, 256, False, 0.01), (h0 // 16, w0 // 16, 256, True, 0.01),
+                (h0 // 16, w0 // 16, 256, True, None), (h0 // 32, w0 // 32, 512, False, 0.01),
+                (h0 // 32, w0 // 32, 512, True, 0.01), (h0 // 32, w0 // 32, 512, True, None)]
+
     for dtype in (torch.float32, torch.bfloat16):
-        for h, w, c, affine, slope in in_shapes:
+        for h, w, c, affine, slope in in_shapes(H, W):
             in_case(BATCH, h, w, c, dtype, affine, slope)
         in_case(3, 7, 13, 20, dtype, True, 0.01)   # odd shape (bf16: scalar path)
         in_case(2, 5, 9, 6, dtype, False, None)    # odd shape, scalar path
@@ -153,59 +301,129 @@ def phase_kernels(dev, peaks):
             for h, c in ((11, 128), (5, 256), (1, 256)):
                 in_case(chunk, h, width, c, dtype, True, 0.01, valid_w=vw)
 
+    # the training path's backward: every K1' IN at batch 8, 640x960, the
+    # masked INs of a 256-wide strip batch, the stem's two CReLU-INs
+    for h, w, c, affine, slope in in_shapes(TH, TW):
+        bwd_case(TRAIN_BATCH, h, w, c, affine, slope)
+    vw = torch.randint(1, 257, (32,), generator=gen, device=dev, dtype=torch.int32)
+    for h, c in ((11, 128), (5, 256), (1, 256)):
+        bwd_case(32, h, 256, c, True, 0.01, valid_w=vw)
+    bwd_case(TRAIN_BATCH, TH, TW, 16, True, 0.01, halves=2)
+    bwd_case(TRAIN_BATCH, TH // 2, TW // 2, 32, True, 0.01, halves=2)
+    bwd_case(3, 7, 13, 20, True, 0.01)                 # odd shapes, scalar paths
+    bwd_case(2, 5, 9, 6, False, None, valid_w=torch.tensor([3, 9], device=dev))
+    bwd_case(2, 6, 10, 12, True, 0.01, halves=2, groups=4)
+
+    # K2' / K3' and the whole CReLU-IN at the stem's serving (bf16) and
+    # training (f32) shapes, plus odd shapes
+    stem = [((BATCH, H, W, 16), torch.bfloat16), ((BATCH, H // 2, W // 2, 32), torch.bfloat16),
+            ((TRAIN_BATCH, TH, TW, 16), torch.float32),
+            ((TRAIN_BATCH, TH // 2, TW // 2, 32), torch.float32),
+            ((3, 7, 13, 20), torch.float32), ((2, 5, 9, 6), torch.bfloat16)]
+    for shape, dtype in stem:
+        stats_case(shape, dtype)
+        norm_case(shape, dtype, 2, 0.01)
+        norm_case(shape, dtype, 1, None)
+        crelu_case(shape, dtype)
+    crelu_case((2, 6, 10, 12), torch.float32, groups=4)
+
     for shape, dtype in (((BATCH, H // 4, W // 4, 64), torch.bfloat16),
-                         ((BATCH, H // 4, W // 4, 64), torch.float32),
+                         ((TRAIN_BATCH, TH // 4, TW // 4, 64), torch.float32),
                          ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16)):
-        f = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        got = trr.pack_neighbors(f)
-        want = trr.pack_neighbors_ref(f)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        ab, _ = errors(got, want)
-        print(f"  pack_neighbors {str(dtype)[6:]:8s} {shape}: bit-exact={equal} "
-              f"max abs {ab:.3e}")
-        check(equal, f"pack_neighbors {dtype} {shape} not bit-exact")
-        worst["pack_neighbors"] = max(worst["pack_neighbors"], ab)
+        pack_case(shape, dtype)
+    for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (3, 5, 7, 8), (2, 3, 5, 4)):
+        pack_bwd_case(shape)
 
-    # timings at the serving shape (bf16, as served): layer1's norm and the
-    # once-per-batch focr pack
+    # times: serving kernels at the serving shape (bf16), training kernels
+    # at the training shape (f32)
     _, bw, f32_rate = peaks
-    x = torch.randn((BATCH, H // 4, W // 4, 64), generator=gen, device=dev).to(torch.bfloat16)
-    scale = torch.randn(64, generator=gen, device=dev)
-    bias = torch.randn(64, generator=gen, device=dev)
-    nbytes = x.numel() * x.element_size()
-    x_nchw = x.permute(0, 3, 1, 2)
     rows = {}
-    in_bytes = 2 * nbytes                 # read x once, write y once
-    in_ops = 6 * x.numel()                # sum, sumsq, fma, leaky
-    rows["instance_norm"] = dict(
-        ms=cuda_median_ms(lambda: tin.instance_norm_cuda(x, scale, bias, 1e-5, 0.0)),
-        plain_ms=cuda_median_ms(lambda: tin.instance_norm_ref(x, scale, bias, 1e-5, 0.0)),
-        library_ms=cuda_median_ms(lambda: torch.nn.functional.instance_norm(
-            x_nchw, weight=scale.to(x.dtype), bias=bias.to(x.dtype), eps=1e-5)),
-        bound=(in_bytes / bw, in_ops / f32_rate), shape=tuple(x.shape))
-    pk_bytes = nbytes + 4 * nbytes        # read the map once, write 4x
-    rows["pack_neighbors"] = dict(
-        ms=cuda_median_ms(lambda: trr.pack_neighbors_cuda(x)),
-        plain_ms=cuda_median_ms(lambda: trr.pack_neighbors_ref(x)),
-        library_ms=None, bound=(pk_bytes / bw, 0.0), shape=tuple(x.shape))
+
+    def row(name, shape, dtype, kernel, plain, library, nbytes, ops, library_note=None):
+        rows[name] = dict(ms=cuda_median_ms(kernel), plain_ms=cuda_median_ms(plain),
+                          library_ms=None if library is None else cuda_median_ms(library),
+                          library_note=library_note, bound=(nbytes / bw, ops / f32_rate),
+                          shape=list(shape), dtype=dtype)
+
+    x = rand((BATCH, H // 4, W // 4, 64), torch.bfloat16)
+    scale, bias = rand(64), rand(64)
+    nb = x.numel() * x.element_size()
+    x_nchw = x.permute(0, 3, 1, 2)
+    row("instance_norm", x.shape, "bf16",
+        lambda: tin.instance_norm_cuda(x, scale, bias, 1e-5, 0.0),
+        lambda: tin.instance_norm_ref(x, scale, bias, 1e-5, 0.0),
+        lambda: torch.nn.functional.instance_norm(x_nchw, weight=scale.to(x.dtype),
+                                                  bias=bias.to(x.dtype), eps=1e-5),
+        2 * nb, 6 * x.numel(), "F.instance_norm (no fused ReLU)")
+    row("pack_neighbors", x.shape, "bf16", lambda: trr.pack_neighbors_cuda(x),
+        lambda: trr.pack_neighbors_ref(x), None, 5 * nb, 0,
+        "null: no single PyTorch call builds the quads")
+
+    xs = rand((BATCH, H, W, 16), torch.bfloat16, 3, 1.5)
+    nbs = xs.numel() * xs.element_size()
+    vecs = rand((BATCH, 4, 16))
+    row("spatial_stats", xs.shape, "bf16", lambda: tin.spatial_stats_cuda(xs),
+        lambda: tin.spatial_stats_ref(xs),
+        lambda: torch.var_mean(xs, dim=(1, 2), correction=0),
+        nbs + BATCH * 2 * 16 * 4, 3 * xs.numel(), "torch.var_mean (mean and variance)")
+    row("spatial_norm", xs.shape, "bf16", lambda: tin.spatial_norm_cuda(xs, vecs, 0.01, 2),
+        lambda: tin.spatial_norm_ref(xs, vecs, 0.01, 2), None, 3 * nbs, 6 * xs.numel(),
+        "null: no single PyTorch call writes both affine halves with leaky")
+
+    xt = rand((TRAIN_BATCH, TH // 4, TW // 4, 64), torch.float32, 3, 1.5)
+    gt = rand(xt.shape)
+    st, sc, bi = tin.instance_norm_stats_ref(xt), rand(64), rand(64)
+    nbt = xt.numel() * 4
+    b_, h_, w_, c_ = xt.shape
+    xt_nchw = xt.permute(0, 3, 1, 2).contiguous()
+    gt_nchw = gt.permute(0, 3, 1, 2).contiguous()
+    mean_, rstd_ = st[:, 0].contiguous(), st[:, 1].contiguous()
+    row("instance_norm_bwd", xt.shape, "f32",
+        lambda: tin.instance_norm_bwd_cuda(xt, gt, st, sc, bi, 0.0),
+        lambda: tin.instance_norm_bwd_ref(xt, gt, st, sc, bi, 0.0),
+        lambda: torch.ops.aten.native_group_norm_backward(
+            gt_nchw, xt_nchw, mean_, rstd_, sc, b_, c_, h_ * w_, c_, [True, True, True]),
+        3 * nbt, 12 * xt.numel(),
+        "aten.native_group_norm_backward with one channel per group (no ReLU gate)")
+    n_rows = b_ * h_ * w_
+    gq = rand((n_rows, 4 * c_))
+    quad_index = (torch.arange(n_rows, device=dev)[:, None]
+                  + torch.tensor([0, 1, w_, w_ + 1], device=dev)[None, :]).reshape(-1)
+    acc = torch.zeros((n_rows + w_ + 1, c_), device=dev)
+    gq_rows = gq.view(n_rows * 4, c_)
+    row("pack_neighbors_bwd", xt.shape, "f32",
+        lambda: trr.pack_neighbors_bwd_cuda(gq, tuple(xt.shape)),
+        lambda: trr.pack_neighbors_bwd_ref(gq, tuple(xt.shape)),
+        lambda: acc.index_add_(0, quad_index, gq_rows), 5 * nbt, 3 * xt.numel(),
+        "index_add_ of the 4N quad rows into N + W + 1 rows")
+
+    # the stem's CReLU-IN as served now (K2' + fold + K3') and as PR 1 ran
+    # it (torch.cat + K1'), for the record
+    sc32, bi32 = rand(32), rand(32)
+    crelu_ms = cuda_median_ms(lambda: tin.crelu_instance_norm(xs, sc32, bi32))
+    cat_ms = cuda_median_ms(lambda: tin.instance_norm_cuda(torch.cat([xs, -xs], -1),
+                                                           sc32, bi32, 1e-5, 0.01))
     for name, r in rows.items():
-        print(f"  {name} at {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{1e3 * max(r['bound']):.4f} ms")
-    return worst, rows
+        print(f"  {name} at {tuple(r['shape'])} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms ({r['library_note']}), "
+              f"bound {1e3 * max(r['bound']):.4f} ms")
+    print(f"  CReLU-IN at {tuple(xs.shape)} bf16: K2'+fold+K3' {crelu_ms:.4f} ms, "
+          f"torch.cat + K1' {cat_ms:.4f} ms")
+    return worst, rows, {"crelu_ms": crelu_ms, "cat_plus_in_ms": cat_ms}
 
 
-def phase_cuda_vs_cpu(images):
+# --------------------------------------------------------------------------
+# phases 3 and 4: serving
+# --------------------------------------------------------------------------
+
+def phase_serve_parity(images):
     """f32 CUDA port against the f32 CPU port on one batch of two images."""
     from fots_torch.checkpoint import load_detector
     from fots_torch.pipeline import FOTSInference
 
-    print(f"phase 3: CUDA port vs CPU port, f32 (TF32 off), 2 images at {SERVE_HW}")
+    print(f"phase 3: CUDA port vs CPU port, serving, f32 (TF32 off), 2 images at {SERVE_HW}")
     results = {}
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         for device in ("cuda", "cpu"):
             model, _, config = load_detector(SNAPSHOT, device)
             with FOTSInference(model, masked_norm=config.get("masked_norm", False),
@@ -214,8 +432,6 @@ def phase_cuda_vs_cpu(images):
                 results[device] = eng.batch_call(list(images[:2]), serve_hw=SERVE_HW)
                 print(f"  {device}: {time.perf_counter() - t0:.2f} s, boxes "
                       f"{[len(r) for r in results[device]]}")
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     got, want = results["cuda"], results["cpu"]
     check([len(r) for r in got] == [len(r) for r in want], "box counts differ")
     check(sum(len(r) for r in want) > 0, "no text found on the smoke images")
@@ -229,8 +445,8 @@ def phase_cuda_vs_cpu(images):
     return worst
 
 
-def phase_serving(images):
-    """bf16 serving at batch 16, 704x1280; the main path for the counts."""
+def phase_serve(images):
+    """bf16 serving at batch 16, 704x1280: a main path for the counts."""
     from fots_torch.checkpoint import load_detector
     from fots_torch.kernels import build
     from fots_torch.pipeline import FOTSInference
@@ -260,8 +476,8 @@ def phase_serving(images):
             for e in r:
                 check(np.isfinite(e["box"]).all() and 0.0 < e["conf"] <= 1.0,
                       "non-finite box or confidence out of range")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in build.PATH_KERNELS["serving"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
     steady = (STREAM_BATCHES - 1) * BATCH / (stamps[-1] - stamps[0])
     print(f"  snapshot step {step}, config {config}; texts of image 0: "
           f"{[e['text'] for e in outs[-1][0]]}")
@@ -270,7 +486,149 @@ def phase_serving(images):
     return launches, steady
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# phases 5 and 6: training
+# --------------------------------------------------------------------------
+
+def phase_train_parity(images, targets):
+    """One training step, f32, CUDA port against CPU port."""
+    from fots_torch.checkpoint import load_detector
+    from fots_torch.codec import LabelCodec
+    from fots_torch.losses import repeat_infeasible_rows
+    from fots_torch.roirotate import sample_rois
+    from fots_torch.train import (METRIC_KEYS, asset_batch, ctc_frame_count,
+                                  pack_host_batch, train_losses, unpack_device_batch)
+
+    batch = asset_batch(images, targets, [0, 1])
+    hw = tuple(batch.images.shape[1:3])
+    roi = sample_rois(np.random.default_rng(0), batch.score_maps, batch.gt_idxs,
+                      batch.gt_quads, batch.labels, hw, LabelCodec())
+    host = pack_host_batch(batch, roi)
+    frames = ctc_frame_count(roi.rois, roi.roi_mask, roi.strip_width)
+    optax_rows = repeat_infeasible_rows(roi.labels, roi.label_lengths,
+                                        np.full(len(roi.roi_mask), frames))
+    print(f"phase 5: one training step, CUDA port vs CPU port, f32 (TF32 off), "
+          f"2 scenes at {hw}, {int(roi.roi_mask.sum())} rois, strip width "
+          f"{roi.strip_width}, {frames} CTC frames")
+    torch.set_num_threads(os.cpu_count() or 1)
+    res = {}
+    with no_tf32():
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            model, _, _ = load_detector(SNAPSHOT, device)
+            model.train()
+            opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, betas=(0.5, 0.999),
+                                   eps=1e-8)
+            dev_batch = unpack_device_batch(*[torch.from_numpy(a).to(device) for a in host],
+                                            hw)
+            _, terms, _ = train_losses(model, dev_batch, roi.strip_width, frames,
+                                       torch.Generator().manual_seed(7),
+                                       optax_rows=optax_rows)
+            terms["loss"].backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            opt.step()
+            res[device] = ({k: terms[k].item() for k in METRIC_KEYS}, grads,
+                           {n: t.detach().cpu().clone() for n, t in model.state_dict().items()})
+            print(f"  {device}: {time.perf_counter() - t0:.2f} s, losses {res[device][0]}")
+            del model, opt, dev_batch, terms
+    (lc, gc, sc), (lp, gp, sp) = res["cuda"], res["cpu"]
+    # losses: f32 sums over 2 x 160 x 240 maps and the whole network in
+    # another order (cuDNN vs the CPU's convolutions)
+    for k in METRIC_KEYS:
+        check(math.isfinite(lc[k]) and abs(lc[k] - lp[k]) <= 1e-4 * abs(lp[k]) + 1e-5,
+              f"{k}: CUDA {lc[k]} vs CPU {lp[k]}")
+    # gradients: each tensor within 3e-2 of its largest |g|, the median
+    # tensor within 2e-3.  f32 through ~60 layers with cuDNN's and the CPU's
+    # convolution algorithms and index_add's atomics; near the snapshot's
+    # optimum a parameter's gradient is a sum of terms that cancel, so its
+    # error relative to its own magnitude is larger than the terms' (every
+    # kernel alone agrees with its plain version to ~1e-7 in phase 2)
+    rel = {}
+    for n, g in gp.items():
+        rel[n] = float((gc[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+    ranked = sorted(rel.items(), key=lambda kv: -kv[1])
+    worst_grad = ranked[0][1]
+    print(f"  gradient max |diff| / max |g| per tensor: median "
+          f"{statistics.median(rel.values()):.2e}, worst {ranked[:4]}")
+    for n, r in ranked:
+        check(r <= 3e-2, f"gradient of {n}: max |diff| {r:.3e} of max |g|")
+    check(statistics.median(rel.values()) <= 2e-3, "median gradient error above 2e-3")
+    # after one Adam step every parameter moved by lr * g / (|g| + eps):
+    # exactly +-lr, unless |g| is so small that its sign is not resolved
+    # between the two runs; BatchNorm running statistics within 1e-4
+    worst_param, unresolved = 0.0, 0
+    for n, p in sp.items():
+        d = (sc[n] - p).abs()
+        if n in gp:
+            sure = gp[n].abs() > 10 * float((gc[n] - gp[n]).abs().max()) + 1e-12
+            unresolved += int((~sure).sum())
+            d_sure = float(d[sure].max()) if bool(sure.any()) else 0.0
+            worst_param = max(worst_param, d_sure)
+            check(d_sure <= 1e-3 * TRAIN_LR + 1e-7,
+                  f"{n} after one Adam step: max |diff| {d_sure}")
+            check(bool((d <= 2 * TRAIN_LR + 1e-7).all()), f"{n} after one Adam step")
+        else:
+            check(bool((d <= 1e-4 * (1 + p.abs())).all()), f"buffer {n} differs")
+    print(f"  losses agree; gradients within {worst_grad:.2e} of each tensor's max |g| "
+          f"({len(gp)} tensors); params after one Adam step within {worst_param:.3e} "
+          f"({unresolved} elements with |g| below the runs' difference, within 2 lr)")
+    return {"max_grad_rel_err": worst_grad,
+            "median_grad_rel_err": statistics.median(rel.values()),
+            "max_param_err": worst_param,
+            "losses_cuda": lc, "losses_cpu": lp}
+
+
+def phase_train(images, targets):
+    """Full-width training: a main path for the counts."""
+    from fots_torch.checkpoint import load_detector
+    from fots_torch.kernels import build
+    from fots_torch.train import METRIC_KEYS, Trainer, asset_batch
+
+    batch = asset_batch(images, targets, [i % 4 for i in range(TRAIN_BATCH)])
+    print(f"phase 6: training, f32, batch {TRAIN_BATCH} at {TRAIN_HW}, {TRAIN_STEPS} "
+          f"steps on one repeated batch, warm start from the snapshot, lr {TRAIN_LR}")
+    model, _, _ = load_detector(SNAPSHOT, "cuda")
+    trainer = Trainer(model, learning_rate=TRAIN_LR, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    trainer.train([batch] * 2, max_steps=2, log_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train([batch] * (TRAIN_STEPS - 2), max_steps=TRAIN_STEPS - 2, log_every=0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps recorded, expected {TRAIN_STEPS}")
+    for i, h in enumerate(hist):
+        check(all(math.isfinite(h[k]) for k in METRIC_KEYS), f"step {i + 1}: {h}")
+    for name in build.PATH_KERNELS["training"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the training path")
+    first, after10 = hist[0]["loss"], hist[10]["loss"]
+    print(f"  losses {[round(h['loss'], 5) for h in hist]}")
+    check(after10 < first, f"loss after 10 updates {after10} not below the first {first}")
+    ips = (TRAIN_STEPS - 2) * TRAIN_BATCH / elapsed
+    out = {"images_per_s": ips, "steps_timed": f"3..{TRAIN_STEPS}", "batch": TRAIN_BATCH,
+           "hw": list(batch.images.shape[1:3]), "dtype": "f32", "tf32": "PyTorch defaults",
+           "peak_memory_bytes": peak, "first_losses": hist[0], "last_losses": hist[-1],
+           "loss_after_10_updates": after10}
+    print(f"  launches {launches} over {TRAIN_STEPS} steps; {ips:.2f} images/s over steps "
+          f"3..{TRAIN_STEPS}; peak memory {peak / 2 ** 30:.2f} GiB")
+    return launches, out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}; the result "
+                    "lines are printed only when every phase ran")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card",
               file=sys.stderr)
@@ -293,37 +651,52 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("["):
                 print(f"  {lib}: {line.strip()}")
 
-    worst, rows = phase_kernels(dev, peaks)
-    with np.load(SMOKE_IMAGES) as z:
-        images = list(z["images"])
-    corner = phase_cuda_vs_cpu(images)
-    launches, ips = phase_serving(images)
-
-    kernels = []
-    meta = {"instance_norm": ("fots_torch/csrc/instance_norm.cu",
-                              "fots/ops/instance_norm.py:126"),
-            "pack_neighbors": ("fots_torch/csrc/pack_neighbors.cu",
-                               "fots/ops/rroi_align.py:304")}
-    for kname, (source, replaces) in meta.items():
-        r = rows[kname]
-        by_bytes, by_ops = r["bound"]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": worst[kname],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": 1e3 * max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": r["library_ms"], "shape": list(r["shape"]), "dtype": "bf16",
-            "launches_per_batch": launches[kname] / STREAM_BATCHES,
-        })
+    images, targets = load_assets()
+    results = {}
+    if "kernels" in phases:
+        results["kernels"] = phase_kernels(dev, peaks)
+    if "serve_parity" in phases:
+        results["serve_parity"] = phase_serve_parity(list(images))
+    if "serve" in phases:
+        results["serve"] = phase_serve(list(images))
+    if "train_parity" in phases:
+        results["train_parity"] = phase_train_parity(images, targets)
+    if "train" in phases:
+        results["train"] = phase_train(images, targets)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
+    if set(phases) != set(PHASES):
+        print(f"ran phases {phases} only; no result lines")
+        print(smi)
+        return 0
+
+    worst, rows, crelu = results["kernels"]
+    serve_launches, ips = results["serve"]
+    train_launches, train = results["train"]
+    kernels = []
+    for kname, (source, replaces) in KERNEL_META.items():
+        r = rows[kname]
+        by_bytes, by_ops = r["bound"]
+        paths = {"serving": serve_launches[kname], "training": train_launches[kname]}
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "max_abs_err": worst[kname],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": r["library_ms"], "library_call": r["library_note"],
+            "shape": r["shape"], "dtype": r["dtype"], "paths": paths,
+            "launches_per_serving_batch": paths["serving"] / STREAM_BATCHES,
+            "launches_per_train_step": paths["training"] / TRAIN_STEPS,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {"images_per_s": ips, "batch": BATCH,
                               "serve_hw": list(SERVE_HW), "dtype": "bf16",
                               "batches": STREAM_BATCHES,
-                              "cuda_vs_cpu_max_corner_px": corner}}))
+                              "cuda_vs_cpu_max_corner_px": results["serve_parity"],
+                              "stem_crelu_ms": crelu}}))
+    print(json.dumps({"train": {**train, "cuda_vs_cpu": results["train_parity"]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,13 +1,14 @@
 """CTC label codec: the port's own copy of ``fots.codec.LabelCodec``.
 
 Ids: blank = 0, ``alphabet[i] = i + 1``; greedy decode collapses repeats,
-then drops blanks.  Only the batched decode of the serving path is ported.
+then drops blanks.  Ported: the batched decode of the serving path and the
+encoders of the training path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -22,6 +23,7 @@ class LabelCodec:
     """char <-> id codec with the CTC blank at index 0."""
 
     alphabet: str = ICDAR15_ALPHABET
+    _dict: Dict[str, int] = field(init=False, repr=False)
     _codes: np.ndarray = field(init=False, repr=False)
 
     #: ids below this are blank/control, not characters (the serving
@@ -29,7 +31,37 @@ class LabelCodec:
     reserved_ids: int = 1
 
     def __post_init__(self):
+        self._dict = {ch: i + 1 for i, ch in enumerate(self.alphabet)}
         self._codes = np.array([ord(c) for c in self.alphabet] or [0], np.uint32)
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.alphabet) + 1
+
+    def encode(self, texts: Union[Sequence[str], str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Flat id array of all texts + per-text lengths; characters outside
+        the alphabet are dropped."""
+        if isinstance(texts, str):
+            texts = [texts]
+        ids: List[int] = []
+        lengths: List[int] = []
+        for t in texts:
+            enc = [self._dict[c] for c in t if c in self._dict]
+            ids.extend(enc)
+            lengths.append(len(enc))
+        return np.asarray(ids, dtype=np.int32), np.asarray(lengths, dtype=np.int32)
+
+    def encode_padded(self, texts: Sequence[str], max_len: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Fixed-shape ``[N, max_len]`` id matrix (0-padded, truncated at
+        ``max_len``) + lengths, the layout the CTC loss takes."""
+        out = np.zeros((len(texts), max_len), dtype=np.int32)
+        lengths = np.zeros((len(texts),), dtype=np.int32)
+        for i, t in enumerate(texts):
+            flat, ln = self.encode(t)
+            n = min(int(ln[0]), max_len)
+            out[i, :n] = flat[:n]
+            lengths[i] = n
+        return out, lengths
 
     def decode_batch(self, ids: np.ndarray) -> List[str]:
         """CTC-collapse decode of a ``[N, T]`` greedy id matrix: drop repeats

@@ -16,37 +16,30 @@
 //       sum of squares per channel, reduced over the block's rows in shared
 //       memory and written as a per-block partial [B, S, 2, C].  The last
 //       block of each sample to finish (atomic ticket) folds the S partials
-//       in a fixed order into y = x * a + c coefficients [B, 2, C]: results
-//       are identical from run to run.
-//   (b) in_apply_kernel: y = x * a + c, optional leaky, zero past valid_w,
+//       in a fixed order into per-(b, c) (a, mean) [B, 2, C]: results are
+//       identical from run to run.  Under training it also writes the
+//       per-(b, c) mean and rstd that instance_norm_bwd.cu reads.
+//   (b) in_apply_kernel: y = (x - mean) * a + bias, optional leaky, zero
+//       past valid_w (subtracting the mean first avoids the cancellation of
+//       x * a + (bias - mean * a) when the variance is tiny),
 //       16-byte loads and stores, f32 math, output in the input's dtype.
 // Two reads and one write of x: the floor for a norm whose plane does not
 // stay on chip.
 //
 // Statistics follow instance_norm_jnp exactly (not Welford):
 //   mean = s1 / n, var = max(s2 / n - mean^2, 0), a = rsqrt(var + eps) * scale,
-//   c = bias - mean * a, with n = H * valid_w[n] (H * W unmasked).
+//   with n = H * valid_w[n] (H * W unmasked).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float& o) { o = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16& o) { o = __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ int clamp_width(const int* valid_w, int n, int W) {
-  if (valid_w == nullptr) return W;
-  return min(max(valid_w[n], 0), W);
-}
+using fots::clamp_width;
+using fots::counted_pixel;
+using fots::from_f32;
+using fots::kPixPerThread;
+using fots::Pack;
+using fots::to_f32;
 
 // grid (S, B); block = rows * lanes threads, lanes = C / V.
 // smem: 2 * blockDim.x * V floats.
@@ -54,8 +47,8 @@ template <typename T, int V>
 __global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__ valid_w,
                                 const float* __restrict__ scale, const float* __restrict__ bias,
                                 float* __restrict__ partial, float* __restrict__ coef,
-                                int* __restrict__ counter, int H, int W, int C, int S,
-                                float eps) {
+                                float* __restrict__ stats, int* __restrict__ counter, int H,
+                                int W, int C, int S, float eps) {
   extern __shared__ float sm[];
   const int n = blockIdx.y, s = blockIdx.x;
   const int lanes = C / V;
@@ -73,7 +66,7 @@ __global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__
 #pragma unroll
   for (int i = 0; i < V; i++) s1[i] = s2[i] = 0.f;
   for (long long q = p0 + row; q < p1; q += rows) {
-    const long long pix = (vw == W) ? q : (q / vw) * W + q % vw;
+    const long long pix = counted_pixel(q, vw, W);
     const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(xs + pix * C);
 #pragma unroll
     for (int i = 0; i < V; i++) {
@@ -102,13 +95,7 @@ __global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__
   }
 
   // the last block of sample n folds the S partials, in order s = 0..S-1
-  __shared__ int is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = (atomicAdd(counter + n, 1) == S - 1);
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!fots::last_block_of(counter + n, S)) return;
   const float cnt = (float)npix;
   const float* pn = partial + (long long)n * S * 2 * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
@@ -119,21 +106,28 @@ __global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__
     }
     const float mean = a / cnt;
     const float var = fmaxf(b / cnt - mean * mean, 0.f);
-    const float mul = rsqrtf(var + eps) * scale[c];
+    const float rstd = rsqrtf(var + eps);
+    const float mul = rstd * scale[c];
     coef[(long long)n * 2 * C + c] = mul;
-    coef[(long long)n * 2 * C + C + c] = bias[c] - mean * mul;
+    coef[(long long)n * 2 * C + C + c] = mean;
+    if (stats != nullptr) {  // kept for the backward pass
+      stats[(long long)n * 2 * C + c] = mean;
+      stats[(long long)n * 2 * C + C + c] = rstd;
+    }
   }
 }
 
 // grid (ceil(H*W / chunk_pix), B); block = rows * lanes threads.
-// smem: 2 * C floats.
+// smem: 3 * C floats.
 template <typename T, int V>
 __global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__ valid_w,
-                                const float* __restrict__ coef, T* __restrict__ y, int H,
-                                int W, int C, int chunk_pix, float slope, int has_slope) {
+                                const float* __restrict__ coef, const float* __restrict__ bias,
+                                T* __restrict__ y, int H, int W, int C, int chunk_pix,
+                                float slope, int has_slope) {
   extern __shared__ float cs[];
   const int n = blockIdx.y;
   for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) cs[c] = coef[(long long)n * 2 * C + c];
+  for (int c = threadIdx.x; c < C; c += blockDim.x) cs[2 * C + c] = bias[c];
   __syncthreads();
   const int lanes = C / V;
   const int lane = threadIdx.x % lanes;
@@ -145,11 +139,12 @@ __global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__
   const long long p0 = (long long)blockIdx.x * chunk_pix;
   const long long p1 = min(hw, p0 + chunk_pix);
   const long long base = (long long)n * hw * C + lane * V;
-  float a[V], b[V];
+  float a[V], m[V], b[V];
 #pragma unroll
   for (int i = 0; i < V; i++) {
     a[i] = cs[lane * V + i];
-    b[i] = cs[C + lane * V + i];
+    m[i] = cs[C + lane * V + i];
+    b[i] = cs[2 * C + lane * V + i];
   }
   for (long long p = p0 + row; p < p1; p += rows) {
     Pack<T, V> out;
@@ -157,7 +152,7 @@ __global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__
       const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(x + base + p * C);
 #pragma unroll
       for (int i = 0; i < V; i++) {
-        float f = to_f32(pk.v[i]) * a[i] + b[i];
+        float f = (to_f32(pk.v[i]) - m[i]) * a[i] + b[i];
         if (has_slope && f < 0.f) f *= slope;
         from_f32(f, out.v[i]);
       }
@@ -169,29 +164,28 @@ __global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__
   }
 }
 
-constexpr int kBlockThreads = 256;
-constexpr int kPixPerThread = 8;
-
 template <typename T, int V>
 int launch(const void* x, void* y, int B, int H, int W, int C, const int* valid_w,
            const float* scale, const float* bias, float eps, float slope, int has_slope,
-           float* partial, float* coef, int* counter, int S, cudaStream_t stream) {
+           float* partial, float* coef, float* stats, int* counter, int S,
+           cudaStream_t stream) {
   const int lanes = C / V;
-  const int rows = lanes >= kBlockThreads ? 1 : kBlockThreads / lanes;
+  const int rows = fots::rows_for_lanes(lanes);
   const int threads = lanes * rows;
   if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
   const size_t smem_stats = 2 * (size_t)threads * V * sizeof(float);
-  const size_t smem_apply = 2 * (size_t)C * sizeof(float);
+  const size_t smem_apply = 3 * (size_t)C * sizeof(float);
   if (smem_stats > 48 * 1024 || smem_apply > 48 * 1024) return (int)cudaErrorInvalidConfiguration;
   in_stats_kernel<T, V><<<dim3(S, B), threads, smem_stats, stream>>>(
-      static_cast<const T*>(x), valid_w, scale, bias, partial, coef, counter, H, W, C, S, eps);
+      static_cast<const T*>(x), valid_w, scale, bias, partial, coef, stats, counter, H, W, C, S,
+      eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int chunk_pix = rows * kPixPerThread;
   const long long blocks = ((long long)H * W + chunk_pix - 1) / chunk_pix;
   in_apply_kernel<T, V><<<dim3((unsigned)blocks, B), threads, smem_apply, stream>>>(
-      static_cast<const T*>(x), valid_w, coef, static_cast<T*>(y), H, W, C, chunk_pix, slope,
-      has_slope);
+      static_cast<const T*>(x), valid_w, coef, bias, static_cast<T*>(y), H, W, C, chunk_pix,
+      slope, has_slope);
   return (int)cudaGetLastError();
 }
 
@@ -202,11 +196,12 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16.  x, y: [B, H, W, C] contiguous.
 // valid_w: int32 [B] device pointer or null.  scale, bias: f32 [C].
 // Workspaces: partial f32 [B, S, 2, C], coef f32 [B, 2, C], counter int32
-// [B] zeroed.  Returns a cudaError_t code (0 = launched).
+// [B] zeroed.  stats: f32 [B, 2, C] (mean, rstd) for the backward pass, or
+// null.  Returns a cudaError_t code (0 = launched).
 int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, int C,
                        const int* valid_w, const float* scale, const float* bias, float eps,
-                       float slope, int has_slope, float* partial, float* coef, int* counter,
-                       int S, void* stream) {
+                       float slope, int has_slope, float* partial, float* coef, float* stats,
+                       int* counter, int S, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t itemsize = dtype == 0 ? 4 : 2;
   const bool vec = (C * itemsize) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -214,16 +209,16 @@ int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, i
   if (dtype == 0) {
     if (vec)
       return launch<float, 4>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope, has_slope,
-                              partial, coef, counter, S, st);
+                              partial, coef, stats, counter, S, st);
     return launch<float, 1>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope, has_slope,
-                            partial, coef, counter, S, st);
+                            partial, coef, stats, counter, S, st);
   }
   if (dtype == 1) {
     if (vec)
       return launch<__nv_bfloat16, 8>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
-                                      has_slope, partial, coef, counter, S, st);
+                                      has_slope, partial, coef, stats, counter, S, st);
     return launch<__nv_bfloat16, 1>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
-                                    has_slope, partial, coef, counter, S, st);
+                                    has_slope, partial, coef, stats, counter, S, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -232,8 +227,7 @@ int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, i
 int fots_instance_norm_rows(int dtype, int C) {
   const int itemsize = dtype == 0 ? 4 : 2;
   const int v = (C * itemsize) % 16 == 0 ? 16 / itemsize : 1;
-  const int lanes = C / v;
-  return lanes >= kBlockThreads ? 1 : kBlockThreads / lanes;
+  return fots::rows_for_lanes(C / v);
 }
 
 }  // extern "C"

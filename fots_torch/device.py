@@ -18,3 +18,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device_async(t: torch.Tensor, device) -> torch.Tensor:
+    """Host tensor ``t`` on ``device`` without waiting for the device: on
+    CUDA through pinned memory and a non-blocking copy (a pageable copy
+    would first wait for every kernel queued before it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -3,9 +3,9 @@
 CUDA kernels (``fots_torch/csrc/*.cu``) compile with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface; the host NMS
 (``csrc/nms_core.cpp``) compiles with ``g++``.  Outputs go to
-``build/fots_torch/`` beside the package, named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is
-reused.  Builds start together (one compiler process per source) and a
+``build/fots_torch/`` beside the package, named by a hash of the source,
+the shared headers and the flags, so an edited source rebuilds and an
+unchanged one is reused.  Builds start together (one compiler process per source) and a
 finished library is moved into place atomically, so concurrent processes
 never load a half-written file.
 
@@ -31,12 +31,32 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "fots_torch")
 
+#: library name -> source under csrc/
 SOURCES = {
     "instance_norm": "instance_norm.cu",
+    "instance_norm_bwd": "instance_norm_bwd.cu",
+    "spatial_norm": "spatial_norm.cu",
     "pack_neighbors": "pack_neighbors.cu",
     "nms_core": "nms_core.cpp",
 }
-CUDA_KERNELS = ("instance_norm", "pack_neighbors")
+#: headers the CUDA sources include (hashed into every CUDA library's name)
+CUDA_HEADERS = ("common.cuh",)
+
+#: CUDA kernel -> the library that holds it
+CUDA_KERNELS = {
+    "instance_norm": "instance_norm",          # K1'
+    "instance_norm_bwd": "instance_norm_bwd",  # K1'-bwd
+    "spatial_stats": "spatial_norm",           # K2'
+    "spatial_norm": "spatial_norm",            # K3'
+    "pack_neighbors": "pack_neighbors",        # K4'
+    "pack_neighbors_bwd": "pack_neighbors",    # K4'-bwd
+}
+#: the kernels each main path launches (serving: bf16 inference; training:
+#: forward and backward of the joint step)
+PATH_KERNELS = {
+    "serving": ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors"),
+    "training": tuple(CUDA_KERNELS),
+}
 
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -76,10 +96,12 @@ def _compile_command(name: str, out: str) -> list:
 
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
-    flags = NVCC_FLAGS if src.endswith(".cu") else GXX_FLAGS
+    cuda = src.endswith(".cu")
+    flags = NVCC_FLAGS if cuda else GXX_FLAGS
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src] + ([os.path.join(CSRC_DIR, n) for n in CUDA_HEADERS] if cuda else []):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
@@ -121,10 +143,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_kernel_input(x, what: str, dtypes) -> None:
-    """What every CUDA wrapper requires of its main input: a CUDA tensor of
-    an accepted dtype, contiguous in the layout the kernel indexes (NHWC
-    for the 4-D activations), and no autograd (the kernels are forward
-    only)."""
+    """What every CUDA launcher requires of its main input: a CUDA tensor
+    of an accepted dtype, contiguous in the layout the kernel indexes (NHWC
+    for the 4-D activations), and no autograd recording (a launcher's
+    output has no ``grad_fn``: differentiable callers go through the op's
+    ``torch.autograd.Function``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
                          f"one on {x.device}")
@@ -136,8 +159,8 @@ def check_kernel_input(x, what: str, dtypes) -> None:
                          "permute(0, 2, 3, 1)); got strides "
                          f"{tuple(x.stride())} for shape {tuple(x.shape)}")
     if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(f"{what}: the CUDA kernel is forward-only; "
-                                  "run under torch.inference_mode()")
+        raise RuntimeError(f"{what}: the raw launcher does not record autograd; "
+                           "call the op's differentiable entry point")
 
 
 def current_stream_handle(device) -> int:

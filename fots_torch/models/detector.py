@@ -11,18 +11,22 @@ function with a TPU lane-padding layout and is not ported.
 
 Public tensors keep the JAX package's NHWC layout; inside, activations
 are NCHW in channels_last memory, which is the same bytes.
+
+``model.train()`` is flax's ``train=True``: BatchNorm on batch statistics
+and channel dropout (rate 0.2) where ``fots`` has it, with masks drawn
+from the ``generator`` passed to ``forward`` / ``recognize``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from fots_torch.models.layers import (BasicBlockIn, BasicBlockSepIn, Conv,
-                                      ConvDWPlain, CReLUIN, InstanceNorm,
+                                      ConvDWPlain, CReLUIN, Dropout, InstanceNorm,
                                       leaky_relu, max_pool, resize_bilinear)
 
 
@@ -63,12 +67,14 @@ class RecognitionHead(nn.Module):
         # (2, 3) conv, valid in height, padded by 1 in width
         self.conv10_s = Conv(256, 256, (2, 3), padding=(0, 1))
         self.batch10_s = InstanceNorm(256, affine=True, fused_slope=0.01)
+        self.drop = Dropout(0.2)
         self.conv11 = Conv(256, nclass, 1, bias=True)
 
-    def forward(self, strips, valid_w=None):
+    def forward(self, strips, valid_w=None, generator: Optional[torch.Generator] = None):
         """valid_w [N] (optional): per-strip content widths; every IN then
         takes masked statistics so a roi's features do not depend on the
-        bucket width it was batched into."""
+        bucket width it was batched into.  ``generator``: the dropout
+        masks' CPU generator in train mode."""
         x = strips.permute(0, 3, 1, 2)
         x = self.batch5(self.conv5(x), valid_w)
         x = leaky_relu(self.conv6(x))
@@ -81,13 +87,14 @@ class RecognitionHead(nn.Module):
         x = leaky_relu(self.conv9(x))
         x = max_pool(x, (2, 1), (2, 1))
         x = self.batch10_s(self.conv10_s(x), valid_w)
+        x = self.drop(x, generator)
         x = self.conv11(x)                       # [N, nclass, 1, W]
         x = x[:, :, 0, :].transpose(1, 2)        # [N, W, nclass]
         return F.log_softmax(x, dim=-1)
 
 
 class FOTSDetector(nn.Module):
-    """Detection + shared features + recognition head (eval only)."""
+    """Detection + shared features + recognition head."""
 
     def __init__(self, nclass: int = 87):
         super().__init__()
@@ -113,6 +120,7 @@ class FOTSDetector(nn.Module):
         self.act = Conv(256, 1, 1, bias=True)
         self.rbox = Conv(256, 4, 1, bias=True)
         self.angle = Conv(256, 2, 1, bias=True)
+        self.drop = Dropout(0.2)
         self.ocr = RecognitionHead(nclass)
 
     def _heads(self, x):
@@ -133,12 +141,16 @@ class FOTSDetector(nn.Module):
     def _att(self, t):
         return torch.sigmoid(self.conv_attention(t))
 
-    def forward(self, images) -> Dict[str, object]:
+    def forward(self, images, generator: Optional[torch.Generator] = None
+                ) -> Dict[str, object]:
         """images [B, H, W, 3] normalized (x/128 - 1), NHWC.  Returns
         segm/rbox/angle as [1/4-scale, 1/8-scale] NHWC lists, ``features``
-        (final 1/4 merged, 256 ch) and ``focr`` (64 ch, 1/4), both NHWC."""
+        (final 1/4 merged, 256 ch) and ``focr`` (64 ch, 1/4), both NHWC.
+        In train mode dropout follows focr's capture, layer4, and precedes
+        the 1/4 heads, as in ``fots``; ``generator`` draws the masks."""
         x = self.stem(images.permute(0, 3, 1, 2))
         focr = x
+        x = self.drop(x, generator)
         for blk in self.layer1:
             x = blk(x)
         f1 = self.feature1(x)
@@ -150,6 +162,7 @@ class FOTSDetector(nn.Module):
         f3 = self.feature3(x)
         for blk in self.layer4:
             x = blk(x)
+        x = self.drop(x, generator)
         f4 = self.feature4(x)
 
         att_up = resize_bilinear(self._att(f4), f3.shape[2:])
@@ -162,6 +175,7 @@ class FOTSDetector(nn.Module):
         x = x + f1 * att_up
 
         segm2, rbox2, angle2 = self._heads(f2m)
+        x = self.drop(x, generator)
         segm, rbox, angle = self._heads(x)
         return {
             "segm": [segm, segm2],
@@ -171,7 +185,8 @@ class FOTSDetector(nn.Module):
             "focr": focr.permute(0, 2, 3, 1),
         }
 
-    def recognize(self, strips, valid_w=None):
+    def recognize(self, strips, valid_w=None,
+                  generator: Optional[torch.Generator] = None):
         """CTC head over RoIRotated NHWC strips -> [N, W, nclass] log-probs."""
-        return self.ocr(strips, valid_w)
+        return self.ocr(strips, valid_w, generator)
 

@@ -8,7 +8,11 @@ flax tree (``conv1``, ``in1``, ``down_bn``, ...; flax's child ``in`` is
 Dtype rules are flax's, written out: a conv computes in
 ``promote_types(input, kernel)`` (an f32 input meets a bf16 kernel in f32),
 instance norm computes f32 statistics and returns the input's dtype, and
-eval BatchNorm computes in f32 and returns ``promote(input, scale, bias)``.
+BatchNorm computes in f32 and returns ``promote(input, scale, bias)``.
+
+Train mode (``module.train()``) is flax's ``train=True``: BatchNorm
+normalises with the batch's biased statistics and updates its running
+ones, and :class:`Dropout` drops whole channels.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fots_torch.ops.instance_norm import instance_norm
+from fots_torch.device import to_device_async
+from fots_torch.ops.instance_norm import crelu_instance_norm, instance_norm
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -83,19 +88,30 @@ class InstanceNorm(nn.Module):
 
 
 class CReLUIN(nn.Module):
-    """concat(x, -x) -> InstanceNorm(affine) -> leaky(0.01); doubles C."""
+    """concat(x, -x) -> InstanceNorm(affine) -> leaky(0.01); doubles C.
+    Runs as :func:`crelu_instance_norm` (the concat is never built); the
+    affine lives in ``norm`` so snapshot keys map as before."""
 
     def __init__(self, features: int):
         super().__init__()
         self.norm = InstanceNorm(2 * features, affine=True, fused_slope=0.01)
 
     def forward(self, x):
-        return self.norm(torch.cat([x, -x], dim=1))
+        y = crelu_instance_norm(x.permute(0, 2, 3, 1), self.norm.weight.float(),
+                                self.norm.bias.float(), 1, self.norm.eps,
+                                self.norm.fused_slope)
+        return y.permute(0, 3, 1, 2)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with running statistics (eps 1e-5), flax's
-    arithmetic: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32."""
+    """BatchNorm (eps 1e-5) with flax's arithmetic, in f32:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  Eval mode uses the
+    running statistics.  Train mode uses the batch's, with the *biased*
+    variance ``max(E[x^2] - E[x]^2, 0)`` for both the normalisation and the
+    running update ``r = 0.9 r + 0.1 batch`` (``F.batch_norm`` would update
+    with the unbiased variance)."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -107,12 +123,43 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1, 1, 1)
-        y = x.float() - self.running_mean.float().view(shape)
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        y = x32 - mean.view(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = y * mul.view(shape) + self.bias.float().view(shape)
         dt = torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype),
                                  self.bias.dtype)
         return y.to(dt)
+
+
+class Dropout(nn.Module):
+    """Channel dropout in train mode, flax's ``nn.Dropout(rate,
+    broadcast_dims=(1, 2))`` on NHWC: one keep/drop per (sample, channel),
+    kept values scaled by ``1 / (1 - rate)``.  The mask is drawn on the CPU
+    from ``generator`` (a CPU ``torch.Generator``; the default one if None)
+    and moved to x's device, so a CUDA run and a CPU run drawing from
+    equally seeded generators drop the same channels."""
+
+    def __init__(self, rate: float = 0.2):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0], x.shape[1]), generator=generator)
+        mask = to_device_async(u < keep, x.device)[:, :, None, None]
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ConvDWIn(nn.Module):

@@ -1,10 +1,21 @@
-"""Fused instance normalization (+ affine + optional leaky-relu), NHWC.
+"""Fused instance normalization (+ affine + optional leaky-relu), NHWC,
+with its gradient; and the CReLU-IN of the stem.
 
-Port of ``fots/ops/instance_norm.py``.  :func:`instance_norm` is the entry
-point: on a CUDA tensor it launches the hand-written kernel
-(``fots_torch/csrc/instance_norm.cu``, two passes: statistics, then
-normalise), on a CPU tensor it runs the plain version.  The same kernel
-serves the masked variant (``valid_w``) of the recognition head.
+Port of ``fots/ops/instance_norm.py``.  Entry points:
+
+- :func:`instance_norm` (optionally masked by ``valid_w``): forward K1'
+  (``fots_torch/csrc/instance_norm.cu``), backward K1'-bwd
+  (``csrc/instance_norm_bwd.cu``), joined by a ``torch.autograd.Function``;
+- :func:`crelu_instance_norm`, the counterpart of
+  ``crelu_instance_norm_half``: concat(x, -x) -> IN(affine) -> leaky as K2'
+  statistics (``csrc/spatial_norm.cu``), a per-(b, c) fold, and K3' writing
+  the ``[+x part | -x part]`` halves; its backward is K1'-bwd in the CReLU
+  mode (reads x once and both halves of the cotangent, writes dx);
+- :func:`instance_norm_spatial`: K2' + fold + K3' with one output half, the
+  counterpart of ``_instance_norm_spatial`` (off the model's path).
+
+On a CUDA tensor each launches its kernels; on a CPU tensor it runs the
+kernels' plain versions (``*_ref``), which repeat their arithmetic.
 
 Layout: ``x`` is ``[B, H, W, C]`` — the JAX package's NHWC — which is a
 ``permute(0, 2, 3, 1)`` view of a channels_last NCHW activation, so the
@@ -21,10 +32,15 @@ import torch
 from fots_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_F32 = {torch.float32: 0}
 #: target stats-pass blocks per SM (the pass reads x once; a few blocks
 #: per SM hide load latency)
 _STATS_BLOCKS_PER_SM = 4
 
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
 
 def instance_norm_ref(x, scale, bias, eps=1e-5, negative_slope=None):
     """Plain version; the same sum/sumsq formula as ``instance_norm_jnp``:
@@ -42,6 +58,12 @@ def instance_norm_ref(x, scale, bias, eps=1e-5, negative_slope=None):
     return y.to(x.dtype)
 
 
+def _column_mask(valid_w, w, device):
+    """[N, 1, W, 1] f32: 1 on columns < valid_w[n]."""
+    mask = (torch.arange(w, device=device)[None, :] < valid_w[:, None]).float()
+    return mask[:, None, :, None]
+
+
 def masked_instance_norm_ref(x, valid_w, scale=None, bias=None, eps=1e-5,
                              negative_slope=None):
     """Plain version of ``masked_instance_norm_jnp``: statistics over
@@ -49,8 +71,7 @@ def masked_instance_norm_ref(x, valid_w, scale=None, bias=None, eps=1e-5,
     past them."""
     x32 = x.float()
     _, h, w, _ = x32.shape
-    mask = (torch.arange(w, device=x.device)[None, :] < valid_w[:, None]).float()
-    mask = mask[:, None, :, None]
+    mask = _column_mask(valid_w, w, x.device)
     xm = x32 * mask
     n = (h * valid_w).float()[:, None, None, None]
     s1 = xm.sum(dim=(1, 2), keepdim=True)
@@ -65,59 +86,413 @@ def masked_instance_norm_ref(x, valid_w, scale=None, bias=None, eps=1e-5,
     return (y * mask).to(x.dtype)
 
 
-def _lib():
-    lib = build.load("instance_norm")
+def instance_norm_stats_ref(x, eps=1e-5, valid_w=None):
+    """[B, 2, C] f32 (mean, rstd) of the (masked) statistics, as K1' saves
+    them for the backward pass."""
+    x32 = x.float()
+    _, h, w, _ = x32.shape
+    if valid_w is None:
+        n = float(h * w)
+    else:
+        x32 = x32 * _column_mask(valid_w, w, x.device)
+        n = (h * valid_w).float()[:, None]
+    mean = x32.sum(dim=(1, 2)) / n
+    var = torch.clamp_min((x32 * x32).sum(dim=(1, 2)) / n - mean * mean, 0.0)
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
+
+
+def instance_norm_bwd_ref(x, g, stats, scale, bias, negative_slope=None,
+                          valid_w=None, halves=1, groups=1):
+    """Plain version of K1'-bwd, the same interface and arithmetic.
+
+    u = x (halves 1) or cat(x, -x) (halves 2) over Cu channels; ``stats``
+    [B, 2, Cu] (mean, rstd), ``scale``/``bias`` [Cu], all per u channel
+    (tiled over ``groups``, whose sums are folded together).  Returns
+    (dx [B, H, W, C] in x's dtype, dsb [B, 2, Cu] f32 = per-sample sums of
+    gp * z and gp, where gp is g through the activation and the mask)."""
+    x32 = x.float()
+    b, h, w, c = x32.shape
+    u = x32 if halves == 1 else torch.cat([x32, -x32], dim=-1)
+    cu = u.shape[-1]
+    mean = stats[:, 0][:, None, None, :]
+    rstd = stats[:, 1][:, None, None, :]
+    s = scale.float()
+    z = (u - mean) * rstd
+    pre = z * s + bias.float()
+    gp = g.float()
+    if negative_slope is not None:
+        gp = torch.where(pre < 0, gp * negative_slope, gp)
+    if valid_w is None:
+        n = float(h * w * groups)
+        mask = None
+    else:
+        mask = _column_mask(valid_w, w, x.device)
+        gp = gp * mask
+        n = (h * valid_w).float()[:, None]
+    sum_g = gp.sum(dim=(1, 2))
+    sum_gz = (gp * z).sum(dim=(1, 2))
+    dsb = torch.stack([sum_gz, sum_g], dim=1)
+    if groups > 1:  # statistics are per (half, channel within group)
+        def fold(v):
+            v = v.view(b, halves, groups, c // groups).sum(dim=2, keepdim=True)
+            return v.expand(b, halves, groups, c // groups).reshape(b, cu)
+        sum_g, sum_gz = fold(sum_g), fold(sum_gz)
+    mdz = (s * sum_g / n)[:, None, None, :]
+    mdzz = (s * sum_gz / n)[:, None, None, :]
+    du = rstd * s * gp - rstd * mdz - rstd * z * mdzz
+    if mask is not None:
+        du = du * mask
+    dx = du if halves == 1 else du[..., :c] - du[..., c:]
+    return dx.to(x.dtype), dsb
+
+
+def crelu_instance_norm_ref(x, scale, bias, groups=1, eps=1e-5,
+                            negative_slope=0.01):
+    """Plain CReLU-IN, a copy of ``_crelu_half_jnp``: per original channel
+    statistics across ``groups``, output ``[+x part | -x part]``."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    n = h * w * groups
+    x32 = x.float()
+    s1 = x32.reshape(b, h * w, groups, cg).sum(dim=(1, 2))
+    s2 = (x32 * x32).reshape(b, h * w, groups, cg).sum(dim=(1, 2))
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    mean_t = mean.repeat(1, groups)[:, None, None, :]
+    rstd_t = rstd.repeat(1, groups)[:, None, None, :]
+    z = (x32 - mean_t) * rstd_t
+    sc = scale.float()
+    bi = bias.float()
+    sp, sn = sc[:cg].repeat(groups), sc[cg:].repeat(groups)
+    bp, bn = bi[:cg].repeat(groups), bi[cg:].repeat(groups)
+    yp = z * sp + bp
+    yn = -z * sn + bn
+    if negative_slope is not None:
+        yp = torch.where(yp >= 0, yp, yp * negative_slope)
+        yn = torch.where(yn >= 0, yn, yn * negative_slope)
+    return torch.cat([yp, yn], dim=-1).to(x.dtype)
+
+
+def spatial_stats_ref(x):
+    """Plain K2': [B, 2, C] f32 per-(b, c) sum and sum of squares."""
+    x32 = x.float()
+    return torch.stack([x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))], dim=1)
+
+
+def spatial_norm_ref(x, vecs, negative_slope=None, out_mul=1):
+    """Plain K3': ``x * a + c`` (+ leaky) per output half, vecs
+    [B, 2 * out_mul, C]; output [B, H, W, out_mul * C] in x's dtype."""
+    x32 = x.float()
+    outs = []
+    for half in range(out_mul):
+        a = vecs[:, 2 * half][:, None, None, :]
+        c = vecs[:, 2 * half + 1][:, None, None, :]
+        y = x32 * a + c
+        if negative_slope is not None:
+            y = torch.where(y >= 0, y, y * negative_slope)
+        outs.append(y)
+    return torch.cat(outs, dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# folds between the kernels (a few [B, C] vectors; as in fots)
+# --------------------------------------------------------------------------
+
+def crelu_coefficients(stats, scale, bias, groups, hw, eps):
+    """Fold K2' sums [B, 2, C] into K3' vectors [B, 4, C] (a+, c+, a-, c-)
+    as ``_crelu_half_pallas`` does; also the per-group (mean, rstd)
+    [B, 2, Cg] the backward pass needs."""
+    b, _, c = stats.shape
+    cg = c // groups
+    sg = stats.view(b, 2, groups, cg).sum(dim=2)
+    n = float(hw * groups)
+    mean = sg[:, 0] / n
+    var = torch.clamp_min(sg[:, 1] / n - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    sc = scale.float()
+    bi = bias.float()
+    ap = rstd * sc[None, :cg]
+    cp = bi[None, :cg] - mean * ap
+    an = -rstd * sc[None, cg:]
+    cn = bi[None, cg:] - mean * an
+    vecs = torch.stack([v.repeat(1, groups) for v in (ap, cp, an, cn)], dim=1)
+    return vecs.contiguous(), torch.stack([mean, rstd], dim=1)
+
+
+def _spatial_coefficients(stats, scale, bias, hw, eps):
+    """K2' sums -> K3' vectors [B, 2, C] (a, c), as
+    ``_instance_norm_spatial`` folds them."""
+    mean = stats[:, 0] / hw
+    var = torch.clamp_min(stats[:, 1] / hw - mean * mean, 0.0)
+    a = torch.rsqrt(var + eps) * scale.float()[None, :]
+    return torch.stack([a, bias.float()[None, :] - mean * a], dim=1).contiguous()
+
+
+def _crelu_u_params(stats_g, scale, bias, groups):
+    """Per u channel (u = cat(x, -x), tiled over groups) stats [B, 2, 2C]
+    and scale/bias [2C] for K1'-bwd, from per-group (mean, rstd)."""
+    cg = stats_g.shape[-1]
+    mean = stats_g[:, 0].repeat(1, groups)
+    rstd = stats_g[:, 1].repeat(1, groups)
+    stats_u = torch.stack([torch.cat([mean, -mean], 1), torch.cat([rstd, rstd], 1)], 1)
+
+    def tile(v):
+        v = v.float()
+        return torch.cat([v[:cg].repeat(groups), v[cg:].repeat(groups)])
+
+    return stats_u.contiguous(), tile(scale), tile(bias)
+
+
+def _fold_param_grads(dsb, halves, groups):
+    """Per-sample kernel sums [B, 2, Cu] -> (dscale, dbias) of the
+    canonical [halves * Cg] parameters."""
+    b, _, cu = dsb.shape
+    tot = dsb.sum(dim=0).view(2, halves, groups, cu // (halves * groups)).sum(dim=2)
+    return tot[0].reshape(-1), tot[1].reshape(-1)
+
+
+# --------------------------------------------------------------------------
+# CUDA launchers (raw: no autograd; the Functions below call them)
+# --------------------------------------------------------------------------
+
+def _typed(name, specs):
+    lib = build.load(name)
     if not getattr(lib, "_fots_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fots_instance_norm.restype = i
-        lib.fots_instance_norm.argtypes = [p, p, i, i, i, i, i, p, p, p, f, f, i,
-                                           p, p, p, i, p]
-        lib.fots_instance_norm_rows.restype = i
-        lib.fots_instance_norm_rows.argtypes = [i, i]
+        for fn, (restype, argtypes) in specs.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
         lib._fots_typed = True
     return lib
 
 
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    return _typed("instance_norm", {
+        "fots_instance_norm": (_i, [_p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _f, _f, _i,
+                                    _p, _p, _p, _p, _i, _p]),
+        "fots_instance_norm_rows": (_i, [_i, _i])})
+
+
+def _bwd_lib():
+    return _typed("instance_norm_bwd", {
+        "fots_instance_norm_bwd": (_i, [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p,
+                                        _f, _i, _p, _p, _p, _p, _i, _p]),
+        "fots_instance_norm_bwd_rows": (_i, [_i])})
+
+
+def _spatial_lib():
+    return _typed("spatial_norm", {
+        "fots_spatial_stats": (_i, [_p, _p, _i, _i, _i, _i, _i, _p, _p, _i, _p]),
+        "fots_spatial_norm": (_i, [_p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _i, _p]),
+        "fots_spatial_stats_rows": (_i, [_i, _i])})
+
+
+def _chunks(dev, b, npix, rows):
+    """Pixel chunks per sample for a reduction pass: enough blocks to fill
+    the card, at least ~4 pixels per thread."""
+    s = -(-_STATS_BLOCKS_PER_SM * build.num_sms(dev) // b)
+    return max(1, min(s, -(-npix // (rows * 4))))
+
+
+def _check(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _vec(v, n, dev, what):
+    v = v.to(device=dev, dtype=torch.float32).contiguous()
+    if v.shape != (n,):
+        raise ValueError(f"{what}: expected a [{n}] vector, got {tuple(v.shape)}")
+    return v
+
+
+def _valid_w_arg(valid_w, b, dev, what):
+    if valid_w is None:
+        return None, None
+    valid_w = valid_w.to(device=dev, dtype=torch.int32).contiguous()
+    if valid_w.shape != (b,):
+        raise ValueError(f"{what}: valid_w must be [{b}], got {tuple(valid_w.shape)}")
+    return valid_w, valid_w.data_ptr()
+
+
 def instance_norm_cuda(x, scale, bias, eps=1e-5, negative_slope=None,
-                       valid_w=None):
-    """Launch the CUDA kernel on NHWC ``x`` (f32 or bf16, contiguous).
-    ``scale``/``bias``: [C] (cast to f32); ``valid_w``: optional [B] int."""
+                       valid_w=None, with_stats=False):
+    """Launch K1' on NHWC ``x`` (f32 or bf16, contiguous).  scale/bias:
+    [C] (cast to f32); valid_w: optional [B] int.  ``with_stats`` also
+    returns the [B, 2, C] (mean, rstd) the backward pass reads."""
     build.check_kernel_input(x, "instance_norm", _DTYPE_CODES)
     b, h, w, c = x.shape
     dev = x.device
-    scale = scale.to(device=dev, dtype=torch.float32).contiguous()
-    bias = bias.to(device=dev, dtype=torch.float32).contiguous()
-    if scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"instance_norm: scale/bias must be [{c}], got "
-                         f"{tuple(scale.shape)} / {tuple(bias.shape)}")
-    vw_ptr = None
-    if valid_w is not None:
-        valid_w = valid_w.to(device=dev, dtype=torch.int32).contiguous()
-        if valid_w.shape != (b,):
-            raise ValueError(f"instance_norm: valid_w must be [{b}], got "
-                             f"{tuple(valid_w.shape)}")
-        vw_ptr = valid_w.data_ptr()
+    scale = _vec(scale, c, dev, "instance_norm scale")
+    bias = _vec(bias, c, dev, "instance_norm bias")
+    valid_w, vw_ptr = _valid_w_arg(valid_w, b, dev, "instance_norm")
     lib = _lib()
     code = _DTYPE_CODES[x.dtype]
-    rows = lib.fots_instance_norm_rows(code, c)
-    # S pixel chunks per sample: enough stats blocks to fill the card, at
-    # least ~4 pixels per thread
-    s = -(-_STATS_BLOCKS_PER_SM * build.num_sms(dev) // b)
-    s = max(1, min(s, -(-h * w // (rows * 4))))
+    s = _chunks(dev, b, h * w, lib.fots_instance_norm_rows(code, c))
     y = torch.empty_like(x)
     partial = torch.empty((b, s, 2, c), dtype=torch.float32, device=dev)
     coef = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+    stats = (torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+             if with_stats else None)
     counter = torch.zeros((b,), dtype=torch.int32, device=dev)
-    rc = lib.fots_instance_norm(
+    _check(lib.fots_instance_norm(
         x.data_ptr(), y.data_ptr(), code, b, h, w, c, vw_ptr, scale.data_ptr(),
         bias.data_ptr(), float(eps),
         0.0 if negative_slope is None else float(negative_slope),
         0 if negative_slope is None else 1, partial.data_ptr(), coef.data_ptr(),
-        counter.data_ptr(), s, build.current_stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"instance_norm kernel launch failed: CUDA error {rc}")
+        None if stats is None else stats.data_ptr(), counter.data_ptr(), s,
+        build.current_stream_handle(dev)), "instance_norm")
     build.launch_counts["instance_norm"] += 1
+    return (y, stats) if with_stats else y
+
+
+def instance_norm_bwd_cuda(x, g, stats, scale, bias, negative_slope=None,
+                           valid_w=None, halves=1, groups=1):
+    """Launch K1'-bwd (f32).  Same interface as :func:`instance_norm_bwd_ref`;
+    returns (dx, dsb)."""
+    build.check_kernel_input(x, "instance_norm_bwd", _F32)
+    build.check_kernel_input(g, "instance_norm_bwd (cotangent)", _F32)
+    b, h, w, c = x.shape
+    cu = halves * c
+    if g.shape != (b, h, w, cu):
+        raise ValueError(f"instance_norm_bwd: cotangent shape {tuple(g.shape)}, "
+                         f"expected {(b, h, w, cu)}")
+    dev = x.device
+    stats = stats.to(device=dev, dtype=torch.float32).contiguous()
+    if stats.shape != (b, 2, cu):
+        raise ValueError(f"instance_norm_bwd: stats must be [{b}, 2, {cu}], got "
+                         f"{tuple(stats.shape)}")
+    scale = _vec(scale, cu, dev, "instance_norm_bwd scale")
+    bias = _vec(bias, cu, dev, "instance_norm_bwd bias")
+    valid_w, vw_ptr = _valid_w_arg(valid_w, b, dev, "instance_norm_bwd")
+    lib = _bwd_lib()
+    s = _chunks(dev, b, h * w, lib.fots_instance_norm_bwd_rows(c))
+    dx = torch.empty_like(x)
+    partial = torch.empty((b, s, 2, cu), dtype=torch.float32, device=dev)
+    coef = torch.empty((b, 3, cu), dtype=torch.float32, device=dev)
+    dsb = torch.empty((b, 2, cu), dtype=torch.float32, device=dev)
+    counter = torch.zeros((b,), dtype=torch.int32, device=dev)
+    _check(lib.fots_instance_norm_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, h, w, c, halves, groups, vw_ptr,
+        stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        0.0 if negative_slope is None else float(negative_slope),
+        0 if negative_slope is None else 1, partial.data_ptr(), coef.data_ptr(),
+        dsb.data_ptr(), counter.data_ptr(), s, build.current_stream_handle(dev)),
+        "instance_norm_bwd")
+    build.launch_counts["instance_norm_bwd"] += 1
+    return dx, dsb
+
+
+def spatial_stats_cuda(x):
+    """Launch K2' on NHWC ``x`` (f32 or bf16): [B, 2, C] f32 sums."""
+    build.check_kernel_input(x, "spatial_stats", _DTYPE_CODES)
+    b, h, w, c = x.shape
+    dev = x.device
+    lib = _spatial_lib()
+    code = _DTYPE_CODES[x.dtype]
+    s = _chunks(dev, b, h * w, lib.fots_spatial_stats_rows(code, c))
+    out = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+    partial = torch.empty((b, s, 2, c), dtype=torch.float32, device=dev)
+    counter = torch.zeros((b,), dtype=torch.int32, device=dev)
+    _check(lib.fots_spatial_stats(x.data_ptr(), out.data_ptr(), code, b, h, w, c,
+                                  partial.data_ptr(), counter.data_ptr(), s,
+                                  build.current_stream_handle(dev)), "spatial_stats")
+    build.launch_counts["spatial_stats"] += 1
+    return out
+
+
+def spatial_norm_cuda(x, vecs, negative_slope=None, out_mul=1):
+    """Launch K3' on NHWC ``x`` with vecs [B, 2 * out_mul, C] f32."""
+    build.check_kernel_input(x, "spatial_norm", _DTYPE_CODES)
+    b, h, w, c = x.shape
+    if out_mul not in (1, 2):
+        raise ValueError(f"spatial_norm: out_mul must be 1 or 2, got {out_mul}")
+    dev = x.device
+    vecs = vecs.to(device=dev, dtype=torch.float32).contiguous()
+    if vecs.shape != (b, 2 * out_mul, c):
+        raise ValueError(f"spatial_norm: vecs must be [{b}, {2 * out_mul}, {c}], got "
+                         f"{tuple(vecs.shape)}")
+    y = torch.empty((b, h, w, out_mul * c), dtype=x.dtype, device=dev)
+    _check(_spatial_lib().fots_spatial_norm(
+        x.data_ptr(), vecs.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], b, h, w, c,
+        out_mul, 0.0 if negative_slope is None else float(negative_slope),
+        0 if negative_slope is None else 1, build.current_stream_handle(dev)),
+        "spatial_norm")
+    build.launch_counts["spatial_norm"] += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# device dispatch and autograd
+# --------------------------------------------------------------------------
+
+def _on_card(x) -> bool:
+    return x.device.type == "cuda"
+
+
+def _in_forward(x, scale, bias, eps, slope, valid_w, with_stats):
+    if _on_card(x):
+        return instance_norm_cuda(x, scale, bias, eps, slope, valid_w, with_stats)
+    if valid_w is None:
+        y = instance_norm_ref(x, scale, bias, eps, slope)
+    else:
+        y = masked_instance_norm_ref(x, valid_w, scale, bias, eps, slope)
+    return (y, instance_norm_stats_ref(x, eps, valid_w)) if with_stats else y
+
+
+def _in_backward(x, g, stats, scale, bias, slope, valid_w, halves=1, groups=1):
+    fn = instance_norm_bwd_cuda if _on_card(x) else instance_norm_bwd_ref
+    return fn(x, g.contiguous(), stats, scale, bias, slope, valid_w, halves, groups)
+
+
+def _crelu_forward(x, scale, bias, groups, eps, slope):
+    """K2' -> fold -> K3' (CReLU mode); returns (y, per-group stats)."""
+    stats = spatial_stats_cuda(x) if _on_card(x) else spatial_stats_ref(x)
+    vecs, stats_g = crelu_coefficients(stats, scale, bias, groups,
+                                       x.shape[1] * x.shape[2], eps)
+    norm = spatial_norm_cuda if _on_card(x) else spatial_norm_ref
+    return norm(x, vecs, slope, 2), stats_g
+
+
+class _InstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, slope, valid_w):
+        y, stats = _in_forward(x, scale, bias, eps, slope, valid_w, True)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.slope, ctx.valid_w = slope, valid_w
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, bias, stats = ctx.saved_tensors
+        dx, dsb = _in_backward(x, gy, stats, scale, bias, ctx.slope, ctx.valid_w)
+        dscale, dbias = _fold_param_grads(dsb, 1, 1)
+        return dx, dscale, dbias, None, None, None
+
+
+class _CReLUInstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, slope):
+        y, stats_g = _crelu_forward(x, scale, bias, groups, eps, slope)
+        ctx.save_for_backward(x, scale, bias, stats_g)
+        ctx.groups, ctx.slope = groups, slope
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, bias, stats_g = ctx.saved_tensors
+        stats_u, scale_u, bias_u = _crelu_u_params(stats_g, scale, bias, ctx.groups)
+        dx, dsb = _in_backward(x, gy, stats_u, scale_u, bias_u, ctx.slope, None,
+                               2, ctx.groups)
+        dscale, dbias = _fold_param_grads(dsb, 2, ctx.groups)
+        return dx, dscale, dbias, None, None, None
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def instance_norm(x, scale=None, bias=None, eps=1e-5,
@@ -125,14 +500,43 @@ def instance_norm(x, scale=None, bias=None, eps=1e-5,
     """Fused instance norm of NHWC ``x``.  ``scale``/``bias`` None =>
     non-affine (identity affine, as ``fots`` does).  ``valid_w`` [B] =>
     masked statistics and zeroed padding columns.  CUDA tensor => the
-    kernel; CPU tensor => the plain version."""
+    kernels (K1', and K1'-bwd under autograd); CPU tensor => the plain
+    versions."""
     c = x.shape[-1]
     if scale is None:
         scale = torch.ones((c,), dtype=torch.float32, device=x.device)
         bias = torch.zeros((c,), dtype=torch.float32, device=x.device)
-    if x.device.type == "cuda":
-        return instance_norm_cuda(x, scale, bias, eps, negative_slope, valid_w)
-    if valid_w is not None:
-        return masked_instance_norm_ref(x, valid_w, scale, bias, eps,
-                                        negative_slope)
-    return instance_norm_ref(x, scale, bias, eps, negative_slope)
+    if _records_grad(x, scale, bias):
+        return _InstanceNorm.apply(x, scale, bias, eps, negative_slope, valid_w)
+    return _in_forward(x, scale, bias, eps, negative_slope, valid_w, False)
+
+
+def crelu_instance_norm(x, scale, bias, groups: int = 1, eps: float = 1e-5,
+                        negative_slope: Optional[float] = 0.01):
+    """CReLU + IN(affine) + leaky of NHWC ``x`` [B, H, W, C] in the half
+    layout ``[+x part | -x part]`` ([B, H, W, 2C]), statistics per original
+    channel across ``groups`` (C = groups * Cg; 1 for a plain tensor);
+    ``scale``/``bias`` [2 * Cg] are the canonical IN's over concat(x, -x).
+    CUDA tensor => K2' + K3' (K1'-bwd under autograd); CPU => plain."""
+    c = x.shape[-1]
+    if groups < 1 or c % groups != 0:
+        raise ValueError(f"crelu_instance_norm: {c} channels do not split into "
+                         f"{groups} groups")
+    if scale.shape != (2 * c // groups,) or bias.shape != scale.shape:
+        raise ValueError(f"crelu_instance_norm: scale/bias must be [{2 * c // groups}], "
+                         f"got {tuple(scale.shape)} / {tuple(bias.shape)}")
+    if _records_grad(x, scale, bias):
+        return _CReLUInstanceNorm.apply(x, scale, bias, groups, eps, negative_slope)
+    return _crelu_forward(x, scale, bias, groups, eps, negative_slope)[0]
+
+
+def instance_norm_spatial(x, scale, bias, eps=1e-5,
+                          negative_slope: Optional[float] = None):
+    """Two-pass IN as K2' + fold + K3' (one output half), the counterpart
+    of ``_instance_norm_spatial``; forward only (the model's INs use
+    :func:`instance_norm`)."""
+    hw = x.shape[1] * x.shape[2]
+    stats = spatial_stats_cuda(x) if _on_card(x) else spatial_stats_ref(x)
+    vecs = _spatial_coefficients(stats, scale, bias, hw, eps)
+    norm = spatial_norm_cuda if _on_card(x) else spatial_norm_ref
+    return norm(x, vecs, negative_slope, 1)

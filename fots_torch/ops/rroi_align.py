@@ -8,9 +8,12 @@ and degenerate rois (h <= 0 or w <= 0) are zero; bilinear neighbours obey
 the strict ``0 < idx < limit`` rule.
 
 :func:`pack_neighbors` builds the packed source once per batch: on a CUDA
-tensor it launches ``fots_torch/csrc/pack_neighbors.cu``, on a CPU tensor
-it runs :func:`pack_neighbors_ref`.  The crop itself
-(:func:`rroi_align_packed`) is plain torch, as it is XLA in ``fots``.
+tensor it launches ``fots_torch/csrc/pack_neighbors.cu`` (K4'), on a CPU
+tensor it runs :func:`pack_neighbors_ref`.  Under autograd its backward is
+K4'-bwd (same source), the gather form of ``_pack_pallas_diff_bwd``, or
+:func:`pack_neighbors_bwd_ref` on the CPU.  The crop itself
+(:func:`rroi_align_packed`) is plain torch, as it is XLA in ``fots``; its
+``index_select`` backward is torch's.
 """
 
 from __future__ import annotations
@@ -105,14 +108,30 @@ def pack_neighbors_ref(features):
                       padded[w + 1:n + w + 1]], dim=1)
 
 
+def pack_neighbors_bwd_ref(g, feature_shape):
+    """Plain version of K4'-bwd: the cotangent [B, H, W, C] of the map from
+    the quads' cotangent ``g`` [B*H*W, 4C]:
+    ``df[i] = g[i,0] + g[i-1,1] + g[i-W,2] + g[i-W-1,3]`` (zero below row 0);
+    the quads' out-of-map slots read nothing."""
+    b, h, w, c = feature_shape
+    n = b * h * w
+    g = g.reshape(n, 4, c)
+
+    def down(v, k):  # v[i - k], zero-filled
+        return torch.cat([v.new_zeros((k, c)), v[:n - k]], dim=0)
+
+    df = g[:, 0] + down(g[:, 1], 1) + down(g[:, 2], w) + down(g[:, 3], w + 1)
+    return df.reshape(b, h, w, c)
+
+
 def _lib():
     lib = build.load("pack_neighbors")
     if not getattr(lib, "_fots_typed", False):
-        p = ctypes.c_void_p
-        lib.fots_pack_neighbors.restype = ctypes.c_int
-        lib.fots_pack_neighbors.argtypes = [p, p, ctypes.c_longlong,
-                                            ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fots_pack_neighbors.restype = i
+        lib.fots_pack_neighbors.argtypes = [p, p, ll, ll, i, i, p]
+        lib.fots_pack_neighbors_bwd.restype = i
+        lib.fots_pack_neighbors_bwd.argtypes = [p, p, ll, ll, i, i, p]
         lib._fots_typed = True
     return lib
 
@@ -138,10 +157,50 @@ def pack_neighbors_cuda(features):
     return out
 
 
+def pack_neighbors_bwd_cuda(g, feature_shape):
+    """Launch K4'-bwd on the quads' cotangent ``g`` [B*H*W, 4C] (f32,
+    contiguous, C % 4 == 0); returns the map's cotangent [B, H, W, C]."""
+    build.check_kernel_input(g, "pack_neighbors_bwd", (torch.float32,))
+    b, h, w, c = feature_shape
+    n = b * h * w
+    if g.shape != (n, 4 * c):
+        raise ValueError(f"pack_neighbors_bwd: cotangent shape {tuple(g.shape)}, "
+                         f"expected {(n, 4 * c)}")
+    if c % 4 != 0:
+        raise ValueError(f"pack_neighbors_bwd: C = {c} is not a multiple of 4")
+    df = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    rc = _lib().fots_pack_neighbors_bwd(
+        g.data_ptr(), df.data_ptr(), n, w, c, build.num_sms(g.device),
+        build.current_stream_handle(g.device))
+    if rc != 0:
+        raise RuntimeError(f"pack_neighbors_bwd kernel launch failed: CUDA error {rc}")
+    build.launch_counts["pack_neighbors_bwd"] += 1
+    return df
+
+
+class _PackNeighbors(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features):
+        ctx.shape = tuple(features.shape)
+        if features.device.type == "cuda":
+            return pack_neighbors_cuda(features)
+        return pack_neighbors_ref(features)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if g.device.type == "cuda":
+            return pack_neighbors_bwd_cuda(g, ctx.shape)
+        return pack_neighbors_bwd_ref(g, ctx.shape)
+
+
 def pack_neighbors(features):
     """Pack every 2x2 bilinear-neighbour tile of NHWC ``features`` into one
     4C row (see ``fots.ops.rroi_align.pack_neighbors``).  CUDA tensor =>
-    the kernel; CPU tensor => the plain version."""
+    the kernel (K4'-bwd for its gradient); CPU tensor => the plain
+    versions."""
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _PackNeighbors.apply(features)
     if features.device.type == "cuda":
         return pack_neighbors_cuda(features)
     return pack_neighbors_ref(features)

@@ -109,7 +109,7 @@ def device_letterbox_batch(raw, serve_hw: Tuple[int, int], tables=None):
     return F.pad(x, (0, 0, 0, W - nw, 0, H - nh), value=-1.0)
 
 
-class _HostCopy:
+class HostCopy:
     """A device tensor on its way to the host: on CUDA a non-blocking copy
     into a pinned buffer plus an event; :meth:`numpy` waits for it."""
 
@@ -218,9 +218,9 @@ class FOTSInference:
         if self.cand_transport == "u16" and hs * ws < 65536:
             cands = pack_candidates_u16(cands)
         focr = out["focr"]
-        return _HostCopy(cands), PackedFocr(pack_neighbors(focr), tuple(focr.shape))
+        return HostCopy(cands), PackedFocr(pack_neighbors(focr), tuple(focr.shape))
 
-    def _host_boxes(self, cands_copy: _HostCopy, n: int, serve_hw):
+    def _host_boxes(self, cands_copy: HostCopy, n: int, serve_hw):
         """Host decode + NMS of a candidate pack -> per-image boxes [M, 9]."""
         cands = cands_copy.numpy()
         if cands.dtype == np.int16:
@@ -299,7 +299,7 @@ class FOTSInference:
                     if self.device.type == "cuda":
                         rois = rois.pin_memory().to(self.device, non_blocking=True)
                     ids, conf = self._recognize(focr, rois, width)
-                    jobs.append((chunk, _HostCopy(ids), _HostCopy(conf)))
+                    jobs.append((chunk, HostCopy(ids), HostCopy(conf)))
         return all_keys, jobs
 
     def _recognize_finish(self, n, per_image_boxes, all_keys, jobs, scales):

@@ -1,13 +1,17 @@
-"""Where the serving time goes on the card: a torch.profiler breakdown.
+"""Where the serving or training time goes on the card: a torch.profiler
+breakdown.
 
-    python3 -m fots_torch.profiling [--batch 16] [--batches 3]
+    python3 -m fots_torch.profiling [--path serve|train] [--batch N] [--batches N]
 
-Serves the smoke images (batch 16, 704x1280, bf16, the shipped snapshot)
-through ``FOTSInference.stream``: warm-up batches first, then a profiled
-window of ``--batches`` batches.  Prints one JSON object: host wall time
-per batch, device busy time per batch (the union of kernel intervals),
-the device's idle share of the window, device time per kernel category
-and the top kernels by device time.  Needs a CUDA card.
+``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
+shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
+batch 8): the training asset at 640x960, f32, the snapshot as warm start,
+``Trainer.train`` (lr 1e-4; PyTorch's default math settings).  Warm-up
+batches first, then a profiled window of ``--batches`` batches (steps).
+Prints one JSON object: host wall time per batch, device busy time per
+batch (the union of kernel intervals), the device's idle share of the
+window, device time per kernel category and the top kernels by device
+time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +32,12 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel-name fragments -> category, first match wins
 _CATEGORIES = (("in_stats_kernel", "instance_norm (K1')"),
                ("in_apply_kernel", "instance_norm (K1')"),
+               ("in_bwd_", "instance_norm_bwd (K1'-bwd)"),
+               ("spatial_stats_kernel", "spatial_stats (K2')"),
+               ("spatial_norm_kernel", "spatial_norm (K3')"),
+               ("pack_neighbors_bwd_kernel", "pack_neighbors_bwd (K4'-bwd)"),
                ("pack_neighbors_kernel", "pack_neighbors (K4')"),
+               ("ctc", "ctc"), ("adam", "optimizer"), ("foreach", "optimizer"),
                ("conv", "convolution"), ("gemm", "convolution"),
                ("xmma", "convolution"), ("cudnn", "convolution"),
                ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -57,16 +66,14 @@ def _union_us(intervals):
     return total
 
 
-def profile_serving(engine: FOTSInference, batch, serve_hw, batches: int,
-                    warmup: int = 2) -> dict:
-    for _ in engine.stream(iter([batch] * warmup), serve_hw=serve_hw):
-        pass
+def _profiled(run, batches: int):
+    """Profile ``run()`` (which works through ``batches`` batches) and
+    summarise its device activity per batch."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in engine.stream(iter([batch] * batches), serve_hw=serve_hw):
-            pass
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -82,8 +89,7 @@ def profile_serving(engine: FOTSInference, batch, serve_hw, batches: int,
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     per = 1e3 * batches  # us over the window -> ms per batch
     return {
-        "batches": batches, "batch": len(batch), "serve_hw": list(serve_hw),
-        "wall_ms_per_batch": 1e3 * wall / batches,
+        "batches": batches, "wall_ms_per_batch": 1e3 * wall / batches,
         "device_busy_ms_per_batch": busy_us / per,
         "device_idle_share": 1.0 - busy_us / (1e6 * wall),
         "kernel_launches_per_batch": len(kernels) / batches,
@@ -93,19 +99,74 @@ def profile_serving(engine: FOTSInference, batch, serve_hw, batches: int,
     }
 
 
+def profile_serving(engine: FOTSInference, batch, serve_hw, batches: int,
+                    warmup: int = 2) -> dict:
+    for _ in engine.stream(iter([batch] * warmup), serve_hw=serve_hw):
+        pass
+
+    def run():
+        for _ in engine.stream(iter([batch] * batches), serve_hw=serve_hw):
+            pass
+
+    return {"path": "serve", "batch": len(batch), "hw": list(serve_hw),
+            **_profiled(run, batches)}
+
+
+def _timed(obj, name: str, log: dict):
+    """Wrap ``obj.name`` so each call's host time lands in ``log[name]``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log[name].append(1e3 * (time.perf_counter() - t0))
+
+    setattr(obj, name, wrapper)
+
+
+def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
+    """The step's device breakdown, plus the host's, ms per call: ``step``
+    (main thread: upload and the dispatch of forward, backward and Adam);
+    on the prefetch thread ``_prepare_maps`` (image and map packing) and
+    ``_prepare_rois`` (``_build_roi_batch``, which waits for the previous
+    step's candidates and samples rois, and the roi buffer)."""
+    trainer.train([batch] * warmup, max_steps=warmup, log_every=0)
+    log = defaultdict(list)
+    for name in ("step", "_prepare_maps", "_prepare_rois", "_build_roi_batch"):
+        _timed(trainer, name, log)
+    out = _profiled(lambda: trainer.train([batch] * batches, max_steps=batches,
+                                          log_every=0), batches)
+    host = {k: sum(v) / len(v) for k, v in log.items()}
+    return {"path": "train", "batch": batch.images.shape[0],
+            "hw": list(batch.images.shape[1:3]), "host_ms_per_call": host, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--path", choices=("serve", "train"), default="serve")
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--batches", type=int, default=3)
     args = ap.parse_args(argv)
-    with np.load(os.path.join(_REPO, "fots_torch", "assets", "smoke_images_u8.npz")) as z:
-        images = list(z["images"])
+    assets = os.path.join(_REPO, "fots_torch", "assets")
+    with np.load(os.path.join(assets, "smoke_images_u8.npz")) as z:
+        images = z["images"]
     model, _, config = load_detector(os.path.join(_REPO, "artifacts", "serving_params.npz"),
                                      "cuda")
-    batch = [images[i % len(images)] for i in range(args.batch)]
-    with FOTSInference(model, masked_norm=config.get("masked_norm", False),
-                       mixed_precision=True, device="cuda") as eng:
-        out = profile_serving(eng, batch, (704, 1280), args.batches)
+    if args.path == "serve":
+        batch = [images[i % len(images)] for i in range(args.batch or 16)]
+        with FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                           mixed_precision=True, device="cuda") as eng:
+            out = profile_serving(eng, batch, (704, 1280), args.batches)
+    else:
+        from fots_torch.train import Trainer, asset_batch
+
+        with np.load(os.path.join(assets, "train_targets.npz")) as z:
+            targets = {k: z[k] for k in z.files}
+        batch = asset_batch(images, targets, [i % len(images) for i in range(args.batch or 8)])
+        out = profile_training(Trainer(model, learning_rate=1e-4, device="cuda"), batch,
+                               args.batches)
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
     return 0

@@ -57,7 +57,7 @@ def test_detector_matches_fots_with_shipped_weights(jax_shipped):
     jm, jv = jax_shipped
     x = _scene((128, 256))
     jout = jm.apply(jv, jnp.asarray(x), train=False)
-    port, _, _ = tck.load_detector(SNAPSHOT)
+    port, _, _ = tck.load_detector(SNAPSHOT, "cpu")
     with torch.inference_mode():
         tout = port(torch.from_numpy(np.array(x)))
     jmaps, tmaps = _maps(jout), _maps(tout)
@@ -95,7 +95,7 @@ def test_detector_bf16_matches_fots_bf16(jax_shipped):
     j32 = _maps(jm.apply(jv, jnp.asarray(x), train=False))
     j16 = _maps(jm.apply(jax_cast_bf16(dict(jv)), jnp.asarray(x).astype(jnp.bfloat16),
                          train=False))
-    port, _, _ = tck.load_detector(SNAPSHOT)
+    port, _, _ = tck.load_detector(SNAPSHOT, "cpu")
     cast_params_bf16(port)
     assert port.act.weight.dtype == torch.float32
     assert port.stem.conv0a.weight.dtype == torch.bfloat16

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from fots_torch.kernels import build
-from fots_torch.ops.instance_norm import instance_norm_cuda
-from fots_torch.ops.rroi_align import pack_neighbors_cuda
+from fots_torch.ops.instance_norm import (instance_norm_bwd_cuda, instance_norm_cuda,
+                                         spatial_norm_cuda, spatial_stats_cuda)
+from fots_torch.ops.rroi_align import pack_neighbors_bwd_cuda, pack_neighbors_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|cv2|fots)(\.|\s|$)",
@@ -74,6 +75,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(dtype):
         instance_norm_cuda(x, torch.ones(64), torch.zeros(64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         pack_neighbors_cuda(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spatial_stats_cuda(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spatial_norm_cuda(x, torch.zeros((1, 4, 64)), 0.01, 2)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            instance_norm_bwd_cuda(x, x, torch.zeros((1, 2, 64)), torch.ones(64),
+                                   torch.zeros(64))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            pack_neighbors_bwd_cuda(torch.zeros((32, 256)), (1, 4, 8, 64))
     assert build.launch_counts == before
 
 

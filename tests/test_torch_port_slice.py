@@ -44,7 +44,7 @@ def images():
 
 @pytest.fixture(scope="module")
 def port():
-    model, _, config = load_detector(SNAPSHOT)
+    model, _, config = load_detector(SNAPSHOT, "cpu")
     with FOTSInference(model, masked_norm=config["masked_norm"], device="cpu") as eng:
         yield eng
 
@@ -63,7 +63,7 @@ def test_batch_call_matches_fots(images, jax_model, masked_norm, cand_transport)
     jm, jv = jax_model
     ref = JaxInference(jm, jv, masked_norm=masked_norm, device_letterbox=True,
                        cand_transport=cand_transport)
-    model, _, _ = load_detector(SNAPSHOT)
+    model, _, _ = load_detector(SNAPSHOT, "cpu")
     with FOTSInference(model, masked_norm=masked_norm, cand_transport=cand_transport,
                        device="cpu") as port:
         got = port.batch_call(images, serve_hw=PARITY_HW)
