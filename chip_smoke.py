@@ -192,21 +192,34 @@ def phase_kernels(dev, peaks):
         report("instance_norm", tag, forward_ok(got, want, dtype), *errors(got, want))
 
     def bwd_case(b, h, w, c, affine, slope, valid_w=None, halves=1, groups=1):
-        """K1'-bwd (and K1' / K2'+K3' for the saved statistics) at one shape."""
+        """K1'-bwd at one shape, and the forward that feeds it (K1', or
+        K2'+K3' for the CReLU mode): its output and saved statistics."""
         x = rand((b, h, w, c), torch.float32, 3, 1.5)
         g = rand((b, h, w, halves * c))
+        shape_tag = f"{'masked ' if valid_w is not None else ''}{(b, h, w, c)}"
         if halves == 1:
             scale = rand(c) if affine else torch.ones(c, device=dev)
             bias = rand(c) if affine else torch.zeros(c, device=dev)
-            _, stats = tin.instance_norm_cuda(x, scale, bias, 1e-5, slope, valid_w, True)
+            y, stats = tin.instance_norm_cuda(x, scale, bias, 1e-5, slope, valid_w, True)
+            if valid_w is None:
+                want_y = tin.instance_norm_ref(x, scale, bias, 1e-5, slope)
+            else:
+                want_y = tin.masked_instance_norm_ref(x, valid_w, scale, bias, 1e-5, slope)
             want_stats = tin.instance_norm_stats_ref(x, 1e-5, valid_w)
-            report("instance_norm", f"saved (mean, rstd) {(b, h, w, c)}",
+            torch.cuda.synchronize()
+            report("instance_norm", f"float32 {shape_tag} affine={affine} slope={slope}",
+                   forward_ok(y, want_y, torch.float32), *errors(y, want_y))
+            report("instance_norm", f"saved (mean, rstd) {shape_tag}",
                    bool(((stats - want_stats).abs() <= 1e-4 * (1 + want_stats.abs())).all()),
                    *errors(stats, want_stats))
         else:
             cg = c // groups
             scale, bias = rand(2 * cg), rand(2 * cg)
-            _, stats_g = tin._crelu_forward(x, scale, bias, groups, 1e-5, slope)
+            y, stats_g = tin._crelu_forward(x, scale, bias, groups, 1e-5, slope)
+            want_y = tin.crelu_instance_norm_ref(x, scale, bias, groups, 1e-5, slope)
+            torch.cuda.synchronize()
+            report("spatial_norm", f"CReLU-IN float32 {shape_tag} groups={groups}",
+                   forward_ok(y, want_y, torch.float32), *errors(y, want_y))
             stats, scale, bias = tin._crelu_u_params(stats_g, scale, bias, groups)
         dx, dsb = tin.instance_norm_bwd_cuda(x, g, stats, scale, bias, slope, valid_w,
                                              halves, groups)

@@ -10,9 +10,7 @@ Port of ``fots/ops/instance_norm.py``.  Entry points:
   ``crelu_instance_norm_half``: concat(x, -x) -> IN(affine) -> leaky as K2'
   statistics (``csrc/spatial_norm.cu``), a per-(b, c) fold, and K3' writing
   the ``[+x part | -x part]`` halves; its backward is K1'-bwd in the CReLU
-  mode (reads x once and both halves of the cotangent, writes dx);
-- :func:`instance_norm_spatial`: K2' + fold + K3' with one output half, the
-  counterpart of ``_instance_norm_spatial`` (off the model's path).
+  mode (reads x once and both halves of the cotangent, writes dx).
 
 On a CUDA tensor each launches its kernels; on a CPU tensor it runs the
 kernels' plain versions (``*_ref``), which repeat their arithmetic.
@@ -218,15 +216,6 @@ def crelu_coefficients(stats, scale, bias, groups, hw, eps):
     cn = bi[None, cg:] - mean * an
     vecs = torch.stack([v.repeat(1, groups) for v in (ap, cp, an, cn)], dim=1)
     return vecs.contiguous(), torch.stack([mean, rstd], dim=1)
-
-
-def _spatial_coefficients(stats, scale, bias, hw, eps):
-    """K2' sums -> K3' vectors [B, 2, C] (a, c), as
-    ``_instance_norm_spatial`` folds them."""
-    mean = stats[:, 0] / hw
-    var = torch.clamp_min(stats[:, 1] / hw - mean * mean, 0.0)
-    a = torch.rsqrt(var + eps) * scale.float()[None, :]
-    return torch.stack([a, bias.float()[None, :] - mean * a], dim=1).contiguous()
 
 
 def _crelu_u_params(stats_g, scale, bias, groups):
@@ -529,14 +518,3 @@ def crelu_instance_norm(x, scale, bias, groups: int = 1, eps: float = 1e-5,
         return _CReLUInstanceNorm.apply(x, scale, bias, groups, eps, negative_slope)
     return _crelu_forward(x, scale, bias, groups, eps, negative_slope)[0]
 
-
-def instance_norm_spatial(x, scale, bias, eps=1e-5,
-                          negative_slope: Optional[float] = None):
-    """Two-pass IN as K2' + fold + K3' (one output half), the counterpart
-    of ``_instance_norm_spatial``; forward only (the model's INs use
-    :func:`instance_norm`)."""
-    hw = x.shape[1] * x.shape[2]
-    stats = spatial_stats_cuda(x) if _on_card(x) else spatial_stats_ref(x)
-    vecs = _spatial_coefficients(stats, scale, bias, hw, eps)
-    norm = spatial_norm_cuda if _on_card(x) else spatial_norm_ref
-    return norm(x, vecs, negative_slope, 1)

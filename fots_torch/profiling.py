@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 from collections import defaultdict
 
@@ -38,6 +39,7 @@ _CATEGORIES = (("in_stats_kernel", "instance_norm (K1')"),
                ("pack_neighbors_bwd_kernel", "pack_neighbors_bwd (K4'-bwd)"),
                ("pack_neighbors_kernel", "pack_neighbors (K4')"),
                ("ctc", "ctc"), ("adam", "optimizer"), ("foreach", "optimizer"),
+               ("multi_tensor_apply", "optimizer"),
                ("conv", "convolution"), ("gemm", "convolution"),
                ("xmma", "convolution"), ("cudnn", "convolution"),
                ("Memcpy", "memcpy"), ("Memset", "memset"),
@@ -66,6 +68,17 @@ def _union_us(intervals):
     return total
 
 
+def _is_annotation(event) -> bool:
+    """A record_function range mirrored onto the device timeline (such as
+    ``Optimizer.step#Adam.step``): it spans the kernels launched inside it
+    and the gaps between them, so it is no device work of its own.  The
+    profiler flags it; the name test covers builds that do not.  (Kernel
+    names hold ``#`` too, in lambdas such as ``{lambda(float)#1}``, but
+    never without spaces or brackets.)"""
+    return (bool(getattr(event, "is_user_annotation", False))
+            or re.fullmatch(r"[\w.]+#[\w.]+", event.name) is not None)
+
+
 def _profiled(run, batches: int):
     """Profile ``run()`` (which works through ``batches`` batches) and
     summarise its device activity per batch."""
@@ -76,8 +89,15 @@ def _profiled(run, batches: int):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return _summary(prof.events(), wall, batches)
+
+
+def _summary(events, wall: float, batches: int) -> dict:
+    """Device activity per batch from profiler events over ``wall``
+    seconds: kernels, copies and memsets, not the user annotations on the
+    device timeline."""
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])

@@ -117,3 +117,33 @@ def test_smoke_images_are_the_committed_scenes():
     for im, name in zip(images, names):
         np.testing.assert_array_equal(
             im, cv2.imread(os.path.join(REPO, "data", "synth", name)))
+
+
+def test_profile_summary_drops_device_annotations():
+    """A record_function range on the device timeline (Adam's step) is no
+    device work: it is neither counted as a launch nor put in the busy
+    union, whose gap between two kernels stays idle.  A kernel whose name
+    holds a lambda's ``#`` is kept."""
+    from types import SimpleNamespace
+
+    from fots_torch import profiling
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ev(name, start, end, device=cuda, annotation=False):
+        return SimpleNamespace(name=name, device_type=device, is_user_annotation=annotation,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    events = [ev("Optimizer.step#Adam.step", 0.0, 1000.0, annotation=True),
+              ev("ProfilerStep#3", 0.0, 1000.0),
+              ev("void multi_tensor_apply_kernel<TensorListMetadata<4>>", 0.0, 100.0),
+              ev("void fots_in_stats_kernel<float>", 900.0, 1000.0),
+              ev("void at::native::vectorized_elementwise_kernel<4, "
+                 "at::native::{lambda(float)#1}>(int, float*)", 950.0, 1000.0),
+              ev("aten::add_", 0.0, 1000.0, device=torch.autograd.DeviceType.CPU)]
+    out = profiling._summary(events, wall=2e-3, batches=1)
+    assert out["kernel_launches_per_batch"] == 3
+    assert out["device_busy_ms_per_batch"] == pytest.approx(0.2)
+    assert out["device_idle_share"] == pytest.approx(0.9)
+    assert out["ms_per_batch_by_category"] == pytest.approx(
+        {"optimizer": 0.1, "instance_norm (K1')": 0.1, "elementwise": 0.05})

@@ -173,13 +173,25 @@ def test_spatial_stats_and_norm_plain_match_pallas_kernels(groups):
 
 
 @pytest.mark.parametrize("slope", [None, 0.01])
-def test_instance_norm_spatial_matches_pallas_interpret(slope):
+def test_spatial_norm_plain_out_mul1_matches_pallas_interpret(slope):
+    """The plain K3 with one output half, at an InstanceNorm's coefficients
+    (folded from the plain K2 as _instance_norm_spatial folds them), vs
+    _spatial_norm in interpret mode on the same vectors and vs the whole
+    _instance_norm_spatial."""
     rng = np.random.default_rng(26)
     x, scale, bias, _ = _in_inputs(rng, (2, 16, 32, 16), True)
-    want = np.asarray(jin._instance_norm_spatial(jnp.asarray(x), jnp.asarray(scale),
-                                                 jnp.asarray(bias), 1e-5, slope,
-                                                 interpret=True))
-    got = tin.instance_norm_spatial(_t(x), _t(scale), _t(bias), 1e-5, slope).numpy()
+    stats = tin.spatial_stats_ref(_t(x))
+    mean = stats[:, 0] / (16 * 32)
+    a = torch.rsqrt(torch.clamp_min(stats[:, 1] / (16 * 32) - mean * mean, 0.0) + 1e-5) \
+        * _t(scale)
+    vecs = torch.stack([a, _t(bias) - mean * a], dim=1)
+    got = tin.spatial_norm_ref(_t(x), vecs, slope, 1).numpy()
+    xj = jnp.asarray(x)
+    want_kernel = np.asarray(jin._spatial_norm(xj, jnp.asarray(vecs.numpy()), 4, slope, 1,
+                                               interpret=True))
+    np.testing.assert_allclose(got, want_kernel, **F32_TOL)
+    want = np.asarray(jin._instance_norm_spatial(xj, jnp.asarray(scale), jnp.asarray(bias),
+                                                 1e-5, slope, interpret=True))
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 

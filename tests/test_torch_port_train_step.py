@@ -11,17 +11,20 @@ JAX model runs its canonical stem (``stem_s2d=False``), the formulation
 the port implements.
 
 Tolerances (f32): the five loss terms within 1e-5 (relative and
-absolute); one Adam update within 1e-6 of optax's.  Gradients: every
-parameter tensor within 5e-3 of its norm (``||g - g_jax|| <=
-5e-3 ||g_jax||``) and within 3e-2 of its largest |g| element-wise, the
-median tensor within 2e-4 of its norm.  A per-element ``1e-4 * max|g|``
-is below what f32 resolves for this network at the snapshot: fots's own
-two stems (s2d and canonical, the same function) give gradients that
-differ by up to 7.5e-4 of a tensor's norm and 4.5e-3 of its largest
-element, mostly in InstanceNorm biases, whose gradient is a sum through
-ReLU gates that cancels near the optimum.  The operators alone are held
-at 1e-4 of max|g| in ``test_torch_port_train_ops.py``.  The training
-asset is regenerated and must be equal, pixels included.
+absolute); one Adam update within 1e-6 of optax's.  Gradients, each limit
+a few times above what this test reads (port against fots's canonical
+stem, f32, CPU): every parameter tensor within 5e-3 of its norm
+(``||g - g_jax|| <= 5e-3 ||g_jax||``; reads 2.2e-3 at worst) and within
+3e-2 of its largest |g| element-wise (reads 1.1e-2 at worst); the median
+tensor within 2e-4 of its norm and 2e-4 of its largest |g| (read 7.8e-5
+and 8.3e-5).  The worst tensors are InstanceNorm biases, whose gradient
+is a sum through ReLU gates that cancels near the snapshot's optimum, so
+a per-element ``1e-4 * max|g|`` for every tensor is below what f32
+resolves here: fots's own two stems (s2d and canonical, the same
+function) differ by up to 4.5e-3 of a tensor's largest element.  The
+operators alone are held at 1e-4 of max|g| in
+``test_torch_port_train_ops.py``.  The training asset is regenerated and
+must be equal, pixels included.
 """
 
 import importlib.util
@@ -137,15 +140,17 @@ def test_train_step_loss_and_gradients_match_fots(step_inputs):
     grads = {n: p.grad for n, p in model.named_parameters()}
     flat = _flat(jgrads)
     assert len(flat) == len(grads)
-    norm_err = {}
+    norm_err, elem_err = {}, {}
     for key, g in flat.items():
         gt = grads[tck.torch_key(key)].numpy()
         if g.ndim == 4:
             gt = gt.transpose(2, 3, 1, 0)
         norm_err[key] = float(np.linalg.norm(gt - g) / np.linalg.norm(g))
+        elem_err[key] = float(np.abs(gt - g).max()) / (float(np.abs(g).max()) + 1e-30)
         assert norm_err[key] <= 5e-3, (key, norm_err[key])
-        assert float(np.abs(gt - g).max()) <= 3e-2 * float(np.abs(g).max()) + 1e-6, key
+        assert elem_err[key] <= 3e-2, (key, elem_err[key])
     assert float(np.median(list(norm_err.values()))) <= 2e-4
+    assert float(np.median(list(elem_err.values()))) <= 2e-4
 
 
 def jtrain_unpack(host, hw):
