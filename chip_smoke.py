@@ -13,8 +13,12 @@ result line):
    (batch 8, 640x960) give it, plus odd shapes; then its median time
    beside the plain version's, a library call's where one PyTorch call
    computes the same function, and the least time the card could take
-   (bytes moved over the memory rate, or operations over the f32 rate,
-   whichever is larger);
+   (bytes moved over the memory rate, or operations over the rate of
+   their type, whichever is larger).  K5' (the fused conv3x3 + instance
+   norm + residual + activation) is held at the shapes of the JAX package's
+   tests (f32, TF32 off for the plain version), one ragged shape and its
+   profile shape 16x88x160x128 bf16, and its gradients through the
+   ``autograd.Function`` against autograd of the plain version;
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
    on one serving batch of two smoke images at 704x1280 with the shipped
    snapshot: same box count per image, quad corners within 1 px,
@@ -36,10 +40,24 @@ result line):
    before; every loss finite, every training kernel launched, the total
    loss after 10 updates below the first step's; images/s over steps
    3..12 on the host clock (PyTorch's default math settings: cuDNN may use
-   TF32 for the convolutions).
+   TF32 for the convolutions);
+7. K5's own path (a main path): ``fots_torch.profiling``'s ``fused_block``
+   entry at the full shape 16x88x160x128 bf16 with the launch counts zeroed
+   just before: the numeric check, then K5' against the detector's
+   composition (cuDNN conv + K1' + add + ReLU) and against PyTorch calls
+   only;
+8. the evaluation path (a main path): ``fots_torch.cli.eval_e2e`` over the
+   16 held-out scenes of ``fots_torch/assets/heldout_eval_u8.npz`` with the
+   shipped snapshot: per image at the scenes' own size in f32 (TF32 off; the
+   launch counts zeroed just before), through ``-serve_hw 704x1280``, with
+   ``-beam 8`` and with ``-split_words``, each held to the JAX package's
+   own result on the same pixels (``heldout_eval_fots_cpu.json``: match,
+   detection and ground-truth counts within one, the same text on every
+   detection both have but for at most two argmax near-ties); then once in
+   bf16, reported and not held.
 
-Then it prints a ``{"kernels": [...]}`` JSON line, the serving and
-training JSON lines, the card's name and power limit from nvidia-smi, and
+Then it prints a ``{"kernels": [...]}`` JSON line, the serving, training,
+fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
 last the ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
 """
@@ -51,7 +69,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -69,12 +86,17 @@ TRAIN_HW = (640, 960)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 12
 TRAIN_LR = 1e-4
-PHASES = ("build", "kernels", "serve_parity", "serve", "train_parity", "train")
+EVAL_IMAGES = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")
+EVAL_REFERENCE = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_fots_cpu.json")
+FUSED_SHAPE = (16, 88, 160, 128)
+PHASES = ("build", "kernels", "serve_parity", "serve", "train_parity", "train",
+          "fused_block", "eval")
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# device-memory bytes/s and f32 (non-tensor-core) flop/s, by card name.
-_PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# device-memory bytes/s, f32 (non-tensor-core) flop/s and bf16 tensor-core
+# flop/s, by card name.
+_PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+          ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 
 # where each kernel's source lives and which TPU kernel it replaces
 KERNEL_META = {
@@ -85,13 +107,14 @@ KERNEL_META = {
     "spatial_norm": ("fots_torch/csrc/spatial_norm.cu", "fots/ops/instance_norm.py:263"),
     "pack_neighbors": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
     "pack_neighbors_bwd": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
+    "fused_block": ("fots_torch/csrc/fused_block.cu", "fots/ops/fused_block.py:222"),
 }
 
 
 def card_peaks(name: str):
-    for key, bw, f32 in _PEAKS:
+    for key, bw, f32, bf16 in _PEAKS:
         if key in name:
-            return key, bw, f32
+            return key, bw, f32, bf16
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
@@ -147,9 +170,11 @@ def load_assets():
 # --------------------------------------------------------------------------
 
 def phase_kernels(dev, peaks):
+    from fots_torch.ops import fused_block as tfb
     from fots_torch.ops import instance_norm as tin
     from fots_torch.ops import rroi_align as trr
     from fots_torch.pipeline import FOTSInference
+    from fots_torch.profiling import fused_block_inputs
 
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = SERVE_HW
@@ -287,11 +312,68 @@ def phase_kernels(dev, peaks):
         report("pack_neighbors_bwd", f"f32 {shape} bit-exact={equal}", equal,
                *errors(got, want))
 
+    def fused_inputs(shape, dtype, seed):
+        """Inputs at the scales of the JAX package's K5 tests."""
+        c = shape[-1]
+        g5 = torch.Generator(device=dev).manual_seed(seed)
+
+        def rn(sh, scale=1.0, shift=0.0):
+            return torch.randn(sh, generator=g5, device=dev) * scale + shift
+
+        return (rn(shape).to(dtype), rn((3, 3, c, c), 0.05), rn(c, 0.3, 1.0), rn(c, 0.1),
+                rn(shape).to(dtype))
+
+    def fused_case(shape, dtype, slope, with_res, seed=0, abs_limit=None):
+        """K5' against its plain version.  f32: |err| <= 2e-5 (1 + |ref|), the
+        limit of the JAX package's test (another summation order; the plain
+        version's convolution runs without TF32).  bf16: within 2 bf16 ulp of
+        max |ref| (kernel and plain version each round the convolution and
+        the output to bf16 once, from f32 sums taken in another order), or
+        ``abs_limit`` at the profile shape (that test's 0.1)."""
+        x, wk, sc, bi, r = fused_inputs(shape, dtype, seed)
+        res = r if with_res else None
+        got = tfb.fused_conv3x3_in_act(x, wk, sc, bi, res, 1e-5, slope)
+        with no_tf32():
+            want = tfb.conv_in_act_reference(x, wk, sc, bi, res, 1e-5, slope)
+        again = tfb.conv_in_act_cuda(x, wk, sc, bi, res, 1e-5, slope)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == x.shape, "fused_block shape/dtype")
+        check(bool(torch.isfinite(got.float()).all()), "fused_block output not finite")
+        check(bool(torch.equal(got, again)), "fused_block differs from run to run")
+        d = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if dtype == torch.float32:
+            ok = bool((d <= 2e-5 * (1 + want.abs())).all())
+        elif abs_limit is not None:
+            ok = float(d.max()) <= abs_limit
+        else:
+            ok = float(d.max()) <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        report("fused_block", f"{str(dtype)[6:]} {shape} slope={slope} residual={with_res}",
+               ok, *errors(got, want))
+
+    def fused_grad_case(shape):
+        """Gradients of sum(y^2) through the autograd.Function (kernel forward,
+        plain backward) against autograd of the plain version: each within
+        1e-4 of its tensor's max (the two forwards differ by ~1e-6)."""
+        ins = [t.requires_grad_(True) for t in fused_inputs(shape, torch.float32, 2)]
+        with no_tf32():
+            (tfb.fused_conv3x3_in_act(*ins) ** 2).sum().backward()
+            got = [t.grad.clone() for t in ins]
+            for t in ins:
+                t.grad = None
+            (tfb.conv_in_act_reference(*ins) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        for name, g, t in zip(("dx", "dw", "dscale", "dbias", "dresidual"), got, ins):
+            ab, rel = errors(g, t.grad)
+            report("fused_block", f"gradient {name} {shape}", rel <= 1e-4, ab, rel)
+
     print("phase 2: kernels vs plain versions (tolerances: instance_norm and the "
           "CReLU-IN f32 |err| <= 1e-4 (1 + |ref|), bf16 |err| <= 2^-7 |ref| + 1e-3; "
           "instance_norm_bwd max |err| <= 1e-4 max |ref| + 1e-6 per tensor; "
           "spatial_stats |err| <= 1e-5 sum|x| + 1e-6; spatial_norm, pack_neighbors "
-          "and pack_neighbors_bwd bit-exact)")
+          "and pack_neighbors_bwd bit-exact; fused_block f32 |err| <= 2e-5 (1 + |ref|), "
+          "bf16 max |err| <= 2 bf16 ulp of max |ref|, 0.1 at the profile shape, "
+          "identical from run to run, gradients within 1e-4 of each tensor's max)")
     # (h, w, c, affine, slope) of every K1' InstanceNorm of the detector
     # (layer1..layer4 in1/in2/sep1 norms), at a scale's fraction of (h0, w0)
     def in_shapes(h0, w0):
@@ -347,16 +429,32 @@ def phase_kernels(dev, peaks):
     for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (3, 5, 7, 8), (2, 3, 5, 4)):
         pack_bwd_case(shape)
 
+    # K5': the JAX package's test shapes (f32), a ragged shape (H, W not
+    # multiples of 8, C = 48), bf16, and the profile shape
+    for slope in (None, 0.01):
+        for with_res in (True, False):
+            fused_case((2, 32, 48, 64), torch.float32, slope, with_res)
+    fused_case((1, 40, 32, 64), torch.float32, None, True, seed=3)
+    fused_case((2, 16, 32, 128), torch.float32, 0.01, True, seed=4)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused_case((2, 13, 21, 48), dtype, 0.01, True, seed=5)
+    fused_case((1, 9, 70, 16), torch.bfloat16, None, False, seed=6)
+    fused_case((2, 32, 48, 64), torch.bfloat16, None, True, seed=1)
+    fused_case(FUSED_SHAPE, torch.bfloat16, None, True, abs_limit=0.1)
+    fused_case(FUSED_SHAPE, torch.bfloat16, 0.01, False, abs_limit=0.1)
+    fused_grad_case((2, 32, 48, 64))
+
     # times: serving kernels at the serving shape (bf16), training kernels
-    # at the training shape (f32)
-    _, bw, f32_rate = peaks
+    # at the training shape (f32), K5' at its profile shape (bf16)
+    _, bw, f32_rate, bf16_rate = peaks
     rows = {}
 
-    def row(name, shape, dtype, kernel, plain, library, nbytes, ops, library_note=None):
+    def row(name, shape, dtype, kernel, plain, library, nbytes, ops, library_note=None,
+            rate=f32_rate, **extra):
         rows[name] = dict(ms=cuda_median_ms(kernel), plain_ms=cuda_median_ms(plain),
                           library_ms=None if library is None else cuda_median_ms(library),
-                          library_note=library_note, bound=(nbytes / bw, ops / f32_rate),
-                          shape=list(shape), dtype=dtype)
+                          library_note=library_note, bound=(nbytes / bw, ops / rate),
+                          shape=list(shape), dtype=dtype, extra=extra)
 
     x = rand((BATCH, H // 4, W // 4, 64), torch.bfloat16)
     scale, bias = rand(64), rand(64)
@@ -409,6 +507,30 @@ def phase_kernels(dev, peaks):
         lambda: trr.pack_neighbors_bwd_ref(gq, tuple(xt.shape)),
         lambda: acc.index_add_(0, quad_index, gq_rows), 5 * nbt, 3 * xt.numel(),
         "index_add_ of the 4N quad rows into N + W + 1 rows")
+
+    # K5' at the profile entry's own inputs.  Its bound counts x, the
+    # residual and the weights read once, the output written once, and one
+    # convolution at the bf16 tensor-core rate; beside it the least time of
+    # the two designs: the TPU kernel's (convolve twice, four activation
+    # tensors) and this kernel's (convolve once, five: it writes and reads
+    # the pre-norm output)
+    fx, fw, fg, fb_, fr = fused_block_inputs(FUSED_SHAPE, dev)
+    n5, h5, w5, c5 = FUSED_SHAPE
+    act_bytes = fx.numel() * fx.element_size()
+    conv_ops = 2 * 9 * c5 * c5 * n5 * h5 * w5
+    w_oihw = fw.to(fx.dtype).permute(3, 2, 0, 1).contiguous()
+    fr_nchw, fg_t, fb_t = fr.permute(0, 3, 1, 2), fg.to(fx.dtype), fb_.to(fx.dtype)
+    row("fused_block", FUSED_SHAPE, "bf16",
+        lambda: tfb.conv_in_act_cuda(fx, fw, fg, fb_, fr),
+        lambda: tfb.conv_in_act_reference(fx, fw, fg, fb_, fr),
+        lambda: torch.relu(torch.nn.functional.instance_norm(
+            torch.nn.functional.conv2d(fx.permute(0, 3, 1, 2), w_oihw, padding=1),
+            weight=fg_t, bias=fb_t, eps=1e-5) + fr_nchw),
+        3 * act_bytes + 9 * c5 * c5 * 2 + 2 * c5 * 4, conv_ops,
+        "F.conv2d + F.instance_norm + add + relu: four PyTorch calls, no single one "
+        "computes the function", rate=bf16_rate,
+        bound_ms_recompute_design=1e3 * max(4 * act_bytes / bw, 2 * conv_ops / bf16_rate),
+        bound_ms_compute_once_design=1e3 * max(5 * act_bytes / bw, conv_ops / bf16_rate))
 
     # the stem's CReLU-IN as served now (K2' + fold + K3') and as PR 1 ran
     # it (torch.cat + K1'), for the record
@@ -632,6 +754,123 @@ def phase_train(images, targets):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 7: K5's own path; phase 8: the evaluation path
+# --------------------------------------------------------------------------
+
+def phase_fused_block():
+    """K5's entry point at the full shape: a main path for the counts."""
+    from fots_torch.kernels import build
+    from fots_torch.profiling import profile_fused_block
+
+    print(f"phase 7: fots_torch.profiling --path fused_block at {FUSED_SHAPE} bf16")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    out = profile_fused_block(FUSED_SHAPE, iters=10)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    for name in build.PATH_KERNELS["fused_block"]:
+        check(launches[name] > 0, f"kernel {name} was not launched by its profiling entry")
+    check(out["max_abs_err"] <= 0.1, f"K5' differs from its plain version by "
+          f"{out['max_abs_err']} at the profile shape")
+    for name in ("composition", "library", "cuda_fused"):
+        check(math.isfinite(out[name]["ms_per_iter"]) and out[name]["ms_per_iter"] > 0,
+              f"{name}: no time")
+    print(f"  launches {launches['fused_block']} (the check, a warm-up and 5 timed programs of "
+          f"10 chained iterations, 5 profiled calls); "
+          f"composition {out['composition']['ms_per_iter']:.4f} ms, library "
+          f"{out['library']['ms_per_iter']:.4f} ms, K5' {out['cuda_fused']['ms_per_iter']:.4f} "
+          f"ms per iteration; fused_speedup {out['fused_speedup']:.3f}")
+    return launches, out
+
+
+def _match_dumps(got, want, max_px=2.0):
+    """Pair the detections of two per-image dumps by box (every corner within
+    ``max_px``).  Returns (pairs with the same text, pairs whose texts differ,
+    detections only one side has)."""
+    same = differ = alone = 0
+    for g_img, w_img in zip(got, want):
+        left = list(w_img["detections"])
+        for g in g_img["detections"]:
+            gb = np.asarray(g["box"])
+            hit = next((w for w in left
+                        if np.abs(np.asarray(w["box"]) - gb).max() <= max_px), None)
+            if hit is None:
+                alone += 1
+                continue
+            left.remove(hit)
+            if hit["text"] == g["text"]:
+                same += 1
+            else:
+                differ += 1
+        alone += len(left)
+    return same, differ, alone
+
+
+def phase_eval():
+    """The evaluation CLI over the held-out scenes, against the JAX package's
+    stored result on the same pixels: a main path for the counts."""
+    from fots_torch.cli.detect import load_engine
+    from fots_torch.cli.eval_e2e import evaluate, load_images_npz
+    from fots_torch.kernels import build
+
+    with open(EVAL_REFERENCE) as f:
+        reference = json.load(f)["runs"]
+    data = load_images_npz(EVAL_IMAGES)
+    n_images = len(data[0])
+    print(f"phase 8: eval_e2e over {n_images} held-out scenes {data[0].shape[1:3]}, the "
+          "shipped snapshot, against fots (f32, CPU) on the same pixels")
+    runs = (("per_image", "per_image", {}, {}, False),
+            ("serve_704x1280", "serve_704x1280", {}, {"serve_hw": SERVE_HW}, False),
+            ("beam8", "beam8", {"beam": 8}, {}, False),
+            ("split_words", "split_words", {}, {"split_words": True}, False),
+            ("per_image_bf16", "per_image", {}, {}, True))
+    out, launches = {}, None
+    for name, ref_name, engine_kw, eval_kw, bf16 in runs:
+        ref = reference[ref_name]
+        with no_tf32(), load_engine(SNAPSHOT, mixed_precision=bf16, device="cuda",
+                                    **engine_kw) as engine:
+            # warm-up, not counted: cuDNN's algorithm search at this run's shapes
+            evaluate(engine, *(d[:1] for d in data), log_every=0, **eval_kw)
+            torch.cuda.synchronize()
+            if launches is None:  # the CLI's default flags: the path that is counted
+                build.reset_launch_counts()
+            summary, m, dump, seconds = evaluate(engine, *data, log_every=0, **eval_kw)
+            torch.cuda.synchronize()
+            if launches is None:
+                launches = dict(build.launch_counts)
+        counts = {"tp": m.tp_all, "tp_e2e": m.tp_e2e_all, "tp_e2e_ed1": m.tp_e2e_ed1_all,
+                  "detections": m.detections_all, "gt": m.gt_all}
+        same, differ, alone = _match_dumps(dump, ref["images"])
+        out[name] = {"counts": counts, "fots_counts": ref["counts"],
+                     "detection_hmean": summary["detection_hmean"],
+                     "e2e_hmean": summary["e2e_hmean"],
+                     "fots_detection_hmean": ref["summary"]["detection_hmean"],
+                     "fots_e2e_hmean": ref["summary"]["e2e_hmean"],
+                     "detections_with_same_text": same, "with_other_text": differ,
+                     "only_one_side": alone, "images_per_s": n_images / seconds,
+                     "dtype": "bf16" if bf16 else "f32 (TF32 off)", "held": not bf16}
+        print(f"  {name}: port {counts} det hmean {summary['detection_hmean']:.4f} e2e hmean "
+              f"{summary['e2e_hmean']:.4f}; fots {ref['counts']} det "
+              f"{ref['summary']['detection_hmean']:.4f} e2e {ref['summary']['e2e_hmean']:.4f}; "
+              f"paired detections: {same} same text, {differ} other text, {alone} unpaired; "
+              f"{n_images / seconds:.2f} images/s{'' if not bf16 else '  (reported, not held)'}")
+        for k in ("detection_hmean", "e2e_hmean"):
+            check(math.isfinite(summary[k]) and 0.0 < summary[k] <= 1.0, f"{name}: {k}")
+        if bf16:
+            continue
+        check(counts["gt"] == ref["counts"]["gt"], f"{name}: ground-truth counts differ")
+        for k in ("tp", "tp_e2e", "detections"):
+            check(abs(counts[k] - ref["counts"][k]) <= 1,
+                  f"{name}: {k} {counts[k]} vs fots {ref['counts'][k]}")
+        check(differ <= 2 and alone <= 2,
+              f"{name}: {differ} paired detections read differently, {alone} unpaired")
+    for kname in build.PATH_KERNELS["evaluation"]:
+        check(launches[kname] > 0, f"kernel {kname} was not launched on the evaluation path")
+    print(f"  launches {launches} over {n_images} images (per-image path, f32)")
+    return launches, {"scenes": n_images, "runs": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -648,13 +887,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     from fots_torch.kernels import build
+    from fots_torch.profiling import card_name_and_power_limit
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     print(f"device {name}, {torch.cuda.device_count()} visible; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}; peaks assumed for "
-          f"{peaks[0]}: {peaks[1] / 1e12} TB/s, {peaks[2] / 1e12} TFLOP/s f32")
+          f"{peaks[0]}: {peaks[1] / 1e12} TB/s, {peaks[2] / 1e12} TFLOP/s f32, "
+          f"{peaks[3] / 1e12} TFLOP/s bf16 (tensor cores)")
 
     t0 = time.perf_counter()
     logs = build.build()
@@ -676,9 +917,11 @@ def main(argv=None) -> int:
         results["train_parity"] = phase_train_parity(images, targets)
     if "train" in phases:
         results["train"] = phase_train(images, targets)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
+    if "fused_block" in phases:
+        results["fused_block"] = phase_fused_block()
+    if "eval" in phases:
+        results["eval"] = phase_eval()
+    smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
         print(smi)
@@ -687,11 +930,14 @@ def main(argv=None) -> int:
     worst, rows, crelu = results["kernels"]
     serve_launches, ips = results["serve"]
     train_launches, train = results["train"]
+    fused_launches, fused = results["fused_block"]
+    eval_launches, evaluation = results["eval"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
         by_bytes, by_ops = r["bound"]
-        paths = {"serving": serve_launches[kname], "training": train_launches[kname]}
+        paths = {"serving": serve_launches[kname], "training": train_launches[kname],
+                 "fused_block": fused_launches[kname], "evaluation": eval_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -702,6 +948,8 @@ def main(argv=None) -> int:
             "shape": r["shape"], "dtype": r["dtype"], "paths": paths,
             "launches_per_serving_batch": paths["serving"] / STREAM_BATCHES,
             "launches_per_train_step": paths["training"] / TRAIN_STEPS,
+            "launches_per_eval_image": paths["evaluation"] / evaluation["scenes"],
+            **r["extra"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {"images_per_s": ips, "batch": BATCH,
@@ -710,6 +958,8 @@ def main(argv=None) -> int:
                               "cuda_vs_cpu_max_corner_px": results["serve_parity"],
                               "stem_crelu_ms": crelu}}))
     print(json.dumps({"train": {**train, "cuda_vs_cpu": results["train_parity"]}}))
+    print(json.dumps({"fused_block": fused}))
+    print(json.dumps({"eval": evaluation}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """CTC label codec: the port's own copy of ``fots.codec.LabelCodec``.
 
 Ids: blank = 0, ``alphabet[i] = i + 1``; greedy decode collapses repeats,
-then drops blanks.  Ported: the batched decode of the serving path and the
-encoders of the training path.
+then drops blanks.  Ported: the batched decode of the serving path, the
+per-sequence decode the beam search uses, the encoders of the training path
+and the edit distance of the evaluation.
 """
 
 from __future__ import annotations
@@ -63,6 +64,20 @@ class LabelCodec:
             lengths[i] = n
         return out, lengths
 
+    def decode_ids(self, ids: Sequence[int], raw: bool = False) -> str:
+        """CTC-collapse decode of one id sequence: drop blanks (0) and
+        repeated ids, map ``i -> alphabet[i - 1]``.  ``raw``: the ids are
+        labels already (a beam hypothesis), only mapped."""
+        if raw:
+            return "".join(self.alphabet[i - 1] for i in ids if 0 < i <= len(self.alphabet))
+        chars = []
+        prev = 0
+        for i in ids:
+            if i != 0 and i != prev and 0 < i <= len(self.alphabet):
+                chars.append(self.alphabet[i - 1])
+            prev = i
+        return "".join(chars)
+
     def decode_batch(self, ids: np.ndarray) -> List[str]:
         """CTC-collapse decode of a ``[N, T]`` greedy id matrix: drop repeats
         of the previous id, then blanks and out-of-alphabet ids."""
@@ -82,3 +97,18 @@ class LabelCodec:
         offs = np.zeros(n + 1, np.int64)
         np.cumsum(keep.sum(axis=1), out=offs[1:])
         return [s[offs[i]:offs[i + 1]] for i in range(n)]
+
+
+def levenshtein(a: str, b: str) -> int:
+    """Edit distance between two strings."""
+    if len(a) < len(b):
+        a, b = b, a
+    if not b:
+        return len(a)
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
+        prev = cur
+    return prev[-1]

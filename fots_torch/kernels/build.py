@@ -37,6 +37,7 @@ SOURCES = {
     "instance_norm_bwd": "instance_norm_bwd.cu",
     "spatial_norm": "spatial_norm.cu",
     "pack_neighbors": "pack_neighbors.cu",
+    "fused_block": "fused_block.cu",
     "nms_core": "nms_core.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
@@ -50,12 +51,17 @@ CUDA_KERNELS = {
     "spatial_norm": "spatial_norm",            # K3'
     "pack_neighbors": "pack_neighbors",        # K4'
     "pack_neighbors_bwd": "pack_neighbors",    # K4'-bwd
+    "fused_block": "fused_block",              # K5'
 }
-#: the kernels each main path launches (serving: bf16 inference; training:
-#: forward and backward of the joint step)
+#: the kernels each main path launches (serving and evaluation: inference;
+#: training: forward and backward of the joint step; fused_block: K5's own
+#: profiling entry, the only path that runs it, as in the JAX package)
+_SERVING = ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors")
 PATH_KERNELS = {
-    "serving": ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors"),
-    "training": tuple(CUDA_KERNELS),
+    "serving": _SERVING,
+    "evaluation": _SERVING,
+    "training": _SERVING + ("instance_norm_bwd", "pack_neighbors_bwd"),
+    "fused_block": ("fused_block",),
 }
 
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -185,6 +185,11 @@ class FOTSDetector(nn.Module):
             "focr": focr.permute(0, 2, 3, 1),
         }
 
+    def forward_features(self, images):
+        """Stem only: images [B, H, W, 3] (NHWC, normalized) -> the shared
+        OCR features [B, H/4, W/4, 64] (NHWC)."""
+        return self.stem(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
     def recognize(self, strips, valid_w=None,
                   generator: Optional[torch.Generator] = None):
         """CTC head over RoIRotated NHWC strips -> [N, W, nclass] log-probs."""

@@ -1,7 +1,9 @@
-"""Batched end-to-end serving: letterbox -> detect -> NMS -> recognize.
+"""End-to-end inference: letterbox -> detect -> NMS -> recognize.
 
-Port of the serving path of ``fots/pipeline.py`` (``FOTSInference.batch_call``
-and ``stream``):
+Port of ``fots/pipeline.py``: the batched serving path
+(``FOTSInference.batch_call`` and ``stream``) and the per-image path of the
+evaluation (``__call__`` -> ``detect`` -> ``recognize_boxes``, with beam
+decoding, word splitting, the box cap and the crop margin).  Serving:
 
   u8 images -> [device] letterbox + FOTSDetector forward + top-k NMS
                candidates (u16 pack) + focr neighbour pack
@@ -16,28 +18,32 @@ the host waits on only when it needs the values.  ``stream`` keeps two
 detections and two recognitions in flight, so host NMS and decoding
 overlap the next batch's device work.
 
-Left out of this port so far: the host cv2 letterbox (a batch must share
-one source shape), the yuv420 transport, beam decoding, word splitting,
-recognition from the raw image, and the mesh.
+The per-image path runs one image at its own /32 size through the same
+detection and recognition calls and waits for each result.
+
+Left out of this port so far: the yuv420 transport and the mesh.
 """
 
 from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fots_torch.codec import LabelCodec
-from fots_torch.device import resolve_device
-from fots_torch.geometry import TARGET_H, rroi_from_box, strip_width_for_box
+from fots_torch.device import resolve_device, to_device_async
+from fots_torch.geometry import (TARGET_H, resize_bilinear_u8, resize_to_multiple_of_32,
+                                 rroi_from_box, strip_width_for_box)
 from fots_torch.models.detector import FOTSDetector
+from fots_torch.ops.ctc_decode import prefix_beam_search_topk
 from fots_torch.ops.nms import (extract_candidates, get_boxes_from_candidates_batch,
                                 pack_candidates_u16)
-from fots_torch.ops.rroi_align import pack_neighbors, rroi_align_packed
+from fots_torch.ops.rroi_align import pack_neighbors, rroi_align, rroi_align_packed
+from fots_torch.wordsplit import split_detection
 
 # Strip-width buckets; the coarse grid matches training without masked IN,
 # the fine grid serves checkpoints trained with masked InstanceNorm (strip
@@ -136,10 +142,22 @@ class FOTSInference:
     runs the kernels' plain versions.  ``mixed_precision`` casts the
     backbone and recognizer to bf16 (heads and attention stay f32).
     ``masked_norm`` selects masked recognition IN and the fine bucket grid
-    (set it from the snapshot's config).  Close the engine (or use it as a
-    context manager) to stop its NMS thread pool.
+    (set it from the snapshot's config).  ``beam`` > 0 decodes the per-image
+    path (``__call__`` / ``recognize_boxes``) with a prefix beam search of
+    that width on the host, over the device's per-frame top-k log-probs; the
+    batched stream stays greedy.  ``max_boxes`` caps the detections per image
+    that enter recognition (top by NMS score; None recognizes everything).
+    ``expand_w_frac`` widens every crop by that fraction of the box height.
+    ``device_letterbox`` (the serving setting, and the default here) resizes
+    a batch of one source shape on the device in f32; without it, as for a
+    batch of mixed shapes, each image is resized on the host and rounded to
+    u8, which is what ``fots``'s CLIs do.
+    Close the engine (or use it as a context manager) to stop its NMS thread
+    pool.
     """
 
+    #: per-frame symbols brought to the host beam search
+    BEAM_TOPK = 16
     _DUMMY_ROI = (0.0, 8.0, 8.0, 8.0, 8.0, 0.0)
     #: strip columns (rois x bucket width) per recognition call; sets the
     #: fixed roi chunk of each width
@@ -149,7 +167,8 @@ class FOTSInference:
                  iou_th1: float = 0.4, iou_th2: float = 0.2,
                  mixed_precision: bool = False, max_candidates: int = 8192,
                  masked_norm: bool = False, cand_transport: str = "u16",
-                 device=None):
+                 device=None, expand_w_frac: float = 0.0, beam: int = 0,
+                 max_boxes: Optional[int] = None, device_letterbox: bool = True):
         if cand_transport not in ("u16", "f32"):
             raise ValueError(f"unknown cand_transport {cand_transport!r}")
         self.device = resolve_device(device)
@@ -167,6 +186,10 @@ class FOTSInference:
         self.masked_norm = masked_norm
         self.strip_buckets = FINE_STRIP_BUCKETS if masked_norm else STRIP_BUCKETS
         self.cand_transport = cand_transport
+        self.expand_w_frac = expand_w_frac
+        self.beam = int(beam)
+        self.max_boxes = max_boxes
+        self.device_letterbox = device_letterbox
         self._tables = {}  # letterbox tap tables on the device, by shape pair
         self._pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="fots-nms")
 
@@ -182,35 +205,43 @@ class FOTSInference:
     # -------- detection --------
 
     def _letterbox(self, images_bgr: List[np.ndarray], serve_hw):
-        """Stack a same-shape u8 batch for the device letterbox; returns
-        (raw [B, h, w, 3] u8, per-image scale)."""
-        shapes = {im.shape for im in images_bgr}
-        if len(shapes) != 1:
-            raise ValueError(
-                f"batch mixes source shapes {sorted(shapes)}: fots_torch serves "
-                "with the device letterbox only, which needs one source shape "
-                "per batch (the host cv2 letterbox is not ported); group the "
-                "images by shape")
-        raw = np.stack(images_bgr)
-        if raw.dtype != np.uint8 or raw.ndim != 4 or raw.shape[-1] != 3:
-            raise ValueError(f"expected u8 [h, w, 3] images, got {raw.dtype} "
-                             f"{raw.shape[1:]}")
-        h0, w0 = raw.shape[1:3]
-        s = min(serve_hw[0] / h0, serve_hw[1] / w0)
-        return raw, [s] * len(images_bgr)
+        """(u8 batch, per-image scale) for :meth:`_dispatch_detect`.  Under
+        ``device_letterbox`` a batch of one source shape is only stacked: the
+        device letterboxes it.  Otherwise the batch is letterboxed here,
+        image by image (bilinear resize, zero padding, which normalizes to
+        the background value), to [B, H, W, 3] at ``serve_hw``."""
+        for im in images_bgr:
+            if im.dtype != np.uint8 or im.ndim != 3 or im.shape[-1] != 3:
+                raise ValueError(f"expected u8 [h, w, 3] images, got {im.dtype} {im.shape}")
+        H, W = serve_hw
+        scales = [min(H / im.shape[0], W / im.shape[1]) for im in images_bgr]
+        if self.device_letterbox and len({im.shape for im in images_bgr}) == 1:
+            return np.stack(images_bgr), scales
+        batch = np.zeros((len(images_bgr), H, W, 3), np.uint8)
+        for i, (im, s) in enumerate(zip(images_bgr, scales)):
+            nh, nw = int(im.shape[0] * s), int(im.shape[1] * s)
+            batch[i, :nh, :nw] = resize_bilinear_u8(im, (nw, nh))
+        return batch, scales
 
     @torch.inference_mode()
     def _dispatch_detect(self, raw: np.ndarray, serve_hw):
         """Queue letterbox + forward + candidate extraction + focr pack;
-        returns (candidate pack on its way to the host, PackedFocr)."""
-        x = torch.from_numpy(raw)
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        key = (raw.shape[1:3], tuple(serve_hw))
-        if key not in self._tables:  # a blocking upload, once per shape pair
-            self._tables[key] = letterbox_tables(key[0], key[1], self.device)
-        x = device_letterbox_batch(x, serve_hw, self._tables[key]).to(self.compute_dtype)
-        out = self.model(x)
+        returns (candidate pack on its way to the host, PackedFocr).  ``raw``
+        [B, h, w, 3]: u8 pixels, normalized here (and letterboxed, unless
+        already at ``serve_hw``), or f32 already normalized at ``serve_hw``."""
+        x = to_device_async(torch.from_numpy(raw), self.device)
+        key = (tuple(raw.shape[1:3]), tuple(serve_hw))
+        if raw.dtype != np.uint8:
+            if raw.dtype != np.float32 or key[0] != key[1]:
+                raise ValueError("a float batch must be f32, normalized and at the "
+                                 f"serving size {key[1]}; got {raw.dtype} {key[0]}")
+        elif key[0] == key[1]:
+            x = x.float() / 128.0 - 1.0
+        else:
+            if key not in self._tables:  # a blocking upload, once per shape pair
+                self._tables[key] = letterbox_tables(key[0], key[1], self.device)
+            x = device_letterbox_batch(x, serve_hw, self._tables[key])
+        out = self.model(x.to(self.compute_dtype))
         cands = extract_candidates(
             out["segm"][0][..., 0].float(), out["rbox"][0].float(),
             out["angle"][0].float(), self.max_candidates, self.segm_thresh)
@@ -225,9 +256,36 @@ class FOTSInference:
         cands = cands_copy.numpy()
         if cands.dtype == np.int16:
             cands = cands.view(np.uint16)
-        return get_boxes_from_candidates_batch(
+        return self._cap_boxes(get_boxes_from_candidates_batch(
             cands[:n], serve_hw[0] // 4, serve_hw[1] // 4, self.segm_thresh,
-            self.iou_th1, self.iou_th2, pool=self._pool)
+            self.iou_th1, self.iou_th2, pool=self._pool))
+
+    def _cap_boxes(self, per_image_boxes):
+        """The top ``max_boxes`` by score per image, in their NMS order."""
+        if self.max_boxes is None:
+            return per_image_boxes
+        out = []
+        for b in per_image_boxes:
+            if b.shape[0] > self.max_boxes:
+                keep = np.argsort(-b[:, 8], kind="stable")[: self.max_boxes]
+                b = b[np.sort(keep)]
+            out.append(b)
+        return out
+
+    def detect_boxes_batch(self, batch: np.ndarray):
+        """Detection of a batch already at its serving size: [B, H, W, 3] u8
+        pixels or normalized f32.  Device candidate extraction, host NMS, the
+        box cap.  Returns (per-image boxes [M, 9], PackedFocr)."""
+        hw = tuple(batch.shape[1:3])
+        cands, focr = self._dispatch_detect(batch, hw)
+        return self._host_boxes(cands, batch.shape[0], hw), focr
+
+    def detect(self, image_bgr: np.ndarray, scale_up: bool = False):
+        """Detect text boxes in one raw u8 BGR image.  Returns (boxes [N, 9] in
+        resized-image pixels, PackedFocr, the image resized to /32 sides)."""
+        im_resized, _ = resize_to_multiple_of_32(image_bgr, scale_up=scale_up)
+        boxes, focr = self.detect_boxes_batch(np.ascontiguousarray(im_resized[None]))
+        return boxes[0], focr, im_resized
 
     # -------- recognition --------
 
@@ -260,8 +318,8 @@ class FOTSInference:
         num = torch.sum(torch.exp(logp_max.float()) * mask, dim=-1)
         return num / torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
 
-    def _recognize(self, focr: PackedFocr, rois, width: int):
-        """RoIRotate + CTC head + argmax of one roi chunk -> (ids, conf)."""
+    def _strip_logp(self, focr: PackedFocr, rois, width: int):
+        """RoIRotate + CTC head of one roi chunk -> log-probs [N, width, K]."""
         strips = rroi_align_packed(focr.quads, focr.shape, rois, TARGET_H,
                                    width, 0.25)
         valid_w = None
@@ -269,11 +327,95 @@ class FOTSInference:
             aspect = rois[:, 4] / torch.clamp_min(rois[:, 3], 1e-6)
             valid_w = torch.clamp(torch.ceil(TARGET_H * aspect), 1,
                                   width).to(torch.int32)
-        logp = self.model.recognize(strips, valid_w)
+        return self.model.recognize(strips, valid_w)
+
+    def _ids_conf(self, logp):
+        """Greedy ids (u8 when the vocabulary fits) and the box confidence."""
         logp_max, ids = torch.max(logp, dim=-1)
         conf = self._box_conf(ids, logp_max)
-        ids = ids.to(torch.uint8 if self.model.nclass <= 255 else torch.int32)
-        return ids, conf
+        return ids.to(torch.uint8 if self.model.nclass <= 255 else torch.int32), conf
+
+    def _recognize(self, focr: PackedFocr, rois, width: int):
+        """RoIRotate + CTC head + argmax of one roi chunk -> (ids, conf)."""
+        return self._ids_conf(self._strip_logp(focr, rois, width))
+
+    def _recognize_topk(self, focr: PackedFocr, rois, width: int):
+        """Beam-decode variant: also each frame's top-k symbol log-probs and
+        the blank's, for the host prefix beam search."""
+        logp = self._strip_logp(focr, rois, width)
+        ids, conf = self._ids_conf(logp)
+        top_lp, top_ids = torch.topk(logp.float(), min(self.BEAM_TOPK, logp.shape[-1]),
+                                     dim=-1)
+        return ids, conf, top_lp, top_ids, logp[..., 0].float()
+
+    def _recognize_from_image(self, images_norm, rois, width: int):
+        """Crop the normalized image itself at strip height ``4 * TARGET_H -
+        4``, run the stem over the crops, then the CTC head (no masking)."""
+        # a fourth zero channel makes a pixel 16 bytes, which the pack needs
+        crops = rroi_align(F.pad(images_norm, (0, 1)), rois, 4 * TARGET_H - 4,
+                           width, 1.0)[..., :3]
+        feats = self.model.forward_features(crops.to(self.compute_dtype))
+        return self._ids_conf(self.model.recognize(feats))
+
+    @torch.inference_mode()
+    def recognize_boxes(self, boxes: np.ndarray, focr=None, batch_index: int = 0,
+                        images_norm=None, return_ids: bool = False):
+        """RoIRotate + CTC head over all boxes of one image, bucketed by strip
+        width.  Crops the shared 1/4-scale features when ``focr`` is given (a
+        :class:`PackedFocr` or a raw [B, H, W, C] map), or the normalized
+        image ``images_norm`` [B, H, W, 3] itself.  Returns the texts, or
+        (texts, frame ids, confidences) with ``return_ids``."""
+        n = boxes.shape[0]
+        if n == 0:
+            return ([], [], []) if return_ids else []
+        buckets: Dict[int, List[int]] = {}
+        rois = np.zeros((n, 6), np.float32)
+        for i in range(n):
+            roi, w, h = rroi_from_box(boxes[i], batch_index, self.expand_w_frac)
+            rois[i] = roi
+            buckets.setdefault(
+                strip_width_for_box(w, h, buckets=self.strip_buckets), []).append(i)
+        if images_norm is not None:
+            images_norm = torch.as_tensor(images_norm, dtype=torch.float32,
+                                          device=self.device)
+        elif not isinstance(focr, PackedFocr):
+            focr = PackedFocr(pack_neighbors(focr), tuple(focr.shape))
+
+        texts = [""] * n
+        ids_out: List[Optional[np.ndarray]] = [None] * n
+        confs = np.zeros((n,), np.float32)
+        for width, idxs in sorted(buckets.items()):
+            pieces = []
+            if images_norm is not None:
+                sel = to_device_async(torch.from_numpy(rois[np.asarray(idxs)]), self.device)
+                ids, conf = self._recognize_from_image(images_norm, sel, width * 4)
+                pieces.append((idxs, ids, conf, None))
+            else:
+                for chunk, sel in self._roi_chunks(rois, idxs, width):
+                    sel = to_device_async(torch.from_numpy(sel), self.device)
+                    if self.beam > 0:
+                        ids, conf, *beams = self._recognize_topk(focr, sel, width)
+                        beams = [t.cpu().numpy() for t in beams]
+                    else:
+                        ids, conf = self._recognize(focr, sel, width)
+                        beams = None
+                    pieces.append((chunk, ids, conf, beams))
+            for idx_chunk, ids, conf, beams in pieces:
+                ids = ids.cpu().numpy()[: len(idx_chunk)]
+                conf = conf.cpu().numpy()[: len(idx_chunk)]
+                decoded = self.codec.decode_batch(ids)
+                if beams is not None:
+                    top_lp, top_ids, blank_lp = beams
+                    for j in range(len(idx_chunk)):
+                        hyp = prefix_beam_search_topk(top_ids[j], top_lp[j], blank_lp[j],
+                                                      beam_width=self.beam)
+                        if hyp:
+                            decoded[j] = self.codec.decode_ids(hyp[0][0], raw=True)
+                for j, i in enumerate(idx_chunk):
+                    texts[i] = decoded[j]
+                    ids_out[i] = ids[j]
+                    confs[i] = conf[j]
+        return (texts, ids_out, confs) if return_ids else texts
 
     @torch.inference_mode()
     def _recognize_dispatch(self, per_image_boxes, focr: PackedFocr):
@@ -284,7 +426,7 @@ class FOTSInference:
         buckets: Dict[int, List[int]] = {}
         for i, boxes in enumerate(per_image_boxes):
             for j in range(boxes.shape[0]):
-                roi, w, h = rroi_from_box(boxes[j], i)
+                roi, w, h = rroi_from_box(boxes[j], i, self.expand_w_frac)
                 buckets.setdefault(
                     strip_width_for_box(w, h, buckets=self.strip_buckets), []
                 ).append(len(all_rois))
@@ -295,17 +437,18 @@ class FOTSInference:
             rois_arr = np.asarray(all_rois, np.float32)
             for width, idxs in sorted(buckets.items()):
                 for chunk, sel in self._roi_chunks(rois_arr, idxs, width):
-                    rois = torch.from_numpy(sel)
-                    if self.device.type == "cuda":
-                        rois = rois.pin_memory().to(self.device, non_blocking=True)
+                    rois = to_device_async(torch.from_numpy(sel), self.device)
                     ids, conf = self._recognize(focr, rois, width)
                     jobs.append((chunk, HostCopy(ids), HostCopy(conf)))
         return all_keys, jobs
 
-    def _recognize_finish(self, n, per_image_boxes, all_keys, jobs, scales):
+    def _recognize_finish(self, n, per_image_boxes, all_keys, jobs, scales,
+                          split_words: bool = False):
         """Wait for the recognition results, CTC-decode the full bucket
-        width, and assemble per-image results in source-image coordinates."""
+        width, and assemble per-image results in source-image coordinates
+        (with per-word sub-boxes under 'words' when ``split_words``)."""
         texts = [""] * len(all_keys)
+        ids_out: List[Optional[np.ndarray]] = [None] * len(all_keys)
         confs = np.zeros((len(all_keys),), np.float32)
         for idxs, ids_copy, conf_copy in jobs:
             ids = ids_copy.numpy()[: len(idxs)]
@@ -313,6 +456,7 @@ class FOTSInference:
             dec = self.codec.decode_batch(ids)
             for k, ridx in enumerate(idxs):
                 texts[ridx] = dec[k]
+                ids_out[ridx] = ids[k]
                 confs[ridx] = conf[k]
         results = [[] for _ in range(n)]
         for ridx, (i, j) in enumerate(all_keys):
@@ -320,51 +464,83 @@ class FOTSInference:
                 continue
             b = per_image_boxes[i][j].copy()
             b[:8] /= scales[i]
-            results[i].append({"box": b, "text": texts[ridx],
-                               "conf": float(confs[ridx])})
+            entry = {"box": b, "text": texts[ridx], "conf": float(confs[ridx])}
+            if split_words:
+                entry["words"] = [{"quad": q / scales[i], "text": wt}
+                                  for q, wt in split_detection(
+                                      per_image_boxes[i][j], ids_out[ridx], self.codec)]
+            results[i].append(entry)
         return results
 
     # -------- batched serving --------
 
     def batch_call(self, images_bgr: List[np.ndarray],
-                   serve_hw: Tuple[int, int] = (704, 1280)):
-        """Serve one batch of same-shape u8 BGR images at the fixed
-        ``serve_hw``.  Returns per image a list of {'box': [8 coords +
-        score] in source-image pixels, 'text', 'conf'}."""
+                   serve_hw: Tuple[int, int] = (704, 1280), split_words: bool = False):
+        """Serve one batch of u8 BGR images at the fixed ``serve_hw``.
+        Returns per image a list of {'box': [8 coords + score] in
+        source-image pixels, 'text', 'conf'} (plus 'words' with
+        ``split_words``)."""
         raw, scales = self._letterbox(images_bgr, serve_hw)
         cands, focr = self._dispatch_detect(raw, serve_hw)
         boxes = self._host_boxes(cands, len(images_bgr), serve_hw)
         keys, jobs = self._recognize_dispatch(boxes, focr)
-        return self._recognize_finish(len(images_bgr), boxes, keys, jobs, scales)
+        return self._recognize_finish(len(images_bgr), boxes, keys, jobs, scales,
+                                      split_words)
 
-    def stream(self, batch_iter, serve_hw: Tuple[int, int] = (704, 1280)):
+    def stream(self, batch_iter, serve_hw: Tuple[int, int] = (704, 1280),
+               split_words: bool = False, with_context: bool = False):
         """Pipelined serving over an iterable of image lists; yields one
         :meth:`batch_call`-format result per batch, in order.  Two
         detections stay queued ahead, and each batch's recognition is
-        collected one iteration after it was queued."""
+        collected one iteration after it was queued.  With ``with_context``
+        the iterable yields ``(ctx, images)`` pairs and the stream yields
+        ``(ctx, results)``: the caller's per-batch data rides through the
+        pipeline."""
         it = iter(batch_iter)
         inflight = deque()
         rec_pending = deque()
 
         def pull():
-            images = next(it, None)
-            if images is None:
+            item = next(it, None)
+            if item is None:
                 return False
+            ctx, images = item if with_context else (None, item)
             raw, scales = self._letterbox(images, serve_hw)
             cands, focr = self._dispatch_detect(raw, serve_hw)
-            inflight.append((len(images), scales, cands, focr))
+            inflight.append((ctx, len(images), scales, cands, focr))
             return True
 
         if pull():
             pull()
         while inflight or rec_pending:
             if inflight:
-                n, scales, cands, focr = inflight.popleft()
+                ctx, n, scales, cands, focr = inflight.popleft()
                 boxes = self._host_boxes(cands, n, serve_hw)
                 keys, jobs = self._recognize_dispatch(boxes, focr)
-                rec_pending.append((n, scales, boxes, keys, jobs))
+                rec_pending.append((ctx, n, scales, boxes, keys, jobs))
                 pull()  # the next forward overlaps this batch's recognition
             if rec_pending and (len(rec_pending) > 1 or not inflight):
-                n, scales, boxes, keys, jobs = rec_pending.popleft()
-                yield self._recognize_finish(n, boxes, keys, jobs, scales)
+                ctx, n, scales, boxes, keys, jobs = rec_pending.popleft()
+                res = self._recognize_finish(n, boxes, keys, jobs, scales, split_words)
+                yield (ctx, res) if with_context else res
+
+    # -------- one image end to end --------
+
+    def __call__(self, image_bgr: np.ndarray, scale_up: bool = False,
+                 split_words: bool = False):
+        """The whole pipeline on one u8 BGR image at its own /32 size.  Returns
+        (list of {'box': [8 coords + score] in resized-image pixels, 'text',
+        'conf'} (plus 'words' with ``split_words``), the resized image)."""
+        boxes, focr, im_resized = self.detect(image_bgr, scale_up=scale_up)
+        texts, ids, confs = self.recognize_boxes(boxes, focr, return_ids=True)
+        out = []
+        for k, (b, t) in enumerate(zip(boxes, texts)):
+            if len(t) == 0:
+                continue
+            entry = {"box": b, "text": t, "conf": float(confs[k])}
+            if split_words:
+                entry["words"] = [{"quad": q, "text": wt}
+                                  for q, wt in split_detection(b, ids[k], self.codec)]
+            out.append(entry)
+        return out, im_resized
 

@@ -1,7 +1,8 @@
 """Where the serving or training time goes on the card: a torch.profiler
-breakdown.
+breakdown; and the timing of the fused residual-block kernel K5'.
 
     python3 -m fots_torch.profiling [--path serve|train] [--batch N] [--batches N]
+    python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -20,11 +21,13 @@ import argparse
 import json
 import os
 import re
+import subprocess
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fots_torch.checkpoint import load_detector
 from fots_torch.pipeline import FOTSInference
@@ -163,12 +166,125 @@ def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
             "hw": list(batch.images.shape[1:3]), "host_ms_per_call": host, **out}
 
 
+FUSED_BLOCK_SHAPE = (16, 88, 160, 128)
+#: activation-sized tensors each variant moves through device memory per
+#: iteration: conv (x, y), statistics (y), apply (y, r, out) for the two
+#: compositions; K5' reads x, writes and reads y, reads r, writes out
+_FUSED_BLOCK_TENSORS = {"composition": 6, "library": 6, "cuda_fused": 5}
+
+
+def card_name_and_power_limit() -> str:
+    """``name, power.limit`` of the card as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
+def fused_block_inputs(shape, device, dtype=torch.bfloat16):
+    """The seeded inputs of ``tools/profile_fused_block.py``: numpy
+    ``default_rng(0)``, drawn in the same order with the same scales."""
+    c = shape[-1]
+    rng = np.random.default_rng(0)
+
+    def t(a, dt):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dt)
+
+    x = t(rng.standard_normal(shape), dtype)
+    wk = t(rng.standard_normal((3, 3, c, c)) * 0.05, torch.float32)
+    g = t(rng.standard_normal(c) * 0.3 + 1.0, torch.float32)
+    b = t(rng.standard_normal(c) * 0.1, torch.float32)
+    r = t(rng.standard_normal(shape), dtype)
+    return x, wk, g, b, r
+
+
+def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda") -> dict:
+    """Time K5' against the two compositions (see the module docstring)."""
+    from fots_torch.ops.fused_block import conv_in_act_reference, fused_conv3x3_in_act
+    from fots_torch.ops.instance_norm import instance_norm
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the fused_block profile times CUDA kernels: it needs a card")
+    x, wk, g, b, r = fused_block_inputs(shape, dev)
+    w_oihw = wk.to(x.dtype).permute(3, 2, 0, 1).contiguous()
+    r_nchw = r.permute(0, 3, 1, 2)
+    g_t, b_t = g.to(x.dtype), b.to(x.dtype)
+
+    def composition(xc):  # BasicBlockIn's tail: conv2 -> in2 -> relu(y + residual)
+        y = F.conv2d(xc.permute(0, 3, 1, 2), w_oihw, padding=1).permute(0, 2, 3, 1)
+        return F.relu(instance_norm(y, g, b) + r)
+
+    def library(xc):
+        y = F.instance_norm(F.conv2d(xc.permute(0, 3, 1, 2), w_oihw, padding=1),
+                            weight=g_t, bias=b_t, eps=1e-5)
+        return F.relu(y + r_nchw).permute(0, 2, 3, 1)
+
+    def cuda_fused(xc):
+        return fused_conv3x3_in_act(xc, wk, g, b, r)
+
+    with torch.inference_mode():
+        want = conv_in_act_reference(x, wk, g, b, r).float()
+        out = {"shape": list(shape), "dtype": "bf16", "iters_per_program": iters,
+               "max_abs_err": float((cuda_fused(x).float() - want).abs().max()),
+               "max_abs_err_composition": float((composition(x).float() - want).abs().max())}
+        a_bytes = x.numel() * x.element_size()
+        for name, fn in (("composition", composition), ("library", library),
+                         ("cuda_fused", cuda_fused)):
+            def chain():
+                xc = x
+                for _ in range(iters):
+                    xc = fn(xc)
+                return xc
+
+            chain()  # warm-up (cuDNN picks its algorithm, the kernel builds)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                chain()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = min(times) / iters
+            n_tensors = _FUSED_BLOCK_TENSORS[name]
+            out[name] = {"ms_per_iter": ms,
+                         "model_bytes_per_iter_mb": n_tensors * a_bytes / 1e6,
+                         "achieved_gbps_on_model_bytes": n_tensors * a_bytes / (ms / 1e3) / 1e9}
+        # where K5's own time goes: device ms per call of each kernel it launches
+        calls = 5
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                cuda_fused(x)
+            torch.cuda.synchronize()
+        by_name = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e):
+                by_name[e.name[:80]] += (e.time_range.end - e.time_range.start) / (1e3 * calls)
+        out["cuda_fused"]["kernels_ms_per_call"] = dict(
+            sorted(by_name.items(), key=lambda kv: -kv[1]))
+    out["fused_speedup"] = out["composition"]["ms_per_iter"] / out["cuda_fused"]["ms_per_iter"]
+    out["device"] = torch.cuda.get_device_name(dev)
+    out["card_and_power_limit"] = card_name_and_power_limit()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("serve", "train"), default="serve")
+    ap.add_argument("--path", choices=("serve", "train", "fused_block"), default="serve")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--iters", type=int, default=10,
+                    help="fused_block: chained iterations per timed program")
+    ap.add_argument("--shape", default=",".join(map(str, FUSED_BLOCK_SHAPE)),
+                    help="fused_block: N,H,W,C")
     args = ap.parse_args(argv)
+    if args.path == "fused_block":
+        shape = tuple(int(v) for v in args.shape.split(","))
+        print(json.dumps(profile_fused_block(shape, args.iters), indent=2))
+        return 0
     assets = os.path.join(_REPO, "fots_torch", "assets")
     with np.load(os.path.join(assets, "smoke_images_u8.npz")) as z:
         images = z["images"]

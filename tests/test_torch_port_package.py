@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fots_torch.kernels import build
+from fots_torch.ops.fused_block import conv_in_act_cuda
 from fots_torch.ops.instance_norm import (instance_norm_bwd_cuda, instance_norm_cuda,
                                          spatial_norm_cuda, spatial_stats_cuda)
 from fots_torch.ops.rroi_align import pack_neighbors_bwd_cuda, pack_neighbors_cuda
@@ -31,7 +32,12 @@ def _port_sources():
 
 def test_port_sources_import_no_jax_cv2_or_fots():
     paths = _port_sources()
-    assert len(paths) >= 15
+    assert len(paths) >= 27
+    names = {os.path.relpath(p, REPO) for p in paths}
+    assert {"fots_torch/ops/fused_block.py", "fots_torch/ops/ctc_decode.py",
+            "fots_torch/wordsplit.py", "fots_torch/evaluate.py",
+            "fots_torch/data/annotations.py", "fots_torch/cli/detect.py",
+            "fots_torch/cli/eval_e2e.py"} <= names
     for path in paths:
         with open(path, encoding="utf-8") as f:
             hits = FORBIDDEN.findall(f.read())
@@ -42,7 +48,11 @@ def test_importing_the_port_loads_no_jax_or_fots():
     code = (
         "import sys\n"
         "import chip_smoke, fots_torch, fots_torch.pipeline, fots_torch.checkpoint\n"
-        "import fots_torch.ops.nms, fots_torch.kernels.build\n"
+        "import fots_torch.ops.nms, fots_torch.kernels.build, fots_torch.train\n"
+        "import fots_torch.ops.fused_block, fots_torch.ops.ctc_decode\n"
+        "import fots_torch.wordsplit, fots_torch.evaluate, fots_torch.profiling\n"
+        "import fots_torch.data.annotations, fots_torch.cli.detect\n"
+        "import fots_torch.cli.eval_e2e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'cv2', 'fots')]\n"
         "assert not bad, bad\n"
@@ -59,9 +69,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from fots_torch.models import FOTSDetector
     from fots_torch.pipeline import FOTSInference
 
+    from fots_torch.cli.detect import load_engine
+    from fots_torch.cli import eval_e2e
+    from fots_torch.profiling import profile_fused_block
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FOTSInference(FOTSDetector())
+    snapshot = os.path.join(REPO, "artifacts", "serving_params.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_engine(snapshot)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_e2e.main(["-model", snapshot, "-images_npz",
+                       os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")])
+    with pytest.raises(RuntimeError, match="needs a card"):
+        profile_fused_block(device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
@@ -77,6 +99,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(dtype):
         pack_neighbors_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spatial_stats_cuda(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv_in_act_cuda(x, torch.zeros((3, 3, 64, 64)), torch.ones(64), torch.zeros(64), x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         spatial_norm_cuda(x, torch.zeros((1, 4, 64)), 0.01, 2)
     if dtype == torch.float32:
@@ -117,6 +141,30 @@ def test_smoke_images_are_the_committed_scenes():
     for im, name in zip(images, names):
         np.testing.assert_array_equal(
             im, cv2.imread(os.path.join(REPO, "data", "synth", name)))
+
+
+def test_heldout_eval_asset_is_the_decoded_scene_list():
+    """The evaluation asset names the 16 scenes of data/synth_big_eval.txt in
+    order, carries one annotation per scene, and fots's stored result covers
+    the same scenes in all four runs."""
+    import json
+
+    with np.load(os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")) as z:
+        images, names = z["images"], [str(n) for n in z["names"]]
+        gt_names, gt_texts = [str(n) for n in z["gt_names"]], [str(t) for t in z["gt_texts"]]
+    assert images.shape == (16, 640, 960, 3) and images.dtype == np.uint8
+    with open(os.path.join(REPO, "data", "synth_big_eval.txt")) as f:
+        listed = [os.path.basename(line.strip()) for line in f if line.strip()]
+    assert [os.path.basename(n) for n in names] == listed
+    assert [os.path.basename(n) for n in gt_names] == [
+        "gt_" + os.path.splitext(n)[0] + ".txt" for n in listed]
+    assert all(t.strip() for t in gt_texts)
+    with open(os.path.join(REPO, "fots_torch", "assets", "heldout_eval_fots_cpu.json")) as f:
+        ref = json.load(f)
+    assert set(ref["runs"]) == {"per_image", "serve_704x1280", "beam8", "split_words"}
+    for run in ref["runs"].values():
+        assert [r["image"] for r in run["images"]] == names
+        assert run["counts"]["gt"] == 58 and run["counts"]["tp"] >= 50
 
 
 def test_profile_summary_drops_device_annotations():
