@@ -10,7 +10,12 @@ result line):
    the CUDA kernels, all started together; g++ for the host NMS);
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the serving path (batch 16, 704x1280) and the training path
-   (batch 8, 640x960) give it, plus odd shapes; then its median time
+   (batch 8, 640x960) give it, plus odd shapes.  K1' and K1'-bwd run each
+   shape on both of their routes (the single-kernel cluster route as the plan
+   cuts it, and the two-pass route), against the plain version and against
+   each other; the cluster route also twice (bit identity), at ragged pixel
+   counts, at every cluster size, and its saved statistics against the plain
+   emulation of its fold.  Then each kernel's median time
    beside the plain version's, a library call's where one PyTorch call
    computes the same function, and the least time the card could take
    (bytes moved over the memory rate, or operations over the rate of
@@ -102,7 +107,7 @@ _PEAKS = (("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e
 KERNEL_META = {
     "instance_norm": ("fots_torch/csrc/instance_norm.cu", "fots/ops/instance_norm.py:126"),
     "instance_norm_bwd": ("fots_torch/csrc/instance_norm_bwd.cu",
-                          "fots/ops/instance_norm.py:126"),
+                          "fots/ops/instance_norm.py:151"),
     "spatial_stats": ("fots_torch/csrc/spatial_norm.cu", "fots/ops/instance_norm.py:243"),
     "spatial_norm": ("fots_torch/csrc/spatial_norm.cu", "fots/ops/instance_norm.py:263"),
     "pack_neighbors": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
@@ -121,23 +126,6 @@ def card_peaks(name: str):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
-
-
-def cuda_median_ms(fn, reps=15, warmup=3):
-    """Median device time of ``fn`` over ``reps`` calls, CUDA events
-    around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def errors(got, want):
@@ -174,12 +162,14 @@ def phase_kernels(dev, peaks):
     from fots_torch.ops import instance_norm as tin
     from fots_torch.ops import rroi_align as trr
     from fots_torch.pipeline import FOTSInference
-    from fots_torch.profiling import fused_block_inputs
+    from fots_torch.profiling import (cuda_busy_ms, cuda_median_ms, fused_block_inputs,
+                                      instance_norm_path_shapes)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = SERVE_HW
     TH, TW = TRAIN_HW
     worst = {name: 0.0 for name in KERNEL_META}
+    seen_plans = set()  # (kernel, route, cluster size, held) phase 2 ran
 
     def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
@@ -199,26 +189,64 @@ def phase_kernels(dev, peaks):
             return bool((d <= 1e-4 * (1 + want.float().abs())).all())
         return bool((d <= 2.0 ** -7 * want.float().abs() + 1e-3).all())
 
-    def in_case(b, h, w, c, dtype, affine, slope, valid_w=None):
+    def routes(plan):
+        """The shape's own plan, and the two-pass route beside it."""
+        return [plan] if plan.route == "two_pass" else [plan, tin.TWO_PASS]
+
+    def plan_tag(plan):
+        if plan.route == "two_pass":
+            return "two_pass"
+        return f"cluster {plan.cluster}x{plan.block_bytes}B holds {plan.held}"
+
+    def stats_ok(got, want, rel):
+        return bool(((got - want).abs() <= rel * (1 + want.abs())).all())
+
+    def in_case(b, h, w, c, dtype, affine, slope, valid_w=None, plan=None):
+        """K1' at one shape on each route: output and saved statistics
+        against the plain version; on the cluster route also twice (bit
+        identity), the statistics against the plain emulation of its fold
+        (1e-5 (1 + |ref|): the same shares in the same rank order, summed
+        inside a share in another order), and against the two-pass route."""
         x = rand((b, h, w, c), dtype, 3, 1.5)
-        scale = rand(c) if affine else None
-        bias = rand(c) if affine else None
-        got = tin.instance_norm(x, scale, bias, 1e-5, slope, valid_w)
-        if scale is None:
-            scale, bias = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        scale = rand(c) if affine else torch.ones(c, device=dev)
+        bias = rand(c) if affine else torch.zeros(c, device=dev)
         if valid_w is None:
             want = tin.instance_norm_ref(x, scale, bias, 1e-5, slope)
         else:
             want = tin.masked_instance_norm_ref(x, valid_w, scale, bias, 1e-5, slope)
-        torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == x.shape, "instance_norm shape/dtype")
-        tag = (f"{'masked ' if valid_w is not None else ''}{str(dtype)[6:]} "
-               f"{(b, h, w, c)} affine={affine} slope={slope}")
-        report("instance_norm", tag, forward_ok(got, want, dtype), *errors(got, want))
+        want_stats = tin.instance_norm_stats_ref(x, 1e-5, valid_w)
+        shape_tag = (f"{'masked ' if valid_w is not None else ''}{str(dtype)[6:]} "
+                     f"{(b, h, w, c)} affine={affine} slope={slope}")
+        outs = {}
+        for pl in routes(plan or tin.in_plan(h, w, c, x.element_size())):
+            got, stats = tin.instance_norm_cuda(x, scale, bias, 1e-5, slope, valid_w, True, pl)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == x.shape, "instance_norm shape/dtype")
+            tag = f"{shape_tag} [{plan_tag(pl)}]"
+            report("instance_norm", tag, forward_ok(got, want, dtype), *errors(got, want))
+            report("instance_norm", f"saved (mean, rstd) {tag}",
+                   stats_ok(stats, want_stats, 1e-4), *errors(stats, want_stats))
+            outs[pl.route] = got
+            seen_plans.add(("instance_norm", pl.route, pl.cluster, pl.held))
+            if pl.route != "cluster":
+                continue
+            again, stats2 = tin.instance_norm_cuda(x, scale, bias, 1e-5, slope, valid_w,
+                                                   True, pl)
+            fold = tin.cluster_fold_stats_ref(x, pl, 1e-5, valid_w)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again) and torch.equal(stats, stats2),
+                  f"instance_norm {tag} differs from run to run")
+            report("instance_norm", f"saved (mean, rstd) vs the fold's emulation {tag}",
+                   stats_ok(stats, fold, 1e-5), *errors(stats, fold))
+        if len(outs) == 2:
+            report("instance_norm", f"{shape_tag} cluster vs two_pass",
+                   forward_ok(outs["cluster"], outs["two_pass"], dtype),
+                   *errors(outs["cluster"], outs["two_pass"]))
 
-    def bwd_case(b, h, w, c, affine, slope, valid_w=None, halves=1, groups=1):
-        """K1'-bwd at one shape, and the forward that feeds it (K1', or
-        K2'+K3' for the CReLU mode): its output and saved statistics."""
+    def bwd_case(b, h, w, c, affine, slope, valid_w=None, halves=1, groups=1, plan=None):
+        """K1'-bwd at one shape on each route, and the forward that feeds it
+        (K1', or K2'+K3' for the CReLU mode): its output and saved
+        statistics."""
         x = rand((b, h, w, c), torch.float32, 3, 1.5)
         g = rand((b, h, w, halves * c))
         shape_tag = f"{'masked ' if valid_w is not None else ''}{(b, h, w, c)}"
@@ -235,8 +263,7 @@ def phase_kernels(dev, peaks):
             report("instance_norm", f"float32 {shape_tag} affine={affine} slope={slope}",
                    forward_ok(y, want_y, torch.float32), *errors(y, want_y))
             report("instance_norm", f"saved (mean, rstd) {shape_tag}",
-                   bool(((stats - want_stats).abs() <= 1e-4 * (1 + want_stats.abs())).all()),
-                   *errors(stats, want_stats))
+                   stats_ok(stats, want_stats, 1e-4), *errors(stats, want_stats))
         else:
             cg = c // groups
             scale, bias = rand(2 * cg), rand(2 * cg)
@@ -246,19 +273,34 @@ def phase_kernels(dev, peaks):
             report("spatial_norm", f"CReLU-IN float32 {shape_tag} groups={groups}",
                    forward_ok(y, want_y, torch.float32), *errors(y, want_y))
             stats, scale, bias = tin._crelu_u_params(stats_g, scale, bias, groups)
-        dx, dsb = tin.instance_norm_bwd_cuda(x, g, stats, scale, bias, slope, valid_w,
-                                             halves, groups)
         want_dx, want_dsb = tin.instance_norm_bwd_ref(x, g, stats, scale, bias, slope,
                                                       valid_w, halves, groups)
-        torch.cuda.synchronize()
-        tag = (f"{'crelu ' if halves == 2 else ''}{'masked ' if valid_w is not None else ''}"
-               f"{(b, h, w, c)} groups={groups} slope={slope}")
-        for what, got, want in (("dx", dx, want_dx), ("per-sample sums", dsb, want_dsb)):
-            ab, rel = errors(got, want)
-            # f32 reductions over up to 0.6 M pixels in another order feed
-            # the per-(b, c) coefficients: within 1e-4 of the tensor's scale
-            ok = ab <= 1e-4 * float(want.abs().max()) + 1e-6
-            report("instance_norm_bwd", f"{tag} {what}", ok, ab, rel)
+        outs = {}
+        for pl in routes(plan or tin.in_bwd_plan(h, w, c, halves)):
+            dx, dsb = tin.instance_norm_bwd_cuda(x, g, stats, scale, bias, slope, valid_w,
+                                                 halves, groups, pl)
+            torch.cuda.synchronize()
+            tag = (f"{'crelu ' if halves == 2 else ''}{shape_tag} groups={groups} "
+                   f"slope={slope} [{plan_tag(pl)}]")
+            for what, got, want in (("dx", dx, want_dx), ("per-sample sums", dsb, want_dsb)):
+                ab, rel = errors(got, want)
+                # f32 reductions over up to 0.6 M pixels in another order feed
+                # the per-(b, c) coefficients: within 1e-4 of the tensor's scale
+                ok = ab <= 1e-4 * float(want.abs().max()) + 1e-6
+                report("instance_norm_bwd", f"{tag} {what}", ok, ab, rel)
+            outs[pl.route] = dx
+            seen_plans.add(("instance_norm_bwd", pl.route, pl.cluster, pl.held))
+            if pl.route != "cluster":
+                continue
+            dx2, dsb2 = tin.instance_norm_bwd_cuda(x, g, stats, scale, bias, slope, valid_w,
+                                                   halves, groups, pl)
+            torch.cuda.synchronize()
+            check(torch.equal(dx, dx2) and torch.equal(dsb, dsb2),
+                  f"instance_norm_bwd {tag} differs from run to run")
+        if len(outs) == 2:
+            ab, rel = errors(outs["cluster"], outs["two_pass"])
+            report("instance_norm_bwd", f"{shape_tag} dx cluster vs two_pass",
+                   ab <= 1e-4 * float(want_dx.abs().max()) + 1e-6, ab, rel)
 
     def stats_case(shape, dtype):
         x = rand(shape, dtype, 3, 1.5)
@@ -409,6 +451,36 @@ def phase_kernels(dev, peaks):
     bwd_case(2, 5, 9, 6, False, None, valid_w=torch.tensor([3, 9], device=dev))
     bwd_case(2, 6, 10, 12, True, 0.01, halves=2, groups=4)
 
+    # ragged planes (a pixel count no cluster size divides) on both routes,
+    # then every cluster size either kernel may use, forced on one ragged
+    # plane; a masked ragged strip batch
+    for dtype in (torch.float32, torch.bfloat16):
+        in_case(2, 173, 321, 64, dtype, True, 0.01)
+        in_case(3, 45, 79, 32, dtype, False, None)
+    bwd_case(2, 81, 119, 128, True, 0.01)
+    vw = torch.randint(1, 256, (5,), generator=gen, device=dev, dtype=torch.int32)
+    in_case(5, 11, 255, 128, torch.bfloat16, True, 0.01, valid_w=vw)
+    bwd_case(5, 11, 255, 128, True, 0.01, valid_w=vw)
+    for cs in tin.CLUSTER_SIZES:
+        in_case(2, 23, 39, 32, torch.bfloat16, True, 0.01,
+                plan=tin.in_plan(23, 39, 32, 2, cluster=cs))
+        bwd_case(2, 23, 39, 32, True, 0.01,
+                 plan=tin.in_plan(23, 39, 32, 4, held="xg", cluster=cs))
+    # every (route, cluster size) the plans of the path shapes use was held
+    for _, (b, h, w, c), dtype, _, bwd in instance_norm_path_shapes():
+        pl = tin.in_plan(h, w, c, 2 if dtype == torch.bfloat16 else 4)
+        check(("instance_norm", pl.route, pl.cluster, pl.held) in seen_plans,
+              f"phase 2 ran no K1' case as {plan_tag(pl)}")
+        if bwd:
+            pl = tin.in_bwd_plan(h, w, c)
+            check(("instance_norm_bwd", pl.route, pl.cluster, pl.held) in seen_plans,
+                  f"phase 2 ran no K1'-bwd case as {plan_tag(pl)}")
+    for kernel in ("instance_norm", "instance_norm_bwd"):
+        for route in ("cluster", "two_pass"):
+            check(any(k == kernel and r == route for k, r, _, _ in seen_plans),
+                  f"phase 2 ran {kernel} on no {route} case")
+    print(f"  routes held: {sorted(seen_plans)}")
+
     # K2' / K3' and the whole CReLU-IN at the stem's serving (bf16) and
     # training (f32) shapes, plus odd shapes
     stem = [((BATCH, H, W, 16), torch.bfloat16), ((BATCH, H // 2, W // 2, 32), torch.bfloat16),
@@ -460,12 +532,26 @@ def phase_kernels(dev, peaks):
     scale, bias = rand(64), rand(64)
     nb = x.numel() * x.element_size()
     x_nchw = x.permute(0, 3, 1, 2)
+
+    def both_routes(plan, call, cluster_plan=None):
+        """The plan's route at the table shape, and each route's time (where
+        the plan takes two passes, ``cluster_plan`` is the cut that is timed
+        beside it)."""
+        timed = routes(plan) if cluster_plan is None else [cluster_plan, plan]
+        return {"plan": plan_tag(plan),
+                "route_ms": {plan_tag(pl): cuda_median_ms(lambda: call(pl)) for pl in timed},
+                # without the card's waits for the host between launches
+                "route_device_busy_ms": {plan_tag(pl): cuda_busy_ms(lambda: call(pl))
+                                         for pl in timed}}
+
     row("instance_norm", x.shape, "bf16",
         lambda: tin.instance_norm_cuda(x, scale, bias, 1e-5, 0.0),
         lambda: tin.instance_norm_ref(x, scale, bias, 1e-5, 0.0),
         lambda: torch.nn.functional.instance_norm(x_nchw, weight=scale.to(x.dtype),
                                                   bias=bias.to(x.dtype), eps=1e-5),
-        2 * nb, 6 * x.numel(), "F.instance_norm (no fused ReLU)")
+        2 * nb, 6 * x.numel(), "F.instance_norm (no fused ReLU)",
+        **both_routes(tin.in_plan(*x.shape[1:], 2),
+                      lambda pl: tin.instance_norm_cuda(x, scale, bias, 1e-5, 0.0, plan=pl)))
     row("pack_neighbors", x.shape, "bf16", lambda: trr.pack_neighbors_cuda(x),
         lambda: trr.pack_neighbors_ref(x), None, 5 * nb, 0,
         "null: no single PyTorch call builds the quads")
@@ -495,7 +581,12 @@ def phase_kernels(dev, peaks):
         lambda: torch.ops.aten.native_group_norm_backward(
             gt_nchw, xt_nchw, mean_, rstd_, sc, b_, c_, h_ * w_, c_, [True, True, True]),
         3 * nbt, 12 * xt.numel(),
-        "aten.native_group_norm_backward with one channel per group (no ReLU gate)")
+        "aten.native_group_norm_backward with one channel per group (no ReLU gate)",
+        **both_routes(tin.in_bwd_plan(h_, w_, c_),
+                      lambda pl: tin.instance_norm_bwd_cuda(xt, gt, st, sc, bi, 0.0, plan=pl),
+                      # x and g of a 64-byte group do not fit 16 blocks here: the
+                      # one cluster cut that holds them has 32-byte groups
+                      tin.in_plan(h_, w_, c_, 4, held="xg", cluster=16, channels=8)))
     n_rows = b_ * h_ * w_
     gq = rand((n_rows, 4 * c_))
     quad_index = (torch.arange(n_rows, device=dev)[:, None]
@@ -541,7 +632,9 @@ def phase_kernels(dev, peaks):
     for name, r in rows.items():
         print(f"  {name} at {tuple(r['shape'])} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms ({r['library_note']}), "
-              f"bound {1e3 * max(r['bound']):.4f} ms")
+              f"bound {1e3 * max(r['bound']):.4f} ms"
+              + (f"; by route {r['extra']['route_ms']}, device busy "
+                 f"{r['extra']['route_device_busy_ms']}" if "route_ms" in r["extra"] else ""))
     print(f"  CReLU-IN at {tuple(xs.shape)} bf16: K2'+fold+K3' {crelu_ms:.4f} ms, "
           f"torch.cat + K1' {cat_ms:.4f} ms")
     return worst, rows, {"crelu_ms": crelu_ms, "cat_plus_in_ms": cat_ms}
@@ -602,7 +695,7 @@ def phase_serve(images):
             stamps.append(time.perf_counter())
             outs.append(res)
         torch.cuda.synchronize()
-        launches = dict(build.launch_counts)
+        launches = {**build.launch_counts, **build.route_counts}
     check(len(outs) == STREAM_BATCHES, "stream lost batches")
     for res in outs:
         check(len(res) == BATCH and all(len(r) > 0 for r in res),
@@ -733,7 +826,7 @@ def phase_train(images, targets):
     trainer.train([batch] * (TRAIN_STEPS - 2), max_steps=TRAIN_STEPS - 2, log_every=0)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
+    launches = {**build.launch_counts, **build.route_counts}
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps recorded, expected {TRAIN_STEPS}")
@@ -768,7 +861,7 @@ def phase_fused_block():
     build.reset_launch_counts()
     out = profile_fused_block(FUSED_SHAPE, iters=10)
     torch.cuda.synchronize()
-    launches = dict(build.launch_counts)
+    launches = {**build.launch_counts, **build.route_counts}
     for name in build.PATH_KERNELS["fused_block"]:
         check(launches[name] > 0, f"kernel {name} was not launched by its profiling entry")
     check(out["max_abs_err"] <= 0.1, f"K5' differs from its plain version by "
@@ -838,7 +931,7 @@ def phase_eval():
             summary, m, dump, seconds = evaluate(engine, *data, log_every=0, **eval_kw)
             torch.cuda.synchronize()
             if launches is None:
-                launches = dict(build.launch_counts)
+                launches = {**build.launch_counts, **build.route_counts}
         counts = {"tp": m.tp_all, "tp_e2e": m.tp_e2e_all, "tp_e2e_ed1": m.tp_e2e_ed1_all,
                   "detections": m.detections_all, "gt": m.gt_all}
         same, differ, alone = _match_dumps(dump, ref["images"])
@@ -949,6 +1042,12 @@ def main(argv=None) -> int:
             "launches_per_serving_batch": paths["serving"] / STREAM_BATCHES,
             "launches_per_train_step": paths["training"] / TRAIN_STEPS,
             "launches_per_eval_image": paths["evaluation"] / evaluation["scenes"],
+            **({"launches_by_route": {
+                route: {"serving": serve_launches[f"{kname}/{route}"],
+                        "training": train_launches[f"{kname}/{route}"],
+                        "evaluation": eval_launches[f"{kname}/{route}"]}
+                for route in ("cluster", "two_pass")}}
+               if f"{kname}/cluster" in serve_launches else {}),
             **r["extra"],
         })
     print(json.dumps({"kernels": kernels}))

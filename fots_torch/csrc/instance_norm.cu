@@ -8,9 +8,28 @@
 // XLA in the JAX package.
 //
 // What bounds it on an H100: bytes.  About five flops per element against 2
-// to 8 bytes moved, far below the card's ~295 flops per byte.  A (H, W)
-// channel plane at the serving shapes is tens of MB and does not fit the
-// 227 KB of shared memory, so the kernel is two passes over x:
+// to 8 bytes moved, far below the card's ~295 flops per byte.  Two routes,
+// chosen from the shape alone by the Python plan (ops/instance_norm.py:
+// in_plan), never by whether a launch failed:
+//
+// "cluster" (in_cluster_kernel): one read and one write of x.  One block
+// cannot hold an (H, W) plane in its 227 KB of shared memory, but a
+// thread-block cluster can: one cluster per (sample, channel group), a
+// group being whole 32-byte sectors of a pixel, so that clusters never share
+// one: two of them (64 bytes: 32 bf16 or 16 f32 channels) wherever C
+// allows, because the card's memory moves 64 bytes at a time and 32-byte
+// pieces were measured a quarter slower.  The cluster's blocks split the plane's pixels; each
+// copies its share into shared memory with 16-byte cp.async (all of them in
+// flight at once) and sums x and x^2 in f32 in a sweep over it; the sums are
+// folded over the warp, the block and
+// then the cluster's ranks in a fixed order through distributed shared
+// memory (cluster.cuh), every block computes (mean, a) itself, normalises
+// its share out of shared memory and writes y with 16-byte stores.  No
+// workspace, no ticket, no memset.
+//
+// "two_pass" (in_stats_kernel + in_apply_kernel): for planes no cluster can
+// hold, channel counts that are not a multiple of the group, and unaligned
+// pointers.
 //   (a) in_stats_kernel: blocks over (pixel chunk, sample).  Threads run
 //       along C (contiguous in channels-last), 16-byte loads, f32 sum and
 //       sum of squares per channel, reduced over the block's rows in shared
@@ -23,13 +42,16 @@
 //       past valid_w (subtracting the mean first avoids the cancellation of
 //       x * a + (bias - mean * a) when the variance is tiny),
 //       16-byte loads and stores, f32 math, output in the input's dtype.
-// Two reads and one write of x: the floor for a norm whose plane does not
-// stay on chip.
+// Two reads and one write of x.
 //
-// Statistics follow instance_norm_jnp exactly (not Welford):
+// Statistics follow instance_norm_jnp exactly (not Welford), on both routes:
 //   mean = s1 / n, var = max(s2 / n - mean^2, 0), a = rsqrt(var + eps) * scale,
-//   with n = H * valid_w[n] (H * W unmasked).
+//   with n = H * valid_w[n] (H * W unmasked).  mean^2 is rounded before the
+//   subtraction (no fused multiply-add), as the plain version rounds it: on
+//   a two-pixel masked strip whose values nearly agree, the variance is the
+//   few last bits of that difference.
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -105,7 +127,7 @@ __global__ void in_stats_kernel(const T* __restrict__ x, const int* __restrict__
       b += __ldcg(pn + (long long)k * 2 * C + C + c);
     }
     const float mean = a / cnt;
-    const float var = fmaxf(b / cnt - mean * mean, 0.f);
+    const float var = fmaxf(__fsub_rn(b / cnt, __fmul_rn(mean, mean)), 0.f);
     const float rstd = rsqrtf(var + eps);
     const float mul = rstd * scale[c];
     coef[(long long)n * 2 * C + c] = mul;
@@ -164,6 +186,115 @@ __global__ void in_apply_kernel(const T* __restrict__ x, const int* __restrict__
   }
 }
 
+// The cluster route.  grid (cluster * C / channels, B), clusters of `cluster`
+// blocks along x: cluster blockIdx.x / cluster owns channels [c0, c0 +
+// channels) of sample blockIdx.y, rank r of it pixels [r * chunk, (r + 1) *
+// chunk).  Thread (row, lane) owns the 16-byte vector `lane` of pixels row,
+// row + rows, ...: it reads back only what it stored itself.
+// smem: chunk * channels values, then fold_scratch_floats() floats.
+template <typename T, int V>
+__global__ void __launch_bounds__(1024)
+in_cluster_kernel(const T* __restrict__ x, T* __restrict__ y, const int* __restrict__ valid_w,
+                  const float* __restrict__ scale, const float* __restrict__ bias,
+                  float* __restrict__ stats, int H, int W, int C, int channels, int chunk,
+                  float eps, float slope, int has_slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fots::cg::cluster_group cluster = fots::cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.y;
+  const int c0 = (blockIdx.x / cs) * channels;
+  const int lanes = channels / V;
+  const int lane = threadIdx.x % lanes;
+  const int row = threadIdx.x / lanes;
+  const int rows = blockDim.x / lanes;
+  const int vw = clamp_width(valid_w, n, W);
+  const bool full = vw == W;
+  const int hw = H * W;
+  const int p0 = min(hw, rank * chunk);
+  const int p1 = min(hw, p0 + chunk);
+  Pack<T, V>* data = reinterpret_cast<Pack<T, V>*>(smem);
+  float* scratch = reinterpret_cast<float*>(smem + (size_t)chunk * channels * sizeof(T));
+  const long long base = (long long)n * hw * C + c0 + lane * V;
+
+  // every 16-byte copy of the share in flight at once (cp.async: no
+  // registers wait on them), then a sweep over what this thread copied
+  // itself, which needs no block barrier
+  for (int p = p0 + row; p < p1; p += rows)
+    if (full || p % W < vw)
+      fots::cp_async_16(&data[(p - p0) * lanes + lane], x + base + (long long)p * C);
+  fots::cp_async_wait_all();
+  float s1[V], s2[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) s1[i] = s2[i] = 0.f;
+#pragma unroll 4
+  for (int p = p0 + row; p < p1; p += rows) {
+    if (!(full || p % W < vw)) continue;
+    const Pack<T, V> pk = data[(p - p0) * lanes + lane];
+#pragma unroll
+    for (int i = 0; i < V; i++) {
+      const float f = to_f32(pk.v[i]);
+      s1[i] += f;
+      s2[i] += f * f;
+    }
+  }
+  const float* total = fots::cluster_fold<V>(s1, s2, lanes, lane, scratch);
+
+  const float cnt = (float)((long long)H * vw);
+  float a[V], m[V], b[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) {
+    const int k = lane * V + i;
+    const float mean = total[k] / cnt;
+    const float var = fmaxf(__fsub_rn(total[channels + k] / cnt, __fmul_rn(mean, mean)), 0.f);
+    const float rstd = rsqrtf(var + eps);
+    a[i] = rstd * scale[c0 + k];
+    m[i] = mean;
+    b[i] = bias[c0 + k];
+    if (stats != nullptr && rank == 0 && row == 0) {  // kept for the backward pass
+      stats[(long long)n * 2 * C + c0 + k] = mean;
+      stats[(long long)n * 2 * C + C + c0 + k] = rstd;
+    }
+  }
+#pragma unroll 4
+  for (int p = p0 + row; p < p1; p += rows) {
+    Pack<T, V> out;
+    if (full || p % W < vw) {
+      const Pack<T, V> pk = data[(p - p0) * lanes + lane];
+#pragma unroll
+      for (int i = 0; i < V; i++) {
+        float f = (to_f32(pk.v[i]) - m[i]) * a[i] + b[i];
+        if (has_slope && f < 0.f) f *= slope;
+        from_f32(f, out.v[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; i++) from_f32(0.f, out.v[i]);
+    }
+    *reinterpret_cast<Pack<T, V>*>(y + base + (long long)p * C) = out;
+  }
+  fots::cluster_fold_done();
+}
+
+template <typename T, int V>
+int launch_cluster_route(const void* x, void* y, int B, int H, int W, int C, const int* valid_w,
+                         const float* scale, const float* bias, float eps, float slope,
+                         int has_slope, float* stats, const fots::ClusterShape& shape,
+                         cudaStream_t stream) {
+  const int lanes = shape.channels / V;
+  if (shape.channels % V != 0 || C % shape.channels != 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = (H * W + shape.cluster - 1) / shape.cluster;
+  const size_t need = (size_t)chunk * shape.channels * sizeof(T) +
+                      fots::fold_scratch_floats(shape.threads, shape.channels) * sizeof(float);
+  if (need > (size_t)shape.smem) return (int)cudaErrorInvalidValue;
+  return fots::launch_cluster(in_cluster_kernel<T, V>, shape,
+                              dim3(shape.cluster * (C / shape.channels), B), stream,
+                              static_cast<const T*>(x), static_cast<T*>(y), valid_w, scale, bias,
+                              stats, H, W, C, shape.channels, chunk, eps, slope, has_slope);
+}
+
 template <typename T, int V>
 int launch(const void* x, void* y, int B, int H, int W, int C, const int* valid_w,
            const float* scale, const float* bias, float eps, float slope, int has_slope,
@@ -195,7 +326,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x, y: [B, H, W, C] contiguous.
 // valid_w: int32 [B] device pointer or null.  scale, bias: f32 [C].
-// Workspaces: partial f32 [B, S, 2, C], coef f32 [B, 2, C], counter int32
+// The two-pass route.  Workspaces: partial f32 [B, S, 2, C], coef f32 [B, 2, C], counter int32
 // [B] zeroed.  stats: f32 [B, 2, C] (mean, rstd) for the backward pass, or
 // null.  Returns a cudaError_t code (0 = launched).
 int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, int C,
@@ -220,6 +351,29 @@ int fots_instance_norm(const void* x, void* y, int dtype, int B, int H, int W, i
     return launch<__nv_bfloat16, 1>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
                                     has_slope, partial, coef, stats, counter, S, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cluster route: same tensors, no workspace.  channels per cluster (a
+// multiple of 32 bytes' worth, a power-of-two count of 16-byte vectors up to
+// 32), blocks per cluster, threads per block (a multiple of 32) and dynamic
+// shared memory per block come from the Python plan.  x and y must be
+// 16-byte aligned and C a multiple of `channels`.  Returns a cudaError_t
+// code (0 = launched), or -2 when the card cannot schedule such a cluster.
+int fots_instance_norm_cluster(const void* x, void* y, int dtype, int B, int H, int W, int C,
+                               const int* valid_w, const float* scale, const float* bias,
+                               float eps, float slope, int has_slope, float* stats,
+                               int channels, int cluster, int threads, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const fots::ClusterShape shape{channels, cluster, threads, smem};
+  if (dtype == 0)
+    return launch_cluster_route<float, 4>(x, y, B, H, W, C, valid_w, scale, bias, eps, slope,
+                                          has_slope, stats, shape, st);
+  if (dtype == 1)
+    return launch_cluster_route<__nv_bfloat16, 8>(x, y, B, H, W, C, valid_w, scale, bias, eps,
+                                                  slope, has_slope, stats, shape, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,22 @@
 //   dscale = sum over b, pixels of gp * z, dbias = sum of gp.
 //
 // What bounds it on an H100: bytes (about 12 flops per element, 12 bytes
-// moved).  Two passes, like the forward:
+// moved).  Two routes, as in the forward (instance_norm.cu), chosen from the
+// shape alone by the Python plan:
+//
+// "cluster" (in_bwd_cluster_kernel; plain and masked IN, not the CReLU
+// mode): one cluster per (sample, channel group of 32 or 64 bytes a pixel),
+// its blocks split the pixels.  Each block copies its share of x and g into
+// shared memory with 16-byte cp.async, leaves gp in g's place while it sums
+// gp and gp * z; the sums are folded over warp, block and the cluster's ranks in a fixed order through
+// distributed shared memory (cluster.cuh), every block computes (k1, k2, k3)
+// and writes dx from shared memory; rank 0 writes the per-sample sums.
+// Three tensor crossings, no workspace.
+//
+// "two_pass", for everything else (five crossings), layer1's training shape
+// included: x and g of a 64-byte group of 8x160x240x64 exceed 16 blocks'
+// shared memory, and with 32-byte groups the cluster route was measured
+// slower than these two streaming passes:
 //   (a) in_bwd_reduce_kernel: blocks over (pixel chunk, sample) read x and
 //       g once and write per-block partials of sum(gp) and sum(gp * z)
 //       [B, S, 2, Cu]; the last block of each sample (atomic ticket) folds
@@ -27,6 +42,7 @@
 //   (b) in_bwd_apply_kernel: reads x and g again and writes dx.
 // Threads run along the contiguous channel axis with 16-byte loads.
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -237,6 +253,109 @@ __global__ void in_bwd_apply_kernel(BwdArgs a, int chunk_pix) {
   }
 }
 
+// The cluster route (halves == 1).  Grid, ranks and thread ownership as in
+// in_cluster_kernel (instance_norm.cu).  smem: chunk * channels floats of gp,
+// the same of x, then fold_scratch_floats() floats.
+__global__ void __launch_bounds__(1024) in_bwd_cluster_kernel(BwdArgs a, int channels,
+                                                              int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int V = 4;
+  fots::cg::cluster_group cluster = fots::cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.y;
+  const int C = a.C, W = a.W;
+  const int c0 = (blockIdx.x / cs) * channels;
+  const int lanes = channels / V;
+  const int lane = threadIdx.x % lanes;
+  const int row = threadIdx.x / lanes;
+  const int rows = blockDim.x / lanes;
+  const int vw = clamp_width(a.valid_w, n, W);
+  const bool full = vw == W;
+  const int hw = a.H * W;
+  const int p0 = min(hw, rank * chunk);
+  const int p1 = min(hw, p0 + chunk);
+  Pack<float, V>* gps = reinterpret_cast<Pack<float, V>*>(smem);
+  Pack<float, V>* xs = gps + (size_t)chunk * lanes;
+  float* scratch = reinterpret_cast<float*>(smem) + (size_t)chunk * channels * 2;
+  const long long base = (long long)n * hw * C + c0 + lane * V;
+
+  Lane<V, 1> L;
+  L.load(a, n, c0 / V + lane);
+  // every 16-byte copy of x and g in flight at once, then a sweep over this
+  // thread's own vectors that leaves gp in g's place
+  for (int p = p0 + row; p < p1; p += rows) {
+    if (!(full || p % W < vw)) continue;
+    const int slot = (p - p0) * lanes + lane;
+    fots::cp_async_16(&gps[slot], a.g + base + (long long)p * C);
+    fots::cp_async_16(&xs[slot], a.x + base + (long long)p * C);
+  }
+  fots::cp_async_wait_all();
+  float sg[V], sgz[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) sg[i] = sgz[i] = 0.f;
+#pragma unroll 2
+  for (int p = p0 + row; p < p1; p += rows) {
+    if (!(full || p % W < vw)) continue;
+    const int slot = (p - p0) * lanes + lane;
+    const Pack<float, V> xv = xs[slot], gv = gps[slot];
+    Pack<float, V> gp;
+#pragma unroll
+    for (int i = 0; i < V; i++) {
+      float u, z;
+      L.at(a, 0, i, xv.v[i], gv.v[i], u, z, gp.v[i]);
+      sg[i] += gp.v[i];
+      sgz[i] += gp.v[i] * z;
+    }
+    gps[slot] = gp;
+  }
+  const float* total = fots::cluster_fold<V>(sg, sgz, lanes, lane, scratch);
+
+  const float cnt = (float)((long long)a.H * vw);
+  float k1[V], k2[V], k3[V];
+#pragma unroll
+  for (int i = 0; i < V; i++) {
+    const int k = lane * V + i;
+    const float tg = total[k], tgz = total[channels + k];
+    const float m = L.mean[0][i], r = L.rstd[0][i], sck = L.sc[0][i];
+    const float mdz = sck * tg / cnt;    // mean of dz = gp * scale
+    const float mdzz = sck * tgz / cnt;  // mean of dz * z
+    k1[i] = r * sck;
+    k2[i] = -r * r * mdzz;
+    k3[i] = r * (r * m * mdzz - mdz);
+    if (rank == 0 && row == 0) {
+      a.dsb[(long long)n * 2 * C + c0 + k] = tgz;
+      a.dsb[(long long)n * 2 * C + C + c0 + k] = tg;
+    }
+  }
+#pragma unroll 4
+  for (int p = p0 + row; p < p1; p += rows) {
+    Pack<float, V> out;
+#pragma unroll
+    for (int i = 0; i < V; i++) out.v[i] = 0.f;
+    if (full || p % W < vw) {
+      const int slot = (p - p0) * lanes + lane;
+      const Pack<float, V> gp = gps[slot], xv = xs[slot];
+#pragma unroll
+      for (int i = 0; i < V; i++) out.v[i] = gp.v[i] * k1[i] + xv.v[i] * k2[i] + k3[i];
+    }
+    *reinterpret_cast<Pack<float, V>*>(a.dx + base + (long long)p * C) = out;
+  }
+  fots::cluster_fold_done();
+}
+
+int launch_cluster_route(const BwdArgs& a, int B, const fots::ClusterShape& shape,
+                         cudaStream_t stream) {
+  const int chunk = (a.H * a.W + shape.cluster - 1) / shape.cluster;
+  const size_t need = ((size_t)chunk * shape.channels * 2 +
+                       fots::fold_scratch_floats(shape.threads, shape.channels)) *
+                      sizeof(float);
+  if (need > (size_t)shape.smem) return (int)cudaErrorInvalidValue;
+  return fots::launch_cluster(in_bwd_cluster_kernel, shape,
+                              dim3(shape.cluster * (a.C / shape.channels), B), stream, a,
+                              shape.channels, chunk);
+}
+
 template <int V, int HALVES>
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   const int lanes = a.C / V;
@@ -263,7 +382,7 @@ extern "C" {
 // halves: 1 = plain IN of x, 2 = CReLU-IN (u = cat(x, -x)).  groups > 1
 // (halves == 2 only) folds statistics over C / groups channel groups.
 // stats [B, 2, Cu] (mean, rstd) and scale/bias [Cu] are per u channel
-// (tiled over groups).  Workspaces: partial [B, S, 2, Cu], coef [B, 3, Cu],
+// (tiled over groups).  The two-pass route.  Workspaces: partial [B, S, 2, Cu], coef [B, 3, Cu],
 // counter int32 [B] zeroed.  Output dsb [B, 2, Cu]: per-sample sums of
 // gp * z and gp (dscale and dbias before the sum over the batch).
 // Returns a cudaError_t code (0 = launched).
@@ -283,6 +402,28 @@ int fots_instance_norm_bwd(const float* x, const float* g, float* dx, int B, int
                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   if (halves == 1) return vec ? launch<4, 1>(a, B, st) : launch<1, 1>(a, B, st);
   return vec ? launch<4, 2>(a, B, st) : launch<1, 2>(a, B, st);
+}
+
+// The cluster route of the plain and masked IN (halves 1, groups 1): same
+// tensors, no workspace.  channels, cluster, threads and smem come from the
+// Python plan, as for fots_instance_norm_cluster.  Returns a cudaError_t
+// code (0 = launched), or -2 when the card cannot schedule such a cluster.
+int fots_instance_norm_bwd_cluster(const float* x, const float* g, float* dx, int B, int H,
+                                   int W, int C, const int* valid_w, const float* stats,
+                                   const float* scale, const float* bias, float slope,
+                                   int has_slope, float* dsb, int channels,
+                                   int cluster, int threads, int smem, void* stream) {
+  const int lanes = channels / 4;
+  if (channels % 4 != 0 || C % channels != 0 || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  BwdArgs a{x, g, dx, valid_w, stats, scale, bias, nullptr, nullptr, dsb, nullptr,
+            H, W, C, 1, 0, slope, has_slope};
+  const fots::ClusterShape shape{channels, cluster, threads, smem};
+  return launch_cluster_route(a, B, shape, static_cast<cudaStream_t>(stream));
 }
 
 // rows of the reduce block for this C: the wrapper sizes S with it

@@ -41,7 +41,7 @@ SOURCES = {
     "nms_core": "nms_core.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
-CUDA_HEADERS = ("common.cuh",)
+CUDA_HEADERS = ("common.cuh", "cluster.cuh")
 
 #: CUDA kernel -> the library that holds it
 CUDA_KERNELS = {
@@ -71,14 +71,21 @@ GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 #: launches of each CUDA kernel wrapper in this process (one per launch of
 #: its kernel; never incremented by the plain versions)
 launch_counts: Dict[str, int] = {name: 0 for name in CUDA_KERNELS}
+#: of those, the launches of the two instance-norm kernels by route
+#: ("<kernel>/cluster": one kernel, each tensor crosses device memory once;
+#: "<kernel>/two_pass": statistics kernel, then apply kernel)
+route_counts: Dict[str, int] = {f"{name}/{route}": 0
+                                for name in ("instance_norm", "instance_norm_bwd")
+                                for route in ("cluster", "two_pass")}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

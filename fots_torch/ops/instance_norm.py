@@ -15,6 +15,14 @@ Port of ``fots/ops/instance_norm.py``.  Entry points:
 On a CUDA tensor each launches its kernels; on a CPU tensor it runs the
 kernels' plain versions (``*_ref``), which repeat their arithmetic.
 
+K1' and K1'-bwd have two routes, chosen by :func:`in_plan` from the shape
+alone: ``"cluster"``, one kernel in which a thread-block cluster keeps the
+(H, W, channel-group) plane in shared memory so each tensor crosses device
+memory once, and ``"two_pass"`` (statistics kernel, then apply kernel) for
+planes no cluster can hold, channel counts that are not a multiple of the
+32-byte group, the CReLU mode and unaligned pointers.  A launch that fails
+raises; no route is a fallback of the other.
+
 Layout: ``x`` is ``[B, H, W, C]`` — the JAX package's NHWC — which is a
 ``permute(0, 2, 3, 1)`` view of a channels_last NCHW activation, so the
 modules pass their tensors without a copy.
@@ -23,7 +31,7 @@ modules pass their tensors without a copy.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -194,6 +202,133 @@ def spatial_norm_ref(x, vecs, negative_slope=None, out_mul=1):
 
 
 # --------------------------------------------------------------------------
+# the plan: which route a shape takes, and how a cluster cuts its plane
+# --------------------------------------------------------------------------
+
+#: dynamic shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232_448
+#: channels per cluster come in whole 32-byte sectors of a pixel, so that
+#: neighbouring clusters never share a sector ...
+GROUP_BYTES = 32
+#: ... and two of them where the channel count allows: the card's memory
+#: moves 64 bytes at a time, and a cluster that reads 32 of every 128 ran at
+#: three quarters of the speed of one that reads 64 (H100 80GB HBM3; PERF.md)
+RUN_BYTES = 64
+#: blocks per cluster the cluster route may use.  Up to 8 is portable; 16
+#: needs the kernel's non-portable attribute (set by the launcher)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: four blocks of at most this much share an SM (228 KB, 1 KB of it taken per
+#: block), so that one block's reads overlap another's writes: the plan takes
+#: the smallest cluster that gets under it, else the largest cluster that
+#: holds the plane at all
+_TARGET_SMEM_BYTES = 56 * 1024
+
+
+class InPlan(NamedTuple):
+    """How one K1' / K1'-bwd call runs.  ``route`` "two_pass" leaves the
+    other fields 0.  On "cluster": one cluster of ``cluster`` blocks per
+    (sample, ``channels`` channels); rank r holds pixels ``shares(h * w)[r]``
+    of the plane: ``block_bytes`` of the held tensors, ``smem_bytes`` with
+    the fold's scratch, in blocks of ``threads`` threads."""
+    route: str
+    channels: int = 0
+    cluster: int = 0
+    block_bytes: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+    held: str = ""
+
+    def shares(self, hw: int) -> List[Tuple[int, int]]:
+        """[p0, p1) flat pixel range of each rank (empty past the plane)."""
+        chunk = -(-hw // self.cluster)
+        return [(min(hw, r * chunk), min(hw, (r + 1) * chunk)) for r in range(self.cluster)]
+
+
+TWO_PASS = InPlan("two_pass")
+
+
+def _cluster_shape(hw, channels, cluster, itemsize, held) -> InPlan:
+    chunk = -(-hw // cluster)
+    block_bytes = chunk * channels * itemsize * len(held)
+    lanes = channels * itemsize // 16        # 16-byte vectors per pixel
+    cap = 1024 if block_bytes > SMEM_LIMIT // 2 else 512 if block_bytes > SMEM_LIMIT // 4 else 256
+    threads = min(cap, max(64, 32 * -(-chunk * lanes // 128)))  # ~4 vectors per thread
+    while True:  # fewer warps, less scratch, where the share leaves little room
+        smem = block_bytes + (threads // 32 + 2) * 2 * channels * 4
+        if smem <= SMEM_LIMIT or threads <= 128:
+            return InPlan("cluster", channels, cluster, block_bytes, threads, smem, held)
+        threads //= 2
+
+
+def in_plan(h, w, c, itemsize, halves=1, held="x", aligned=True, cluster=None,
+            channels=None) -> InPlan:
+    """The route of K1' (``held`` "x": its blocks hold x) or K1'-bwd ("xg":
+    they hold x and g) at one shape.
+
+    Pure arithmetic on the shape: ``itemsize`` bytes per value, ``halves`` 2
+    for the CReLU mode, ``aligned`` whether every tensor's pointer is a
+    multiple of 16.  ``cluster`` / ``channels`` force a cluster size or the
+    channels per cluster (a measurement's knobs; a forced shape that cannot
+    be held raises)."""
+    if held not in ("x", "xg"):
+        raise ValueError(f"in_plan: held must be 'x' or 'xg', got {held!r}")
+    group = GROUP_BYTES // itemsize
+    forced = cluster is not None or channels is not None
+    if halves != 1 or c % group != 0 or not aligned or h * w == 0:
+        if forced:
+            raise ValueError(f"in_plan: the cluster route does not take c={c}, "
+                             f"halves={halves}, aligned={aligned}, {h}x{w} pixels")
+        return TWO_PASS
+    if channels is None:
+        run = RUN_BYTES // itemsize
+        channels = run if c % run == 0 else group
+    lanes = channels * itemsize // 16
+    if channels % group != 0 or c % channels != 0 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"in_plan: {channels} channels per cluster: need a multiple of "
+                         f"{group} that divides {c}, a power of two of at most 32 "
+                         "16-byte vectors")
+    sizes = CLUSTER_SIZES if cluster is None else (cluster,)
+    shapes = [_cluster_shape(h * w, channels, cs, itemsize, held) for cs in sizes]
+    for shape in shapes:
+        if shape.smem_bytes <= _TARGET_SMEM_BYTES:
+            return shape
+    if shapes[-1].smem_bytes <= SMEM_LIMIT:
+        return shapes[-1]
+    if forced:
+        raise ValueError(f"in_plan: a cluster of {sizes[-1]} cannot hold {held} of a "
+                         f"{h}x{w}x{channels} plane ({itemsize} bytes per value)")
+    return TWO_PASS
+
+
+def in_bwd_plan(h, w, c, halves=1, aligned=True) -> InPlan:
+    """K1'-bwd's route (f32): its clusters hold x and g."""
+    return in_plan(h, w, c, 4, halves, "xg", aligned)
+
+
+def cluster_fold_stats_ref(x, plan: InPlan, eps=1e-5, valid_w=None):
+    """Plain emulation of the cluster route's summation order: each rank
+    sums its share of the (masked) plane in f32, the shares are folded in
+    rank order.  [B, 2, C] f32 (mean, rstd), as the kernel saves them."""
+    x32 = x.float()
+    b, h, w, c = x32.shape
+    if valid_w is None:
+        n = float(h * w)
+    else:
+        x32 = x32 * _column_mask(valid_w, w, x.device)
+        n = (h * valid_w).float()[:, None]
+    flat = x32.reshape(b, h * w, c)
+    s1 = torch.zeros((b, c), dtype=torch.float32, device=x.device)
+    s2 = torch.zeros_like(s1)
+    for p0, p1 in plan.shares(h * w):
+        share = flat[:, p0:p1]
+        s1 = s1 + share.sum(dim=1)
+        s2 = s2 + (share * share).sum(dim=1)
+    mean = s1 / n
+    var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
+
+
+# --------------------------------------------------------------------------
 # folds between the kernels (a few [B, C] vectors; as in fots)
 # --------------------------------------------------------------------------
 
@@ -262,6 +397,8 @@ def _lib():
     return _typed("instance_norm", {
         "fots_instance_norm": (_i, [_p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _f, _f, _i,
                                     _p, _p, _p, _p, _i, _p]),
+        "fots_instance_norm_cluster": (_i, [_p, _p, _i, _i, _i, _i, _i, _p, _p, _p, _f, _f,
+                                            _i, _p, _i, _i, _i, _i, _p]),
         "fots_instance_norm_rows": (_i, [_i, _i])})
 
 
@@ -269,6 +406,8 @@ def _bwd_lib():
     return _typed("instance_norm_bwd", {
         "fots_instance_norm_bwd": (_i, [_p, _p, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p,
                                         _f, _i, _p, _p, _p, _p, _i, _p]),
+        "fots_instance_norm_bwd_cluster": (_i, [_p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p,
+                                                _f, _i, _p, _i, _i, _i, _i, _p]),
         "fots_instance_norm_bwd_rows": (_i, [_i])})
 
 
@@ -286,9 +425,25 @@ def _chunks(dev, b, npix, rows):
     return max(1, min(s, -(-npix // (rows * 4))))
 
 
-def _check(rc, what):
+#: the C entries' code for a cluster the card cannot schedule
+_CLUSTER_UNSCHEDULABLE = -2
+
+
+def _check(rc, what, plan: Optional[InPlan] = None):
+    if rc == _CLUSTER_UNSCHEDULABLE:
+        raise RuntimeError(f"{what}: this card cannot schedule a cluster of {plan.cluster} "
+                           f"blocks with {plan.smem_bytes} bytes of shared memory each")
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _count(kernel, plan: InPlan):
+    build.launch_counts[kernel] += 1
+    build.route_counts[f"{kernel}/{plan.route}"] += 1
 
 
 def _vec(v, n, dev, what):
@@ -308,10 +463,11 @@ def _valid_w_arg(valid_w, b, dev, what):
 
 
 def instance_norm_cuda(x, scale, bias, eps=1e-5, negative_slope=None,
-                       valid_w=None, with_stats=False):
+                       valid_w=None, with_stats=False, plan: Optional[InPlan] = None):
     """Launch K1' on NHWC ``x`` (f32 or bf16, contiguous).  scale/bias:
     [C] (cast to f32); valid_w: optional [B] int.  ``with_stats`` also
-    returns the [B, 2, C] (mean, rstd) the backward pass reads."""
+    returns the [B, 2, C] (mean, rstd) the backward pass reads.  ``plan``
+    (default: :func:`in_plan` of the shape) picks the route."""
     build.check_kernel_input(x, "instance_norm", _DTYPE_CODES)
     b, h, w, c = x.shape
     dev = x.device
@@ -320,28 +476,38 @@ def instance_norm_cuda(x, scale, bias, eps=1e-5, negative_slope=None,
     valid_w, vw_ptr = _valid_w_arg(valid_w, b, dev, "instance_norm")
     lib = _lib()
     code = _DTYPE_CODES[x.dtype]
-    s = _chunks(dev, b, h * w, lib.fots_instance_norm_rows(code, c))
     y = torch.empty_like(x)
-    partial = torch.empty((b, s, 2, c), dtype=torch.float32, device=dev)
-    coef = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
     stats = (torch.empty((b, 2, c), dtype=torch.float32, device=dev)
              if with_stats else None)
-    counter = torch.zeros((b,), dtype=torch.int32, device=dev)
-    _check(lib.fots_instance_norm(
-        x.data_ptr(), y.data_ptr(), code, b, h, w, c, vw_ptr, scale.data_ptr(),
-        bias.data_ptr(), float(eps),
-        0.0 if negative_slope is None else float(negative_slope),
-        0 if negative_slope is None else 1, partial.data_ptr(), coef.data_ptr(),
-        None if stats is None else stats.data_ptr(), counter.data_ptr(), s,
-        build.current_stream_handle(dev)), "instance_norm")
-    build.launch_counts["instance_norm"] += 1
+    if plan is None:
+        plan = in_plan(h, w, c, x.element_size(), aligned=_aligned(x, y))
+    head = (x.data_ptr(), y.data_ptr(), code, b, h, w, c, vw_ptr, scale.data_ptr(),
+            bias.data_ptr(), float(eps),
+            0.0 if negative_slope is None else float(negative_slope),
+            0 if negative_slope is None else 1)
+    stats_ptr = None if stats is None else stats.data_ptr()
+    if plan.route == "cluster":
+        rc = lib.fots_instance_norm_cluster(
+            *head, stats_ptr, plan.channels, plan.cluster, plan.threads, plan.smem_bytes,
+            build.current_stream_handle(dev))
+    else:
+        s = _chunks(dev, b, h * w, lib.fots_instance_norm_rows(code, c))
+        partial = torch.empty((b, s, 2, c), dtype=torch.float32, device=dev)
+        coef = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+        counter = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rc = lib.fots_instance_norm(
+            *head, partial.data_ptr(), coef.data_ptr(), stats_ptr, counter.data_ptr(), s,
+            build.current_stream_handle(dev))
+    _check(rc, "instance_norm", plan)
+    _count("instance_norm", plan)
     return (y, stats) if with_stats else y
 
 
 def instance_norm_bwd_cuda(x, g, stats, scale, bias, negative_slope=None,
-                           valid_w=None, halves=1, groups=1):
+                           valid_w=None, halves=1, groups=1, plan: Optional[InPlan] = None):
     """Launch K1'-bwd (f32).  Same interface as :func:`instance_norm_bwd_ref`;
-    returns (dx, dsb)."""
+    returns (dx, dsb).  ``plan`` (default: :func:`in_bwd_plan` of the shape)
+    picks the route."""
     build.check_kernel_input(x, "instance_norm_bwd", _F32)
     build.check_kernel_input(g, "instance_norm_bwd (cotangent)", _F32)
     b, h, w, c = x.shape
@@ -358,20 +524,32 @@ def instance_norm_bwd_cuda(x, g, stats, scale, bias, negative_slope=None,
     bias = _vec(bias, cu, dev, "instance_norm_bwd bias")
     valid_w, vw_ptr = _valid_w_arg(valid_w, b, dev, "instance_norm_bwd")
     lib = _bwd_lib()
-    s = _chunks(dev, b, h * w, lib.fots_instance_norm_bwd_rows(c))
     dx = torch.empty_like(x)
-    partial = torch.empty((b, s, 2, cu), dtype=torch.float32, device=dev)
-    coef = torch.empty((b, 3, cu), dtype=torch.float32, device=dev)
     dsb = torch.empty((b, 2, cu), dtype=torch.float32, device=dev)
-    counter = torch.zeros((b,), dtype=torch.int32, device=dev)
-    _check(lib.fots_instance_norm_bwd(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, h, w, c, halves, groups, vw_ptr,
-        stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        0.0 if negative_slope is None else float(negative_slope),
-        0 if negative_slope is None else 1, partial.data_ptr(), coef.data_ptr(),
-        dsb.data_ptr(), counter.data_ptr(), s, build.current_stream_handle(dev)),
-        "instance_norm_bwd")
-    build.launch_counts["instance_norm_bwd"] += 1
+    if plan is None:
+        plan = in_bwd_plan(h, w, c, halves, _aligned(x, g, dx))
+    slope = (0.0 if negative_slope is None else float(negative_slope),
+             0 if negative_slope is None else 1)
+    if plan.route == "cluster":
+        if halves != 1 or groups != 1 or plan.held != "xg":
+            raise ValueError("instance_norm_bwd: the cluster route holds x and g and has "
+                             "no CReLU mode")
+        rc = lib.fots_instance_norm_bwd_cluster(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, h, w, c, vw_ptr, stats.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), *slope, dsb.data_ptr(), plan.channels,
+            plan.cluster, plan.threads, plan.smem_bytes, build.current_stream_handle(dev))
+    else:
+        s = _chunks(dev, b, h * w, lib.fots_instance_norm_bwd_rows(c))
+        partial = torch.empty((b, s, 2, cu), dtype=torch.float32, device=dev)
+        coef = torch.empty((b, 3, cu), dtype=torch.float32, device=dev)
+        counter = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rc = lib.fots_instance_norm_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b, h, w, c, halves, groups, vw_ptr,
+            stats.data_ptr(), scale.data_ptr(), bias.data_ptr(), *slope, partial.data_ptr(),
+            coef.data_ptr(), dsb.data_ptr(), counter.data_ptr(), s,
+            build.current_stream_handle(dev))
+    _check(rc, "instance_norm_bwd", plan)
+    _count("instance_norm_bwd", plan)
     return dx, dsb
 
 

@@ -3,6 +3,7 @@ breakdown; and the timing of the fused residual-block kernel K5'.
 
     python3 -m fots_torch.profiling [--path serve|train] [--batch N] [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
+    python3 -m fots_torch.profiling --path instance_norm
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -12,7 +13,9 @@ batches first, then a profiled window of ``--batches`` batches (steps).
 Prints one JSON object: host wall time per batch, device busy time per
 batch (the union of kernel intervals), the device's idle share of the
 window, device time per kernel category and the top kernels by device
-time.  Needs a CUDA card.
+time.  ``instance_norm``: K1' and K1'-bwd on their two routes (and the
+cluster route's other possible cuts) at every shape the serving, training
+and evaluation paths give them, one JSON line per shape.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ from fots_torch.pipeline import FOTSInference
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel-name fragments -> category, first match wins
-_CATEGORIES = (("in_stats_kernel", "instance_norm (K1')"),
+_CATEGORIES = (("in_bwd_", "instance_norm_bwd (K1'-bwd)"),
+               ("in_cluster_kernel", "instance_norm (K1')"),
+               ("in_stats_kernel", "instance_norm (K1')"),
                ("in_apply_kernel", "instance_norm (K1')"),
-               ("in_bwd_", "instance_norm_bwd (K1'-bwd)"),
                ("spatial_stats_kernel", "spatial_stats (K2')"),
                ("spatial_norm_kernel", "spatial_norm (K3')"),
                ("pack_neighbors_bwd_kernel", "pack_neighbors_bwd (K4'-bwd)"),
@@ -166,6 +170,168 @@ def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
             "hw": list(batch.images.shape[1:3]), "host_ms_per_call": host, **out}
 
 
+def cuda_median_ms(fn, reps=15, warmup=3):
+    """Median device time of ``fn`` over ``reps`` calls, CUDA events around
+    each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def cuda_busy_ms(fn, reps=10, warmup=2):
+    """Device-busy time of one call of ``fn``: the union of the kernel, copy
+    and memset intervals torch.profiler records over ``reps`` calls, over
+    ``reps``.  Unlike :func:`cuda_median_ms` it leaves out the time the card
+    waits for a slow host between the launches of one call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    return _union_us(spans) / (1e3 * reps)
+
+
+#: (divisor of the image's height and width, channels) of the detector's
+#: four residual stages, whose norms are K1'
+IN_STAGES = ((4, 64), (8, 128), (16, 256), (32, 512))
+
+
+def instance_norm_path_shapes():
+    """(path, (b, h, w, c), dtype, masked, backward too) of every K1' call
+    site: serving (batch 16 at 704x1280, bf16), training (batch 8 at
+    640x960, f32, with K1'-bwd), per-image evaluation (one 640x960 image, f32
+    and bf16) and the recognition head's masked strips."""
+    from fots_torch.pipeline import FOTSInference
+
+    out = []
+    for path, b, (h, w), dtype, bwd in (("serving", 16, (704, 1280), torch.bfloat16, False),
+                                        ("training", 8, (640, 960), torch.float32, True),
+                                        ("evaluation", 1, (640, 960), torch.float32, False),
+                                        ("evaluation", 1, (640, 960), torch.bfloat16, False)):
+        out += [(path, (b, h // d, w // d, c), dtype, False, bwd) for d, c in IN_STAGES]
+    strips = ((11, 128), (5, 256), (1, 256))
+    for width in (32, 512):
+        chunk = FOTSInference._roi_chunk(width)
+        for dtype in (torch.bfloat16, torch.float32):
+            out += [("serving strips", (chunk, h, width, c), dtype, True, False)
+                    for h, c in strips]
+    out += [("training strips", (32, h, 256, c), torch.float32, True, True) for h, c in strips]
+    return out
+
+
+#: equal bytes (115 MB of bf16 each way), four layouts of what one cluster
+#: reads of a pixel, as (label, shape, ((channels, cluster), ...)): why the
+#: plan takes 64-byte channel groups and small blocks
+IN_LAYOUT_STUDY = (
+    ("contiguous plane, no cluster", (1024, 44, 80, 16), ((16, 1), (16, 2))),
+    ("contiguous plane, clusters", (64, 176, 320, 16), ((16, 16), (16, 8))),
+    ("32 of a pixel's 128 bytes", (256, 44, 80, 64), ((16, 1), (16, 2))),
+    ("32 of 128 bytes, clusters", (16, 176, 320, 64), ((16, 16), (16, 8))),
+    ("64 of 128 bytes", (256, 44, 80, 64), ((32, 2), (32, 4))),
+    ("64 of 128 bytes, clusters", (16, 176, 320, 64), ((32, 16),)),
+    ("128 of 128 bytes", (256, 44, 80, 64), ((64, 4), (64, 8))),
+)
+
+
+def profile_instance_norm(device="cuda", reps=15):
+    """Time K1' (and K1'-bwd where the path runs it) at every path shape:
+    the two-pass route, the cluster route as :func:`in_plan` cuts it, and
+    the cluster route's other cuts that fit (every cluster size; one, two
+    and four 32-byte channel groups per cluster); before them the layout
+    study (``IN_LAYOUT_STUDY``).  ``ms`` are event-bracketed single calls
+    (they include the host's launch work); ``device_busy_ms`` is the card's
+    busy time per call on the plan's route and on two passes.  Yields one
+    dict per (shape, kernel)."""
+    from fots_torch.ops import instance_norm as tin
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the instance_norm profile times CUDA kernels: it needs a card")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def plan_tag(plan):
+        return (f"cluster {plan.held} {plan.cluster}x{plan.block_bytes}B "
+                f"ch{plan.channels} t{plan.threads}")
+
+    def variants(h, w, c, itemsize, held):
+        seen = {}
+        group = tin.GROUP_BYTES // itemsize
+        for cluster in tin.CLUSTER_SIZES:
+            for channels in (group, 2 * group, 4 * group):
+                try:
+                    plan = tin.in_plan(h, w, c, itemsize, 1, held, True, cluster, channels)
+                except ValueError:
+                    continue
+                seen.setdefault(plan, plan_tag(plan))
+        return seen
+
+    for label, shape, cuts in IN_LAYOUT_STUDY:
+        b, h, w, c = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1.5).to(torch.bfloat16)
+        scale = torch.randn(c, generator=gen, device=dev)
+        bias = torch.randn(c, generator=gen, device=dev)
+        times = {"two_pass": cuda_median_ms(lambda: tin.instance_norm_cuda(
+            x, scale, bias, 1e-5, 0.01, plan=tin.TWO_PASS), reps)}
+        for channels, cluster in cuts:
+            plan = tin.in_plan(h, w, c, 2, cluster=cluster, channels=channels)
+            times[plan_tag(plan)] = cuda_median_ms(lambda: tin.instance_norm_cuda(
+                x, scale, bias, 1e-5, 0.01, plan=plan), reps)
+        yield {"kernel": "instance_norm", "path": f"layout study: {label}",
+               "shape": list(shape), "dtype": "bfloat16", "masked": False,
+               "bytes": 4 * x.numel(), "ms": times}
+        del x
+
+    for path, shape, dtype, masked, bwd in instance_norm_path_shapes():
+        b, h, w, c = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1.5).to(dtype)
+        scale = torch.randn(c, generator=gen, device=dev)
+        bias = torch.randn(c, generator=gen, device=dev)
+        vw = (torch.randint(1, w + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+              if masked else None)
+        default = tin.in_plan(h, w, c, x.element_size())
+        times = {"two_pass": cuda_median_ms(lambda: tin.instance_norm_cuda(
+            x, scale, bias, 1e-5, 0.01, vw, bwd, tin.TWO_PASS), reps)}
+        for plan, tag in variants(h, w, c, x.element_size(), "x").items():
+            times[tag] = cuda_median_ms(lambda: tin.instance_norm_cuda(
+                x, scale, bias, 1e-5, 0.01, vw, bwd, plan), reps)
+        busy = {pl.route: cuda_busy_ms(lambda: tin.instance_norm_cuda(
+            x, scale, bias, 1e-5, 0.01, vw, bwd, pl)) for pl in {default, tin.TWO_PASS}}
+        nbytes = 2 * x.numel() * x.element_size()
+        yield {"kernel": "instance_norm", "path": path, "shape": list(shape),
+               "dtype": str(dtype)[6:], "masked": masked, "bytes": nbytes,
+               "plan": default._asdict(), "ms": times, "device_busy_ms": busy}
+        if not bwd:
+            continue
+        g = torch.randn(shape, generator=gen, device=dev)
+        stats = tin.instance_norm_stats_ref(x, 1e-5, vw)
+        default = tin.in_bwd_plan(h, w, c)
+        times = {"two_pass": cuda_median_ms(lambda: tin.instance_norm_bwd_cuda(
+            x, g, stats, scale, bias, 0.01, vw, plan=tin.TWO_PASS), reps)}
+        for plan, tag in variants(h, w, c, 4, "xg").items():
+            times[tag] = cuda_median_ms(lambda: tin.instance_norm_bwd_cuda(
+                x, g, stats, scale, bias, 0.01, vw, plan=plan), reps)
+        busy = {pl.route: cuda_busy_ms(lambda: tin.instance_norm_bwd_cuda(
+            x, g, stats, scale, bias, 0.01, vw, plan=pl)) for pl in {default, tin.TWO_PASS}}
+        yield {"kernel": "instance_norm_bwd", "path": path, "shape": list(shape),
+               "dtype": "float32", "masked": masked, "bytes": 3 * x.numel() * 4,
+               "plan": default._asdict(), "ms": times, "device_busy_ms": busy}
+
+
 FUSED_BLOCK_SHAPE = (16, 88, 160, 128)
 #: activation-sized tensors each variant moves through device memory per
 #: iteration: conv (x, y), statistics (y), apply (y, r, out) for the two
@@ -273,7 +439,8 @@ def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("serve", "train", "fused_block"), default="serve")
+    ap.add_argument("--path", choices=("serve", "train", "fused_block", "instance_norm"),
+                    default="serve")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10,
@@ -284,6 +451,11 @@ def main(argv=None) -> int:
     if args.path == "fused_block":
         shape = tuple(int(v) for v in args.shape.split(","))
         print(json.dumps(profile_fused_block(shape, args.iters), indent=2))
+        return 0
+    if args.path == "instance_norm":
+        for row in profile_instance_norm():
+            print(json.dumps(row), flush=True)
+        print(card_name_and_power_limit())
         return 0
     assets = os.path.join(_REPO, "fots_torch", "assets")
     with np.load(os.path.join(assets, "smoke_images_u8.npz")) as z:
