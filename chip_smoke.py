@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. build every native library from the sources in this checkout (nvcc for
-   the CUDA kernels, all started together; g++ for the host NMS);
+   the CUDA kernels, all started together; g++ for the host NMS), printing
+   each kernel's registers and spills from ptxas and any compiler warning;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes the serving path (batch 16, 704x1280) and the training path
    (batch 8, 640x960) give it, plus odd shapes.  K1' and K1'-bwd run each
@@ -21,9 +22,11 @@ result line):
    (bytes moved over the memory rate, or operations over the rate of
    their type, whichever is larger).  K5' (the fused conv3x3 + instance
    norm + residual + activation) is held at the shapes of the JAX package's
-   tests (f32, TF32 off for the plain version), one ragged shape and its
-   profile shape 16x88x160x128 bf16, and its gradients through the
-   ``autograd.Function`` against autograd of the plain version;
+   tests (f32, TF32 off for the plain version), one ragged shape in bf16 at
+   every channel count it is built for, its profile shape 16x88x160x128
+   bf16, and its gradients through the ``autograd.Function`` against
+   autograd of the plain version.  The NMS candidates of two maps with more
+   than k pixels tied at 1.0 must equal the CPU's;
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
    on one serving batch of two smoke images at 704x1280 with the shipped
    snapshot: same box count per image, quad corners within 1 px,
@@ -73,6 +76,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import time
@@ -121,6 +125,30 @@ def card_peaks(name: str):
         if key in name:
             return key, bw, f32, bf16
     raise RuntimeError(f"no published peaks recorded for {name!r}")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas -v`` log,
+    keyed by the kernel's name and its integer template arguments
+    (``conv_stats_mma_kernel<128>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            # the name follows its length (digits) in the mangled symbol
+            k = re.search(r"\d([a-z_]*_kernel)I(.*?)EEv", m.group(1))
+            name = m.group(1)
+            if k is not None:
+                args = ",".join(re.findall(r"Li(\d+)E", k.group(2)))
+                name = f"{k.group(1)}<{args}>"
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def check(cond, msg):
@@ -501,8 +529,29 @@ def phase_kernels(dev, peaks):
     for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (3, 5, 7, 8), (2, 3, 5, 4)):
         pack_bwd_case(shape)
 
+    # NMS candidates with more than k pixels tied at 1.0 (the snapshot's
+    # saturated sigmoid) at the serving map size: the card takes the same
+    # pixels as the CPU (ties in ascending pixel order, as fots takes them)
+    from fots_torch.ops import nms as tnms
+    hs, ws_ = H // 4, W // 4
+    segm = torch.rand((2, hs, ws_), generator=gen, device=dev)
+    segm[0, : hs // 2] = 1.0
+    segm[1] = torch.where(torch.rand((hs, ws_), generator=gen, device=dev) < 0.3, 1.0, segm[1])
+    geo = torch.rand((2, hs, ws_, 4), generator=gen, device=dev) * 60
+    ang = torch.rand((2, hs, ws_, 2), generator=gen, device=dev)
+    k = 8192
+    check(bool(((segm == 1.0).sum(dim=(1, 2)) > k).all()), "NMS tie case: too few ties")
+    got = tnms.extract_candidates(segm, geo, ang, k).cpu()
+    want = tnms.extract_candidates(segm.cpu(), geo.cpu(), ang.cpu(), k)
+    check(torch.equal(got, want), "NMS candidates with ties: the card's pixel set or "
+          "pack differs from the CPU's")
+    print(f"  NMS candidates, 2 maps {hs}x{ws_} with "
+          f"{(segm == 1.0).sum(dim=(1, 2)).tolist()} pixels tied at 1.0, k = {k}: the card's "
+          "pixels and pack equal the CPU's")
+
     # K5': the JAX package's test shapes (f32), a ragged shape (H, W not
-    # multiples of 8, C = 48), bf16, and the profile shape
+    # multiples of 8, C = 48), bf16 at every C it is built for, and the
+    # profile shape
     for slope in (None, 0.01):
         for with_res in (True, False):
             fused_case((2, 32, 48, 64), torch.float32, slope, with_res)
@@ -511,6 +560,8 @@ def phase_kernels(dev, peaks):
     for dtype in (torch.float32, torch.bfloat16):
         fused_case((2, 13, 21, 48), dtype, 0.01, True, seed=5)
     fused_case((1, 9, 70, 16), torch.bfloat16, None, False, seed=6)
+    for c in (32, 80, 96, 112):  # every other wgmma width (N = C) and K-block split
+        fused_case((2, 13, 21, c), torch.bfloat16, 0.01, True, seed=c)
     fused_case((2, 32, 48, 64), torch.bfloat16, None, True, seed=1)
     fused_case(FUSED_SHAPE, torch.bfloat16, None, True, abs_limit=0.1)
     fused_case(FUSED_SHAPE, torch.bfloat16, 0.01, False, abs_limit=0.1)
@@ -621,7 +672,9 @@ def phase_kernels(dev, peaks):
         "F.conv2d + F.instance_norm + add + relu: four PyTorch calls, no single one "
         "computes the function", rate=bf16_rate,
         bound_ms_recompute_design=1e3 * max(4 * act_bytes / bw, 2 * conv_ops / bf16_rate),
-        bound_ms_compute_once_design=1e3 * max(5 * act_bytes / bw, conv_ops / bf16_rate))
+        bound_ms_compute_once_design=1e3 * max(5 * act_bytes / bw, conv_ops / bf16_rate),
+        # without the card's waits for the host between the launches of one call
+        device_busy_ms=cuda_busy_ms(lambda: tfb.conv_in_act_cuda(fx, fw, fg, fb_, fr)))
 
     # the stem's CReLU-IN as served now (K2' + fold + K3') and as PR 1 ran
     # it (torch.cat + K1'), for the record
@@ -634,7 +687,9 @@ def phase_kernels(dev, peaks):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms ({r['library_note']}), "
               f"bound {1e3 * max(r['bound']):.4f} ms"
               + (f"; by route {r['extra']['route_ms']}, device busy "
-                 f"{r['extra']['route_device_busy_ms']}" if "route_ms" in r["extra"] else ""))
+                 f"{r['extra']['route_device_busy_ms']}" if "route_ms" in r["extra"] else "")
+              + (f"; device busy {r['extra']['device_busy_ms']:.4f} ms"
+                 if "device_busy_ms" in r["extra"] else ""))
     print(f"  CReLU-IN at {tuple(xs.shape)} bf16: K2'+fold+K3' {crelu_ms:.4f} ms, "
           f"torch.cat + K1' {cat_ms:.4f} ms")
     return worst, rows, {"crelu_ms": crelu_ms, "cat_plus_in_ms": cat_ms}
@@ -873,7 +928,8 @@ def phase_fused_block():
           f"10 chained iterations, 5 profiled calls); "
           f"composition {out['composition']['ms_per_iter']:.4f} ms, library "
           f"{out['library']['ms_per_iter']:.4f} ms, K5' {out['cuda_fused']['ms_per_iter']:.4f} "
-          f"ms per iteration; fused_speedup {out['fused_speedup']:.3f}")
+          f"ms per iteration; fused_speedup {out['fused_speedup']:.3f}; K5' device ms per "
+          f"call by kernel {out['cuda_fused']['kernels_ms_per_call']}")
     return launches, out
 
 
@@ -995,8 +1051,12 @@ def main(argv=None) -> int:
     print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or line.startswith("["):
+            if line.startswith("[") or "warning" in line.lower():
                 print(f"  {lib}: {line.strip()}")
+    ptxas = {lib: ptxas_report(text) for lib, text in logs.items()}
+    for lib, kernels in ptxas.items():
+        for kname, info in kernels.items():
+            print(f"  {lib}: {kname} {info}")
 
     images, targets = load_assets()
     results = {}
@@ -1049,6 +1109,7 @@ def main(argv=None) -> int:
                 for route in ("cluster", "two_pass")}}
                if f"{kname}/cluster" in serve_launches else {}),
             **r["extra"],
+            **({"ptxas": ptxas.get("fused_block", {})} if kname == "fused_block" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {"images_per_s": ips, "batch": BATCH,

@@ -29,9 +29,23 @@
 //       results repeat from run to run, into per-(n, c) a = rsqrt(var + eps) *
 //       scale and c = bias - mean * a.
 //   (2) apply_kernel: out = act(y * a + c [+ r]) in f32, one cast at the end.
-// bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix; a warp owns
-// 32 pixels of one row and all C output channels, taps double-buffered with
-// cp.async.  f32: plain FMA on the CUDA cores (no TF32), so the result is f32
+// bf16: Hopper's warpgroup product, the only path to the tensor cores' full
+// rate.  The block's 256 threads are two warpgroups; warpgroup g owns rows
+// 4g..4g+3 of the 8 x 32 pixel tile.  Per tap and 16-channel k-step each warp
+// loads its 16 x 16 A fragment (16 pixels of its row) from the padded halo
+// tile with ldmatrix, and the warpgroup issues two wgmma.mma_async
+// m64n{C}k16 (bf16 in, f32 accumulate), one per 16-column half, A from
+// registers and B (16 x C) read by the tensor cores from shared memory through
+// a matrix descriptor, so a tap crosses shared memory once per warpgroup,
+// not once per warp.  The host lays each [C_in, C_out]
+// tap out in wgmma's canonical K-major layout with the 128-byte swizzle
+// (ops/fused_block.py:wgmma_weight_image), so a block copies a tap linearly
+// with 16-byte cp.async.  Four tap buffers keep two taps in flight while one
+// is multiplied and the one before finishes: the products run on from tap to
+// tap (one barrier per tap, which they cross in flight), never drained before
+// the last.  y is staged through the halo tile (free after the last tap)
+// and stored in 16-byte pieces, neighbouring threads on neighbouring
+// addresses.  f32: plain FMA on the CUDA cores (no TF32), so the result is f32
 // up to summation order.  The statistics are those of the f32 accumulator, as
 // on the TPU; what is normalised is that accumulator rounded to x's type (for
 // bf16, what the plain version normalises too).
@@ -51,7 +65,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileW = 32;    // output columns per block, both kernels
-constexpr int kMmaTileH = 8;  // output rows per block: one per warp
+constexpr int kMmaTileH = 8;  // output rows per block: one per warp, four per warpgroup
 constexpr int kFmaTileH = 4;
 constexpr int kFmaGroups = 16;  // pixel groups (and channel groups) of the FMA block
 
@@ -76,21 +90,179 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// ---------------------------------------------------------------------------
+// wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply-Accumulate").
+// Each wrapper is executed by all 128 threads of a warpgroup, converged.
+// ---------------------------------------------------------------------------
+
+// order this thread's shared-memory writes (generic proxy: cp.async, stores)
+// before the tensor cores' reads of them (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// register writes (A fragments, accumulators) before the wgmma that reads them
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of r across this point (the
+// accumulators change behind its back while a wgmma is in flight)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i++) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Matrix descriptor of a K-major B operand in the 128-byte-swizzle canonical
+// layout (PTX ISA, "Matrix Descriptor Format"): bits 0-13 start address >> 4;
+// 16-29 leading byte offset >> 4 (unused by swizzled K-major layouts, 1 by
+// convention); 32-45 stride byte offset >> 4: 1024 B from one group of eight
+// 128-byte rows (eight output channels) to the next; 49-51 base offset 0 (the
+// buffers are 1024-byte aligned); 62-63 swizzle mode, 1 = 128 B.  A k-step
+// inside a 128-byte row starts 32 bytes further on: the hardware applies the
+// swizzle to the address bits, as the host applied it to the image.
+__device__ __forceinline__ uint64_t b_desc(uint32_t smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x N, f32; this thread's N / 2 values) += a (64 x 16 bf16: this warp's
+// rows 16 * (warp % 4) .. + 15 as the four registers of an mma.sync m16n8k16
+// A fragment) * B (16 x N bf16 in shared memory, by descriptor).  d[4 j + r]
+// holds row g + 8 * (r / 2), column 8 j + 2 * (lane % 4) + r % 2 of the warp's
+// 16 rows, g = lane / 4: the C fragment of mma.sync m16n8k16 per 8 columns.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc);
+
+#define FOTS_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),            \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16), FOTS_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16), FOTS_D8(24),
+        FOTS_D8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16), FOTS_D8(24),
+        FOTS_D8(32), FOTS_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16), FOTS_D8(24),
+        FOTS_D8(32), FOTS_D8(40), FOTS_D8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : FOTS_D8(0), FOTS_D8(8), FOTS_D8(16), FOTS_D8(24),
+        FOTS_D8(32), FOTS_D8(40), FOTS_D8(48), FOTS_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+#undef FOTS_D8
 
 // Every thread calls this after the block's per-channel sums lie in shared
 // memory as red[2][R][C] (sum, then sum of squares; R partial rows, folded here
@@ -127,31 +299,48 @@ __device__ void fold_block(const float* red, int R, int C, float* __restrict__ p
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  grid (ceil(W / 32), ceil(H / 8), N), 256 threads.
-// Shared memory: x tile [10][34][C + 8], two weight taps [C][C + 8] (the + 8
-// keeps ldmatrix's eight 16-byte rows on distinct banks), red [2][8][C] f32.
+// bf16: warpgroup tensor cores.  grid (ceil(W / 32), ceil(H / 8), N), 256
+// threads = two warpgroups.  Shared memory, from a 1024-byte aligned base: x
+// tile [10][34][C + 8] (the + 8 keeps ldmatrix's eight 16-byte rows on
+// distinct banks; after the last tap it holds the staged y [8][32][C + 8]
+// and red [2][8][C] f32), four weight taps in the host's image (each
+// [KP / 64][C][64] with the 128-byte swizzle, KP = C rounded up to 64).
 // ---------------------------------------------------------------------------
+// taps in shared memory: two in flight, one multiplied, and the one before,
+// whose last products may still run
+constexpr int kTapBufs = 4;
+constexpr int kBRow = 64;    // K elements of one 128-byte row of a swizzled tap
+
 template <int C>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)((kMmaTileH + 2) * (kTileW + 2) + 2 * C) * (C + 8) * sizeof(bf16) +
-         (size_t)2 * kWarps * C * sizeof(float);
-}
+struct MmaSmem {
+  static constexpr int CP = C + 8;
+  static constexpr int XW = kTileW + 2;
+  static constexpr int XP = (kMmaTileH + 2) * XW;
+  static constexpr int KP = (C + kBRow - 1) / kBRow * kBRow;
+  static constexpr int kTapBytes = KP * C * (int)sizeof(bf16);  // a multiple of 1024
+  static constexpr int kW = (XP * CP * (int)sizeof(bf16) + 1023) / 1024 * 1024;
+  // red lies in the halo tile, behind the staged y (both after the last tap)
+  static constexpr int kRed = kMmaTileH * kTileW * CP * (int)sizeof(bf16);
+  // + 1024: room to align the dynamic shared memory's base
+  static constexpr size_t kBytes = (size_t)kW + kTapBufs * kTapBytes + 1024;
+  static_assert(kRed + 2 * kWarps * C * sizeof(float) <= (size_t)kW, "red outside the tile");
+};
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv_stats_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+    conv_stats_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wimg,
                           bf16* __restrict__ y, const float* __restrict__ scale,
                           const float* __restrict__ bias, float* __restrict__ partial,
                           float* __restrict__ coef, int* __restrict__ counter, int H, int W,
                           float eps) {
-  constexpr int CP = C + 8;          // padded channel stride, elements
-  constexpr int XW = kTileW + 2;     // tile columns with the halo
-  constexpr int XP = (kMmaTileH + 2) * XW;
-  constexpr int CH = C / 8;          // 16-byte chunks per pixel / per weight row
+  using S = MmaSmem<C>;
+  constexpr int CP = S::CP, XW = S::XW, XP = S::XP;
+  constexpr int CH = C / 8;  // 16-byte chunks per pixel
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ws = xs + XP * CP;
-  float* red = reinterpret_cast<float*>(ws + 2 * C * CP);
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  unsigned char* ws = smem + S::kW;
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
 
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int n = blockIdx.z, h0 = blockIdx.y * kMmaTileH, w0 = blockIdx.x * kTileW;
@@ -166,64 +355,76 @@ __global__ void __launch_bounds__(kThreads, 1)
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
-  auto load_tap = [&](int t) {
-    const bf16* wt = w + (long long)t * C * C;
-    bf16* dst = ws + (t & 1) * C * CP;
-    for (int idx = tid; idx < C * CH; idx += kThreads) {
-      const int k = idx / CH, ch = idx % CH;
-      cp_async16(dst + k * CP + ch * 8, wt + k * C + ch * 8);
-    }
+  auto load_tap = [&](int t) {  // the host's image of a tap, copied as it lies
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(wimg) +
+                               (long long)t * S::kTapBytes;
+    unsigned char* dst = ws + (t % kTapBufs) * S::kTapBytes;
+    for (int i = tid; i < S::kTapBytes / 16; i += kThreads) cp_async16(dst + 16 * i, src + 16 * i);
   };
   load_tap(0);
+  cp_async_commit();  // the halo tile and tap 0
+  load_tap(1);
   cp_async_commit();
 
-  // acc[i][jt][r]: pixel column i * 16 + lane / 4 + 8 * (r / 2) of row wid,
-  // channel jt * 8 + 2 * (lane % 4) + r % 2
-  float acc[2][C / 8][4];
+  // acc[i][4 * jt + r]: pixel column i * 16 + lane / 4 + 8 * (r / 2) of row
+  // wid, channel jt * 8 + 2 * (lane % 4) + r % 2 (wgmma_rs's d, per half i)
+  float acc[2][C / 2];
 #pragma unroll
   for (int i = 0; i < 2; i++)
 #pragma unroll
-    for (int jt = 0; jt < C / 8; jt++)
-#pragma unroll
-      for (int r = 0; r < 4; r++) acc[i][jt][r] = 0.f;
+    for (int j = 0; j < C / 2; j++) acc[i][j] = 0.f;
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
 
+  const uint32_t ws_addr = smem_u32(ws);
+  uint32_t a[2][2][4];  // [k-step parity][half]: two k-steps' fragments in flight
 #pragma unroll 1
   for (int t = 0; t < 9; t++) {
-    if (t + 1 < 9) {  // tap t + 1 arrives while tap t is multiplied
-      load_tap(t + 1);
-      cp_async_commit();
+    // this warpgroup's products are done but for tap t - 1's last two k-steps
+    // (its only one where C = 16)
+    wgmma_wait<(C / 16 < 2 ? 1 : 2)>();
+    if (t + 1 < 9)  // tap t has landed; tap t + 1 may still be in flight
       cp_async_wait<1>();
-    } else {
+    else
       cp_async_wait<0>();
-    }
+    fence_proxy_async();
+    // every thread's copies of tap t are visible, and both warpgroups are done
+    // with tap t - 2: its buffer takes tap t + 2.  The products of tap t - 1
+    // run on through the barrier.
     __syncthreads();
+    if (t + 2 < 9) {
+      load_tap(t + 2);
+      cp_async_commit();
+    }
     const int ky = t / 3, kx = t % 3;
     // ldmatrix x4: lane l points at row l % 16, columns (l / 16) * 8 .. + 7
     const uint32_t a_base =
         smem_u32(xs + ((wid + ky) * XW + kx + (lane & 15)) * CP + (lane >> 4) * 8);
-    const uint32_t b_base = smem_u32(ws + (t & 1) * C * CP + (lane & 15) * CP + (lane >> 4) * 8);
-#pragma unroll 2
-    for (int k0 = 0; k0 < C; k0 += 16) {
-      uint32_t a[2][4];
-      ldmatrix_x4(a[0], a_base + k0 * 2);
-      ldmatrix_x4(a[1], a_base + (16 * CP + k0) * 2);
+    const uint32_t b_base = ws_addr + (t % kTapBufs) * S::kTapBytes;
 #pragma unroll
-      for (int jn = 0; jn < C / 16; jn++) {
-        uint32_t b[4];  // (b0, b1) of channels jn * 16 .. + 7, then of + 8 .. + 15
-        ldmatrix_x4_trans(b, b_base + (k0 * CP + jn * 16) * 2);
-#pragma unroll
-        for (int i = 0; i < 2; i++) {
-          mma_bf16(acc[i][2 * jn], a[i], b[0], b[1]);
-          mma_bf16(acc[i][2 * jn + 1], a[i], b[2], b[3]);
-        }
-      }
+    for (int ks = 0; ks < C / 16; ks++) {
+      uint32_t(&ak)[2][4] = a[ks & 1];
+      if (ks == 0 && (C / 16) % 2 == 1)
+        wgmma_wait<0>();  // tap t - 1's last k-step read ak
+      else
+        wgmma_wait<1>();  // the k-step before the last, which read ak, is done
+      ldmatrix_x4(ak[0], a_base + ks * 32);
+      ldmatrix_x4(ak[1], a_base + 16 * CP * 2 + ks * 32);
+      wgmma_fence();
+      const uint64_t desc = b_desc(b_base + (ks * 16 / kBRow) * C * 128 + (ks * 16 % kBRow) * 2);
+      wgmma_rs<C>(acc[0], ak[0], desc);
+      wgmma_rs<C>(acc[1], ak[1], desc);
+      wgmma_commit();
     }
-    __syncthreads();  // this tap's buffer is free for tap t + 2
   }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  __syncthreads();  // every warp is done with the halo tile: it stages y now
 
   const int g = lane >> 2, tq = lane & 3;
   const int hh = h0 + wid;
-  bf16* yn = y + (long long)n * H * W * C;
+  bf16* ys = xs;  // [kMmaTileH][kTileW][CP]
   float* red1 = red;
   float* red2 = red + kWarps * C;
 #pragma unroll
@@ -233,16 +434,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 2; i++) {
 #pragma unroll
       for (int half = 0; half < 2; half++) {
-        const int ww = w0 + i * 16 + g + 8 * half;
-        if (hh < H && ww < W) {
-          const float v0 = acc[i][jt][2 * half], v1 = acc[i][jt][2 * half + 1];
+        const int col = i * 16 + g + 8 * half;
+        const float v0 = acc[i][4 * jt + 2 * half], v1 = acc[i][4 * jt + 2 * half + 1];
+        if (hh < H && w0 + col < W) {
           s1[0] += v0;
           s1[1] += v1;
           s2[0] += v0 * v0;
           s2[1] += v1 * v1;
-          *reinterpret_cast<__nv_bfloat162*>(yn + ((long long)hh * W + ww) * C + jt * 8 + 2 * tq) =
-              __floats2bfloat162_rn(v0, v1);
         }
+        *reinterpret_cast<__nv_bfloat162*>(ys + (wid * kTileW + col) * CP + jt * 8 + 2 * tq) =
+            __floats2bfloat162_rn(v0, v1);
       }
     }
 #pragma unroll
@@ -262,6 +463,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   __syncthreads();
+  // y in 16-byte pieces: a tile row's pixels are contiguous in y
+  bf16* yn = y + (long long)n * H * W * C;
+  for (int idx = tid; idx < kMmaTileH * kTileW * CH; idx += kThreads) {
+    const int p = idx / CH, ch = idx % CH;
+    const int hy = h0 + p / kTileW, wy = w0 + p % kTileW;
+    if (hy < H && wy < W)
+      *reinterpret_cast<uint4*>(yn + ((long long)hy * W + wy) * C + ch * 8) =
+          *reinterpret_cast<const uint4*>(ys + p * CP + ch * 8);
+  }
   fold_block(red, kWarps, C, partial, coef, counter, scale, bias, (float)H * (float)W, eps);
 }
 
@@ -417,10 +627,10 @@ int launch_bf16(const void* x, const void* w, const void* r, void* y, void* out,
                 int has_slope, float* partial, float* coef, int* counter, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(conv_stats_mma_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)mma_smem_bytes<C>());
+                                         (int)MmaSmem<C>::kBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kMmaTileH - 1) / kMmaTileH, N);
-  conv_stats_mma_kernel<C><<<grid, kThreads, mma_smem_bytes<C>(), stream>>>(
+  conv_stats_mma_kernel<C><<<grid, kThreads, MmaSmem<C>::kBytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y), scale, bias,
       partial, coef, counter, H, W, eps);
   err = cudaGetLastError();
@@ -451,7 +661,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x, residual (or null), y (scratch: the
 // pre-norm convolution), out: [N, H, W, C] contiguous, 16-byte aligned.  w:
-// [3, 3, C, C] HWIO in x's type.  scale, bias: f32 [C].  Workspaces: partial f32
+// f32: [3, 3, C, C] HWIO; bf16: the taps' image for wgmma
+// (ops/fused_block.py:wgmma_weight_image), 9 x KP x C values.  scale, bias: f32 [C].  Workspaces: partial f32
 // [N, fots_conv_in_act_blocks(dtype, H, W), 2, C], coef f32 [N, 2, C], counter
 // int32 [N] zeroed.  C: a multiple of 16 up to 128.  Returns a cudaError_t
 // code (0 = launched).

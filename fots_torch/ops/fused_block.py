@@ -12,8 +12,11 @@ ReLU, else leaky.  Entry points:
   f32 statistics).  It serves CPU tensors, the tests and the backward, and
   nothing on a CUDA tensor's forward;
 - :func:`conv_in_act_cuda`: the raw launcher of K5'
-  (``fots_torch/csrc/fused_block.cu``: tensor-core ``mma.sync`` for bf16,
-  plain FMA for f32, the statistics folded in a fixed order);
+  (``fots_torch/csrc/fused_block.cu``: Hopper's warpgroup product ``wgmma``
+  for bf16, plain FMA for f32, the statistics folded in a fixed order);
+- :func:`wgmma_weight_image`: the bf16 kernel's weight taps as its shared
+  memory holds them (wgmma's K-major layout with the 128-byte swizzle),
+  built on the host side of every bf16 launch;
 - :func:`fused_conv3x3_in_act`: the differentiable entry, a
   ``torch.autograd.Function``.  Forward: CUDA tensor => the kernel, CPU tensor
   => the plain version.  Backward: autograd of the plain version on the saved
@@ -30,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,6 +42,36 @@ from fots_torch.kernels import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: channel counts K5' is built for
 KERNEL_CHANNELS = tuple(range(16, 129, 16))
+#: K elements (input channels) in one 128-byte row of a swizzled weight tap
+_B_ROW = 64
+_B_INDEX = {}
+
+
+def _wgmma_b_index(c: int, device) -> torch.Tensor:
+    """Source of every element of :func:`wgmma_weight_image`: its flat index
+    in ``w.reshape(-1)``, or ``9 * c * c`` (a zero) for the padding."""
+    key = (c, str(device))
+    if key not in _B_INDEX:
+        kp = -(-c // _B_ROW) * _B_ROW
+        t, kb, n, j, e = np.meshgrid(np.arange(9), np.arange(kp // _B_ROW), np.arange(c),
+                                     np.arange(_B_ROW // 8), np.arange(8), indexing="ij")
+        k = kb * _B_ROW + (j ^ (n % 8)) * 8 + e  # 16-byte piece j of row n holds piece j ^ n % 8
+        src = np.where(k < c, (t * c + k) * c + n, 9 * c * c)
+        _B_INDEX[key] = torch.from_numpy(src.reshape(-1)).to(device)
+    return _B_INDEX[key]
+
+
+def wgmma_weight_image(w):
+    """``[3, 3, C, C]`` HWIO -> ``[9 * KP * C]``, KP = C rounded up to 64: the
+    nine ``[C_in, C_out]`` taps as the bf16 kernel's shared memory holds
+    them, so that it copies each tap as it lies.  A tap is wgmma's canonical
+    K-major B layout with the 128-byte swizzle (PTX ISA, "Shared Memory
+    Matrix Layout"): blocks of 64 input channels; in a block, one 128-byte
+    row per output channel n holding its 64 weights, whose 16-byte piece j
+    is stored at piece ``j ^ (n % 8)``.  The padding past C is zero."""
+    c = w.shape[-1]
+    flat = torch.cat([w.reshape(-1), w.new_zeros(1)])
+    return flat[_wgmma_b_index(c, w.device)]
 
 
 def conv_in_act_reference(x, w, scale, bias, residual=None, eps=1e-5,
@@ -107,6 +141,8 @@ def conv_in_act_cuda(x, w, scale, bias, residual=None, eps=1e-5,
     n, h, wd, c = x.shape
     dev = x.device
     w = w.detach().to(device=dev, dtype=x.dtype).contiguous()
+    if x.dtype == torch.bfloat16:
+        w = wgmma_weight_image(w)
     scale = scale.detach().to(device=dev, dtype=torch.float32).contiguous()
     bias = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)      # the pre-norm convolution, in x's type

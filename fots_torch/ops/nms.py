@@ -10,10 +10,13 @@ Port of the serving half of ``fots/ops/nms.py``:
    row-major scan order, decodes quads (NumPy) and merges them with the
    C++ locality-aware NMS (``fots_torch/csrc/nms_core.cpp`` via ctypes).
 
-``torch.topk`` does not promise an order among equal scores, so the set of
-live candidates equals the JAX package's exactly when at most k pixels pass
-the threshold; the host re-sorts them by pixel index, so the boxes are
-then identical.
+The top k are chosen as ``jax.lax.top_k`` chooses them: by descending
+score, equal scores by ascending pixel index (a stable descending sort;
+``torch.topk`` promises no order among ties, and the shipped snapshot's
+sigmoid saturates at exactly 1.0 for most text pixels).  So the candidate
+set equals the JAX package's also when more than k pixels pass the
+threshold, and the same on the CPU as on the card; the host re-sorts the
+candidates by pixel index, so the boxes are identical.
 """
 
 from __future__ import annotations
@@ -84,12 +87,15 @@ def extract_candidates(segm, geo, angle, k: int, segm_thresh: float = 0.5):
 
     segm [B,Hs,Ws], geo [B,Hs,Ws,4], angle [B,Hs,Ws,2] (sin, cos), f32 ->
     [B, 8, k] f32, channels ``(score, d0..d3, sin, cos, flat_idx)``.  Slots
-    with score <= ``segm_thresh`` carry score -1 (the host drops them)."""
+    with score <= ``segm_thresh`` carry score -1 (the host drops them).
+    Equal scores are taken in ascending pixel order, as ``jax.lax.top_k``
+    takes them."""
     b, h, w = segm.shape
     k = min(k, h * w)
     flat = segm.reshape(b, h * w)
     masked = torch.where(flat > segm_thresh, flat, torch.full_like(flat, -1.0))
-    scores, idx = torch.topk(masked, k, dim=1)
+    scores, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+    scores, idx = scores[:, :k], idx[:, :k]
     g = torch.gather(geo.reshape(b, h * w, 4), 1, idx[..., None].expand(b, k, 4))
     a = torch.gather(angle.reshape(b, h * w, 2), 1, idx[..., None].expand(b, k, 2))
     packed = torch.cat([scores[..., None], g, a, idx[..., None].float()],

@@ -26,6 +26,7 @@ data pipeline.
 from __future__ import annotations
 
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -334,7 +335,9 @@ class Trainer:
         thread packs step i + 1's images and maps while the main thread
         dispatches step i, then samples its rois, which waits for step i's
         candidates (they stream home while the card works); metrics are
-        pulled at log points."""
+        pulled at log points.  A batch whose preparation or step raises is
+        reported with its traceback and skipped, as ``fots`` does; it uses
+        up its step index."""
         it = iter(batches)
         with ThreadPoolExecutor(max_workers=1) as pool:
             def fetch():
@@ -350,12 +353,16 @@ class Trainer:
             for step_idx in range(max_steps):
                 if cur is None:
                     break
-                prepared = rois.result()
                 nxt = fetch()
-                self.step(cur[0], defer=True, prepared=prepared)
+                try:
+                    self.step(cur[0], defer=True, prepared=rois.result())
+                    ok = True
+                except Exception:
+                    traceback.print_exc()
+                    ok = False
                 rois = None if nxt is None else sample(*nxt)
                 cur = nxt
-                if log_every and step_idx % log_every == 0:
+                if ok and log_every and step_idx % log_every == 0:
                     self.drain_metrics()
                     msg = " ".join(f"{k}: {a.val():.3f}" for k, a in self.metrics.items())
                     print(f"step {step_idx} {msg} time {time.perf_counter() - t0:.3f}s",

@@ -132,3 +132,38 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     assert build.launch_counts == before
     assert "fused_block" in build.CUDA_KERNELS
     assert build.PATH_KERNELS["fused_block"] == ("fused_block",)
+
+
+def _swizzle_128b(offset):
+    """The 128-byte swizzle of wgmma's shared-memory layouts (PTX ISA, "Shared
+    Memory Matrix Layout"; CUTLASS's Swizzle<3, 4, 3>): byte-address bits 4-6
+    (the 16-byte piece in a 128-byte row) XOR bits 7-9 (the row within a
+    1024-byte group of eight rows)."""
+    return offset ^ (((offset >> 7) & 7) << 4)
+
+
+@pytest.mark.parametrize("c", fb.KERNEL_CHANNELS)
+def test_wgmma_weight_image_is_the_swizzled_k_major_layout(c):
+    """Element (k, n) of tap (ky, kx) read back through the layout the bf16
+    kernel's descriptors name: K-major, 128-byte swizzle, blocks of 64 input
+    channels, rows of 128 bytes (one per output channel n), 1024 bytes from
+    one group of eight rows to the next, each tap a whole number of
+    1024-byte swizzle groups (the kernel copies taps to 1024-byte aligned
+    buffers as they lie)."""
+    rng = np.random.default_rng(c)
+    w = torch.from_numpy(rng.standard_normal((3, 3, c, c)).astype(np.float32)).to(torch.bfloat16)
+    image = fb.wgmma_weight_image(w)
+    kp = -(-c // 64) * 64
+    tap_bytes = kp * c * 2
+    assert tap_bytes % 1024 == 0
+    assert image.dtype == torch.bfloat16 and image.shape == (9 * kp * c,)
+    t, k, n = np.meshgrid(np.arange(9), np.arange(c), np.arange(c), indexing="ij")
+    logical = t * tap_bytes + (k // 64) * (c * 128) + n * 128 + (k % 64) * 2
+    element = _swizzle_128b(logical) // 2
+    bits = image.view(torch.int16).numpy()
+    want = w.reshape(9, c, c).view(torch.int16).numpy()
+    np.testing.assert_array_equal(bits[element], want)
+    # every element the layout does not name (k >= C) is zero padding
+    rest = np.ones(image.numel(), bool)
+    rest[element.ravel()] = False
+    assert rest.sum() == 9 * (kp - c) * c and not bits[rest].any()

@@ -162,7 +162,7 @@ def test_extract_candidates_and_u16_pack_match_fots():
     segm, geo, ang = _maps(rng)
     k = 512
     live = (segm > 0.5).sum(axis=(1, 2))
-    assert live.max() <= k  # the premise under which the sets agree
+    assert live.max() <= k  # every live pixel is a candidate (ties: the next test)
     want = np.asarray(jnms.extract_candidates(jnp.asarray(segm), jnp.asarray(geo),
                                               jnp.asarray(ang), k))
     got = tnms.extract_candidates(_t(segm), _t(geo), _t(ang), k).numpy()
@@ -185,6 +185,24 @@ def test_extract_candidates_and_u16_pack_match_fots():
                                       live_w[:, np.argsort(live_w[7])])
     np.testing.assert_array_equal(tnms.unpack_candidates(got16),
                                   jnms.unpack_candidates(got16))
+
+
+def test_extract_candidates_ties_match_fots():
+    """More than k pixels tied at 1.0 (the snapshot's saturated sigmoid):
+    the port takes ties in ascending pixel order, as jax.lax.top_k does, so
+    the candidate set (and the whole pack) equals fots's."""
+    rng = np.random.default_rng(9)
+    segm, geo, ang = _maps(rng, b=2, h=48, w=64)
+    k = 512
+    segm[0, 8:40, 4:60] = 1.0                          # 1792 tied pixels
+    segm[1] = np.where(rng.random((48, 64)) < 0.5, 1.0, segm[1])
+    assert ((segm == 1.0).sum(axis=(1, 2)) > k).all()
+    want = np.asarray(jnms.extract_candidates(jnp.asarray(segm), jnp.asarray(geo),
+                                              jnp.asarray(ang), k))
+    got = tnms.extract_candidates(_t(segm), _t(geo), _t(ang), k).numpy()
+    for i in range(2):
+        assert set(got[i, 7].astype(np.int64)) == set(want[i, 7].astype(np.int64))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("transport", ["u16", "f32"])

@@ -200,6 +200,26 @@ def test_trainer_runs_pipelined_on_cpu(step_inputs):
     assert not torch.equal(after["ocr.conv11.weight"], before["ocr.conv11.weight"])
 
 
+def test_trainer_goes_past_a_failing_batch(step_inputs, capsys):
+    """As fots/train.py does: a batch whose roi sampling raises (its labels
+    do not cover its quads) is reported with its traceback and skipped; it
+    uses up its step index, and the good batches around it train and log."""
+    batch = step_inputs[0]
+    bad = ttrain.DetectionBatch(**{**vars(batch), "labels": [[] for _ in batch.labels]})
+    with pytest.raises(IndexError):
+        sample_rois(np.random.default_rng(0), bad.score_maps, bad.gt_idxs, bad.gt_quads,
+                    bad.labels, bad.images.shape[1:3], LabelCodec())
+    model, _, _ = tck.load_detector(SNAPSHOT, "cpu")
+    trainer = ttrain.Trainer(model, learning_rate=1e-4, seed=3, device="cpu")
+    trainer.train([batch, bad, batch], max_steps=3, log_every=1)
+    out, err = capsys.readouterr()
+    assert "Traceback" in err and "IndexError" in err
+    logged = [line.split()[1] for line in out.splitlines() if line.startswith("step ")]
+    assert logged == ["0", "2"]
+    assert len(trainer.history) == 2 and trainer.metrics["loss"].count == 2
+    assert all(np.isfinite(list(h.values())).all() for h in trainer.history)
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """load_detector and Trainer run on the card unless asked for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
