@@ -10,8 +10,8 @@ result line):
    the CUDA kernels, all started together; g++ for the host NMS), printing
    each kernel's registers and spills from ptxas and any compiler warning;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
-   shapes the serving path (batch 16, 704x1280) and the training path
-   (batch 8, 640x960) give it, plus odd shapes.  K1' and K1'-bwd run each
+   shapes the serving path (batch 16, 704x1280) and the training paths
+   (batch 8, 640x960 and 512x512) give it, plus odd shapes.  K1' and K1'-bwd run each
    shape on both of their routes (the single-kernel cluster route as the plan
    cuts it, and the two-pass route), against the plain version and against
    each other; the cluster route also twice (bit identity), at ragged pixel
@@ -40,7 +40,8 @@ result line):
    phase only): two asset scenes at 640x960, ground-truth rois from one
    seed, dropout masks from equally seeded CPU generators; the five loss
    terms, every parameter gradient, the BatchNorm running statistics and
-   every parameter after one Adam step must agree;
+   every parameter after one Adam step must agree; once with the dice
+   score loss and once with OHEM;
 6. training at full width (a main path): the snapshot as warm start, f32,
    batch 8 at 640x960 (the four asset scenes twice, one repeated batch),
    predicted-roi sampling pipelined on a prefetch thread, masked_norm,
@@ -49,12 +50,25 @@ result line):
    loss after 10 updates below the first step's; images/s over steps
    3..12 on the host clock (PyTorch's default math settings: cuDNN may use
    TF32 for the convolutions);
-7. K5's own path (a main path): ``fots_torch.profiling``'s ``fused_block``
+7. training from scratch (a main path): the port's own targets on the
+   card's host must equal ``fots_torch/assets/train_targets.npz`` (``fots``'s
+   output, OpenCV's rasteriser) byte for byte; then
+   ``fots_torch.cli.train_joint`` over the 4 smoke scenes, augmented, batch
+   8 at 512x512, 20 steps from seed 0 with checkpoints every 10, the launch
+   counts zeroed just before: every training kernel launched, every loss
+   finite, no sample dropped, the mean loss of steps 16-20 below that of
+   steps 1-5, ``step_10`` and ``step_20`` written; then a resume from
+   ``step_10`` to 15 that restores weights, statistics and Adam's moments
+   bit for bit, logs from step 10 and writes ``step_15``; images/s over
+   steps 3..20 on the host clock; over those steps, the main thread's wait
+   for each batch and the samples/s a reader made while training ran;
+   peak memory;
+8. K5's own path (a main path): ``fots_torch.profiling``'s ``fused_block``
    entry at the full shape 16x88x160x128 bf16 with the launch counts zeroed
    just before: the numeric check, then K5' against the detector's
    composition (cuDNN conv + K1' + add + ReLU) and against PyTorch calls
    only;
-8. the evaluation path (a main path): ``fots_torch.cli.eval_e2e`` over the
+9. the evaluation path (a main path): ``fots_torch.cli.eval_e2e`` over the
    16 held-out scenes of ``fots_torch/assets/heldout_eval_u8.npz`` with the
    shipped snapshot: per image at the scenes' own size in f32 (TF32 off; the
    launch counts zeroed just before), through ``-serve_hw 704x1280``, with
@@ -65,7 +79,7 @@ result line):
    bf16, reported and not held.
 
 Then it prints a ``{"kernels": [...]}`` JSON line, the serving, training,
-fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
+training-from-scratch, fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
 last the ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
 """
@@ -77,8 +91,10 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,11 +111,16 @@ TRAIN_HW = (640, 960)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 12
 TRAIN_LR = 1e-4
+JOINT_SIZE = 512       # train_joint: augmented crops, batch TRAIN_BATCH
+JOINT_STEPS = 20
+JOINT_CKPT_EVERY = 10
+JOINT_RESUME_TO = 15
+JOINT_READERS = 6
 EVAL_IMAGES = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")
 EVAL_REFERENCE = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_fots_cpu.json")
 FUSED_SHAPE = (16, 88, 160, 128)
 PHASES = ("build", "kernels", "serve_parity", "serve", "train_parity", "train",
-          "fused_block", "eval")
+          "train_joint", "fused_block", "eval")
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s, f32 (non-tensor-core) flop/s and bf16 tensor-core
@@ -196,6 +217,7 @@ def phase_kernels(dev, peaks):
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = SERVE_HW
     TH, TW = TRAIN_HW
+    J = JOINT_SIZE
     worst = {name: 0.0 for name in KERNEL_META}
     seen_plans = set()  # (kernel, route, cluster size, held) phase 2 ran
 
@@ -470,6 +492,13 @@ def phase_kernels(dev, peaks):
     # masked INs of a 256-wide strip batch, the stem's two CReLU-INs
     for h, w, c, affine, slope in in_shapes(TH, TW):
         bwd_case(TRAIN_BATCH, h, w, c, affine, slope)
+    # training from scratch: every K1' IN at batch 8, 512x512, forward and
+    # backward, and the stem's CReLU-INs there
+    for h, w, c, affine, slope in in_shapes(J, J):
+        in_case(TRAIN_BATCH, h, w, c, torch.float32, affine, slope)
+        bwd_case(TRAIN_BATCH, h, w, c, affine, slope)
+    bwd_case(TRAIN_BATCH, J, J, 16, True, 0.01, halves=2)
+    bwd_case(TRAIN_BATCH, J // 2, J // 2, 32, True, 0.01, halves=2)
     vw = torch.randint(1, 257, (32,), generator=gen, device=dev, dtype=torch.int32)
     for h, c in ((11, 128), (5, 256), (1, 256)):
         bwd_case(32, h, 256, c, True, 0.01, valid_w=vw)
@@ -514,6 +543,8 @@ def phase_kernels(dev, peaks):
     stem = [((BATCH, H, W, 16), torch.bfloat16), ((BATCH, H // 2, W // 2, 32), torch.bfloat16),
             ((TRAIN_BATCH, TH, TW, 16), torch.float32),
             ((TRAIN_BATCH, TH // 2, TW // 2, 32), torch.float32),
+            ((TRAIN_BATCH, J, J, 16), torch.float32),
+            ((TRAIN_BATCH, J // 2, J // 2, 32), torch.float32),
             ((3, 7, 13, 20), torch.float32), ((2, 5, 9, 6), torch.bfloat16)]
     for shape, dtype in stem:
         stats_case(shape, dtype)
@@ -524,9 +555,11 @@ def phase_kernels(dev, peaks):
 
     for shape, dtype in (((BATCH, H // 4, W // 4, 64), torch.bfloat16),
                          ((TRAIN_BATCH, TH // 4, TW // 4, 64), torch.float32),
+                         ((TRAIN_BATCH, J // 4, J // 4, 64), torch.float32),
                          ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16)):
         pack_case(shape, dtype)
-    for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (3, 5, 7, 8), (2, 3, 5, 4)):
+    for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (TRAIN_BATCH, J // 4, J // 4, 64),
+                  (3, 5, 7, 8), (2, 3, 5, 4)):
         pack_bwd_case(shape)
 
     # NMS candidates with more than k pixels tied at 1.0 (the snapshot's
@@ -773,8 +806,9 @@ def phase_serve(images):
 # phases 5 and 6: training
 # --------------------------------------------------------------------------
 
-def phase_train_parity(images, targets):
-    """One training step, f32, CUDA port against CPU port."""
+def phase_train_parity(images, targets, ohem=False):
+    """One training step, f32, CUDA port against CPU port (``ohem``: the OHEM
+    score loss in place of dice)."""
     from fots_torch.checkpoint import load_detector
     from fots_torch.codec import LabelCodec
     from fots_torch.losses import repeat_infeasible_rows
@@ -790,8 +824,8 @@ def phase_train_parity(images, targets):
     frames = ctc_frame_count(roi.rois, roi.roi_mask, roi.strip_width)
     optax_rows = repeat_infeasible_rows(roi.labels, roi.label_lengths,
                                         np.full(len(roi.roi_mask), frames))
-    print(f"phase 5: one training step, CUDA port vs CPU port, f32 (TF32 off), "
-          f"2 scenes at {hw}, {int(roi.roi_mask.sum())} rois, strip width "
+    print(f"phase 5: one training step{' with OHEM' if ohem else ''}, CUDA port vs CPU "
+          f"port, f32 (TF32 off), 2 scenes at {hw}, {int(roi.roi_mask.sum())} rois, strip width "
           f"{roi.strip_width}, {frames} CTC frames")
     torch.set_num_threads(os.cpu_count() or 1)
     res = {}
@@ -805,7 +839,7 @@ def phase_train_parity(images, targets):
             dev_batch = unpack_device_batch(*[torch.from_numpy(a).to(device) for a in host],
                                             hw)
             _, terms, _ = train_losses(model, dev_batch, roi.strip_width, frames,
-                                       torch.Generator().manual_seed(7),
+                                       torch.Generator().manual_seed(7), ohem=ohem,
                                        optax_rows=optax_rows)
             terms["loss"].backward()
             grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
@@ -878,7 +912,8 @@ def phase_train(images, targets):
     trainer.train([batch] * 2, max_steps=2, log_every=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train([batch] * (TRAIN_STEPS - 2), max_steps=TRAIN_STEPS - 2, log_every=0)
+    trainer.train([batch] * (TRAIN_STEPS - 2), max_steps=TRAIN_STEPS,
+                  log_every=0)  # max_steps bounds the global step
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {**build.launch_counts, **build.route_counts}
@@ -903,7 +938,155 @@ def phase_train(images, targets):
 
 
 # --------------------------------------------------------------------------
-# phase 7: K5's own path; phase 8: the evaluation path
+# phase 7: training from scratch through the CLI
+# --------------------------------------------------------------------------
+
+def _smoke_list(tmp):
+    """A list file of the smoke scenes' paths under data/synth."""
+    with np.load(SMOKE_IMAGES) as z:
+        names = [str(n) for n in z["names"]]
+    path = os.path.join(tmp, "smoke_scenes.txt")
+    with open(path, "w") as f:
+        f.writelines(os.path.join(REPO, "data", "synth", n) + "\n" for n in names)
+    return path, names
+
+
+def _state_equal(trainer, payload):
+    """Whether the trainer's weights, BatchNorm statistics and Adam state
+    equal a checkpoint payload's bit for bit; returns (equal, tensors held)."""
+    from fots_torch.checkpoint import checkpoint_payload
+
+    got = checkpoint_payload(trainer.model, trainer.optimizer, trainer.global_step)
+    same = set(got) == set(payload) and all(
+        got[k].dtype == payload[k].dtype and np.array_equal(got[k], payload[k]) for k in got)
+    return same, len(got)
+
+
+def _readers_in_window(trainer, lo: float, hi: float) -> dict:
+    """The data pipeline while ``trainer`` ran its timed window (``lo``,
+    ``hi``], perf_counter seconds between two dispatches: the main
+    thread's wait for each batch it fetched inside the window, how many of
+    those batches the readers had made before it, and their samples/s a
+    reader over the batches made inside it (on the loaded host, queue waits
+    excluded; ``None`` when none was made there)."""
+    clock = time.time() - time.perf_counter()
+    fetched = trainer.fetch_log[4:]  # batch k is fetched between dispatches k - 2 and k - 1
+    made_in = [m for _, m, at in trainer.fetch_log if lo + clock < at <= hi + clock]
+    per_reader = TRAIN_BATCH / statistics.mean(made_in) if made_in else None
+    return {"main_thread_wait_ms": [round(1e3 * w, 3) for w, _, _ in fetched],
+            "main_thread_wait_share": sum(w for w, _, _ in fetched) / (hi - lo),
+            "fetched_in_window_made_before": sum(at <= lo + clock for _, _, at in fetched),
+            "fetched_in_window": len(fetched), "made_in_window": len(made_in),
+            "samples_per_s_per_reader_in_run": per_reader,
+            "readers_samples_per_s_in_run": (None if per_reader is None
+                                             else JOINT_READERS * per_reader)}
+
+
+def phase_train_joint(targets):
+    """Targets on the card's host, then ``fots_torch.cli.train_joint`` from
+    scratch and resumed: a main path for the counts."""
+    from fots_torch.checkpoint import read_checkpoint
+    from fots_torch.cli import train_joint
+    from fots_torch.data.detection import detection_generator
+    from fots_torch.kernels import build
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir, prefix="train_joint_")
+    list_path, names = _smoke_list(tmp)
+
+    # 1. the port's targets, native size, no augmentation: fots's asset byte for byte
+    t0 = time.perf_counter()
+    batch = next(detection_generator(list_path, SMOKE_IMAGES, input_size=-1,
+                                     batch_size=len(names), seed=0, in_train=False,
+                                     augment=False))
+    target_s = time.perf_counter() - t0
+    mine = {"score_maps": batch.score_maps, "training_masks": batch.training_masks,
+            "geo_maps": batch.geo_maps, "gt_idxs": batch.gt_idxs,
+            "gt_quads": np.stack([np.asarray(q, np.float32) for sc in batch.gt_quads
+                                  for q in sc]).reshape(-1, 4, 2),
+            "gt_labels": np.asarray([t for sc in batch.labels for t in sc]),
+            "gt_counts": np.asarray([len(sc) for sc in batch.gt_quads], np.int64)}
+    for k, v in mine.items():
+        want = targets[k]
+        check(v.dtype == want.dtype and v.shape == want.shape and np.array_equal(v, want),
+              f"train_joint: the port's {k} differ from fots's train_targets.npz")
+    print(f"phase 7: targets of {len(names)} scenes {batch.images.shape[1:3]} equal fots's "
+          f"asset byte for byte ({', '.join(mine)}; {target_s:.2f} s on the host)")
+
+    # 2. from scratch through the CLI
+    save = os.path.join(tmp, "run")
+    common = ["-train_list", list_path, "-images_npz", SMOKE_IMAGES, "-save_path", save,
+              "-batch_size", str(TRAIN_BATCH), "-input_size", str(JOINT_SIZE),
+              "-checkpoint_every", str(JOINT_CKPT_EVERY), "-seed", "0",
+              "-num_readers", str(JOINT_READERS), "-disp_interval", "1"]
+    print(f"  train_joint from scratch: batch {TRAIN_BATCH} at {JOINT_SIZE}x{JOINT_SIZE}, "
+          f"augmented, {JOINT_STEPS} steps, lr 1e-3, {JOINT_READERS} readers")
+    args, trainer = train_joint.build(common + ["-max_iters", str(JOINT_STEPS)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_joint.run(args, trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**build.launch_counts, **build.route_counts}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    check([h["step"] for h in hist] == list(range(JOINT_STEPS)),
+          f"train_joint: steps {[h['step'] for h in hist]}")
+    for h in hist:
+        check(all(math.isfinite(h[k]) for k in ("loss", "segm_loss", "angle_loss",
+                                                 "iou_loss", "ctc_loss")),
+              f"train_joint step {h['step']}: {h}")
+    for name in build.PATH_KERNELS["training"]:
+        check(launches[name] > 0, f"kernel {name} was not launched by train_joint")
+    check(trainer.dropped_samples == 0,
+          f"train_joint: {trainer.dropped_samples} samples dropped on an exception")
+    for step in (JOINT_CKPT_EVERY, JOINT_STEPS):
+        check(os.path.isdir(os.path.join(save, f"step_{step}")), f"no step_{step} written")
+    first = statistics.mean(h["loss"] for h in hist[:5])
+    last = statistics.mean(h["loss"] for h in hist[-5:])
+    print(f"  losses {[round(h['loss'], 4) for h in hist]}")
+    check(last < first, f"train_joint: mean loss of steps 16-20 {last} not below steps 1-5 "
+          f"{first}")
+    stamps = trainer.dispatch_times
+    ips = (len(stamps) - 3) * TRAIN_BATCH / (stamps[-1] - stamps[2])
+    readers = _readers_in_window(trainer, stamps[2], stamps[-1])
+
+    # 3. resume from step_10 to JOINT_RESUME_TO
+    ckpt = os.path.join(save, f"step_{JOINT_CKPT_EVERY}")
+    args2, trainer2 = train_joint.build(common + ["-max_iters", str(JOINT_RESUME_TO),
+                                                  "-model", ckpt])
+    same, n_held = _state_equal(trainer2, read_checkpoint(ckpt))
+    check(same, f"train_joint: the state restored from {ckpt} differs from the checkpoint")
+    check(trainer2.global_step == JOINT_CKPT_EVERY, f"resumed at {trainer2.global_step}")
+    train_joint.run(args2, trainer2)
+    steps2 = [h["step"] for h in trainer2.history]
+    check(steps2 == list(range(JOINT_CKPT_EVERY, JOINT_RESUME_TO)),
+          f"train_joint resumed: steps {steps2}")
+    check(os.path.isdir(os.path.join(save, f"step_{JOINT_RESUME_TO}")),
+          f"no step_{JOINT_RESUME_TO} written on resume")
+    check(trainer2.dropped_samples == 0, "train_joint resumed: samples dropped")
+    out = {"images_per_s": ips, "steps_timed": f"3..{JOINT_STEPS}", "batch": TRAIN_BATCH,
+           "hw": [JOINT_SIZE, JOINT_SIZE], "dtype": "f32", "tf32": "PyTorch defaults",
+           "readers": JOINT_READERS, **readers,
+           "peak_memory_bytes": peak, "wall_s": wall,
+           "mean_loss_steps_1_5": first, "mean_loss_steps_16_20": last,
+           "losses": [h["loss"] for h in hist], "dropped_samples": trainer.dropped_samples,
+           "resume": {"restored_tensors_bit_equal": n_held, "steps": steps2,
+                      "losses": [h["loss"] for h in trainer2.history]},
+           "targets_equal_fots_asset": True}
+    print(f"  launches {launches} over {JOINT_STEPS} steps; {ips:.2f} images/s over steps "
+          f"3..{JOINT_STEPS}; readers {readers}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; mean loss steps 1-5 {first:.4f}, 16-20 {last:.4f}; "
+          f"resumed at step {JOINT_CKPT_EVERY} with {n_held} tensors bit-equal, steps {steps2}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
+# --------------------------------------------------------------------------
+# phase 8: K5's own path; phase 9: the evaluation path
 # --------------------------------------------------------------------------
 
 def phase_fused_block():
@@ -911,7 +1094,7 @@ def phase_fused_block():
     from fots_torch.kernels import build
     from fots_torch.profiling import profile_fused_block
 
-    print(f"phase 7: fots_torch.profiling --path fused_block at {FUSED_SHAPE} bf16")
+    print(f"phase 8: fots_torch.profiling --path fused_block at {FUSED_SHAPE} bf16")
     torch.cuda.synchronize()
     build.reset_launch_counts()
     out = profile_fused_block(FUSED_SHAPE, iters=10)
@@ -967,7 +1150,7 @@ def phase_eval():
         reference = json.load(f)["runs"]
     data = load_images_npz(EVAL_IMAGES)
     n_images = len(data[0])
-    print(f"phase 8: eval_e2e over {n_images} held-out scenes {data[0].shape[1:3]}, the "
+    print(f"phase 9: eval_e2e over {n_images} held-out scenes {data[0].shape[1:3]}, the "
           "shipped snapshot, against fots (f32, CPU) on the same pixels")
     runs = (("per_image", "per_image", {}, {}, False),
             ("serve_704x1280", "serve_704x1280", {}, {"serve_hw": SERVE_HW}, False),
@@ -1067,9 +1250,12 @@ def main(argv=None) -> int:
     if "serve" in phases:
         results["serve"] = phase_serve(list(images))
     if "train_parity" in phases:
-        results["train_parity"] = phase_train_parity(images, targets)
+        results["train_parity"] = {name: phase_train_parity(images, targets, ohem)
+                                   for name, ohem in (("dice", False), ("ohem", True))}
     if "train" in phases:
         results["train"] = phase_train(images, targets)
+    if "train_joint" in phases:
+        results["train_joint"] = phase_train_joint(targets)
     if "fused_block" in phases:
         results["fused_block"] = phase_fused_block()
     if "eval" in phases:
@@ -1083,6 +1269,7 @@ def main(argv=None) -> int:
     worst, rows, crelu = results["kernels"]
     serve_launches, ips = results["serve"]
     train_launches, train = results["train"]
+    joint_launches, joint = results["train_joint"]
     fused_launches, fused = results["fused_block"]
     eval_launches, evaluation = results["eval"]
     kernels = []
@@ -1090,7 +1277,8 @@ def main(argv=None) -> int:
         r = rows[kname]
         by_bytes, by_ops = r["bound"]
         paths = {"serving": serve_launches[kname], "training": train_launches[kname],
-                 "fused_block": fused_launches[kname], "evaluation": eval_launches[kname]}
+                 "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
+                 "evaluation": eval_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -1101,10 +1289,12 @@ def main(argv=None) -> int:
             "shape": r["shape"], "dtype": r["dtype"], "paths": paths,
             "launches_per_serving_batch": paths["serving"] / STREAM_BATCHES,
             "launches_per_train_step": paths["training"] / TRAIN_STEPS,
+            "launches_per_train_joint_step": paths["train_joint"] / JOINT_STEPS,
             "launches_per_eval_image": paths["evaluation"] / evaluation["scenes"],
             **({"launches_by_route": {
                 route: {"serving": serve_launches[f"{kname}/{route}"],
                         "training": train_launches[f"{kname}/{route}"],
+                        "train_joint": joint_launches[f"{kname}/{route}"],
                         "evaluation": eval_launches[f"{kname}/{route}"]}
                 for route in ("cluster", "two_pass")}}
                if f"{kname}/cluster" in serve_launches else {}),
@@ -1118,6 +1308,7 @@ def main(argv=None) -> int:
                               "cuda_vs_cpu_max_corner_px": results["serve_parity"],
                               "stem_crelu_ms": crelu}}))
     print(json.dumps({"train": {**train, "cuda_vs_cpu": results["train_parity"]}}))
+    print(json.dumps({"train_joint": joint}))
     print(json.dumps({"fused_block": fused}))
     print(json.dumps({"eval": evaluation}))
     print(smi)

@@ -5,10 +5,12 @@ and the standard library, never ``jax`` or any module of ``fots``.  Module
 layout mirrors ``fots`` (``fots_torch/models/layers.py`` <->
 ``fots/models/layers.py``, ...).  Ported so far: batched serving and the
 per-image evaluation path (:mod:`fots_torch.pipeline`,
-:mod:`fots_torch.evaluate`, :mod:`fots_torch.cli.eval_e2e`), the joint
-training step (:mod:`fots_torch.train`) and the fused residual-block kernel
-behind its profiling entry (:mod:`fots_torch.ops.fused_block`,
-:mod:`fots_torch.profiling`).  Every TPU kernel of ``fots`` has its
+:mod:`fots_torch.evaluate`, :mod:`fots_torch.cli.eval_e2e`), joint training
+from scratch or a snapshot with checkpoints and resume
+(:mod:`fots_torch.train`, :mod:`fots_torch.cli.train_joint`) over its NumPy
+data pipeline (:mod:`fots_torch.data`, :mod:`fots_torch.imgproc`), and the
+fused residual-block kernel behind its profiling entry
+(:mod:`fots_torch.ops.fused_block`, :mod:`fots_torch.profiling`).  Every TPU kernel of ``fots`` has its
 counterpart, hand-written CUDA for ``sm_90a`` under ``fots_torch/csrc/``,
 built at first use by :mod:`fots_torch.kernels.build`, each behind a
 ``torch.autograd.Function`` whose backward is a kernel too where the TPU
@@ -19,6 +21,13 @@ raises when CUDA is absent.  ``device="cpu"`` runs every kernel's plain
 PyTorch version instead (the tests do this).
 """
 
-from fots_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # imported on first use, so that the data modules (whose prefetch
+    # workers import numpy only) do not pull in torch through the package
+    if name == "resolve_device":
+        from fots_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'fots_torch' has no attribute {name!r}")

@@ -1,4 +1,5 @@
-"""Weights carried across from the JAX package's serving snapshots.
+"""Weights carried across from the JAX package's serving snapshots, and the
+port's own training checkpoints.
 
 A snapshot (``artifacts/serving_params.npz``, written by
 ``fots.checkpoint.save_serving_params``) is a flat archive of
@@ -19,11 +20,22 @@ maps each key onto the port's module tree:
 :func:`save_serving_params` writes a model the port trained in the same
 format, which ``fots.checkpoint.load_serving_params`` and
 :func:`load_detector` both read.
+
+Training checkpoints (:func:`save_checkpoint`, :func:`latest_checkpoint`,
+:func:`restore_checkpoint`, after ``fots/checkpoint.py``'s orbax ones) are
+``step_{N}`` directories holding one ``state.npz`` of the *payload*:
+``model/<name>`` for every parameter and BatchNorm statistic of the port's
+state dict, Adam's ``exp_avg/<name>``, ``exp_avg_sq/<name>`` and
+``adam_step/<name>`` per parameter, and ``global_step`` (the count of
+applied updates).  The format is the port's own (orbax and JAX are absent
+on the card); :func:`train_state_from_fots` carries a ``fots`` TrainState
+into it.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -169,3 +181,152 @@ def load_detector(path: str, device=None) -> Tuple[FOTSDetector, Any, Dict[str, 
     load_flat(model, flat)
     model = model.eval().to(device=dev, memory_format=torch.channels_last)
     return model, step, config
+
+
+CHECKPOINT_FILE = "state.npz"
+
+
+def checkpoint_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                       global_step: int) -> Dict[str, np.ndarray]:
+    """The checkpoint arrays of a model and its Adam optimizer (f32 host
+    copies; Adam's step counts as f32 scalars, as torch keeps them)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in model.state_dict().items():
+        out[f"model/{name}"] = t.detach().cpu().numpy()
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p)
+        if not st:
+            continue
+        out[f"exp_avg/{name}"] = st["exp_avg"].detach().cpu().numpy()
+        out[f"exp_avg_sq/{name}"] = st["exp_avg_sq"].detach().cpu().numpy()
+        out[f"adam_step/{name}"] = np.asarray(float(st["step"]), np.float32)
+    out["global_step"] = np.asarray(int(global_step), np.int64)
+    return out
+
+
+def load_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 payload: Mapping[str, np.ndarray]) -> int:
+    """Put a payload's weights, statistics and Adam state into ``model`` and
+    ``optimizer`` (on the model's device); returns the global step.  Every
+    model key must be present and every payload key used."""
+    want = model.state_dict()
+    sd = {k[len("model/"):]: torch.from_numpy(np.array(v)) for k, v in payload.items()
+          if k.startswith("model/")}
+    missing, unused = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or unused:
+        raise KeyError(f"checkpoint does not match the model: missing {missing[:8]}, "
+                       f"unused {unused[:8]}")
+    model.load_state_dict(sd, strict=True)
+    params = dict(model.named_parameters())
+    used = {k for k in payload if k.startswith("model/")} | {"global_step"}
+    for name, p in params.items():
+        if f"exp_avg/{name}" not in payload:
+            optimizer.state.pop(p, None)
+            continue
+        keys = [f"{g}/{name}" for g in ("exp_avg", "exp_avg_sq", "adam_step")]
+        used.update(keys)
+        optimizer.state[p] = {
+            "step": torch.tensor(float(payload[keys[2]]), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(payload[keys[0]])).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(payload[keys[1]])).to(p.device),
+        }
+    unused = sorted(set(payload) - used)
+    if unused:
+        raise KeyError(f"checkpoint keys not in the model: {unused[:8]}")
+    return int(payload["global_step"])
+
+
+def save_checkpoint(ckpt_dir: str, trainer, step: int) -> str:
+    """Write ``trainer``'s state as ``ckpt_dir/step_{step}``; returns the path."""
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    os.makedirs(path, exist_ok=True)
+    payload = checkpoint_payload(trainer.model, trainer.optimizer, trainer.global_step)
+    tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The ``step_N`` directory of ``ckpt_dir`` with the largest N, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for d in os.listdir(ckpt_dir):
+        if d.startswith("step_") and os.path.isfile(os.path.join(ckpt_dir, d, CHECKPOINT_FILE)):
+            try:
+                steps.append((int(d.split("_")[1]), d))
+            except ValueError:
+                continue
+    return os.path.join(ckpt_dir, max(steps)[1]) if steps else None
+
+
+def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """The payload of a ``step_N`` directory (or of the latest one under a
+    run directory)."""
+    if not os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"no port checkpoint at {path!r}")
+        path = latest
+    with np.load(os.path.join(path, CHECKPOINT_FILE)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def restore_checkpoint(path: str, trainer) -> int:
+    """Restore ``trainer`` from a ``step_N`` directory (or the latest under
+    ``path``): weights, BatchNorm statistics, Adam's state and the global
+    step, which a resumed :meth:`fots_torch.train.Trainer.train` continues.
+    Returns the step."""
+    trainer.global_step = load_payload(trainer.model, trainer.optimizer, read_checkpoint(path))
+    return trainer.global_step
+
+
+def _flatten(tree, prefix: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def train_state_from_fots(params, batch_stats, opt_state, step: int) -> Dict[str, np.ndarray]:
+    """The port's checkpoint payload of a ``fots`` TrainState given as numpy
+    trees: ``params`` and ``batch_stats`` (nested dicts), ``opt_state``
+    (optax's adam state, a sequence holding the ``ScaleByAdamState``, or
+    that state itself) and the step.  ``count`` becomes every parameter's
+    Adam step, ``mu`` its ``exp_avg`` and ``nu`` its ``exp_avg_sq``, each
+    moment in its parameter's layout (:func:`state_dict_from_flat`)."""
+    adam = opt_state
+    if not hasattr(adam, "mu"):
+        adam = next(s for s in opt_state if hasattr(s, "mu"))
+    flat = {**_flatten(params, "params"), **_flatten(batch_stats, "batch_stats")}
+    out = {f"model/{k}": v.numpy() for k, v in state_dict_from_flat(flat).items()}
+    count = np.asarray(float(np.asarray(adam.count)), np.float32)
+    for group, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        for name, t in state_dict_from_flat(_flatten(tree, "params")).items():
+            out[f"{group}/{name}"] = t.numpy()
+            out[f"adam_step/{name}"] = count
+    out["global_step"] = np.asarray(int(step), np.int64)
+    return out
+
+
+def detector_from_checkpoint(path: str, device=None) -> Tuple[FOTSDetector, int, str]:
+    """(eval-mode FOTSDetector with a training checkpoint's weights on
+    ``device`` in channels_last memory, its global step, the ``step_N``
+    directory read).  ``path`` is a ``step_N`` directory or a run directory
+    (its latest checkpoint)."""
+    dev = resolve_device(device)
+    if not os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
+        path = latest_checkpoint(path) or path
+    payload = read_checkpoint(path)
+    model = FOTSDetector(nclass=int(payload["model/ocr.conv11.bias"].shape[0]))
+    sd = {k[len("model/"):]: torch.from_numpy(np.array(v)) for k, v in payload.items()
+          if k.startswith("model/")}
+    model.load_state_dict(sd, strict=True)
+    model = model.eval().to(device=dev, memory_format=torch.channels_last)
+    return model, int(payload["global_step"]), path

@@ -103,9 +103,12 @@ def evaluate(engine, images, names, gt_names, gt_texts, *, eval_text_length=3,
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("-model", default=None, help=".npz serving snapshot")
+    parser.add_argument("-model", default=None,
+                        help=".npz serving snapshot, or a fots_torch.cli.train_joint "
+                             "checkpoint directory (step_N or the run directory)")
     parser.add_argument("-h5", default=None,
-                        help="not ported: the port loads .npz snapshots only")
+                        help="not ported: the port loads .npz snapshots and its own "
+                             "checkpoints only")
     parser.add_argument("-images_npz", default=None,
                         help="archive of decoded images with their annotations")
     parser.add_argument("-images_list", default=None,
@@ -136,7 +139,8 @@ def main(argv=None):
                              "kernels' plain versions")
     args = parser.parse_args(argv)
     if args.h5:
-        parser.error("-h5: fots_torch loads .npz serving snapshots only")
+        parser.error("-h5: fots_torch loads .npz serving snapshots and its own checkpoints "
+                     "only")
     if args.images_list:
         parser.error("-images_list: fots_torch has no image decoder; pass decoded pixels "
                      "with -images_npz (tools/make_torch_eval_asset.py writes such an "

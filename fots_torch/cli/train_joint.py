@@ -1,0 +1,106 @@
+"""Joint detection + recognition training CLI, the counterpart of
+``fots/cli/train_joint.py``; runs on the card unless given ``-device cpu``.
+
+A model is initialised from ``-seed`` (or resumed from a port checkpoint
+with ``-model``: a ``step_N`` directory, or a run directory for its latest);
+prefetch workers compute the EAST targets and the augmentation in NumPy;
+``Trainer.train`` writes ``step_N`` checkpoints every ``-checkpoint_every``
+steps and at the end, under ``-save_path`` beside ``train_config.json``
+(which ``fots_torch.cli.eval_e2e -model <save_path>`` reads).
+
+The port has no image decoder: the pixels of the list's images come from
+``-images_npz`` (``images`` u8 [N, h, w, 3] BGR and ``names``, matched to
+the list entries by basename), the ground truth from the annotation file
+beside each entry.  Write a large archive with ``np.savez``: the readers
+memory-map it, where each would keep its own copy of a compressed one.
+``fots``'s ``-h5`` warm start, ``-n_data`` / ``-n_model`` mesh and
+``-debug`` crop dumps are not ported yet.
+
+Usage:
+  python -m fots_torch.cli.train_joint -train_list data/synth_big_train.txt \\
+      -images_npz scenes_u8.npz -batch_size 8 -input_size 512 -max_iters 300000 \\
+      -save_path backup
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+
+def build(argv=None):
+    """Parse the flags, build the trainer (restored when ``-model`` is
+    given) and write ``train_config.json``.  Returns (args, trainer)."""
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("-train_list", default="./data/ICDAR2015.txt")
+    parser.add_argument("-images_npz", default=None,
+                        help="archive of the list's decoded images (required)")
+    parser.add_argument("-save_path", default="backup")
+    parser.add_argument("-model", default=None,
+                        help="port checkpoint to resume (step_N or a run directory)")
+    parser.add_argument("-batch_size", type=int, default=2)
+    parser.add_argument("-num_readers", type=int, default=4)
+    parser.add_argument("-input_size", type=int, default=512)
+    parser.add_argument("-base_lr", type=float, default=1e-3)
+    parser.add_argument("-max_iters", type=int, default=300000)
+    parser.add_argument("-disp_interval", type=int, default=5)
+    parser.add_argument("-checkpoint_every", type=int, default=10000)
+    parser.add_argument("-seed", type=int, default=0)
+    parser.add_argument("-gt_rois_only", action="store_true",
+                        help="skip predicted-roi sampling (early-training mode)")
+    parser.add_argument("-geo_type", type=int, default=0,
+                        help="0=edge-distance targets, 1=row/col-scan variant")
+    parser.add_argument("-no_aug", action="store_true",
+                        help="disable augmentation (deterministic full-image samples; use "
+                             "with -input_size -1 for overfit runs)")
+    parser.add_argument("-ohem", action="store_true",
+                        help="OHEM score loss (FOTS paper) instead of dice")
+    parser.add_argument("-no_masked_norm", action="store_true",
+                        help="whole-strip InstanceNorm statistics in the recognition head; "
+                             "the choice is recorded in save_path/train_config.json")
+    parser.add_argument("-device", default=None,
+                        help="default: the card (fails without CUDA); 'cpu' runs the "
+                             "kernels' plain versions")
+    args = parser.parse_args(argv)
+    if not args.images_npz:
+        parser.error("-images_npz is required: fots_torch has no image decoder")
+
+    from fots_torch.checkpoint import restore_checkpoint
+    from fots_torch.codec import LabelCodec
+    from fots_torch.train import Trainer
+
+    trainer = Trainer(codec=LabelCodec(), learning_rate=args.base_lr, seed=args.seed,
+                      use_predicted_rois=not args.gt_rois_only, ohem=args.ohem,
+                      masked_norm=not args.no_masked_norm, device=args.device)
+    os.makedirs(args.save_path, exist_ok=True)
+    with open(os.path.join(args.save_path, "train_config.json"), "w") as f:
+        json.dump({"masked_norm": not args.no_masked_norm}, f)
+    if args.model:
+        step = restore_checkpoint(args.model, trainer)
+        print(f"resumed from {args.model} at step {step}", flush=True)
+    return args, trainer
+
+
+def run(args, trainer):
+    """Train ``trainer`` as the flags say; returns it."""
+    from fots_torch.data.detection import detection_batches
+
+    batches = detection_batches(args.train_list, args.images_npz, num_workers=args.num_readers,
+                                input_size=args.input_size, batch_size=args.batch_size,
+                                seed=args.seed, geo_type=args.geo_type, augment=not args.no_aug)
+    try:
+        trainer.train(batches, max_steps=args.max_iters, log_every=args.disp_interval,
+                      checkpoint_dir=args.save_path, checkpoint_every=args.checkpoint_every)
+    finally:
+        batches.stop()
+    return trainer
+
+
+def main(argv=None):
+    return run(*build(argv))
+
+
+if __name__ == "__main__":
+    main()

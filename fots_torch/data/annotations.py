@@ -1,7 +1,7 @@
 """Ground-truth annotation parsing (host side, NumPy).
 
 The port's own copy of ``fots/data/annotations.py``, without OpenCV
-(``cv2.boxPoints`` is :func:`fots_torch.roirotate.box_points`).  Formats:
+(``cv2.boxPoints`` is :func:`fots_torch.geometry.box_points`).  Formats:
 - MLT: space-separated ``cls cx cy w h angle text`` with centre and size
   normalised by the image diagonal;
 - ICDAR-style: comma-separated 8 absolute corner coordinates (+ an optional
@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from fots_torch.roirotate import box_points
+from fots_torch.geometry import box_points
 
 
 def parse_mlt_lines(lines: Sequence[str], im_shape) -> Tuple[np.ndarray, np.ndarray, List[str]]:

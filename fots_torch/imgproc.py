@@ -1,0 +1,332 @@
+"""NumPy versions of the OpenCV calls that training uses (the port imports no
+OpenCV; the card's machine has none).
+
+Each reproduces OpenCV's own arithmetic, vectorised over pixels:
+
+- :func:`fill_poly` is ``cv2.fillPoly(img, pts, value)`` (``LINE_8``, shift
+  0): every edge is first drawn as an 8-connected Bresenham line clipped to
+  the image, then the polygon is filled over scanline spans from ceil to
+  floor of the edges' 16.16 fixed-point x, edges that leave the image
+  stepping from their clipped end points, as ``CollectPolyEdges`` and
+  ``FillEdgeCollection`` in OpenCV's ``drawing.cpp`` (OpenCV 5) do.  The
+  target masks depend on it pixel for pixel, so it is byte-exact.
+- :func:`box_blur3` is ``cv2.blur(x, (3, 3))`` on f32 (``BORDER_REFLECT_101``).
+- :func:`pad_constant` is ``cv2.copyMakeBorder(..., BORDER_CONSTANT)``.
+- :func:`warp_affine_u8` is ``cv2.warpAffine`` (``INTER_LINEAR``, zero
+  border) of a u8 image as OpenCV 5 computes it: the inverse map's source
+  coordinates and the bilinear lerps in f32, rounded half to even.
+- :func:`bgr2hsv_u8` is ``cv2.cvtColor`` BGR->HSV on u8 with H in 0..179,
+  through OpenCV's ``hsv_shift = 12`` division tables (exact);
+  :func:`hsv2bgr_u8` is HSV->BGR in f32 (within one level of OpenCV's).
+
+The bilinear u8 resize is :func:`fots_torch.geometry.resize_bilinear_u8`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+XY_SHIFT = 16            # drawing.cpp's fixed point
+XY_ONE = 1 << XY_SHIFT
+HSV_SHIFT = 12
+
+
+# --------------------------------------------------------------------------
+# polygon fill
+# --------------------------------------------------------------------------
+
+def _trunc_div(a: int, b: int) -> int:
+    """C integer division: rounds toward zero."""
+    q = abs(a) // abs(b)
+    return -q if (a < 0) != (b < 0) else q
+
+
+def clip_line(size_wh: Tuple[int, int], p1, p2):
+    """``cv::clipLine`` on int64 end points: returns (inside, p1, p2) with the
+    end points moved onto the image's border, in OpenCV's order (the second
+    point's y clip uses the first point as already moved)."""
+    right, bottom = size_wh[0] - 1, size_wh[1] - 1
+    x1, y1 = int(p1[0]), int(p1[1])
+    x2, y2 = int(p2[0]), int(p2[1])
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    def tdiv(num, den):  # (int64)((double)num * d / den): truncated double
+        return int(float(num[0]) * float(num[1]) / float(den))
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += tdiv((a - y1, x2 - x1), y2 - y1)
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += tdiv((a - y2, x2 - x1), y2 - y1)
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += tdiv((a - x1, y2 - y1), x2 - x1)
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += tdiv((a - x2, y2 - y1), x2 - x1)
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def line_pixels(size_wh: Tuple[int, int], p1, p2) -> Tuple[np.ndarray, np.ndarray]:
+    """(xs, ys) of ``cv::Line``'s 8-connected line from p1 to p2, clipped
+    to the image as ``LineIterator`` clips it and walked from its left end."""
+    w, h = size_wh
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        inside, p1, p2 = clip_line(size_wh, p1, p2)
+        if not inside:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:  # leftToRight
+        dx, dy = -dx, -dy
+        x1, y1 = x2, y2
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    k = np.arange(major + 1, dtype=np.int64)
+    # Bresenham's err = major - 2 minor; after k steps the minor axis moved
+    # max(0, ceil((2 minor k - major) / (2 major))) times
+    m = np.maximum(0, -((major - 2 * minor * k) // max(2 * major, 1)))
+    if vert:
+        return x1 + m, y1 + sy * k
+    return x1 + k, y1 + sy * m
+
+
+def _poly_edges(size_wh, pts: np.ndarray):
+    """``CollectPolyEdges`` (shift 0, offset 0, LINE_8) of one contour:
+    (line pixels, edges as int64 rows (y0, y1, x, dx))."""
+    w, h = size_wh
+    lines_x, lines_y, edges = [], [], []
+    n = len(pts)
+    for i in range(n):
+        p0 = (int(pts[i - 1][0]), int(pts[i - 1][1]))
+        p1 = (int(pts[i][0]), int(pts[i][1]))
+        lx, ly = line_pixels(size_wh, p0, p1)
+        lines_x.append(lx)
+        lines_y.append(ly)
+        c0, c1 = [p0[0] << XY_SHIFT, p0[1]], [p1[0] << XY_SHIFT, p1[1]]
+        if not (0 <= p0[0] < w and 0 <= p1[0] < w and 0 <= p0[1] < h and 0 <= p1[1] < h):
+            # an edge that leaves the image steps from its clipped end points;
+            # one clipped to a single point is vertical at that point's x
+            _, t0, t1 = clip_line(size_wh, p0, p1)
+            if t0[1] != t1[1]:
+                c0[1], c1[1] = t0[1], t1[1]
+            c0[0], c1[0] = t0[0] << XY_SHIFT, t1[0] << XY_SHIFT
+        if p0[1] == p1[1]:
+            continue
+        ddx = _trunc_div(c1[0] - c0[0], c1[1] - c0[1])
+        if p0[1] < p1[1]:
+            edges.append((p0[1], p1[1], c0[0] + (p0[1] - c0[1]) * ddx, ddx))
+        else:
+            edges.append((p1[1], p0[1], c1[0] + (p1[1] - c1[1]) * ddx, ddx))
+    return lines_x, lines_y, edges
+
+
+def fill_poly(img: np.ndarray, pts, value) -> np.ndarray:
+    """``cv2.fillPoly(img, pts, value)`` in place (and returned): ``pts`` is
+    int32 [n_contours, n_points, 2] (or one contour [n_points, 2]) of (x, y),
+    ``LINE_8``, shift 0.  Contours are filled together (even-odd over
+    all of their edges), after every edge has been drawn as a line."""
+    pts = np.asarray(pts)
+    if pts.dtype != np.int32:
+        raise TypeError(f"fill_poly takes int32 points (as cv2 does), got {pts.dtype}")
+    if pts.ndim == 2:
+        pts = pts[None]
+    h, w = img.shape[:2]
+    size = (w, h)
+    lx, ly, edges = [], [], []
+    for contour in pts:
+        cx, cy, ce = _poly_edges(size, contour.astype(np.int64))
+        lx += cx
+        ly += cy
+        edges += ce
+    if lx:
+        xs, ys = np.concatenate(lx), np.concatenate(ly)
+        img[ys, xs] = value
+    if len(edges) < 2:
+        return img
+    y0, y1, x0, dx = np.asarray(edges, dtype=np.int64).T     # edge rows (y0, y1, x, dx)
+    y_lo, y_hi = max(int(y0.min()), 0), min(int(y1.max()), h)
+    if y_lo >= y_hi:
+        return img
+    ys = np.arange(y_lo, y_hi, dtype=np.int64)
+    active = (ys[:, None] >= y0[None]) & (ys[:, None] < y1[None])   # [rows, edges]
+    xs = x0[None] + (ys[:, None] - y0[None]) * dx[None]
+    big = np.iinfo(np.int64).max
+    xs = np.sort(np.where(active, xs, big), axis=1)
+    n_pairs = xs.shape[1] // 2
+    left, right = xs[:, 0:2 * n_pairs:2], xs[:, 1:2 * n_pairs:2]
+    ok = right != big
+    x1 = (left + XY_ONE - 1) >> XY_SHIFT     # spans run from ceil(left) to floor(right)
+    x2 = right >> XY_SHIFT
+    ok &= (x1 < w) & (x2 >= 0)
+    x1 = np.clip(x1, 0, w)
+    x2 = np.clip(x2, -1, w - 1)
+    ok &= x2 >= x1
+    rows = np.broadcast_to(np.arange(len(ys))[:, None], ok.shape)[ok]
+    span = np.zeros((len(ys), w + 1), np.int32)
+    np.add.at(span, (rows, x1[ok]), 1)
+    np.add.at(span, (rows, x2[ok] + 1), -1)
+    fill = np.cumsum(span[:, :w], axis=1) > 0
+    r, c = np.nonzero(fill)
+    img[ys[r], c] = value
+    return img
+
+
+# --------------------------------------------------------------------------
+# filters and borders
+# --------------------------------------------------------------------------
+
+def box_blur3(x: np.ndarray) -> np.ndarray:
+    """``cv2.blur(x, (3, 3))`` of an f32 [h, w] map: reflect-101 border, the
+    3x3 sum in f64 times 1/9, rounded to f32."""
+    xp = np.pad(np.asarray(x, np.float64), 1, mode="reflect")
+    rows = xp[:, :-2] + xp[:, 1:-1] + xp[:, 2:]
+    s = rows[:-2] + rows[1:-1] + rows[2:]
+    return (s * (1.0 / 9.0)).astype(np.float32)
+
+
+def pad_constant(im: np.ndarray, top: int, bottom: int, left: int, right: int,
+                 value=0) -> np.ndarray:
+    """``cv2.copyMakeBorder(im, top, bottom, left, right, BORDER_CONSTANT)``."""
+    widths = [(top, bottom), (left, right)] + [(0, 0)] * (im.ndim - 2)
+    return np.pad(im, widths, mode="constant", constant_values=value)
+
+
+# --------------------------------------------------------------------------
+# affine warp
+# --------------------------------------------------------------------------
+
+def invert_affine(m) -> np.ndarray:
+    """warpAffine's inverse of a forward 2x3 matrix, in its f64 arithmetic."""
+    m = [float(v) for v in np.asarray(m, np.float64).reshape(6)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.asarray(m, np.float64).reshape(2, 3)
+
+
+def warp_source_coords(m, rows: np.ndarray, cols: np.ndarray):
+    """f32 source coordinates (sx, sy) [len(rows), len(cols)] of destination
+    pixels ``rows`` x ``cols`` under forward matrix ``m``: the inverse map in
+    f32, ``i00 x + i01 y + i02``."""
+    inv = invert_affine(m).astype(np.float32)
+    y = np.asarray(rows, np.float32)[:, None]
+    x = np.asarray(cols, np.float32)[None, :]
+    return inv[0, 0] * x + inv[0, 1] * y + inv[0, 2], inv[1, 0] * x + inv[1, 1] * y + inv[1, 2]
+
+
+def bilinear_sample_u8(fetch, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+    """u8 bilinear sampling at f32 coordinates as warpAffine interpolates:
+    two f32 lerps along x, one along y, rounded half to even.
+    ``fetch(ys, xs)`` returns the source's u8 pixels [..., c] at integer
+    coordinates, zero outside."""
+    ix, iy = np.floor(sx), np.floor(sy)
+    a = (sx - ix)[..., None]
+    b = (sy - iy)[..., None]
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    p00 = fetch(iy, ix).astype(np.float32)
+    p01 = fetch(iy, ix + 1).astype(np.float32)
+    p10 = fetch(iy + 1, ix).astype(np.float32)
+    p11 = fetch(iy + 1, ix + 1).astype(np.float32)
+    v0 = p00 + a * (p01 - p00)
+    v1 = p10 + a * (p11 - p10)
+    return np.clip(np.rint(v0 + b * (v1 - v0)), 0, 255).astype(np.uint8)
+
+
+def zero_border_fetch(im: np.ndarray):
+    """``fetch(ys, xs)`` of ``im``'s pixels, 0 outside the image."""
+    h, w = im.shape[:2]
+
+    def fetch(ys, xs):
+        inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+        out = im[np.where(inside, ys, 0), np.where(inside, xs, 0)]
+        out[~inside] = 0
+        return out
+
+    return fetch
+
+
+def warp_affine_u8(im: np.ndarray, m, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(im, m, dsize)`` (``INTER_LINEAR``, ``BORDER_CONSTANT``
+    0) of a u8 image [h, w, c]; ``dsize`` is (width, height)."""
+    if im.dtype != np.uint8 or im.ndim != 3:
+        raise ValueError(f"expected a u8 [h, w, c] image, got {im.dtype} {im.shape}")
+    sx, sy = warp_source_coords(m, np.arange(dsize[1]), np.arange(dsize[0]))
+    return bilinear_sample_u8(zero_border_fetch(im), sx, sy)
+
+
+# --------------------------------------------------------------------------
+# colour
+# --------------------------------------------------------------------------
+
+def _hsv_tables():
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.concatenate([[0], np.rint((255 << HSV_SHIFT) / i)]).astype(np.int64)
+    hdiv = np.concatenate([[0], np.rint((180 << HSV_SHIFT) / (6.0 * i))]).astype(np.int64)
+    return sdiv, hdiv
+
+
+_SDIV, _HDIV180 = _hsv_tables()
+
+
+def bgr2hsv_u8(im: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(im, COLOR_BGR2HSV)`` of u8 BGR [..., 3]: H in 0..179."""
+    src = im.astype(np.int64)
+    b, g, r = src[..., 0], src[..., 1], src[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    vmin = np.minimum(np.minimum(b, g), r)
+    diff = v - vmin
+    half = 1 << (HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([np.clip(h, 0, 255), s, v], axis=-1).astype(np.uint8)
+
+
+_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv2bgr_u8(im: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(im, COLOR_HSV2BGR)`` of u8 HSV (H in 0..179) in f32
+    arithmetic."""
+    f32 = np.float32
+    h = im[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = im[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = im[..., 2].astype(f32) * f32(1.0 / 255.0)
+    h = np.fmod(h, f32(6.0))
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(f32)
+    bad = (sector < 0) | (sector >= 6)
+    sector = np.where(bad, 0, sector)
+    h = np.where(bad, f32(0), h)
+    one = f32(1.0)
+    tab = np.stack([v, v * (one - s), v * (one - s * h), v * (one - s * (one - h))], -1)
+    idx = _SECTOR[sector]                                      # [..., 3]
+    bgr = np.take_along_axis(tab, idx, axis=-1)
+    gray = (s == 0)[..., None]
+    bgr = np.where(gray, v[..., None], bgr)
+    return np.clip(np.rint(bgr * f32(255.0)), 0, 255).astype(np.uint8)
+

@@ -19,13 +19,14 @@ from the ``generator`` passed to ``forward`` / ``recognize``.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fots_torch.models.layers import (BasicBlockIn, BasicBlockSepIn, Conv,
+from fots_torch.models.layers import (BasicBlockIn, BasicBlockSepIn, BatchNorm, Conv,
                                       ConvDWPlain, CReLUIN, Dropout, InstanceNorm,
                                       leaky_relu, max_pool, resize_bilinear)
 
@@ -195,3 +196,36 @@ class FOTSDetector(nn.Module):
         """CTC head over RoIRotated NHWC strips -> [N, W, nclass] log-probs."""
         return self.ocr(strips, valid_w, generator)
 
+
+#: std of a standard normal truncated to [-2, 2]: flax's truncated-normal
+#: initialisers divide by it so the truncated draw keeps the asked-for std
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_detector(model: FOTSDetector, generator: torch.Generator) -> FOTSDetector:
+    """Initialise every parameter from scratch with flax's defaults, as
+    ``fots.models.detector.init_detector`` does (in place; returns
+    ``model``): conv kernels ``lecun_normal`` (a normal truncated at +-2
+    std, with std sqrt(1 / fan_in), fan_in = kh kw in / groups, so a
+    depthwise kernel's is kh kw), conv biases zeros, InstanceNorm and
+    BatchNorm scales ones and biases zeros, BatchNorm running mean 0 and
+    variance 1.  The kernels are drawn on the CPU from ``generator``, module
+    by module in the model's order (JAX's threefry draws cannot be matched,
+    only their distribution)."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, Conv):
+                o, i, kh, kw = module.weight.shape
+                std = math.sqrt(1.0 / (kh * kw * i)) / _TRUNC_STD
+                w = torch.empty((o, i, kh, kw))
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+                module.weight.copy_(w)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, (InstanceNorm, BatchNorm)) and module.weight is not None:
+                module.weight.fill_(1.0)
+                module.bias.zero_()
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+    return model

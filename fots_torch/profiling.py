@@ -1,14 +1,17 @@
 """Where the serving or training time goes on the card: a torch.profiler
 breakdown; and the timing of the fused residual-block kernel K5'.
 
-    python3 -m fots_torch.profiling [--path serve|train] [--batch N] [--batches N]
+    python3 -m fots_torch.profiling [--path serve|train] [--scratch] [--batch N] [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
 batch 8): the training asset at 640x960, f32, the snapshot as warm start,
-``Trainer.train`` (lr 1e-4; PyTorch's default math settings).  Warm-up
+``Trainer.train`` (lr 1e-4; PyTorch's default math settings); with
+``--scratch``, ``train_joint``'s step instead: a model from scratch (seed
+0, lr 1e-3) on one augmented 512x512 batch of the smoke scenes from the
+port's own data pipeline, repeated.  Warm-up
 batches first, then a profiled window of ``--batches`` batches (steps).
 Prints one JSON object: host wall time per batch, device busy time per
 batch (the union of kernel intervals), the device's idle share of the
@@ -163,11 +166,30 @@ def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
     log = defaultdict(list)
     for name in ("step", "_prepare_maps", "_prepare_rois", "_build_roi_batch"):
         _timed(trainer, name, log)
-    out = _profiled(lambda: trainer.train([batch] * batches, max_steps=batches,
+    out = _profiled(lambda: trainer.train([batch] * batches,
+                                          max_steps=trainer.global_step + batches,
                                           log_every=0), batches)
     host = {k: sum(v) / len(v) for k, v in log.items()}
     return {"path": "train", "batch": batch.images.shape[0],
             "hw": list(batch.images.shape[1:3]), "host_ms_per_call": host, **out}
+
+
+def augmented_smoke_batch(batch_size: int, size: int = 512):
+    """One augmented ``size`` x ``size`` batch of the smoke scenes from the
+    port's data pipeline (:mod:`fots_torch.data.detection`, seed 0)."""
+    import tempfile
+
+    from fots_torch.data.detection import detection_generator
+
+    smoke = os.path.join(_REPO, "fots_torch", "assets", "smoke_images_u8.npz")
+    with np.load(smoke) as z:
+        names = [str(n) for n in z["names"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        list_path = os.path.join(tmp, "smoke.txt")
+        with open(list_path, "w") as f:
+            f.writelines(os.path.join(_REPO, "data", "synth", n) + "\n" for n in names)
+        return next(detection_generator(list_path, smoke, input_size=size,
+                                        batch_size=batch_size))
 
 
 def cuda_median_ms(fn, reps=15, warmup=3):
@@ -214,13 +236,15 @@ IN_STAGES = ((4, 64), (8, 128), (16, 256), (32, 512))
 def instance_norm_path_shapes():
     """(path, (b, h, w, c), dtype, masked, backward too) of every K1' call
     site: serving (batch 16 at 704x1280, bf16), training (batch 8 at
-    640x960, f32, with K1'-bwd), per-image evaluation (one 640x960 image, f32
-    and bf16) and the recognition head's masked strips."""
+    640x960, f32, with K1'-bwd), training from scratch (batch 8 of
+    augmented 512x512 crops, f32, with K1'-bwd), per-image evaluation (one
+    640x960 image, f32 and bf16) and the recognition head's masked strips."""
     from fots_torch.pipeline import FOTSInference
 
     out = []
     for path, b, (h, w), dtype, bwd in (("serving", 16, (704, 1280), torch.bfloat16, False),
                                         ("training", 8, (640, 960), torch.float32, True),
+                                        ("train_joint", 8, (512, 512), torch.float32, True),
                                         ("evaluation", 1, (640, 960), torch.float32, False),
                                         ("evaluation", 1, (640, 960), torch.bfloat16, False)):
         out += [(path, (b, h // d, w // d, c), dtype, False, bwd) for d, c in IN_STAGES]
@@ -441,6 +465,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("serve", "train", "fused_block", "instance_norm"),
                     default="serve")
+    ap.add_argument("--scratch", action="store_true",
+                    help="train: from scratch on an augmented 512x512 batch")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10,
@@ -462,7 +488,12 @@ def main(argv=None) -> int:
         images = z["images"]
     model, _, config = load_detector(os.path.join(_REPO, "artifacts", "serving_params.npz"),
                                      "cuda")
-    if args.path == "serve":
+    if args.path == "train" and args.scratch:
+        from fots_torch.train import Trainer
+
+        out = profile_training(Trainer(learning_rate=1e-3, seed=0, device="cuda"),
+                               augmented_smoke_batch(args.batch or 8), args.batches)
+    elif args.path == "serve":
         batch = [images[i % len(images)] for i in range(args.batch or 16)]
         with FOTSInference(model, masked_norm=config.get("masked_norm", False),
                            mixed_precision=True, device="cuda") as eng:
@@ -476,6 +507,7 @@ def main(argv=None) -> int:
         out = profile_training(Trainer(model, learning_rate=1e-4, device="cuda"), batch,
                                args.batches)
     out["device"] = torch.cuda.get_device_name(0)
+    out["card_and_power_limit"] = card_name_and_power_limit()
     print(json.dumps(out))
     return 0
 

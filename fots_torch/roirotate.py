@@ -15,9 +15,10 @@ one ``RoiBatch`` in both packages):
 - every valid ground-truth box appended (height jittered by -2..2 px);
   the batch capped at ``MAX_ROIS``.
 
-``cv2.boxPoints`` / ``cv2.boundingRect`` become :func:`box_points` /
-:func:`bounding_rect` (the card's machine has no OpenCV): the same float32
-arithmetic, so the same integer rectangles.
+``cv2.boxPoints`` / ``cv2.boundingRect`` become
+:func:`fots_torch.geometry.box_points` / :func:`bounding_rect` (the card's
+machine has no OpenCV): the same float32 arithmetic, so the same integer
+rectangles.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from fots_torch.codec import LabelCodec
+from fots_torch.geometry import box_points
 from fots_torch.ops.rroi_align import width_bucket
 
 MAX_ROIS = 32
@@ -51,26 +53,6 @@ class RoiBatch:
     strip_width: int           # pooled width bucket
     n_predicted: int           # rois sampled from predictions
     n_gt: int                  # rois from ground-truth quads
-
-
-def box_points(center, size, angle_deg) -> np.ndarray:
-    """``cv2.boxPoints(((cx, cy), (w, h), angle))``: the 4 corners [4, 2]
-    float32, in OpenCV's float32 arithmetic (``RotatedRect::points``)."""
-    f = np.float32
-    ang = float(f(angle_deg)) * math.pi / 180.0
-    b = f(math.cos(ang)) * f(0.5)
-    a = f(math.sin(ang)) * f(0.5)
-    cx, cy = f(center[0]), f(center[1])
-    w, h = f(size[0]), f(size[1])
-    p0x = cx - a * h - b * w
-    p0y = cy + b * h - a * w
-    p1x = cx + a * h - b * w
-    p1y = cy - b * h - a * w
-    p2x = cx + a * h + b * w
-    p2y = cy - b * h + a * w
-    p3x = cx - a * h + b * w
-    p3y = cy + b * h + a * w
-    return np.array([[p0x, p0y], [p1x, p1y], [p2x, p2y], [p3x, p3y]], dtype=np.float32)
 
 
 def bounding_rect(pts: np.ndarray):

@@ -18,9 +18,11 @@ i + 1 on a prefetch thread while the card runs step i.
 Randomness: dropout masks and candidate priorities are drawn on the CPU
 from the trainer's ``torch.Generator`` (so a CUDA run and a CPU run of
 equal seeds draw the same), roi sampling from its ``np.random.Generator``.
-Left out so far: checkpoint resume, the debug crop dumps, initialisation
-from scratch (a run starts from a snapshot), the training CLI and its jpg
-data pipeline.
+A run starts from scratch (:func:`fots_torch.models.detector.init_detector`
+from the seed) or from a given model, writes ``step_N`` checkpoints
+(:mod:`fots_torch.checkpoint`) and resumes from them; the training CLI is
+:mod:`fots_torch.cli.train_joint`.  Left out so far: the debug crop dumps
+and data-parallel training over a mesh.
 """
 
 from __future__ import annotations
@@ -28,16 +30,17 @@ from __future__ import annotations
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from fots_torch.codec import LabelCodec
+from fots_torch.data.detection import DetectionBatch
 from fots_torch.device import resolve_device, to_device_async
 from fots_torch.losses import ctc_loss, detection_loss, repeat_infeasible_rows
-from fots_torch.models.detector import FOTSDetector
+from fots_torch.models.detector import FOTSDetector, init_detector
 from fots_torch.ops.rroi_align import rroi_align
 from fots_torch.pipeline import HostCopy
 from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBatch,
@@ -45,20 +48,6 @@ from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBat
 
 METRIC_KEYS = ("loss", "segm_loss", "angle_loss", "iou_loss", "ctc_loss")
 ROI_CANDIDATES_K = 128  # random candidate pixels shipped to the host sampler
-
-
-@dataclass
-class DetectionBatch:
-    """A host training batch, with the fields of ``fots.data.detection.
-    DetectionBatch``."""
-
-    images: np.ndarray          # [B, H, W, 3] float32, x / 128 - 1
-    score_maps: np.ndarray      # [B, H/4, W/4] float32
-    geo_maps: np.ndarray        # [B, H/4, W/4, 5] float32 (4 distances, angle)
-    training_masks: np.ndarray  # [B, H/4, W/4] uint8
-    gt_idxs: np.ndarray         # [B, H/4, W/4] int64, pixel -> word index
-    gt_quads: List[List[np.ndarray]]
-    labels: List[List[str]] = field(default_factory=list)
 
 
 def asset_batch(images_u8: np.ndarray, targets, order) -> DetectionBatch:
@@ -236,16 +225,23 @@ class Averager:
 
 class Trainer:
     """Training loop driver: host roi sampling pipelined against device
-    steps, from ``model``'s weights (e.g. :func:`fots_torch.checkpoint.
-    load_detector`).  ``device=None`` trains on CUDA and raises without it;
-    ``device="cpu"`` runs the kernels' plain versions."""
+    steps.  ``model=None`` builds ``FOTSDetector(nclass=codec.num_classes)``
+    and initialises it from ``seed`` as ``fots`` does; otherwise it trains
+    ``model``'s weights (e.g. :func:`fots_torch.checkpoint.load_detector`).
+    ``device=None`` trains on
+    CUDA and raises without it; ``device="cpu"`` runs the kernels' plain
+    versions."""
 
-    def __init__(self, model: FOTSDetector,
+    def __init__(self, model: Optional[FOTSDetector] = None,
                  codec: Optional[LabelCodec] = None, learning_rate: float = 1e-3,
-                 seed: int = 0, use_predicted_rois: bool = True, ohem: bool = False,
-                 masked_norm: bool = True, multi_scale: bool = True, device=None):
+                 seed: int = 0, use_predicted_rois: bool = True,
+                 ohem: bool = False, masked_norm: bool = True, multi_scale: bool = True,
+                 device=None):
         self.device = resolve_device(device)
         self.codec = codec or LabelCodec()
+        if model is None:
+            model = init_detector(FOTSDetector(nclass=self.codec.num_classes),
+                                  torch.Generator().manual_seed(seed))
         self._gen = torch.Generator().manual_seed(seed)  # dropout, priorities
         self._np_rng = np.random.default_rng(seed)       # roi sampling
         self.model = model.to(device=self.device, memory_format=torch.channels_last).train()
@@ -255,11 +251,22 @@ class Trainer:
         self.ohem = ohem
         self.masked_norm = masked_norm
         self.multi_scale = multi_scale
+        #: applied updates; a restored checkpoint sets it and a resumed
+        #: :meth:`train` continues the numbering
+        self.global_step = 0
+        #: samples the data pipeline dropped on an exception (summed over
+        #: the batches' ``dropped`` counts)
+        self.dropped_samples = 0
         self._prev_cands = None  # (HostCopy of [B, 8, K], (hs, ws)) of the last step
-        self._pending: List[HostCopy] = []
+        self._pending: List[tuple] = []
         self.metrics = {k: Averager() for k in METRIC_KEYS}
-        #: every recorded step's metrics, in step order
+        #: every recorded step's metrics and step index, in step order
         self.history: List[Dict[str, float]] = []
+        #: host clock (``time.perf_counter``) at each step's dispatch
+        self.dispatch_times: List[float] = []
+        #: per batch :meth:`train` fetched: (seconds the main thread waited
+        #: for it, its ``make_s`` and ``made_at`` where it carries them)
+        self.fetch_log: List[tuple] = []
 
     def _build_roi_batch(self, batch) -> RoiBatch:
         cands = hw = None
@@ -294,17 +301,20 @@ class Trainer:
         """Host side of a step: packing, roi sampling, pinned buffers."""
         return self._prepare_rois(batch, self._prepare_maps(batch))
 
-    def _record(self, vals) -> Dict[str, float]:
+    def _record(self, step_idx: int, vals) -> Dict[str, float]:
         out = {k: float(v) for k, v in zip(METRIC_KEYS, vals)}
         for k, v in out.items():
             self.metrics[k].add(v)
-        self.history.append(out)
+        self.history.append({**out, "step": step_idx})
         return out
 
-    def step(self, batch, defer: bool = False, prepared=None):
-        """One training step from a host :class:`DetectionBatch`.  With
-        ``defer`` the metrics stay on their way to the host until
-        :meth:`drain_metrics`; otherwise returns them."""
+    def step(self, batch, defer: bool = False, prepared=None, step_idx: Optional[int] = None):
+        """One training step from a host :class:`DetectionBatch`; counts one
+        applied update.  With ``defer`` the metrics stay on their way to the
+        host until :meth:`drain_metrics`; otherwise returns them.
+        ``step_idx`` labels the step in the history (default: the applied
+        updates before it)."""
+        step_idx = self.global_step if step_idx is None else step_idx
         roi_batch, host, frames, optax_rows = (prepared if prepared is not None
                                                else self._prepare(batch))
         dev = [t.to(self.device, non_blocking=True) for t in host]
@@ -314,48 +324,64 @@ class Trainer:
         metric_vec, cands = train_step(self.model, self.optimizer, dev_batch,
                                        roi_batch.strip_width, frames, optax_rows, self._gen,
                                        self.multi_scale, self.ohem, self.masked_norm)
+        self.global_step += 1
+        self.dispatch_times.append(time.perf_counter())
         self._prev_cands = (HostCopy(cands), tuple(batch.score_maps.shape[1:3]))
         copy = HostCopy(metric_vec)
         if defer:
-            self._pending.append(copy)
+            self._pending.append((step_idx, copy))
             return None
-        return self._record(copy.numpy())
+        return self._record(step_idx, copy.numpy())
 
     def drain_metrics(self) -> Dict[str, float]:
         """Fold deferred metric vectors into the averagers and the history;
         returns the last step's values."""
         out: Dict[str, float] = {}
-        for copy in self._pending:
-            out = self._record(copy.numpy())
+        for step_idx, copy in self._pending:
+            out = self._record(step_idx, copy.numpy())
         self._pending.clear()
         return out
 
-    def train(self, batches, max_steps: int, log_every: int = 5):
-        """Pipelined loop over at most ``max_steps`` batches.  One prefetch
+    def train(self, batches, max_steps: int, log_every: int = 5,
+              checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10000):
+        """Pipelined loop up to global step ``max_steps``.  The step index
+        starts at :attr:`global_step` (so a resumed run continues its
+        numbering and ``max_steps`` is a global bound).  One prefetch
         thread packs step i + 1's images and maps while the main thread
         dispatches step i, then samples its rois, which waits for step i's
         candidates (they stream home while the card works); metrics are
         pulled at log points.  A batch whose preparation or step raises is
         reported with its traceback and skipped, as ``fots`` does; it uses
-        up its step index."""
+        up its step index and applies no update.  With ``checkpoint_dir``,
+        a checkpoint labelled with the applied updates is written after
+        every index i with (i + 1) % ``checkpoint_every`` == 0 (and the
+        averagers reset), and one at the end."""
+        from fots_torch.checkpoint import save_checkpoint
+
         it = iter(batches)
         with ThreadPoolExecutor(max_workers=1) as pool:
             def fetch():
+                t = time.perf_counter()
                 batch = next(it, None)
-                return None if batch is None else (batch, pool.submit(self._prepare_maps, batch))
+                if batch is None:
+                    return None
+                self.fetch_log.append((time.perf_counter() - t, getattr(batch, "make_s", None),
+                                       getattr(batch, "made_at", None)))
+                self.dropped_samples += int(getattr(batch, "dropped", 0))
+                return batch, pool.submit(self._prepare_maps, batch)
 
             def sample(batch, maps):  # queued after ``maps`` on the one worker
                 return pool.submit(lambda: self._prepare_rois(batch, maps.result()))
 
             t0 = time.perf_counter()
-            cur = fetch()
+            cur = fetch() if self.global_step < max_steps else None
             rois = None if cur is None else sample(*cur)
-            for step_idx in range(max_steps):
+            for step_idx in range(self.global_step, max_steps):
                 if cur is None:
                     break
-                nxt = fetch()
+                nxt = fetch() if step_idx + 1 < max_steps else None
                 try:
-                    self.step(cur[0], defer=True, prepared=rois.result())
+                    self.step(cur[0], defer=True, prepared=rois.result(), step_idx=step_idx)
                     ok = True
                 except Exception:
                     traceback.print_exc()
@@ -368,6 +394,11 @@ class Trainer:
                     print(f"step {step_idx} {msg} time {time.perf_counter() - t0:.3f}s",
                           flush=True)
                     t0 = time.perf_counter()
-            if rois is not None:
-                rois.result()  # an unused prefetch: surface its error
+                if checkpoint_dir and (step_idx + 1) % checkpoint_every == 0:
+                    self.drain_metrics()
+                    save_checkpoint(checkpoint_dir, self, self.global_step)
+                    for avg in self.metrics.values():
+                        avg.reset()
         self.drain_metrics()
+        if checkpoint_dir:
+            save_checkpoint(checkpoint_dir, self, self.global_step)

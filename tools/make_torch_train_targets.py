@@ -6,10 +6,13 @@ four scenes in ``fots_torch/assets/smoke_images_u8.npz``.
 The targets come from the JAX package's own pipeline,
 ``fots.data.detection.detection_generator(..., input_size=-1,
 augment=False)``: native 640x960 input, no augmentation, one pass in list
-order.  The port's training phase on the GPU reads them beside the
-pre-decoded images, since that machine has no OpenCV to decode the jpgs or
-rasterise the targets.  ``tests/test_torch_port_train_data.py``
-regenerates them and requires equality.
+order.  The GPU machine has no OpenCV: its training phase from the
+snapshot reads them beside the pre-decoded images, and the port's own
+targets (``fots_torch.data.detection``) are held to them byte for byte
+there (``chip_smoke.py`` phase 7) and here
+(``tests/test_torch_port_train_data.py``).
+``tests/test_torch_port_train_step.py`` regenerates them and requires
+equality.
 
 Arrays: ``names`` [4]; ``score_maps`` [4, 160, 240] f32;
 ``training_masks`` [4, 160, 240] u8; ``geo_maps`` [4, 160, 240, 5] f32;
