@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels   # a subset (no result line)
+    python3 chip_smoke.py --serve-bundle DIR OUT   # phase 5's fresh process
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -16,7 +17,9 @@ result line):
    cuts it, and the two-pass route), against the plain version and against
    each other; the cluster route also twice (bit identity), at ragged pixel
    counts, at every cluster size, and its saved statistics against the plain
-   emulation of its fold.  Then each kernel's median time
+   emulation of its fold; K1' also at the exported bundle's recognition
+   strips (32 rois at every strip bucket, bf16, masked) through the registered
+   op ``torch.ops.fots_torch.instance_norm``.  Then each kernel's median time
    beside the plain version's, a library call's where one PyTorch call
    computes the same function, and the least time the card could take
    (bytes moved over the memory rate, or operations over the rate of
@@ -36,13 +39,34 @@ result line):
    6 batches with the launch counts zeroed just before; every image must
    yield text, every serving kernel must have launched; images/s over the
    steady batches on the host clock (PyTorch's default math settings);
-5. one training step, CUDA port against CPU port (f32, TF32 off for this
+5. the exported bundle (a main path): ``fots_torch.export.export_serving``
+   of the phase-4 engine's settings (bf16, the snapshot's masked_norm, its
+   max_candidates) at batch 16, 704x1280, roi_pad 32 into a temporary
+   directory, every file's size printed and no ``.pt2`` large enough to
+   carry the weights; a fresh process (``--serve-bundle``) loads it with
+   ``ExportedEngine`` (one CUDA graph per program), serves the 4 smoke
+   scenes repeated to 16 with the launch counts zeroed just before (its
+   eager warm-up and capture calls launch; a replay moves no counter), and
+   must not import ``fots_torch.models``; its results are held against the
+   in-process ``batch_call`` with the host letterbox (same count per image,
+   identical texts, corners within 1e-4 px, confidences within 1e-5); in
+   this process no loaded program may hold a tensor, the detection graph's
+   replay and that of each bucket the batch used must equal an eager call
+   of the same program bit for bit, and a profile of one replay of each of
+   those graphs must show K1', K2', K3' and K4''s kernels in the detection
+   graph and K1''s in each recognition graph; reported, not held: images/s
+   of both engines over batches 2..6, and per batch the device busy ms and
+   the host's launch calls (torch.profiler) over 5 more batches, beside the
+   card's name and power limit; the exported window's trace gives that
+   path's kernel launches; then ``fots_torch.cli.serve`` over the smoke
+   archive must write what ``stream`` returns;
+6. one training step, CUDA port against CPU port (f32, TF32 off for this
    phase only): two asset scenes at 640x960, ground-truth rois from one
    seed, dropout masks from equally seeded CPU generators; the five loss
    terms, every parameter gradient, the BatchNorm running statistics and
    every parameter after one Adam step must agree; once with the dice
    score loss and once with OHEM;
-6. training at full width (a main path): the snapshot as warm start, f32,
+7. training at full width (a main path): the snapshot as warm start, f32,
    batch 8 at 640x960 (the four asset scenes twice, one repeated batch),
    predicted-roi sampling pipelined on a prefetch thread, masked_norm,
    12 steps of ``Trainer.train`` with the launch counts zeroed just
@@ -50,7 +74,7 @@ result line):
    loss after 10 updates below the first step's; images/s over steps
    3..12 on the host clock (PyTorch's default math settings: cuDNN may use
    TF32 for the convolutions);
-7. training from scratch (a main path): the port's own targets on the
+8. training from scratch (a main path): the port's own targets on the
    card's host must equal ``fots_torch/assets/train_targets.npz`` (``fots``'s
    output, OpenCV's rasteriser) byte for byte; then
    ``fots_torch.cli.train_joint`` over the 4 smoke scenes, augmented, batch
@@ -63,12 +87,12 @@ result line):
    steps 3..20 on the host clock; over those steps, the main thread's wait
    for each batch and the samples/s a reader made while training ran;
    peak memory;
-8. K5's own path (a main path): ``fots_torch.profiling``'s ``fused_block``
+9. K5's own path (a main path): ``fots_torch.profiling``'s ``fused_block``
    entry at the full shape 16x88x160x128 bf16 with the launch counts zeroed
    just before: the numeric check, then K5' against the detector's
    composition (cuDNN conv + K1' + add + ReLU) and against PyTorch calls
    only;
-9. the evaluation path (a main path): ``fots_torch.cli.eval_e2e`` over the
+10. the evaluation path (a main path): ``fots_torch.cli.eval_e2e`` over the
    16 held-out scenes of ``fots_torch/assets/heldout_eval_u8.npz`` with the
    shipped snapshot: per image at the scenes' own size in f32 (TF32 off; the
    launch counts zeroed just before), through ``-serve_hw 704x1280``, with
@@ -78,8 +102,8 @@ result line):
    detection both have but for at most two argmax near-ties); then once in
    bf16, reported and not held.
 
-Then it prints a ``{"kernels": [...]}`` JSON line, the serving, training,
-training-from-scratch, fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
+Then it prints a ``{"kernels": [...]}`` JSON line, the serving, export,
+training, training-from-scratch, fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
 last the ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
 """
@@ -93,6 +117,7 @@ import os
 import re
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -119,8 +144,19 @@ JOINT_READERS = 6
 EVAL_IMAGES = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")
 EVAL_REFERENCE = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_fots_cpu.json")
 FUSED_SHAPE = (16, 88, 160, 128)
-PHASES = ("build", "kernels", "serve_parity", "serve", "train_parity", "train",
+PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
           "train_joint", "fused_block", "eval")
+EXPORT_BATCHES = 6
+#: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
+#: serving kernels: each call of a kernel's wrapper runs one device kernel
+#: with one of its fragments, so a trace of graph replays, which move no
+#: launch counter, counts the calls (K1''s two-pass route runs
+#: in_stats_kernel, then in_apply_kernel)
+GRAPH_KERNELS = {"instance_norm": (("cluster", "in_cluster_kernel"),
+                                   ("two_pass", "in_apply_kernel")),
+                 "spatial_stats": ((None, "spatial_stats_kernel"),),
+                 "spatial_norm": ((None, "spatial_norm_kernel"),),
+                 "pack_neighbors": ((None, "pack_neighbors_kernel"),)}
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # device-memory bytes/s, f32 (non-tensor-core) flop/s and bf16 tensor-core
@@ -251,12 +287,15 @@ def phase_kernels(dev, peaks):
     def stats_ok(got, want, rel):
         return bool(((got - want).abs() <= rel * (1 + want.abs())).all())
 
-    def in_case(b, h, w, c, dtype, affine, slope, valid_w=None, plan=None):
+    def in_case(b, h, w, c, dtype, affine, slope, valid_w=None, plan=None, op=False):
         """K1' at one shape on each route: output and saved statistics
         against the plain version; on the cluster route also twice (bit
         identity), the statistics against the plain emulation of its fold
         (1e-5 (1 + |ref|): the same shares in the same rank order, summed
-        inside a share in another order), and against the two-pass route."""
+        inside a share in another order), and against the two-pass route.
+        ``op``: also the registered op ``torch.ops.fots_torch.instance_norm``
+        (what an exported program calls) against the plain version, and bit
+        for bit against its plan's route."""
         x = rand((b, h, w, c), dtype, 3, 1.5)
         scale = rand(c) if affine else torch.ones(c, device=dev)
         bias = rand(c) if affine else torch.zeros(c, device=dev)
@@ -292,6 +331,15 @@ def phase_kernels(dev, peaks):
             report("instance_norm", f"{shape_tag} cluster vs two_pass",
                    forward_ok(outs["cluster"], outs["two_pass"], dtype),
                    *errors(outs["cluster"], outs["two_pass"]))
+        if op:
+            got = torch.ops.fots_torch.instance_norm(x, scale, bias, 1e-5, slope, valid_w)
+            torch.cuda.synchronize()
+            report("instance_norm", f"{shape_tag} [torch.ops.fots_torch.instance_norm]",
+                   forward_ok(got, want, dtype), *errors(got, want))
+            pl = plan or tin.in_plan(h, w, c, x.element_size())
+            check(torch.equal(got, outs[pl.route]),
+                  f"torch.ops.fots_torch.instance_norm {shape_tag} differs from its "
+                  f"{plan_tag(pl)} launch")
 
     def bwd_case(b, h, w, c, affine, slope, valid_w=None, halves=1, groups=1, plan=None):
         """K1'-bwd at one shape on each route, and the forward that feeds it
@@ -487,6 +535,12 @@ def phase_kernels(dev, peaks):
                                dtype=torch.int32)
             for h, c in ((11, 128), (5, 256), (1, 256)):
                 in_case(chunk, h, width, c, dtype, True, 0.01, valid_w=vw)
+    # the exported bundle's recognition programs: their roi_pad rois at every
+    # strip bucket, through the registered op they call
+    for path, (b, h, w, c), dtype, _, _ in instance_norm_path_shapes():
+        if path == "export strips":
+            vw = torch.randint(1, w + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+            in_case(b, h, w, c, dtype, True, 0.01, valid_w=vw, op=True)
 
     # the training path's backward: every K1' IN at batch 8, 640x960, the
     # masked INs of a 256-wide strip batch, the stem's two CReLU-INs
@@ -803,6 +857,238 @@ def phase_serve(images):
 
 
 # --------------------------------------------------------------------------
+# phase 5: the exported serving bundle
+# --------------------------------------------------------------------------
+
+def _models_imported():
+    return sorted(m for m in sys.modules
+                  if m == "fots_torch.models" or m.startswith("fots_torch.models."))
+
+
+def serve_bundle(bundle: str, out_path: str) -> int:
+    """``--serve-bundle``: load ``bundle`` in this (fresh) process, serve one
+    batch of the smoke images repeated to the bundle's batch, and write the
+    results, the kernel launches (the counts zeroed just before the engine is
+    built: its warm-up and capture calls) and the ``fots_torch.models``
+    modules this process imported to ``out_path`` as JSON."""
+    from fots_torch.export import ExportedEngine
+    from fots_torch.kernels import build
+
+    with np.load(SMOKE_IMAGES) as z:
+        images = list(z["images"])
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ExportedEngine(bundle) as engine:
+        load_s = time.perf_counter() - t0
+        batch = [images[i % len(images)] for i in range(engine.manifest["batch"])]
+        res = engine.batch_call(batch)
+        torch.cuda.synchronize()
+    with open(out_path, "w") as f:
+        json.dump({"results": [[{"box": e["box"].tolist(), "text": e["text"],
+                                 "conf": e["conf"]} for e in r] for r in res],
+                   "launches": {**build.launch_counts, **build.route_counts},
+                   "models_imported": _models_imported(), "load_s": load_s}, f)
+    return 0
+
+
+def _python_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _run_child(args, what: str):
+    proc = subprocess.run([sys.executable, *args], capture_output=True, text=True,
+                          timeout=900, env=_python_env(), cwd=REPO)
+    for line in proc.stdout.splitlines()[-6:]:
+        print(f"  [{what}] {line}")
+    check(proc.returncode == 0, f"{what} failed (exit {proc.returncode}):\n"
+          f"{proc.stderr[-4000:]}")
+
+
+def _graph_launches(names) -> dict:
+    """Calls of each serving kernel's wrapper (and of K1' by route) read off
+    the device kernels' names of a trace (see ``GRAPH_KERNELS``)."""
+    counts = {}
+    for kernel, frags in GRAPH_KERNELS.items():
+        counts[kernel] = 0
+        for route, frag in frags:
+            n = sum(frag in name for name in names)
+            counts[kernel] += n
+            if route:
+                counts[f"{kernel}/{route}"] = n
+    return counts
+
+
+def phase_export(images):
+    """The exported bundle at the serving shape (a main path)."""
+    from fots_torch.checkpoint import load_detector
+    from fots_torch.export import ROI_PAD, ExportedEngine, export_serving
+    from fots_torch.kernels import build
+    from fots_torch.pipeline import FOTSInference
+    from fots_torch.profiling import card_name_and_power_limit, images_per_s, profile_window
+
+    print(f"phase 5: exported bundle, bf16, batch {BATCH} at {SERVE_HW}, roi_pad "
+          f"{ROI_PAD}: export, serve from a fresh process, graphs vs eager")
+    model, _, config = load_detector(SNAPSHOT, "cuda")
+    batch = [images[i % len(images)] for i in range(BATCH)]
+    out = {"batch": BATCH, "serve_hw": list(SERVE_HW), "dtype": "bf16",
+           "roi_pad": ROI_PAD}
+    with tempfile.TemporaryDirectory(prefix="fots_bundle_") as tmp, \
+            FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                          mixed_precision=True, device="cuda",
+                          device_letterbox=False) as eng:
+        # 1. export; no program carries a weight
+        bundle = os.path.join(tmp, "bundle")
+        t0 = time.perf_counter()
+        manifest = export_serving(eng, bundle, BATCH, *SERVE_HW, roi_pad=ROI_PAD)
+        out["export_s"] = time.perf_counter() - t0
+        out["files_bytes"] = {f: os.path.getsize(os.path.join(bundle, f))
+                              for f in sorted(os.listdir(bundle))}
+        weights = out["files_bytes"]["params.npz"]
+        for f, size in out["files_bytes"].items():
+            check(not f.endswith(".pt2") or size < weights / 8,
+                  f"{f} ({size} bytes) is large enough to carry the weights ({weights})")
+        print(f"  exported {len(manifest['programs'])} programs in {out['export_s']:.1f} s; "
+              f"torch {manifest['torch_version']}, device {manifest['device']}")
+
+        # 2. a fresh process serves it without the model code
+        served_path = os.path.join(tmp, "served.json")
+        _run_child([os.path.abspath(__file__), "--serve-bundle", bundle, served_path],
+                   "serve-bundle")
+        with open(served_path) as f:
+            served = json.load(f)
+        check(not served["models_imported"],
+              f"the bundle's runtime imported {served['models_imported']}")
+        setup = served["launches"]
+        for name in build.PATH_KERNELS["export"]:
+            check(setup[name] > 0, f"kernel {name} was not launched on the export path")
+        out["setup_launches"] = setup
+        out["subprocess_load_s"] = served["load_s"]
+        print(f"  fresh process: loaded and captured in {served['load_s']:.1f} s, imported "
+              f"no fots_torch.models; launches counted in its warm-up and capture "
+              f"calls (a replay counts none) {setup}")
+
+        # 3. held against the in-process engine on the same batch
+        want = eng.batch_call(batch, serve_hw=SERVE_HW)
+        got = served["results"]
+        check([len(r) for r in got] == [len(r) for r in want],
+              f"box counts differ: {[len(r) for r in got]} vs {[len(r) for r in want]}")
+        check(all(len(r) > 0 for r in want), "an image of the batch yielded no text")
+        corner = conf = 0.0
+        for g_img, w_img in zip(got, want):
+            for g, w in zip(g_img, w_img):
+                check(g["text"] == w["text"], f"texts differ: {g['text']!r} vs {w['text']!r}")
+                corner = max(corner, float(np.abs(np.asarray(g["box"][:8]) - w["box"][:8]).max()))
+                conf = max(conf, abs(g["conf"] - w["conf"]))
+        print(f"  bundle vs in-process batch_call: {sum(len(r) for r in want)} boxes, texts "
+              f"identical, max corner diff {corner:.3e} px, max conf diff {conf:.3e}")
+        check(corner <= 1e-4, f"quad corners differ by {corner} px")
+        check(conf <= 1e-5, f"confidences differ by {conf}")
+        out["vs_in_process"] = {"boxes": sum(len(r) for r in want),
+                                "max_corner_px": corner, "max_conf": conf}
+
+        with ExportedEngine(bundle) as ex:
+            for name, prog in ex.programs.items():
+                held = (len(prog.program.state_dict) + len(prog.program.constants)
+                        + (prog.program.example_inputs is not None))
+                check(held == 0, f"{name}.pt2 carries {held} tensors or example inputs")
+            # 4. each graph replay bit-equal to an eager call of its program
+            used = {}
+            recognize = ex.recognize
+
+            def recording(quads, rois, width):
+                used.setdefault(width, rois.copy())
+                return recognize(quads, rois, width)
+
+            ex.recognize = recording
+            ex.batch_call(batch)
+            del ex.recognize
+            det = ex.programs["detect"]
+            graph_out = [t.clone() for t in det()]
+            check(all(torch.equal(g, e) for g, e in zip(graph_out, det.eager())),
+                  "the detection graph's replay differs from an eager call")
+            for width, rois in sorted(used.items()):
+                prog = ex.programs[f"recognize_{width}"]
+                r = torch.from_numpy(rois).cuda()
+                graph_out = [t.clone() for t in prog(prog.inputs[0], r)]
+                check(all(torch.equal(g, e) for g, e in
+                          zip(graph_out, prog.eager(prog.inputs[0], r))),
+                      f"the recognize_{width} graph's replay differs from an eager call")
+            out["graphs_bit_equal"] = ["detect"] + [f"recognize_{w}" for w in sorted(used)]
+            print(f"  graph replay == eager call, bit for bit: {out['graphs_bit_equal']}")
+
+            # 5. the serving kernels inside the graphs: one replay of the
+            # detection graph and of each recognition graph the batch used
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            out["graph_kernels"] = {}
+            for name in ["detect"] + [f"recognize_{w}" for w in sorted(used)]:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    ex.programs[name]()
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                out["graph_kernels"][name] = {
+                    "device_kernels": len(names),
+                    "cudaGraphLaunch": sum(e.name == "cudaGraphLaunch" for e in prof.events()),
+                    **_graph_launches(names)}
+            for k, frags in GRAPH_KERNELS.items():
+                check(out["graph_kernels"]["detect"][k] > 0,
+                      f"no {k} kernel ({frags}) in a replayed detection graph")
+            for w in used:
+                check(out["graph_kernels"][f"recognize_{w}"]["instance_norm"] > 0,
+                      f"no instance_norm kernel in a replayed recognize_{w} graph")
+            print(f"  one replay of each graph, serving kernels read off the trace: "
+                  f"{out['graph_kernels']}")
+
+            # 6. reported, not held: both engines with the host letterbox,
+            # then one profiled window each; the exported window's trace
+            # gives the exported path's launches
+            smi = card_name_and_power_limit()
+            in_process = lambda b: eng.batch_call(b, serve_hw=SERVE_HW)  # noqa: E731
+            window = EXPORT_BATCHES - 1
+            ips = {"in_process": images_per_s(in_process, batch, window),
+                   "exported": images_per_s(ex.batch_call, batch, window)}
+            prof_out, names = {}, []
+            for key, call, sink in (("in_process", in_process, None),
+                                    ("exported", ex.batch_call, names)):
+                summary = profile_window(lambda: [call(batch) for _ in range(window)],
+                                         window, sink)
+                prof_out[key] = {k: summary[k] for k in (
+                    "wall_ms_per_batch", "device_busy_ms_per_batch", "device_idle_share",
+                    "kernel_launches_per_batch", "host_launch_calls_per_batch")}
+            launches = _graph_launches(names)
+            for name in build.PATH_KERNELS["export"]:
+                check(launches[name] > 0,
+                      f"kernel {name} ran in no exported batch of the profiled window")
+            out.update(images_per_s=ips, profile=prof_out, card=smi, export_batches=window,
+                       launches=launches)
+            print(f"  [{smi}] images/s over batches 2..{EXPORT_BATCHES}: {ips}")
+            for key, summary in prof_out.items():
+                print(f"  [{smi}] {key}: {summary}")
+            print(f"  exported path, {window} batches: serving kernel launches read off "
+                  f"the trace {launches}")
+
+        # 7. cli.serve writes what stream() returns
+        with np.load(SMOKE_IMAGES) as z:
+            names = [os.path.splitext(os.path.basename(str(n)))[0] for n in z["names"]]
+        json_dir = os.path.join(tmp, "served_json")
+        _run_child(["-m", "fots_torch.cli.serve", "-model", SNAPSHOT, "-images_npz",
+                    SMOKE_IMAGES, "-output", json_dir, "-batch", str(BATCH)], "cli.serve")
+        (_, res), = list(eng.stream(iter([(names, list(images))]), serve_hw=SERVE_HW,
+                                    with_context=True))
+        for name, r in zip(names, res):
+            with open(os.path.join(json_dir, name + ".json")) as f:
+                written = json.load(f)
+            check(written == [{"box": e["box"].tolist(), "text": e["text"]} for e in r],
+                  f"cli.serve's {name}.json differs from stream()'s result")
+        out["cli_serve_images"] = len(names)
+        print(f"  cli.serve: {len(names)} json files equal stream()'s results")
+    return launches, out
+
+
+# --------------------------------------------------------------------------
 # phases 5 and 6: training
 # --------------------------------------------------------------------------
 
@@ -824,7 +1110,7 @@ def phase_train_parity(images, targets, ohem=False):
     frames = ctc_frame_count(roi.rois, roi.roi_mask, roi.strip_width)
     optax_rows = repeat_infeasible_rows(roi.labels, roi.label_lengths,
                                         np.full(len(roi.roi_mask), frames))
-    print(f"phase 5: one training step{' with OHEM' if ohem else ''}, CUDA port vs CPU "
+    print(f"phase 6: one training step{' with OHEM' if ohem else ''}, CUDA port vs CPU "
           f"port, f32 (TF32 off), 2 scenes at {hw}, {int(roi.roi_mask.sum())} rois, strip width "
           f"{roi.strip_width}, {frames} CTC frames")
     torch.set_num_threads(os.cpu_count() or 1)
@@ -902,7 +1188,7 @@ def phase_train(images, targets):
     from fots_torch.train import METRIC_KEYS, Trainer, asset_batch
 
     batch = asset_batch(images, targets, [i % 4 for i in range(TRAIN_BATCH)])
-    print(f"phase 6: training, f32, batch {TRAIN_BATCH} at {TRAIN_HW}, {TRAIN_STEPS} "
+    print(f"phase 7: training, f32, batch {TRAIN_BATCH} at {TRAIN_HW}, {TRAIN_STEPS} "
           f"steps on one repeated batch, warm start from the snapshot, lr {TRAIN_LR}")
     model, _, _ = load_detector(SNAPSHOT, "cuda")
     trainer = Trainer(model, learning_rate=TRAIN_LR, seed=0, device="cuda")
@@ -1011,7 +1297,7 @@ def phase_train_joint(targets):
         want = targets[k]
         check(v.dtype == want.dtype and v.shape == want.shape and np.array_equal(v, want),
               f"train_joint: the port's {k} differ from fots's train_targets.npz")
-    print(f"phase 7: targets of {len(names)} scenes {batch.images.shape[1:3]} equal fots's "
+    print(f"phase 8: targets of {len(names)} scenes {batch.images.shape[1:3]} equal fots's "
           f"asset byte for byte ({', '.join(mine)}; {target_s:.2f} s on the host)")
 
     # 2. from scratch through the CLI
@@ -1094,7 +1380,7 @@ def phase_fused_block():
     from fots_torch.kernels import build
     from fots_torch.profiling import profile_fused_block
 
-    print(f"phase 8: fots_torch.profiling --path fused_block at {FUSED_SHAPE} bf16")
+    print(f"phase 9: fots_torch.profiling --path fused_block at {FUSED_SHAPE} bf16")
     torch.cuda.synchronize()
     build.reset_launch_counts()
     out = profile_fused_block(FUSED_SHAPE, iters=10)
@@ -1150,7 +1436,7 @@ def phase_eval():
         reference = json.load(f)["runs"]
     data = load_images_npz(EVAL_IMAGES)
     n_images = len(data[0])
-    print(f"phase 9: eval_e2e over {n_images} held-out scenes {data[0].shape[1:3]}, the "
+    print(f"phase 10: eval_e2e over {n_images} held-out scenes {data[0].shape[1:3]}, the "
           "shipped snapshot, against fots (f32, CPU) on the same pixels")
     runs = (("per_image", "per_image", {}, {}, False),
             ("serve_704x1280", "serve_704x1280", {}, {"serve_hw": SERVE_HW}, False),
@@ -1208,6 +1494,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}; the result "
                     "lines are printed only when every phase ran")
+    ap.add_argument("--serve-bundle", nargs=2, metavar=("BUNDLE", "OUT_JSON"),
+                    help="serve one batch from an exported bundle in this process and "
+                    "write the results to OUT_JSON (phase 5 runs this in a fresh process)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -1218,6 +1507,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if args.serve_bundle:
+        return serve_bundle(*args.serve_bundle)
     from fots_torch.kernels import build
     from fots_torch.profiling import card_name_and_power_limit
 
@@ -1249,6 +1540,8 @@ def main(argv=None) -> int:
         results["serve_parity"] = phase_serve_parity(list(images))
     if "serve" in phases:
         results["serve"] = phase_serve(list(images))
+    if "export" in phases:
+        results["export"] = phase_export(list(images))
     if "train_parity" in phases:
         results["train_parity"] = {name: phase_train_parity(images, targets, ohem)
                                    for name, ohem in (("dice", False), ("ohem", True))}
@@ -1268,6 +1561,7 @@ def main(argv=None) -> int:
 
     worst, rows, crelu = results["kernels"]
     serve_launches, ips = results["serve"]
+    export_launches, exported = results["export"]
     train_launches, train = results["train"]
     joint_launches, joint = results["train_joint"]
     fused_launches, fused = results["fused_block"]
@@ -1276,7 +1570,8 @@ def main(argv=None) -> int:
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
         by_bytes, by_ops = r["bound"]
-        paths = {"serving": serve_launches[kname], "training": train_launches[kname],
+        paths = {"serving": serve_launches[kname], "export": export_launches.get(kname, 0),
+                 "training": train_launches[kname],
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
                  "evaluation": eval_launches[kname]}
         kernels.append({
@@ -1291,8 +1586,11 @@ def main(argv=None) -> int:
             "launches_per_train_step": paths["training"] / TRAIN_STEPS,
             "launches_per_train_joint_step": paths["train_joint"] / JOINT_STEPS,
             "launches_per_eval_image": paths["evaluation"] / evaluation["scenes"],
+            "launches_per_export_batch": paths["export"] / exported["export_batches"],
+            "export_setup_launches": exported["setup_launches"].get(kname, 0),
             **({"launches_by_route": {
                 route: {"serving": serve_launches[f"{kname}/{route}"],
+                        "export": export_launches.get(f"{kname}/{route}", 0),
                         "training": train_launches[f"{kname}/{route}"],
                         "train_joint": joint_launches[f"{kname}/{route}"],
                         "evaluation": eval_launches[f"{kname}/{route}"]}
@@ -1307,6 +1605,7 @@ def main(argv=None) -> int:
                               "batches": STREAM_BATCHES,
                               "cuda_vs_cpu_max_corner_px": results["serve_parity"],
                               "stem_crelu_ms": crelu}}))
+    print(json.dumps({"export": exported}))
     print(json.dumps({"train": {**train, "cuda_vs_cpu": results["train_parity"]}}))
     print(json.dumps({"train_joint": joint}))
     print(json.dumps({"fused_block": fused}))

@@ -1,0 +1,96 @@
+"""Export the serving programs to a fixed-shape bundle, the counterpart of
+``fots/cli/export.py``.
+
+Writes the detection program and one recognition program per strip bucket
+(``torch.export``) plus the weights into a directory that
+:class:`fots_torch.export.ExportedEngine` serves without the model code
+(see ``fots_torch/export.py``).  A bundle serves on the device type it was
+exported on (``-device``; default the card).
+
+Usage:
+  python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
+      -batch 16 -height 704 -width 1280
+  # check the bundle against the in-process engine on the first batch of an
+  # archive of decoded images (``images`` u8 [N, h, w, 3] BGR):
+  python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
+      -selftest fots_torch/assets/smoke_images_u8.npz
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("-model", default=None,
+                        help=".npz serving snapshot, or a fots_torch.cli.train_joint "
+                             "checkpoint directory (step_N or the run directory)")
+    parser.add_argument("-h5", default=None,
+                        help="not ported: importing torch weights is not ported yet")
+    parser.add_argument("-out", required=True, help="bundle directory")
+    parser.add_argument("-batch", type=int, default=16)
+    parser.add_argument("-height", type=int, default=704)
+    parser.add_argument("-width", type=int, default=1280)
+    parser.add_argument("-segm_thresh", type=float, default=0.5)
+    parser.add_argument("-max_candidates", type=int, default=1024)
+    parser.add_argument("-max_boxes", type=int, default=None,
+                        help="per-image recognition cap baked into the bundle manifest")
+    parser.add_argument("-roi_pad", type=int, default=32)
+    parser.add_argument("-mixed_precision", action="store_true", default=True)
+    parser.add_argument("-f32", dest="mixed_precision", action="store_false")
+    parser.add_argument("-device", default=None,
+                        help="the device type the bundle is for; default: the card (fails "
+                             "without CUDA); 'cpu' runs the kernels' plain versions")
+    parser.add_argument("-selftest", default=None, metavar="IMAGES_NPZ",
+                        help="after exporting, reload the bundle and check that its results "
+                             "match the in-process engine on the first batch of images of "
+                             "this archive")
+    args = parser.parse_args(argv)
+    if args.h5:
+        parser.error("-h5: importing torch weights is not ported yet; fots_torch loads .npz "
+                     "serving snapshots and its own checkpoints")
+
+    from fots_torch.cli.detect import load_engine
+    from fots_torch.export import ExportedEngine, export_serving
+
+    engine = load_engine(args.model, segm_thresh=args.segm_thresh,
+                         mixed_precision=args.mixed_precision, device=args.device)
+    engine.max_candidates = args.max_candidates
+    engine.max_boxes = args.max_boxes
+    with engine:
+        manifest = export_serving(engine, args.out, batch=args.batch, height=args.height,
+                                  width=args.width, roi_pad=args.roi_pad)
+        total = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out))
+        print(f"exported {len(manifest['programs'])} programs (buckets "
+              f"{manifest['strip_buckets']}) + params to {args.out} ({total / 1e6:.1f} MB) "
+              f"for device {manifest['device']}")
+        if not args.selftest:
+            return manifest
+        with np.load(args.selftest) as z:
+            images = list(z["images"][:args.batch])
+        if not images:
+            raise SystemExit(f"selftest: no images in {args.selftest}")
+        with ExportedEngine(args.out, device=args.device) as exported:
+            got = exported.batch_call(images)
+        want = engine.batch_call(images, serve_hw=(args.height, args.width))
+    n_boxes = 0
+    for g_img, w_img in zip(got, want):
+        if len(g_img) != len(w_img):
+            raise SystemExit(f"selftest: result count mismatch {len(g_img)} vs {len(w_img)}")
+        for g, w in zip(g_img, w_img):
+            if g["text"] != w["text"]:
+                raise SystemExit(f"selftest: texts differ: {g['text']!r} vs {w['text']!r}")
+            if not np.allclose(g["box"], w["box"], rtol=0.0, atol=1e-4):
+                raise SystemExit(f"selftest: boxes differ: {g['box']} vs {w['box']}")
+            n_boxes += 1
+    print(f"selftest ok: {n_boxes} boxes identical across {len(images)} images")
+    return manifest
+
+
+if __name__ == "__main__":
+    main()

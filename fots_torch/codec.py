@@ -21,9 +21,11 @@ ICDAR15_ALPHABET = (
 
 @dataclass
 class LabelCodec:
-    """char <-> id codec with the CTC blank at index 0."""
+    """char <-> id codec with the CTC blank at index 0.  ``ignore_case``
+    lower-cases the alphabet, and every text before it is encoded."""
 
     alphabet: str = ICDAR15_ALPHABET
+    ignore_case: bool = False
     _dict: Dict[str, int] = field(init=False, repr=False)
     _codes: np.ndarray = field(init=False, repr=False)
 
@@ -32,6 +34,8 @@ class LabelCodec:
     reserved_ids: int = 1
 
     def __post_init__(self):
+        if self.ignore_case:
+            self.alphabet = self.alphabet.lower()
         self._dict = {ch: i + 1 for i, ch in enumerate(self.alphabet)}
         self._codes = np.array([ord(c) for c in self.alphabet] or [0], np.uint32)
 
@@ -47,6 +51,8 @@ class LabelCodec:
         ids: List[int] = []
         lengths: List[int] = []
         for t in texts:
+            if self.ignore_case:
+                t = t.lower()
             enc = [self._dict[c] for c in t if c in self._dict]
             ids.extend(enc)
             lengths.append(len(enc))

@@ -1,9 +1,11 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the transfers
+between host and card that the serving engines share."""
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -28,3 +30,23 @@ def to_device_async(t: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+class HostCopy:
+    """A device tensor on its way to the host: on CUDA a non-blocking copy
+    into a pinned buffer plus an event; :meth:`numpy` waits for it."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()

@@ -53,12 +53,14 @@ CUDA_KERNELS = {
     "pack_neighbors_bwd": "pack_neighbors",    # K4'-bwd
     "fused_block": "fused_block",              # K5'
 }
-#: the kernels each main path launches (serving and evaluation: inference;
-#: training: forward and backward of the joint step; fused_block: K5's own
-#: profiling entry, the only path that runs it, as in the JAX package)
+#: the kernels each main path launches (serving, the exported bundle and
+#: evaluation: inference; training: forward and backward of the joint step;
+#: fused_block: K5's own profiling entry, the only path that runs it, as in
+#: the JAX package)
 _SERVING = ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors")
 PATH_KERNELS = {
     "serving": _SERVING,
+    "export": _SERVING,
     "evaluation": _SERVING,
     "training": _SERVING + ("instance_norm_bwd", "pack_neighbors_bwd"),
     "fused_block": ("fused_block",),

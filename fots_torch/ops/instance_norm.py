@@ -13,7 +13,11 @@ Port of ``fots/ops/instance_norm.py``.  Entry points:
   mode (reads x once and both halves of the cotangent, writes dx).
 
 On a CUDA tensor each launches its kernels; on a CPU tensor it runs the
-kernels' plain versions (``*_ref``), which repeat their arithmetic.
+kernels' plain versions (``*_ref``), which repeat their arithmetic.  The
+forward kernels are the registered ops ``torch.ops.fots_torch.
+{instance_norm, instance_norm_stats, spatial_stats, spatial_norm}``, which
+choose between kernel and plain version and which ``torch.export`` keeps as
+nodes of an exported program.
 
 K1' and K1'-bwd have two routes, chosen by :func:`in_plan` from the shape
 alone: ``"cluster"``, one kernel in which a thread-block cluster keeps the
@@ -593,35 +597,116 @@ def spatial_norm_cuda(x, vecs, negative_slope=None, out_mul=1):
 
 
 # --------------------------------------------------------------------------
+# the serving kernels as registered torch ops
+# --------------------------------------------------------------------------
+#
+# ``torch.ops.fots_torch.{instance_norm, spatial_stats, spatial_norm}`` and
+# ``instance_norm_stats`` (K1' with its saved statistics): the
+# CUDA implementation launches the kernel, the CPU one runs the plain
+# version, and the fake one gives the output's shape and dtype without
+# touching memory, so ``torch.export`` keeps each call as one node and a CUDA
+# graph captures the kernel's launch.  No autograd: the training path calls
+# them inside the Functions below, whose backward is K1'-bwd.
+
+@torch.library.custom_op("fots_torch::instance_norm", mutates_args=(), device_types="cuda")
+def _instance_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                      negative_slope: Optional[float],
+                      valid_w: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1' (y only)."""
+    return instance_norm_cuda(x, scale, bias, eps, negative_slope, valid_w)
+
+
+def _in_plain(x, scale, bias, eps, negative_slope, valid_w):
+    if valid_w is None:
+        return instance_norm_ref(x, scale, bias, eps, negative_slope)
+    return masked_instance_norm_ref(x, valid_w, scale, bias, eps, negative_slope)
+
+
+_instance_norm_op.register_kernel("cpu")(_in_plain)
+
+
+@_instance_norm_op.register_fake
+def _(x, scale, bias, eps, negative_slope, valid_w):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("fots_torch::instance_norm_stats", mutates_args=(),
+                         device_types="cuda")
+def _instance_norm_stats_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                            eps: float, negative_slope: Optional[float],
+                            valid_w: Optional[torch.Tensor]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1' with the (mean, rstd) [B, 2, C] f32 it saves for K1'-bwd: the
+    training forward."""
+    return instance_norm_cuda(x, scale, bias, eps, negative_slope, valid_w, True)
+
+
+@_instance_norm_stats_op.register_kernel("cpu")
+def _(x, scale, bias, eps, negative_slope, valid_w):
+    return (_in_plain(x, scale, bias, eps, negative_slope, valid_w),
+            instance_norm_stats_ref(x, eps, valid_w))
+
+
+@_instance_norm_stats_op.register_fake
+def _(x, scale, bias, eps, negative_slope, valid_w):
+    return torch.empty_like(x), x.new_empty((x.shape[0], 2, x.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("fots_torch::spatial_stats", mutates_args=(), device_types="cuda")
+def _spatial_stats_op(x: torch.Tensor) -> torch.Tensor:
+    """K2': [B, 2, C] f32 sums."""
+    return spatial_stats_cuda(x)
+
+
+@_spatial_stats_op.register_kernel("cpu")
+def _(x):
+    return spatial_stats_ref(x)
+
+
+@_spatial_stats_op.register_fake
+def _(x):
+    return x.new_empty((x.shape[0], 2, x.shape[3]), dtype=torch.float32)
+
+
+@torch.library.custom_op("fots_torch::spatial_norm", mutates_args=(), device_types="cuda")
+def _spatial_norm_op(x: torch.Tensor, vecs: torch.Tensor, negative_slope: Optional[float],
+                     out_mul: int) -> torch.Tensor:
+    """K3': [B, H, W, out_mul * C] in x's dtype."""
+    return spatial_norm_cuda(x, vecs, negative_slope, out_mul)
+
+
+@_spatial_norm_op.register_kernel("cpu")
+def _(x, vecs, negative_slope, out_mul):
+    return spatial_norm_ref(x, vecs, negative_slope, out_mul)
+
+
+@_spatial_norm_op.register_fake
+def _(x, vecs, negative_slope, out_mul):
+    b, h, w, c = x.shape
+    return x.new_empty((b, h, w, out_mul * c))
+
+
+# --------------------------------------------------------------------------
 # device dispatch and autograd
 # --------------------------------------------------------------------------
 
-def _on_card(x) -> bool:
-    return x.device.type == "cuda"
-
-
 def _in_forward(x, scale, bias, eps, slope, valid_w, with_stats):
-    if _on_card(x):
-        return instance_norm_cuda(x, scale, bias, eps, slope, valid_w, with_stats)
-    if valid_w is None:
-        y = instance_norm_ref(x, scale, bias, eps, slope)
-    else:
-        y = masked_instance_norm_ref(x, valid_w, scale, bias, eps, slope)
-    return (y, instance_norm_stats_ref(x, eps, valid_w)) if with_stats else y
+    ops = torch.ops.fots_torch
+    op = ops.instance_norm_stats if with_stats else ops.instance_norm
+    return op(x, scale, bias, eps, slope, valid_w)
 
 
 def _in_backward(x, g, stats, scale, bias, slope, valid_w, halves=1, groups=1):
-    fn = instance_norm_bwd_cuda if _on_card(x) else instance_norm_bwd_ref
+    fn = instance_norm_bwd_cuda if x.device.type == "cuda" else instance_norm_bwd_ref
     return fn(x, g.contiguous(), stats, scale, bias, slope, valid_w, halves, groups)
 
 
 def _crelu_forward(x, scale, bias, groups, eps, slope):
     """K2' -> fold -> K3' (CReLU mode); returns (y, per-group stats)."""
-    stats = spatial_stats_cuda(x) if _on_card(x) else spatial_stats_ref(x)
+    stats = torch.ops.fots_torch.spatial_stats(x)
     vecs, stats_g = crelu_coefficients(stats, scale, bias, groups,
                                        x.shape[1] * x.shape[2], eps)
-    norm = spatial_norm_cuda if _on_card(x) else spatial_norm_ref
-    return norm(x, vecs, slope, 2), stats_g
+    return torch.ops.fots_torch.spatial_norm(x, vecs, slope, 2), stats_g
 
 
 class _InstanceNorm(torch.autograd.Function):

@@ -9,7 +9,8 @@ the strict ``0 < idx < limit`` rule.
 
 :func:`pack_neighbors` builds the packed source once per batch: on a CUDA
 tensor it launches ``fots_torch/csrc/pack_neighbors.cu`` (K4'), on a CPU
-tensor it runs :func:`pack_neighbors_ref`.  Under autograd its backward is
+tensor it runs :func:`pack_neighbors_ref`, through the registered op
+``torch.ops.fots_torch.pack_neighbors``.  Under autograd its backward is
 K4'-bwd (same source), the gather form of ``_pack_pallas_diff_bwd``, or
 :func:`pack_neighbors_bwd_ref` on the CPU.  The crop itself
 (:func:`rroi_align_packed`) is plain torch, as it is XLA in ``fots``; its
@@ -178,13 +179,30 @@ def pack_neighbors_bwd_cuda(g, feature_shape):
     return df
 
 
+@torch.library.custom_op("fots_torch::pack_neighbors", mutates_args=(), device_types="cuda")
+def _pack_neighbors_op(features: torch.Tensor) -> torch.Tensor:
+    """K4' as a registered torch op (no autograd: ``_PackNeighbors`` adds
+    the backward); the CPU implementation is the plain version, the fake
+    one gives [B*H*W, 4C]."""
+    return pack_neighbors_cuda(features)
+
+
+@_pack_neighbors_op.register_kernel("cpu")
+def _(features):
+    return pack_neighbors_ref(features)
+
+
+@_pack_neighbors_op.register_fake
+def _(features):
+    b, h, w, c = features.shape
+    return features.new_empty((b * h * w, 4 * c))
+
+
 class _PackNeighbors(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features):
         ctx.shape = tuple(features.shape)
-        if features.device.type == "cuda":
-            return pack_neighbors_cuda(features)
-        return pack_neighbors_ref(features)
+        return torch.ops.fots_torch.pack_neighbors(features)
 
     @staticmethod
     def backward(ctx, g):
@@ -201,9 +219,7 @@ def pack_neighbors(features):
     versions."""
     if torch.is_grad_enabled() and features.requires_grad:
         return _PackNeighbors.apply(features)
-    if features.device.type == "cuda":
-        return pack_neighbors_cuda(features)
-    return pack_neighbors_ref(features)
+    return torch.ops.fots_torch.pack_neighbors(features)
 
 
 def rroi_align_packed(quads, feature_shape, rois, pooled_height: int,

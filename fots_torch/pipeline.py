@@ -35,14 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from fots_torch.codec import LabelCodec
-from fots_torch.device import resolve_device, to_device_async
-from fots_torch.geometry import (TARGET_H, resize_bilinear_u8, resize_to_multiple_of_32,
-                                 rroi_from_box, strip_width_for_box)
+from fots_torch.device import HostCopy, resolve_device, to_device_async
+from fots_torch.geometry import (TARGET_H, resize_to_multiple_of_32, rroi_from_box,
+                                 strip_width_for_box)
 from fots_torch.models.detector import FOTSDetector
 from fots_torch.ops.ctc_decode import prefix_beam_search_topk
 from fots_torch.ops.nms import (extract_candidates, get_boxes_from_candidates_batch,
                                 pack_candidates_u16)
 from fots_torch.ops.rroi_align import pack_neighbors, rroi_align, rroi_align_packed
+from fots_torch.serving import (assemble_results, bucket_rois, cap_boxes, check_images,
+                                host_letterbox, letterbox_scales, roi_chunks)
 from fots_torch.wordsplit import split_detection
 
 # Strip-width buckets; the coarse grid matches training without masked IN,
@@ -115,26 +117,6 @@ def device_letterbox_batch(raw, serve_hw: Tuple[int, int], tables=None):
     return F.pad(x, (0, 0, 0, W - nw, 0, H - nh), value=-1.0)
 
 
-class HostCopy:
-    """A device tensor on its way to the host: on CUDA a non-blocking copy
-    into a pinned buffer plus an event; :meth:`numpy` waits for it."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.is_cuda:
-            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._buf.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._buf = t
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._buf.numpy()
-
-
 class FOTSInference:
     """Serving engine around an eval-mode :class:`FOTSDetector`.
 
@@ -152,13 +134,14 @@ class FOTSInference:
     a batch of one source shape on the device in f32; without it, as for a
     batch of mixed shapes, each image is resized on the host and rounded to
     u8, which is what ``fots``'s CLIs do.
+    ``codec`` (default: the 86-character :class:`LabelCodec`) decodes the
+    recognition head's ids; its alphabet must match the head's width.
     Close the engine (or use it as a context manager) to stop its NMS thread
     pool.
     """
 
     #: per-frame symbols brought to the host beam search
     BEAM_TOPK = 16
-    _DUMMY_ROI = (0.0, 8.0, 8.0, 8.0, 8.0, 0.0)
     #: strip columns (rois x bucket width) per recognition call; sets the
     #: fixed roi chunk of each width
     CHUNK_FRAME_BUDGET = 2048
@@ -168,7 +151,8 @@ class FOTSInference:
                  mixed_precision: bool = False, max_candidates: int = 8192,
                  masked_norm: bool = False, cand_transport: str = "u16",
                  device=None, expand_w_frac: float = 0.0, beam: int = 0,
-                 max_boxes: Optional[int] = None, device_letterbox: bool = True):
+                 max_boxes: Optional[int] = None, device_letterbox: bool = True,
+                 codec: Optional[LabelCodec] = None):
         if cand_transport not in ("u16", "f32"):
             raise ValueError(f"unknown cand_transport {cand_transport!r}")
         self.device = resolve_device(device)
@@ -178,7 +162,7 @@ class FOTSInference:
             model = cast_params_bf16(model)
         self.model = model
         self.compute_dtype = torch.bfloat16 if mixed_precision else torch.float32
-        self.codec = LabelCodec()
+        self.codec = codec or LabelCodec()
         self.segm_thresh = segm_thresh
         self.iou_th1 = iou_th1
         self.iou_th2 = iou_th2
@@ -210,18 +194,10 @@ class FOTSInference:
         device letterboxes it.  Otherwise the batch is letterboxed here,
         image by image (bilinear resize, zero padding, which normalizes to
         the background value), to [B, H, W, 3] at ``serve_hw``."""
-        for im in images_bgr:
-            if im.dtype != np.uint8 or im.ndim != 3 or im.shape[-1] != 3:
-                raise ValueError(f"expected u8 [h, w, 3] images, got {im.dtype} {im.shape}")
-        H, W = serve_hw
-        scales = [min(H / im.shape[0], W / im.shape[1]) for im in images_bgr]
         if self.device_letterbox and len({im.shape for im in images_bgr}) == 1:
-            return np.stack(images_bgr), scales
-        batch = np.zeros((len(images_bgr), H, W, 3), np.uint8)
-        for i, (im, s) in enumerate(zip(images_bgr, scales)):
-            nh, nw = int(im.shape[0] * s), int(im.shape[1] * s)
-            batch[i, :nh, :nw] = resize_bilinear_u8(im, (nw, nh))
-        return batch, scales
+            check_images(images_bgr)
+            return np.stack(images_bgr), letterbox_scales(images_bgr, serve_hw)
+        return host_letterbox(images_bgr, serve_hw)
 
     @torch.inference_mode()
     def _dispatch_detect(self, raw: np.ndarray, serve_hw):
@@ -241,36 +217,32 @@ class FOTSInference:
             if key not in self._tables:  # a blocking upload, once per shape pair
                 self._tables[key] = letterbox_tables(key[0], key[1], self.device)
             x = device_letterbox_batch(x, serve_hw, self._tables[key])
+        cands, quads = self._detect_body(x)
+        b, h, w = x.shape[:3]
+        return HostCopy(cands), PackedFocr(quads, (b, h // 4, w // 4, quads.shape[1] // 4))
+
+    def _detect_body(self, x):
+        """Forward + candidate extraction + focr pack of a normalized f32
+        batch at its serving size -> (candidate pack, focr quads).  The
+        exported detection program is this body behind the u8
+        normalization."""
         out = self.model(x.to(self.compute_dtype))
         cands = extract_candidates(
             out["segm"][0][..., 0].float(), out["rbox"][0].float(),
             out["angle"][0].float(), self.max_candidates, self.segm_thresh)
-        hs, ws = serve_hw[0] // 4, serve_hw[1] // 4
+        hs, ws = x.shape[1] // 4, x.shape[2] // 4
         if self.cand_transport == "u16" and hs * ws < 65536:
             cands = pack_candidates_u16(cands)
-        focr = out["focr"]
-        return HostCopy(cands), PackedFocr(pack_neighbors(focr), tuple(focr.shape))
+        return cands, pack_neighbors(out["focr"])
 
     def _host_boxes(self, cands_copy: HostCopy, n: int, serve_hw):
         """Host decode + NMS of a candidate pack -> per-image boxes [M, 9]."""
         cands = cands_copy.numpy()
         if cands.dtype == np.int16:
             cands = cands.view(np.uint16)
-        return self._cap_boxes(get_boxes_from_candidates_batch(
+        return cap_boxes(get_boxes_from_candidates_batch(
             cands[:n], serve_hw[0] // 4, serve_hw[1] // 4, self.segm_thresh,
-            self.iou_th1, self.iou_th2, pool=self._pool))
-
-    def _cap_boxes(self, per_image_boxes):
-        """The top ``max_boxes`` by score per image, in their NMS order."""
-        if self.max_boxes is None:
-            return per_image_boxes
-        out = []
-        for b in per_image_boxes:
-            if b.shape[0] > self.max_boxes:
-                keep = np.argsort(-b[:, 8], kind="stable")[: self.max_boxes]
-                b = b[np.sort(keep)]
-            out.append(b)
-        return out
+            self.iou_th1, self.iou_th2, pool=self._pool), self.max_boxes)
 
     def detect_boxes_batch(self, batch: np.ndarray):
         """Detection of a batch already at its serving size: [B, H, W, 3] u8
@@ -297,20 +269,6 @@ class FOTSInference:
         c = max(1, cls.CHUNK_FRAME_BUDGET // max(width, 1))
         c = 1 << (c.bit_length() - 1)
         return max(4, min(64, c))
-
-    def _roi_chunks(self, rois_np: np.ndarray, idxs, width: int):
-        """(index chunk, rois [chunk, 6] f32) pieces of one width bucket,
-        the last one padded with the dummy roi."""
-        csize = self._roi_chunk(width)
-        idxs = list(idxs)
-        for start in range(0, len(idxs), csize):
-            chunk = idxs[start:start + csize]
-            sel = rois_np[np.asarray(chunk)]
-            if len(chunk) < csize:
-                pad = np.tile(np.asarray(self._DUMMY_ROI, np.float32),
-                              (csize - len(chunk), 1))
-                sel = np.concatenate([sel, pad], axis=0)
-            yield chunk, sel
 
     def _box_conf(self, ids, logp_max):
         """Per-box mean of exp(max logp) over character frames (0 when none)."""
@@ -391,7 +349,7 @@ class FOTSInference:
                 ids, conf = self._recognize_from_image(images_norm, sel, width * 4)
                 pieces.append((idxs, ids, conf, None))
             else:
-                for chunk, sel in self._roi_chunks(rois, idxs, width):
+                for chunk, sel in roi_chunks(rois, idxs, self._roi_chunk(width)):
                     sel = to_device_async(torch.from_numpy(sel), self.device)
                     if self.beam > 0:
                         ids, conf, *beams = self._recognize_topk(focr, sel, width)
@@ -421,25 +379,14 @@ class FOTSInference:
     def _recognize_dispatch(self, per_image_boxes, focr: PackedFocr):
         """Queue bucketed recognition of all images' boxes; returns (keys,
         jobs) with the results on their way to the host."""
-        all_rois: List[np.ndarray] = []
-        all_keys: List[Tuple[int, int]] = []
-        buckets: Dict[int, List[int]] = {}
-        for i, boxes in enumerate(per_image_boxes):
-            for j in range(boxes.shape[0]):
-                roi, w, h = rroi_from_box(boxes[j], i, self.expand_w_frac)
-                buckets.setdefault(
-                    strip_width_for_box(w, h, buckets=self.strip_buckets), []
-                ).append(len(all_rois))
-                all_rois.append(roi)
-                all_keys.append((i, j))
+        rois_arr, all_keys, buckets = bucket_rois(per_image_boxes, self.expand_w_frac,
+                                                  self.strip_buckets)
         jobs = []
-        if all_rois:
-            rois_arr = np.asarray(all_rois, np.float32)
-            for width, idxs in sorted(buckets.items()):
-                for chunk, sel in self._roi_chunks(rois_arr, idxs, width):
-                    rois = to_device_async(torch.from_numpy(sel), self.device)
-                    ids, conf = self._recognize(focr, rois, width)
-                    jobs.append((chunk, HostCopy(ids), HostCopy(conf)))
+        for width, idxs in sorted(buckets.items()):
+            for chunk, sel in roi_chunks(rois_arr, idxs, self._roi_chunk(width)):
+                rois = to_device_async(torch.from_numpy(sel), self.device)
+                ids, conf = self._recognize(focr, rois, width)
+                jobs.append((chunk, HostCopy(ids), HostCopy(conf)))
         return all_keys, jobs
 
     def _recognize_finish(self, n, per_image_boxes, all_keys, jobs, scales,
@@ -458,19 +405,8 @@ class FOTSInference:
                 texts[ridx] = dec[k]
                 ids_out[ridx] = ids[k]
                 confs[ridx] = conf[k]
-        results = [[] for _ in range(n)]
-        for ridx, (i, j) in enumerate(all_keys):
-            if not texts[ridx]:
-                continue
-            b = per_image_boxes[i][j].copy()
-            b[:8] /= scales[i]
-            entry = {"box": b, "text": texts[ridx], "conf": float(confs[ridx])}
-            if split_words:
-                entry["words"] = [{"quad": q / scales[i], "text": wt}
-                                  for q, wt in split_detection(
-                                      per_image_boxes[i][j], ids_out[ridx], self.codec)]
-            results[i].append(entry)
-        return results
+        return assemble_results(n, per_image_boxes, all_keys, texts, ids_out, confs, scales,
+                                self.codec, split_words)
 
     # -------- batched serving --------
 

@@ -1,7 +1,8 @@
 """Where the serving or training time goes on the card: a torch.profiler
 breakdown; and the timing of the fused residual-block kernel K5'.
 
-    python3 -m fots_torch.profiling [--path serve|train] [--scratch] [--batch N] [--batches N]
+    python3 -m fots_torch.profiling [--path serve|train|export] [--scratch] [--batch N]
+                                    [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
 
@@ -16,7 +17,13 @@ batches first, then a profiled window of ``--batches`` batches (steps).
 Prints one JSON object: host wall time per batch, device busy time per
 batch (the union of kernel intervals), the device's idle share of the
 window, device time per kernel category and the top kernels by device
-time.  ``instance_norm``: K1' and K1'-bwd on their two routes (and the
+time.  ``export`` (default batch 16): the shipped snapshot exported at
+704x1280, bf16, into a temporary bundle; its ``ExportedEngine`` beside the
+in-process engine (host letterbox), as images/s in turns on the smoke
+scenes and on the same batch already letterboxed (each engine's letterbox
+is then a copy, so what is left is its dispatch), the host letterbox
+alone, and one profiled window of each engine on the letterboxed batch.
+``instance_norm``: K1' and K1'-bwd on their two routes (and the
 cluster route's other possible cuts) at every shape the serving, training
 and evaluation paths give them, one JSON line per shape.  Needs a CUDA card.
 """
@@ -28,7 +35,9 @@ import json
 import os
 import re
 import subprocess
+import tempfile
 import time
+from typing import Optional
 from collections import defaultdict
 
 import numpy as np
@@ -89,9 +98,10 @@ def _is_annotation(event) -> bool:
             or re.fullmatch(r"[\w.]+#[\w.]+", event.name) is not None)
 
 
-def _profiled(run, batches: int):
+def profile_window(run, batches: int, kernel_names: Optional[list] = None):
     """Profile ``run()`` (which works through ``batches`` batches) and
-    summarise its device activity per batch."""
+    summarise its device activity per batch; ``kernel_names`` gets the name
+    of every device kernel the window ran."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -99,13 +109,29 @@ def _profiled(run, batches: int):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _summary(prof.events(), wall, batches)
+    events = prof.events()
+    if kernel_names is not None:
+        kernel_names += [e.name for e in events
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not _is_annotation(e)]
+    return _summary(events, wall, batches)
+
+
+#: the host's CUDA runtime calls that put work on the card: a kernel each
+#: (``cudaLaunchKernel``; ``cudaLaunchKernelExC`` for the cluster route's
+#: launches), a whole captured graph (``cudaGraphLaunch``)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch")
 
 
 def _summary(events, wall: float, batches: int) -> dict:
     """Device activity per batch from profiler events over ``wall``
     seconds: kernels, copies and memsets, not the user annotations on the
-    device timeline."""
+    device timeline; and the host's launch calls per batch."""
+    calls = defaultdict(int)
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(LAUNCH_CALLS)):
+            calls[e.name] += 1
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
     if not kernels:
@@ -123,6 +149,7 @@ def _summary(events, wall: float, batches: int) -> dict:
         "device_busy_ms_per_batch": busy_us / per,
         "device_idle_share": 1.0 - busy_us / (1e6 * wall),
         "kernel_launches_per_batch": len(kernels) / batches,
+        "host_launch_calls_per_batch": {name: n / batches for name, n in sorted(calls.items())},
         "ms_per_batch_by_category": {k: v / per for k, v in
                                      sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_batch": [[name[:90], us / per] for name, us in top],
@@ -139,7 +166,50 @@ def profile_serving(engine: FOTSInference, batch, serve_hw, batches: int,
             pass
 
     return {"path": "serve", "batch": len(batch), "hw": list(serve_hw),
-            **_profiled(run, batches)}
+            **profile_window(run, batches)}
+
+
+def images_per_s(call, batch, batches: int) -> float:
+    """images/s of ``call(batch)`` on the host clock over ``batches`` calls
+    after one more (the card synchronised before and after)."""
+    call(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        call(batch)
+    torch.cuda.synchronize()
+    return batches * len(batch) / (time.perf_counter() - t0)
+
+
+def profile_export(model, config, batch, serve_hw, batches: int) -> dict:
+    """The exported bundle's engine beside the in-process one (see the
+    module docstring); each pair of timings in the order in-process,
+    exported, exported, in-process."""
+    from fots_torch.export import ExportedEngine, export_serving
+    from fots_torch.serving import host_letterbox
+
+    out = {"path": "export", "batch": len(batch), "hw": list(serve_hw)}
+    with tempfile.TemporaryDirectory(prefix="fots_bundle_") as tmp, \
+            FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                          mixed_precision=True, device="cuda",
+                          device_letterbox=False) as eng:
+        export_serving(eng, tmp, len(batch), *serve_hw)
+        with ExportedEngine(tmp) as ex:
+            t0 = time.perf_counter()
+            for _ in range(batches):
+                boxed = list(host_letterbox(batch, serve_hw)[0])
+            out["host_letterbox_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / batches
+            engines = {"in_process": lambda b: eng.batch_call(b, serve_hw=serve_hw),
+                       "exported": ex.batch_call}
+            for label, images in (("images_per_s", batch),
+                                  ("letterboxed_input_images_per_s", boxed)):
+                out[label] = {key: [] for key in engines}
+                for key in ("in_process", "exported", "exported", "in_process"):
+                    out[label][key].append(images_per_s(engines[key], images, batches))
+            for key, call in engines.items():
+                out[key] = profile_window(lambda: [call(boxed) for _ in range(batches)],
+                                          batches)
+    return out
 
 
 def _timed(obj, name: str, log: dict):
@@ -166,7 +236,7 @@ def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
     log = defaultdict(list)
     for name in ("step", "_prepare_maps", "_prepare_rois", "_build_roi_batch"):
         _timed(trainer, name, log)
-    out = _profiled(lambda: trainer.train([batch] * batches,
+    out = profile_window(lambda: trainer.train([batch] * batches,
                                           max_steps=trainer.global_step + batches,
                                           log_every=0), batches)
     host = {k: sum(v) / len(v) for k, v in log.items()}
@@ -238,8 +308,12 @@ def instance_norm_path_shapes():
     site: serving (batch 16 at 704x1280, bf16), training (batch 8 at
     640x960, f32, with K1'-bwd), training from scratch (batch 8 of
     augmented 512x512 crops, f32, with K1'-bwd), per-image evaluation (one
-    640x960 image, f32 and bf16) and the recognition head's masked strips."""
-    from fots_torch.pipeline import FOTSInference
+    640x960 image, f32 and bf16) and the recognition head's masked strips:
+    the in-process engine's chunks, the exported bundle's ``ROI_PAD`` rois at
+    every fine strip bucket (the shipped snapshot's masked norm) and the
+    training path's."""
+    from fots_torch.export import ROI_PAD
+    from fots_torch.pipeline import FINE_STRIP_BUCKETS, FOTSInference
 
     out = []
     for path, b, (h, w), dtype, bwd in (("serving", 16, (704, 1280), torch.bfloat16, False),
@@ -254,6 +328,8 @@ def instance_norm_path_shapes():
         for dtype in (torch.bfloat16, torch.float32):
             out += [("serving strips", (chunk, h, width, c), dtype, True, False)
                     for h, c in strips]
+    out += [("export strips", (ROI_PAD, h, width, c), torch.bfloat16, True, False)
+            for width in FINE_STRIP_BUCKETS for h, c in strips]
     out += [("training strips", (32, h, 256, c), torch.float32, True, True) for h, c in strips]
     return out
 
@@ -463,7 +539,8 @@ def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("serve", "train", "fused_block", "instance_norm"),
+    ap.add_argument("--path", choices=("serve", "train", "export", "fused_block",
+                                       "instance_norm"),
                     default="serve")
     ap.add_argument("--scratch", action="store_true",
                     help="train: from scratch on an augmented 512x512 batch")
@@ -498,6 +575,9 @@ def main(argv=None) -> int:
         with FOTSInference(model, masked_norm=config.get("masked_norm", False),
                            mixed_precision=True, device="cuda") as eng:
             out = profile_serving(eng, batch, (704, 1280), args.batches)
+    elif args.path == "export":
+        batch = [images[i % len(images)] for i in range(args.batch or 16)]
+        out = profile_export(model, config, batch, (704, 1280), args.batches)
     else:
         from fots_torch.train import Trainer, asset_batch
 

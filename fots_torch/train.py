@@ -42,7 +42,7 @@ from fots_torch.device import resolve_device, to_device_async
 from fots_torch.losses import ctc_loss, detection_loss, repeat_infeasible_rows
 from fots_torch.models.detector import FOTSDetector, init_detector
 from fots_torch.ops.rroi_align import rroi_align
-from fots_torch.pipeline import HostCopy
+from fots_torch.device import HostCopy
 from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBatch,
                                   sample_rois)
 

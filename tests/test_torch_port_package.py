@@ -32,12 +32,13 @@ def _port_sources():
 
 def test_port_sources_import_no_jax_cv2_or_fots():
     paths = _port_sources()
-    assert len(paths) >= 27
+    assert len(paths) >= 31
     names = {os.path.relpath(p, REPO) for p in paths}
     assert {"fots_torch/ops/fused_block.py", "fots_torch/ops/ctc_decode.py",
             "fots_torch/wordsplit.py", "fots_torch/evaluate.py",
             "fots_torch/data/annotations.py", "fots_torch/cli/detect.py",
-            "fots_torch/cli/eval_e2e.py"} <= names
+            "fots_torch/cli/eval_e2e.py", "fots_torch/export.py", "fots_torch/serving.py",
+            "fots_torch/cli/export.py", "fots_torch/cli/serve.py"} <= names
     for path in paths:
         with open(path, encoding="utf-8") as f:
             hits = FORBIDDEN.findall(f.read())
@@ -52,7 +53,8 @@ def test_importing_the_port_loads_no_jax_or_fots():
         "import fots_torch.ops.fused_block, fots_torch.ops.ctc_decode\n"
         "import fots_torch.wordsplit, fots_torch.evaluate, fots_torch.profiling\n"
         "import fots_torch.data.annotations, fots_torch.cli.detect\n"
-        "import fots_torch.cli.eval_e2e\n"
+        "import fots_torch.cli.eval_e2e, fots_torch.export, fots_torch.serving\n"
+        "import fots_torch.cli.export, fots_torch.cli.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'cv2', 'fots')]\n"
         "assert not bad, bad\n"
@@ -71,6 +73,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     from fots_torch.cli.detect import load_engine
     from fots_torch.cli import eval_e2e
+    from fots_torch.cli import export as export_cli
+    from fots_torch.cli import serve as serve_cli
+    from fots_torch.export import ExportedEngine
     from fots_torch.profiling import profile_fused_block
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,6 +89,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                        os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")])
     with pytest.raises(RuntimeError, match="needs a card"):
         profile_fused_block(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExportedEngine(os.path.join(REPO, "no_such_bundle"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_cli.main(["-model", snapshot, "-out", os.path.join(REPO, "no_such_bundle")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["-model", snapshot, "-images_npz",
+                        os.path.join(REPO, "fots_torch", "assets", "smoke_images_u8.npz"),
+                        "-output", os.path.join(REPO, "no_such_output")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
