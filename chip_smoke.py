@@ -28,8 +28,14 @@ result line):
    tests (f32, TF32 off for the plain version), one ragged shape in bf16 at
    every channel count it is built for, its profile shape 16x88x160x128
    bf16, and its gradients through the ``autograd.Function`` against
-   autograd of the plain version.  The NMS candidates of two maps with more
-   than k pixels tied at 1.0 must equal the CPU's;
+   autograd of the plain version.  K2', K3', K1' and K1'-bwd also at the
+   recognition trainers' crop buckets (the stem's CReLU-INs and the head's
+   INs of the narrowest and the widest batch ``eval_ocr`` makes), and K4'
+   at every vector width it picks (16-byte rows of the feature maps, the
+   3-channel f32 and bf16 images of the CRNN crops at [2, 512, 512, 3]:
+   12- and 6-byte rows), bit-exact, with the image rows' times.  The NMS
+   candidates of two maps with more than k pixels tied at 1.0 must equal
+   the CPU's;
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
    on one serving batch of two smoke images at 704x1280 with the shipped
    snapshot: same box count per image, quad corners within 1 px,
@@ -100,11 +106,28 @@ result line):
    own result on the same pixels (``heldout_eval_fots_cpu.json``: match,
    detection and ground-truth counts within one, the same text on every
    detection both have but for at most two argmax near-ties); then once in
-   bf16, reported and not held.
+   bf16, reported and not held;
+11. the recognition-only stack (a main path): first one step of each
+   trainer, CUDA port against CPU port (f32, TF32 off): ``CRNNTrainer`` on
+   a crop batch, ``FOTSRecognizerTrainer`` from the snapshot (dropout masks
+   from equally seeded CPU generators), ``CRNNE2ETrainer`` on two asset
+   scenes (K4' on the 3-channel image); the loss within 1e-4 relative,
+   gradients and parameters after Adam to phase 6's limits.  Then, with the
+   launch counts zeroed just before, through the CLIs over
+   ``fots_torch/assets/ocr_crops_u8.npz``: ``train_crnn`` from scratch, 30
+   steps at batch 8 (the mean loss of the last 5 below the first 5; a
+   ``step_20`` checkpoint restored bit for bit and resumed), ``train_ocr``
+   10 steps, ``train_crnn_e2e`` 10 steps at 512 over the smoke scenes,
+   ``eval_ocr -arch fots`` with the snapshot over the eval split, greedy
+   and beam 8, each within one exact crop of ``fots``'s result on the same
+   crops (``ocr_eval_fots_cpu.json``); K1', K1'-bwd, K2', K3' and K4' must
+   each have launched.  Reported, not held: samples/s of each trainer, and
+   device busy ms and idle share a step (torch.profiler).
 
 Then it prints a ``{"kernels": [...]}`` JSON line, the serving, export,
-training, training-from-scratch, fused-block and evaluation JSON lines, the card's name and power limit from nvidia-smi, and
-last the ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
+training, training-from-scratch, fused-block, evaluation and ocr JSON lines,
+the card's name and power limit from nvidia-smi, and last the
+``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
 """
 
@@ -144,8 +167,18 @@ JOINT_READERS = 6
 EVAL_IMAGES = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_u8.npz")
 EVAL_REFERENCE = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_fots_cpu.json")
 FUSED_SHAPE = (16, 88, 160, 128)
+OCR_CROPS = os.path.join(REPO, "fots_torch", "assets", "ocr_crops_u8.npz")
+OCR_REFERENCE = os.path.join(REPO, "fots_torch", "assets", "ocr_eval_fots_cpu.json")
+OCR_HEIGHT = 44          # FOTSRecognizerTrainer's crops (its norm_height)
+OCR_BATCH = 8
+CRNN_STEPS = 30
+CRNN_CKPT_EVERY = 20
+OCR_STEPS = 10           # train_ocr: the recognizer from scratch
+E2E_STEPS = 10
+E2E_SIZE = 512
+IMAGE_PACK_SHAPE = (2, E2E_SIZE, E2E_SIZE, 3)  # K4' on CRNNE2ETrainer's images
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval")
+          "train_joint", "fused_block", "eval", "ocr")
 EXPORT_BATCHES = 6
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
 #: serving kernels: each call of a kernel's wrapper runs one device kernel
@@ -607,10 +640,29 @@ def phase_kernels(dev, peaks):
         crelu_case(shape, dtype)
     crelu_case((2, 6, 10, 12), torch.float32, groups=4)
 
+    # the recognition trainers' crops: the stem's CReLU-INs (K2' + K3', and
+    # K1'-bwd in CReLU mode) and the head's INs (K1' with its statistics,
+    # K1'-bwd) at the smallest and the largest bucket the ocr phase batches
+    for n, w in ocr_bucket_shapes():
+        for shape in ((n, OCR_HEIGHT, w, 16), (n, OCR_HEIGHT // 2, w // 2, 32)):
+            stats_case(shape, torch.float32)
+            norm_case(shape, torch.float32, 2, 0.01)
+            crelu_case(shape, torch.float32)
+            bwd_case(*shape, True, 0.01, halves=2)
+        for h, c in ((OCR_HEIGHT // 4, 128), (OCR_HEIGHT // 4 // 2, 256),
+                     (OCR_HEIGHT // 4 // 2 // 2, 256)):
+            in_case(n, h, w // 4, c, torch.float32, True, 0.01)
+            bwd_case(n, h, w // 4, c, True, 0.01)
+
+    # K4' moves a row in the widest vector that divides it: 16 bytes at the
+    # serving and training maps, 4 at the 3-channel f32 images of the CRNN
+    # crops (12-byte rows), 2 at 3-channel bf16 (6 bytes), 8 at 2-channel f32
     for shape, dtype in (((BATCH, H // 4, W // 4, 64), torch.bfloat16),
                          ((TRAIN_BATCH, TH // 4, TW // 4, 64), torch.float32),
                          ((TRAIN_BATCH, J // 4, J // 4, 64), torch.float32),
-                         ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16)):
+                         ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16),
+                         (IMAGE_PACK_SHAPE, torch.float32), (IMAGE_PACK_SHAPE, torch.bfloat16),
+                         ((3, 5, 7, 2), torch.float32), ((2, 3, 5, 1), torch.bfloat16)):
         pack_case(shape, dtype)
     for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (TRAIN_BATCH, J // 4, J // 4, 64),
                   (3, 5, 7, 8), (2, 3, 5, 4)):
@@ -693,6 +745,15 @@ def phase_kernels(dev, peaks):
     row("pack_neighbors", x.shape, "bf16", lambda: trr.pack_neighbors_cuda(x),
         lambda: trr.pack_neighbors_ref(x), None, 5 * nb, 0,
         "null: no single PyTorch call builds the quads")
+    # the CRNN crops' images (C = 3): 12-byte f32 rows (4-byte vectors) and
+    # 6-byte bf16 rows (2-byte vectors)
+    image_rows = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        xi = rand(IMAGE_PACK_SHAPE, dtype)
+        row(f"pack_neighbors {tag} C=3", xi.shape, tag, lambda: trr.pack_neighbors_cuda(xi),
+            lambda: trr.pack_neighbors_ref(xi), None, 5 * xi.numel() * xi.element_size(), 0,
+            "null: no single PyTorch call builds the quads")
+        image_rows[tag] = rows.pop(f"pack_neighbors {tag} C=3")
 
     xs = rand((BATCH, H, W, 16), torch.bfloat16, 3, 1.5)
     nbs = xs.numel() * xs.element_size()
@@ -779,6 +840,12 @@ def phase_kernels(dev, peaks):
                  if "device_busy_ms" in r["extra"] else ""))
     print(f"  CReLU-IN at {tuple(xs.shape)} bf16: K2'+fold+K3' {crelu_ms:.4f} ms, "
           f"torch.cat + K1' {cat_ms:.4f} ms")
+    for tag, r in image_rows.items():
+        r["bound_ms"] = 1e3 * max(r.pop("bound"))
+        print(f"  pack_neighbors at {tuple(r['shape'])} {tag} (C = 3): kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
+              f"({r['library_note']}), bound {r['bound_ms']:.4f} ms")
+    rows["pack_neighbors"]["extra"]["images_c3"] = image_rows
     return worst, rows, {"crelu_ms": crelu_ms, "cat_plus_in_ms": cat_ms}
 
 
@@ -1489,6 +1556,254 @@ def phase_eval():
     return launches, {"scenes": n_images, "runs": out}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the recognition-only stack
+# --------------------------------------------------------------------------
+
+def ocr_bucket_shapes():
+    """(batch, width) of the narrowest and the widest batch ``eval_ocr``
+    makes of the archive's eval crops (batch 4 a bucket, ``OCR_HEIGHT``)."""
+    from fots_torch.data.ocr_crops import ocr_crop_generator
+
+    shapes = sorted({(b["images"].shape[2], b["images"].shape[0]) for b in ocr_crop_generator(
+        OCR_CROPS, batch_size=4, norm_height=OCR_HEIGHT, in_train=False, split="eval")})
+    return [(n, w) for w, n in (shapes[0], shapes[-1])]
+
+
+def _ocr_step_parity(name, make, run_loss):
+    """One step of a recognition trainer, CUDA against CPU (f32, TF32 off):
+    ``make(device)`` builds the trainer, ``run_loss(trainer)`` its loss.
+    The loss within 1e-4 relative; gradients, parameters after Adam and
+    BatchNorm statistics to phase 6's limits."""
+    res = {}
+    with no_tf32():
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            trainer = make(device)
+            loss = run_loss(trainer)
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in trainer.model.named_parameters() if p.grad is not None}
+            trainer.optimizer.step()
+            res[device] = (float(loss.detach()), grads,
+                           {n: t.detach().cpu().clone()
+                            for n, t in trainer.model.state_dict().items()},
+                           time.perf_counter() - t0)
+            del trainer, loss
+    (lc, gc, sc, tc), (lp, gp, sp, tp) = res["cuda"], res["cpu"]
+    check(math.isfinite(lc) and abs(lc - lp) <= 1e-4 * abs(lp),
+          f"{name}: loss CUDA {lc} vs CPU {lp}")
+    check(set(gc) == set(gp) and gp, f"{name}: the two runs' gradients cover other tensors")
+    # a bias in front of a train-mode BatchNorm has a true gradient of 0: both
+    # runs' are rounding noise, held only as small (below 1e-4 of the largest)
+    top = max(float(g.abs().max()) for g in gp.values())
+    zero = sorted(n for n, g in gp.items() if float(g.abs().max()) < 1e-4 * top)
+    for n in zero:
+        check(float(gc[n].abs().max()) < 1e-4 * top, f"{name}: gradient of {n} not ~0 on the card")
+    rel = {n: float((gc[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for n, g in gp.items() if n not in zero}
+    ranked = sorted(rel.items(), key=lambda kv: -kv[1])
+    for n, r in ranked:
+        check(r <= 3e-2, f"{name}: gradient of {n}: max |diff| {r:.3e} of max |g|")
+    median = statistics.median(rel.values())
+    check(median <= 2e-3, f"{name}: median gradient error {median:.3e} above 2e-3")
+    lr = 1e-4
+    worst_param = 0.0
+    for n, p in sp.items():
+        d = (sc[n] - p).abs()
+        if n in gp:
+            sure = (gp[n].abs() > 10 * float((gc[n] - gp[n]).abs().max()) + 1e-12
+                    if n not in zero else torch.zeros_like(gp[n], dtype=torch.bool))
+            d_sure = float(d[sure].max()) if bool(sure.any()) else 0.0
+            worst_param = max(worst_param, d_sure)
+            check(d_sure <= 1e-3 * lr + 1e-7, f"{name}: {n} after one Adam step: {d_sure}")
+            check(bool((d <= 2 * lr + 1e-7).all()), f"{name}: {n} after one Adam step")
+        else:
+            check(bool((d <= 1e-4 * (1 + p.abs())).all()), f"{name}: buffer {n} differs")
+    print(f"  {name}: loss CUDA {lc:.6f} CPU {lp:.6f}; gradients ({len(rel)} tensors, "
+          f"{len(zero)} ~0: {zero}) median "
+          f"{median:.2e}, worst {ranked[:2]}; params after Adam within {worst_param:.3e} "
+          f"({tc:.2f} s on the card, {tp:.2f} s on the host)")
+    return {"loss_cuda": lc, "loss_cpu": lp, "max_grad_rel_err": ranked[0][1],
+            "median_grad_rel_err": median, "max_param_err": worst_param}
+
+
+def _trainer_profile(trainer, batch, steps: int = 5) -> dict:
+    """Device busy ms and idle share a step over ``steps`` steps of one
+    batch (torch.profiler), after a warm-up step."""
+    from fots_torch.profiling import profile_window
+
+    trainer.step(batch)
+    out = profile_window(lambda: [trainer.step(batch) for _ in range(steps)], steps)
+    return {k: out[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
+                                "device_idle_share", "kernel_launches_per_batch")}
+
+
+def _samples_per_s(trainer) -> float:
+    """Samples a second over a run's steps 3.. (host clock after each step)."""
+    h = trainer.history[2:]
+    return sum(x["samples"] for x in h[1:]) / (h[-1]["t"] - h[0]["t"])
+
+
+def _step_ms_by_shape(trainer) -> dict:
+    """Host ms of each step after the first (clock after the step before to
+    clock after it), split by whether the step's input shape was new to the
+    run (first use: cuDNN and PyTorch set the shape up) or seen before."""
+    h, seen = trainer.history, {tuple(trainer.history[0]["shape"])}
+    new, again = [], []
+    for prev, cur in zip(h, h[1:]):
+        ms = 1e3 * (cur["t"] - prev["t"])
+        (again if tuple(cur["shape"]) in seen else new).append(ms)
+        seen.add(tuple(cur["shape"]))
+    med = lambda v: statistics.median(v) if v else None  # noqa: E731
+    return {"new_shape_steps": len(new), "median_ms_new_shape": med(new),
+            "seen_shape_steps": len(again), "median_ms_seen_shape": med(again)}
+
+
+def phase_ocr(images, targets):
+    """The recognition-only stack: each trainer's step CUDA against CPU, then
+    (the path that is counted) ``train_crnn``, ``train_ocr``,
+    ``train_crnn_e2e`` and ``eval_ocr`` through their CLIs."""
+    from fots_torch.checkpoint import load_detector, read_checkpoint, restore_checkpoint
+    from fots_torch.cli import eval_ocr, train_crnn, train_crnn_e2e, train_ocr
+    from fots_torch.data.detection import detection_generator
+    from fots_torch.data.ocr_crops import ocr_crop_generator
+    from fots_torch.kernels import build
+    from fots_torch.train import asset_batch
+    from fots_torch.train_ocr import (CRNNE2ETrainer, CRNNTrainer, FOTSRecognizerTrainer,
+                                      train_loop)
+
+    t_phase = time.perf_counter()
+    with open(OCR_REFERENCE) as f:
+        reference = json.load(f)["runs"]
+    torch.set_num_threads(os.cpu_count() or 1)
+    print("phase 11: the recognition-only stack; one step of each trainer, CUDA port vs "
+          "CPU port (f32, TF32 off)")
+    crnn_batch = next(ocr_crop_generator(OCR_CROPS, batch_size=OCR_BATCH, norm_height=32,
+                                         seed=0, split="train"))
+    fots_batch = next(ocr_crop_generator(OCR_CROPS, batch_size=OCR_BATCH,
+                                         norm_height=OCR_HEIGHT, seed=0, split="train"))
+    scenes = asset_batch(images, targets, [0, 1])
+    parity = {
+        "crnn": _ocr_step_parity(
+            f"CRNNTrainer {crnn_batch['images'].shape}",
+            lambda d: CRNNTrainer(seed=0, device=d), lambda t: t.loss(crnn_batch)),
+        "fots_recognizer": _ocr_step_parity(
+            f"FOTSRecognizerTrainer from the snapshot {fots_batch['images'].shape}",
+            lambda d: FOTSRecognizerTrainer(model=load_detector(SNAPSHOT, d)[0], seed=0,
+                                            device=d),
+            lambda t: t.loss(fots_batch)),
+        "crnn_e2e": _ocr_step_parity(
+            f"CRNNE2ETrainer on 2 scenes {scenes.images.shape[1:3]}",
+            lambda d: CRNNE2ETrainer(seed=0, device=d),
+            lambda t: t.loss(scenes, np.random.default_rng(0))[0]),
+    }
+
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir, prefix="ocr_")
+    list_path, _ = _smoke_list(tmp)
+    crnn_dir, ocr_dir = os.path.join(tmp, "crnn"), os.path.join(tmp, "ocr")
+    common = ["-crops_npz", OCR_CROPS, "-batch_size", str(OCR_BATCH), "-seed", "0",
+              "-num_readers", "2", "-disp_interval", "5"]
+    print(f"  train_crnn from scratch: batch {OCR_BATCH} (halving every 10 buckets), "
+          f"{CRNN_STEPS} steps, checkpoint every {CRNN_CKPT_EVERY}; train_ocr {OCR_STEPS} "
+          f"steps; train_crnn_e2e {E2E_STEPS} steps at {E2E_SIZE}; eval_ocr -arch fots "
+          "greedy and beam 8")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    crnn = train_crnn.main(common + ["-max_iters", str(CRNN_STEPS), "-save_path", crnn_dir,
+                                     "-checkpoint_every", str(CRNN_CKPT_EVERY)])
+    t1 = time.perf_counter()
+    recognizer = train_ocr.main(common + ["-max_iters", str(OCR_STEPS), "-save_path", ocr_dir,
+                                          "-checkpoint_every", str(OCR_STEPS)])
+    t2 = time.perf_counter()
+    e2e = train_crnn_e2e.main(["-train_list", list_path, "-images_npz", SMOKE_IMAGES,
+                               "-input_size", str(E2E_SIZE), "-batch_size", "2",
+                               "-max_iters", str(E2E_STEPS), "-num_readers", "2",
+                               "-disp_interval", "5", "-eval_interval", str(E2E_STEPS - 1)])
+    t3 = time.perf_counter()
+    evals = {run: eval_ocr.main(["-crops_npz", OCR_CROPS, "-model", SNAPSHOT, "-beam",
+                                 str(ref["beam"]), "-worst", "0"])
+             for run, ref in reference.items()}
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = {**build.launch_counts, **build.route_counts}
+    for kname in build.PATH_KERNELS["ocr"]:
+        check(launches[kname] > 0, f"kernel {kname} was not launched on the ocr path")
+
+    losses = [h["loss"] for h in crnn.history]
+    check(len(losses) == CRNN_STEPS and all(math.isfinite(v) for v in losses),
+          f"train_crnn: losses {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"  train_crnn losses {[round(v, 3) for v in losses]}")
+    check(last < first, f"train_crnn: mean loss of the last 5 steps {last} not below the "
+          f"first 5 {first}")
+    stats = {name: {"samples_per_s": _samples_per_s(tr), "step_ms": _step_ms_by_shape(tr)}
+             for name, tr in (("train_crnn", crnn), ("train_ocr", recognizer),
+                              ("train_crnn_e2e", e2e))}
+    # resume: the state of step_20 restored bit for bit, then two more steps
+    # numbered from 20 (the CLI's -model path, on the batches at hand)
+    ckpt = os.path.join(crnn_dir, f"step_{CRNN_CKPT_EVERY}")
+    resumed = CRNNTrainer(device="cuda")
+    restore_checkpoint(ckpt, resumed)
+    same, n_held = _state_equal(resumed, read_checkpoint(ckpt))
+    check(same and resumed.global_step == CRNN_CKPT_EVERY,
+          f"train_crnn: the state restored from {ckpt} differs from the checkpoint")
+    train_loop(resumed, [crnn_batch] * 2, CRNN_CKPT_EVERY + 2, disp_interval=0)
+    check([h["step"] for h in resumed.history] == [CRNN_CKPT_EVERY, CRNN_CKPT_EVERY + 1],
+          f"train_crnn resumed: steps {[h['step'] for h in resumed.history]}")
+    for name, tr in (("train_ocr", recognizer), ("train_crnn_e2e", e2e)):
+        vals = [h["loss"] for h in tr.history]
+        check(vals and all(math.isfinite(v) for v in vals), f"{name}: losses {vals}")
+    check(len(e2e.history) == E2E_STEPS, f"train_crnn_e2e ran {len(e2e.history)} steps")
+
+    eval_out = {}
+    for run, (metrics, crops) in evals.items():
+        ref = reference[run]
+        same_text = sum(c["pred"] == r["pred"] for c, r in zip(crops, ref["crops"]))
+        eval_out[run] = {"correct": metrics.correct, "fots_correct": ref["correct"],
+                         "total": metrics.total, "summary": metrics.summary(),
+                         "same_prediction_as_fots": same_text}
+        print(f"  eval_ocr {run}: {metrics.correct}/{metrics.total} exact, fots "
+              f"{ref['correct']}/{ref['summary']['total']}; {same_text} crops read as fots "
+              "reads them")
+        check(metrics.total == ref["summary"]["total"], f"eval_ocr {run}: crop counts differ")
+        check(abs(metrics.correct - ref["correct"]) <= 1,
+              f"eval_ocr {run}: {metrics.correct} exact vs fots {ref['correct']}")
+
+    # reported, not held: device time and idle share a step of each trainer
+    e2e_batch = next(detection_generator(list_path, SMOKE_IMAGES, input_size=E2E_SIZE,
+                                         batch_size=2, seed=0))
+    profiles = {"crnn": _trainer_profile(crnn, crnn_batch),
+                "fots_recognizer": _trainer_profile(recognizer, fots_batch),
+                "crnn_e2e": _trainer_profile(e2e, e2e_batch)}
+    out = {"parity": parity, "launches": launches,
+           "train_crnn": {"losses": losses, "mean_loss_first_5": first,
+                          "mean_loss_last_5": last, "wall_s": t1 - t0, **stats["train_crnn"],
+                          "resume": {"restored_tensors_bit_equal": n_held,
+                                     "steps": [h["step"] for h in resumed.history]}},
+           "train_ocr": {"losses": [h["loss"] for h in recognizer.history], "wall_s": t2 - t1,
+                         **stats["train_ocr"]},
+           "train_crnn_e2e": {"losses": [h["loss"] for h in e2e.history], "wall_s": t3 - t2,
+                              **stats["train_crnn_e2e"]},
+           "eval_ocr": {**eval_out, "wall_s": t4 - t3},
+           "profile_per_step": profiles, "phase_wall_s": time.perf_counter() - t_phase}
+    for name, prof in profiles.items():
+        print(f"  {name} a step: {prof}")
+    for name, unit in (("train_crnn", "crops"), ("train_ocr", "crops"),
+                       ("train_crnn_e2e", "rois")):
+        print(f"  {name}: {out[name]['samples_per_s']:.2f} {unit}/s over steps 3.., host ms a "
+              f"step {out[name]['step_ms']}, CLI wall {out[name]['wall_s']:.2f} s")
+    print(f"  launches {launches}; mean loss first 5 {first:.4f}, last 5 {last:.4f}; resumed "
+          f"at step {CRNN_CKPT_EVERY} with {n_held} tensors bit-equal; phase "
+          f"{out['phase_wall_s']:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1553,6 +1868,8 @@ def main(argv=None) -> int:
         results["fused_block"] = phase_fused_block()
     if "eval" in phases:
         results["eval"] = phase_eval()
+    if "ocr" in phases:
+        results["ocr"] = phase_ocr(images, targets)
     smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
@@ -1566,6 +1883,7 @@ def main(argv=None) -> int:
     joint_launches, joint = results["train_joint"]
     fused_launches, fused = results["fused_block"]
     eval_launches, evaluation = results["eval"]
+    ocr_launches, ocr = results["ocr"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -1573,7 +1891,7 @@ def main(argv=None) -> int:
         paths = {"serving": serve_launches[kname], "export": export_launches.get(kname, 0),
                  "training": train_launches[kname],
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
-                 "evaluation": eval_launches[kname]}
+                 "evaluation": eval_launches[kname], "ocr": ocr_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -1593,7 +1911,8 @@ def main(argv=None) -> int:
                         "export": export_launches.get(f"{kname}/{route}", 0),
                         "training": train_launches[f"{kname}/{route}"],
                         "train_joint": joint_launches[f"{kname}/{route}"],
-                        "evaluation": eval_launches[f"{kname}/{route}"]}
+                        "evaluation": eval_launches[f"{kname}/{route}"],
+                        "ocr": ocr_launches[f"{kname}/{route}"]}
                 for route in ("cluster", "two_pass")}}
                if f"{kname}/cluster" in serve_launches else {}),
             **r["extra"],
@@ -1610,6 +1929,7 @@ def main(argv=None) -> int:
     print(json.dumps({"train_joint": joint}))
     print(json.dumps({"fused_block": fused}))
     print(json.dumps({"eval": evaluation}))
+    print(json.dumps({"ocr": ocr}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -8,8 +8,11 @@ per-image evaluation path (:mod:`fots_torch.pipeline`,
 :mod:`fots_torch.evaluate`, :mod:`fots_torch.cli.eval_e2e`), joint training
 from scratch or a snapshot with checkpoints and resume
 (:mod:`fots_torch.train`, :mod:`fots_torch.cli.train_joint`) over its NumPy
-data pipeline (:mod:`fots_torch.data`, :mod:`fots_torch.imgproc`), and the
-fused residual-block kernel behind its profiling entry
+data pipeline (:mod:`fots_torch.data`, :mod:`fots_torch.imgproc`), the
+recognition-only stack (:mod:`fots_torch.models.crnn`,
+:mod:`fots_torch.models.own`, :mod:`fots_torch.train_ocr`,
+:mod:`fots_torch.ocr_eval`, :mod:`fots_torch.data.ocr_crops` and their
+CLIs), and the fused residual-block kernel behind its profiling entry
 (:mod:`fots_torch.ops.fused_block`, :mod:`fots_torch.profiling`).  Every TPU kernel of ``fots`` has its
 counterpart, hand-written CUDA for ``sm_90a`` under ``fots_torch/csrc/``,
 built at first use by :mod:`fots_torch.kernels.build`, each behind a

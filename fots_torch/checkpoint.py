@@ -29,7 +29,11 @@ state dict, Adam's ``exp_avg/<name>``, ``exp_avg_sq/<name>`` and
 ``adam_step/<name>`` per parameter, and ``global_step`` (the count of
 applied updates).  The format is the port's own (orbax and JAX are absent
 on the card); :func:`train_state_from_fots` carries a ``fots`` TrainState
-into it.
+into it, the joint trainer's or an ``OcrTrainState`` of the recognition-only
+trainers (:mod:`fots_torch.train_ocr`, whose CLIs save and resume the same
+``step_N`` directories).  :func:`state_dict_from_fots` maps the flax
+variables of the detector, the CRNN or the OwnModel
+(:func:`model_state_dict_from_flat`).
 """
 
 from __future__ import annotations
@@ -294,21 +298,155 @@ def _flatten(tree, prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def train_state_from_fots(params, batch_stats, opt_state, step: int) -> Dict[str, np.ndarray]:
-    """The port's checkpoint payload of a ``fots`` TrainState given as numpy
-    trees: ``params`` and ``batch_stats`` (nested dicts), ``opt_state``
-    (optax's adam state, a sequence holding the ``ScaleByAdamState``, or
-    that state itself) and the step.  ``count`` becomes every parameter's
-    Adam step, ``mu`` its ``exp_avg`` and ``nu`` its ``exp_avg_sq``, each
-    moment in its parameter's layout (:func:`state_dict_from_flat`)."""
+# --------------------------------------------------------------------------
+# the recognition-only models' flax trees
+# --------------------------------------------------------------------------
+#
+# CRNN (``fots.models.crnn``): ``conv0``..``conv6`` (kernel HWIO, bias),
+# ``bn2``/``bn4``/``bn6`` (flax BatchNorm directly: scale, bias, and mean /
+# var in ``batch_stats``), and per BiLSTM ``rnn0``/``rnn1`` two
+# ``OptimizedLSTMCell_{0,1}`` (forward, reverse) with input kernels
+# ``ii/if/ig/io`` [in, H] (no bias) and recurrent ``hi/hf/hg/ho`` [H, H] with
+# biases, plus ``embedding`` (Dense kernel [2H, out], bias).  torch's LSTM
+# takes ``weight_ih = cat(ii, if, ig, io).T``, ``weight_hh = cat(hi, hf, hg,
+# ho).T``, ``bias_hh = cat(b_hi, .., b_ho)``; its ``bias_ih`` has no flax
+# counterpart and stays zero (the port freezes it, :class:`BiLSTM`).
+
+_CRNN_LAYERS = {f"conv{i}" for i in range(7)} | {"bn2", "bn4", "bn6"}
+_GATES = ("i", "f", "g", "o")
+_CELLS = {"OptimizedLSTMCell_0": "", "OptimizedLSTMCell_1": "_reverse"}
+
+
+def _conv_or_dense(arr: np.ndarray, leaf: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if leaf == "kernel":
+        t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()
+    return t.contiguous()
+
+
+def crnn_state_dict_from_flat(flat: Mapping[str, np.ndarray], moments: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """Port state dict of a flat CRNN tree (``params/<path>/<leaf>`` and
+    ``batch_stats/bnK/{mean,var}``); raises on a key it does not use.
+    ``moments``: the tree is an Adam moment of the params (no frozen LSTM
+    input biases are made)."""
+    out: Dict[str, torch.Tensor] = {}
+    cells: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
+    for key, arr in flat.items():
+        group, *path = key.split("/")
+        if (group == "batch_stats" and len(path) == 2 and path[0] in _CRNN_LAYERS
+                and path[1] in _STAT_LEAVES.values()):
+            out[f"{path[0]}.{'running_mean' if path[1] == 'mean' else 'running_var'}"] = \
+                torch.from_numpy(np.array(arr, dtype=np.float32))
+        elif group == "params" and len(path) == 2 and path[0] in _CRNN_LAYERS:
+            leaf = "weight" if path[1] in ("kernel", "scale") else path[1]
+            if path[1] not in ("kernel", "scale", "bias"):
+                raise KeyError(f"not a CRNN leaf: {key!r}")
+            out[f"{path[0]}.{leaf}"] = _conv_or_dense(arr, path[1])
+        elif group == "params" and len(path) == 3 and path[1] == "embedding":
+            if path[2] not in ("kernel", "bias"):
+                raise KeyError(f"not a CRNN leaf: {key!r}")
+            out[f"{path[0]}.embedding.{'weight' if path[2] == 'kernel' else 'bias'}"] = \
+                _conv_or_dense(arr, path[2])
+        elif group == "params" and len(path) == 4 and path[1] in _CELLS:
+            cells.setdefault((path[0], path[1]), {})[f"{path[2]}/{path[3]}"] = arr
+        else:
+            raise KeyError(f"not a CRNN tree key: {key!r}")
+    for (rnn, cell), leaves in cells.items():
+        sfx = _CELLS[cell]
+        want = ({f"i{g}/kernel" for g in _GATES} | {f"h{g}/kernel" for g in _GATES}
+                | {f"h{g}/bias" for g in _GATES})
+        if set(leaves) != want:
+            raise KeyError(f"{rnn}/{cell}: leaves {sorted(leaves)}, expected {sorted(want)}")
+
+        def cat(names):
+            return torch.from_numpy(np.concatenate(
+                [np.asarray(leaves[n], np.float32) for n in names], axis=-1))
+
+        w_ih = cat([f"i{g}/kernel" for g in _GATES]).t().contiguous()
+        out[f"{rnn}.lstm.weight_ih_l0{sfx}"] = w_ih
+        out[f"{rnn}.lstm.weight_hh_l0{sfx}"] = cat([f"h{g}/kernel" for g in _GATES]).t().contiguous()
+        out[f"{rnn}.lstm.bias_hh_l0{sfx}"] = cat([f"h{g}/bias" for g in _GATES])
+        if not moments:
+            out[f"{rnn}.lstm.bias_ih_l0{sfx}"] = torch.zeros(w_ih.shape[0])
+    return out
+
+
+def _split_own(flat: Mapping[str, np.ndarray]):
+    """An OwnModel tree's ``detector/...`` and ``crnn/...`` halves, each
+    without its prefix."""
+    halves: Dict[str, Dict[str, np.ndarray]] = {"detector": {}, "crnn": {}}
+    for key, arr in flat.items():
+        group, branch, *rest = key.split("/")
+        if branch not in halves or not rest:
+            raise KeyError(f"not an OwnModel tree key: {key!r}")
+        halves[branch]["/".join([group] + rest)] = arr
+    return halves["detector"], halves["crnn"]
+
+
+def model_state_dict_from_flat(flat: Mapping[str, np.ndarray], kind: str = "detector",
+                               moments: bool = False) -> Dict[str, torch.Tensor]:
+    """Port state dict of a flat ``fots`` tree of a ``kind`` model:
+    ``"detector"`` (:func:`state_dict_from_flat`), ``"crnn"``
+    (:func:`crnn_state_dict_from_flat`) or ``"own"`` (OwnModel: its
+    ``detector/...`` keys under ``detector.``, its ``crnn/...`` under
+    ``crnn.``).  Every key is used or the call raises.  ``fots``'s OwnModel
+    init touches the detector's forward and the CRNN, never the recognition
+    head, so an OwnModel tree has no ``detector/ocr`` keys: the port's
+    ``detector.ocr.*`` entries keep their own values
+    (:func:`load_own_model`)."""
+    if kind == "detector":
+        return state_dict_from_flat(flat)
+    if kind == "crnn":
+        return crnn_state_dict_from_flat(flat, moments)
+    if kind == "own":
+        det, crnn = _split_own(flat)
+        return {**{f"detector.{k}": v for k, v in state_dict_from_flat(det).items()},
+                **{f"crnn.{k}": v for k, v in crnn_state_dict_from_flat(crnn, moments).items()}}
+    raise ValueError(f"unknown model kind {kind!r}")
+
+
+def load_own_model(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Load an OwnModel state dict of a ``fots`` tree into ``model``: every
+    entry of ``sd`` must fit, and the only ones it may lack are the
+    recognition head's (``detector.ocr.*``, which ``fots``'s OwnModel never
+    initialises)."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(sd))
+    unused = sorted(set(sd) - set(want))
+    if unused or any(not k.startswith("detector.ocr.") for k in missing):
+        raise KeyError(f"OwnModel tree does not match: missing {missing[:8]}, "
+                       f"unused {unused[:8]}")
+    model.load_state_dict(dict(sd), strict=False)
+
+
+def state_dict_from_fots(params, batch_stats=None, kind: str = "detector"
+                         ) -> Dict[str, torch.Tensor]:
+    """Port state dict of ``fots`` variables given as nested numpy trees
+    (``params``, ``batch_stats``) of a ``kind`` model (see
+    :func:`model_state_dict_from_flat`)."""
+    flat = {**_flatten(params, "params"), **_flatten(batch_stats or {}, "batch_stats")}
+    return model_state_dict_from_flat(flat, kind)
+
+
+def train_state_from_fots(params, batch_stats, opt_state, step: int,
+                          kind: str = "detector") -> Dict[str, np.ndarray]:
+    """The port's checkpoint payload of a ``fots`` TrainState (the joint
+    trainer's, or an ``OcrTrainState`` of ``kind`` "crnn", "own" or
+    "detector") given as numpy trees: ``params`` and ``batch_stats`` (nested
+    dicts), ``opt_state`` (optax's adam state, a sequence holding the
+    ``ScaleByAdamState``, or that state itself) and the step.  ``count``
+    becomes every parameter's Adam step, ``mu`` its ``exp_avg`` and ``nu``
+    its ``exp_avg_sq``, each moment in its parameter's layout."""
     adam = opt_state
     if not hasattr(adam, "mu"):
         adam = next(s for s in opt_state if hasattr(s, "mu"))
-    flat = {**_flatten(params, "params"), **_flatten(batch_stats, "batch_stats")}
-    out = {f"model/{k}": v.numpy() for k, v in state_dict_from_flat(flat).items()}
+    out = {f"model/{k}": v.numpy()
+           for k, v in state_dict_from_fots(params, batch_stats, kind).items()}
     count = np.asarray(float(np.asarray(adam.count)), np.float32)
     for group, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
-        for name, t in state_dict_from_flat(_flatten(tree, "params")).items():
+        moment = model_state_dict_from_flat(_flatten(tree, "params"), kind, moments=True)
+        for name, t in moment.items():
             out[f"{group}/{name}"] = t.numpy()
             out[f"adam_step/{name}"] = count
     out["global_step"] = np.asarray(int(step), np.int64)

@@ -1,0 +1,37 @@
+"""Recognition-branch training CLI, the counterpart of
+``fots/cli/train_ocr.py``: trains the FOTS recognition head (over the
+stem's features) on word crops with width bucketing; runs on the card
+unless given ``-device cpu``.
+
+The crops come from a decoded crop archive (``-crops_npz``); a
+``-train_list`` of crop image files is refused (no image decoder).
+``-model`` resumes a port ``step_N`` checkpoint (continuing its step; a
+serving snapshot ``.npz`` is taken as a warm start at step 0).  Checkpoints
+as in :mod:`fots_torch.cli.train_crnn`.
+
+Usage:
+  python -m fots_torch.cli.train_ocr -crops_npz fots_torch/assets/ocr_crops_u8.npz \\
+      -max_iters 1000 -save_path runs/ocr
+"""
+
+from __future__ import annotations
+
+from fots_torch.cli.train_crnn import crop_parser, parse, run_crops, training_flags
+
+
+def main(argv=None):
+    """Returns the trainer."""
+    parser = crop_parser(__doc__, "train")
+    training_flags(parser)
+    parser.add_argument("-norm_height", type=int, default=44)
+    args = parse(parser, argv)
+
+    from fots_torch.train_ocr import FOTSRecognizerTrainer
+
+    trainer = FOTSRecognizerTrainer(lr=args.base_lr, norm_height=args.norm_height,
+                                    seed=args.seed, device=args.device)
+    return run_crops(args, trainer, args.norm_height)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,10 @@
 Ids: blank = 0, ``alphabet[i] = i + 1``; greedy decode collapses repeats,
 then drops blanks.  Ported: the batched decode of the serving path, the
 per-sequence decode the beam search uses, the encoders of the training path
-and the edit distance of the evaluation.
+and the edit distance of the evaluation; the recognition-only stack's
+4-offset :class:`Codec4` (with the word-split decode), the token codec
+:class:`SepLabelCodec`, :func:`load_charset` and
+:func:`build_charset_from_labels`.
 """
 
 from __future__ import annotations
@@ -103,6 +106,125 @@ class LabelCodec:
         offs = np.zeros(n + 1, np.int64)
         np.cumsum(keep.sum(axis=1), out=offs[1:])
         return [s[offs[i]:offs[i + 1]] for i in range(n)]
+
+
+@dataclass
+class Codec4:
+    """Multilingual codec with 4 reserved ids: real characters start at id
+    4, id 3 is the unknown character, 0 the CTC blank."""
+
+    charset: str
+    _dict: Dict[str, int] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self._dict = {ch: i + 4 for i, ch in enumerate(self.charset)}
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.charset) + 4
+
+    #: ids 0-3 are reserved (blank / control / unknown)
+    reserved_ids: int = 4
+
+    def encode(self, text: str) -> List[int]:
+        return [self._dict.get(c, 3) for c in text]
+
+    def decode_with_splits(self, frame_ids: np.ndarray):
+        """Greedy decode with word-split tracking: collapse repeats; ids >= 4
+        are characters; space, '.', ',' and ':' end the current word and
+        record the frame of the split; ids 1..3 act as separators.
+
+        Returns ``(text, (start, end), split_positions, words)``."""
+        prev = 0
+        word = ""
+        current_word = ""
+        start_pos = 0
+        end_pos = 0
+        dec_splits: List[int] = []
+        splits: List[str] = []
+        has_letter = False
+        for cx in range(frame_ids.shape[0]):
+            c = int(frame_ids[cx])
+            if prev == c:
+                if c > 2:
+                    end_pos = cx
+                continue
+            if 3 < c < (len(self.charset) + 4):
+                char = self.charset[c - 4]
+                if char in (" ", ".", ",", ":"):
+                    if has_letter:
+                        if char != " ":
+                            current_word += char
+                        splits.append(current_word)
+                        dec_splits.append(cx + 1)
+                        word += char
+                        current_word = ""
+                else:
+                    has_letter = True
+                    word += char
+                    current_word += char
+                end_pos = cx
+            elif c > 0:
+                if has_letter:
+                    dec_splits.append(cx + 1)
+                    word += " "
+                    end_pos = cx
+                    splits.append(current_word)
+                    current_word = ""
+            if len(word) == 0:
+                start_pos = cx
+            prev = c
+        dec_splits.append(end_pos + 1)
+        return word.strip(), (start_pos, end_pos + 1), np.asarray(dec_splits), splits
+
+
+@dataclass
+class SepLabelCodec:
+    """Separator-delimited token codec (multi-character alphabet entries):
+    the alphabet is a ``sep``-joined token list; blank 0, tokens 1..N."""
+
+    alphabet_str: str
+    sep: str
+    tokens: List[str] = field(init=False, repr=False)
+    _dict: Dict[str, int] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.tokens = self.alphabet_str.split(self.sep)
+        self._dict = {t: i + 1 for i, t in enumerate(self.tokens)}
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.tokens) + 1
+
+    def encode(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
+        toks = [self._dict[t] for t in text.split(self.sep) if t in self._dict]
+        return np.asarray(toks, np.int32), np.asarray([len(toks)], np.int32)
+
+    def decode_ids(self, ids: Sequence[int], raw: bool = False) -> str:
+        if raw:
+            return "".join(self.tokens[i - 1] for i in ids
+                           if 0 < i <= len(self.tokens))
+        out, prev = [], 0
+        for i in ids:
+            if i != 0 and i != prev and 0 < i <= len(self.tokens):
+                out.append(self.tokens[i - 1])
+            prev = i
+        return "".join(out)
+
+
+def load_charset(path: str) -> str:
+    """The first line of a one-line charset file (a codec.txt vocabulary)."""
+    with open(path, "r", encoding="utf-8") as f:
+        return f.readlines()[0].rstrip("\n")
+
+
+def build_charset_from_labels(labels) -> str:
+    """A charset of training transcriptions: their characters, sorted, once
+    each."""
+    chars = set()
+    for t in labels:
+        chars.update(t)
+    return "".join(sorted(chars))
 
 
 def levenshtein(a: str, b: str) -> int:

@@ -8,10 +8,15 @@
 //
 // What bounds it on an H100: bytes.  It reads the map once (through L2: the
 // four slots of a row read neighbouring rows) and writes four times its size,
-// with no arithmetic.  So it is a streaming copy: each thread moves 16-byte
-// vectors, neighbouring threads touch neighbouring addresses on both the
-// read and the write side, and a grid-stride loop keeps every SM busy.  It
-// is dtype-agnostic: any C with C * itemsize % 16 == 0.
+// with no arithmetic.  So it is a streaming copy: each thread moves one
+// vector of V bytes at a time, neighbouring threads touch neighbouring
+// addresses on both the read and the write side, and a grid-stride loop
+// keeps every SM busy.  It is dtype-agnostic and takes a row of any number
+// of bytes: the launcher picks V, the largest of 16, 8, 4, 2 and 1 that
+// divides the row and both pointers, and instantiates the one kernel at that
+// width (the 64-channel focr rows take 16; the 3-channel f32 images of the
+// CRNN crops, 12-byte rows, take 4; 3-channel bf16, 6-byte rows, take 2).
+// Every width copies the same bytes to the same places.
 //
 // Its backward (K4'-bwd, pack_neighbors_bwd_kernel) replaces the VJP of
 // fots/ops/rroi_align.py:_pack_pallas_diff (_pack_pallas_diff_bwd, jnp
@@ -29,8 +34,19 @@
 
 namespace {
 
-__global__ void pack_neighbors_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+// a V-byte vector: the copy moves these whole
+template <int V> struct Vec;
+template <> struct Vec<16> { using T = uint4; };
+template <> struct Vec<8> { using T = uint2; };
+template <> struct Vec<4> { using T = uint32_t; };
+template <> struct Vec<2> { using T = uint16_t; };
+template <> struct Vec<1> { using T = uint8_t; };
+
+template <int V>
+__global__ void pack_neighbors_kernel(const typename Vec<V>::T* __restrict__ x,
+                                      typename Vec<V>::T* __restrict__ out,
                                       long long n_rows, long long width, int vecs_per_row) {
+  using T = typename Vec<V>::T;
   const long long per_out_row = 4LL * vecs_per_row;
   const long long total = n_rows * per_out_row;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -40,7 +56,7 @@ __global__ void pack_neighbors_kernel(const uint4* __restrict__ x, uint4* __rest
     const int slot = rem / vecs_per_row;
     const int k = rem - slot * vecs_per_row;
     const long long src = i + (slot & 1) + (slot >> 1) * width;
-    out[v] = src < n_rows ? x[src * vecs_per_row + k] : make_uint4(0u, 0u, 0u, 0u);
+    out[v] = src < n_rows ? x[src * vecs_per_row + k] : T{};
   }
 }
 
@@ -75,22 +91,35 @@ __global__ void pack_neighbors_bwd_kernel(const float4* __restrict__ g, float4* 
 
 extern "C" {
 
-// x: [n_rows, row_bytes] contiguous, out: [n_rows, 4 * row_bytes]; both
-// 16-byte aligned and row_bytes % 16 == 0.  Returns a cudaError_t code.
+// x: [n_rows, row_bytes] contiguous, out: [n_rows, 4 * row_bytes], any
+// row_bytes > 0.  Returns a cudaError_t code.
 int fots_pack_neighbors(const void* x, void* out, long long n_rows, long long width,
                         int row_bytes, int num_sms, void* stream) {
-  if (row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int vecs = row_bytes / 16;
+  if (row_bytes <= 0) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  int v = 16;
+  while (v > 1 && (row_bytes % v != 0 || align % v != 0)) v /= 2;
+  const int vecs = row_bytes / v;
   const long long total = n_rows * 4LL * vecs;
   if (total == 0) return 0;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   const long long cap = (long long)num_sms * 16;
   if (blocks > cap) blocks = cap;
-  pack_neighbors_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), n_rows, width, vecs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (v) {
+#define FOTS_PACK_LAUNCH(V)                                                                 \
+  case V:                                                                                   \
+    pack_neighbors_kernel<V><<<(unsigned)blocks, threads, 0, s>>>(                          \
+        static_cast<const Vec<V>::T*>(x), static_cast<Vec<V>::T*>(out), n_rows, width, vecs); \
+    break;
+    FOTS_PACK_LAUNCH(16)
+    FOTS_PACK_LAUNCH(8)
+    FOTS_PACK_LAUNCH(4)
+    FOTS_PACK_LAUNCH(2)
+    FOTS_PACK_LAUNCH(1)
+#undef FOTS_PACK_LAUNCH
+  }
   return (int)cudaGetLastError();
 }
 

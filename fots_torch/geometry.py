@@ -1,7 +1,8 @@
 """Host-side geometry (NumPy only).
 
 The port's own copy of what it needs from ``fots/geometry.py``: the strip
-width rule, the detected-box -> rotated-roi conversion, the per-pixel
+width rule, the detected-box and ground-truth-quad -> rotated-roi
+conversions, the per-pixel
 quad decode of the NMS adaptor, with the same arithmetic (f32 steps where
 the reference decodes in C float), the /32 input sizing over a NumPy
 bilinear u8 resize (``cv2.resize``'s ``INTER_LINEAR`` in its fixed-point
@@ -56,6 +57,25 @@ def strip_width_for_box(w: float, h: float, target_h: int = TARGET_H,
         if target_gw <= b:
             return b
     return buckets[-1]
+
+
+def quads_to_rrois(quads: np.ndarray, batch_idx: int = 0, height_jitter: int = 0
+                   ) -> np.ndarray:
+    """``[N, 4, 2]`` quads -> ``[N, 6]`` rrois [bid, cx, cy, h, w, angle_deg]
+    (the ground-truth rois of the recognition trainers): centre the corner
+    mean, w = |p2 - p1|, h = |p1 - p0| + ``height_jitter``, angle the mean
+    edge angle negated, in degrees (f64, as ``fots`` computes it)."""
+    q = np.asarray(quads, dtype=np.float64).reshape(-1, 4, 2)
+    center = q.mean(axis=1)
+    dw = q[:, 2, :] - q[:, 1, :]
+    dh = q[:, 1, :] - q[:, 0, :]
+    w = np.sqrt((dw ** 2).sum(axis=1))
+    h = np.sqrt((dh ** 2).sum(axis=1)) + height_jitter
+    ang = (np.arctan2(q[:, 2, 1] - q[:, 1, 1], q[:, 2, 0] - q[:, 1, 0])
+           + np.arctan2(q[:, 3, 1] - q[:, 0, 1], q[:, 3, 0] - q[:, 0, 0])) / 2.0
+    ang_deg = -ang / math.pi * 180.0
+    bid = np.full((q.shape[0],), batch_idx, dtype=np.float64)
+    return np.stack([bid, center[:, 0], center[:, 1], h, w, ang_deg], axis=1)
 
 
 def rroi_from_box(box8: np.ndarray, batch_idx: int = 0, expand_w_frac: float = 0.0
@@ -127,16 +147,24 @@ def decode_candidates_np(r: np.ndarray, a_sin: np.ndarray, a_cos: np.ndarray,
 _COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS: taps are int16 multiples of 2^-11
 
 
-def _linear_taps(src: int, dst: int):
+def _linear_taps(src: int, dst: int, clip_weights: bool = True):
     """Half-pixel bilinear taps of ``cv2.resize(..., INTER_LINEAR)``: (lo, hi,
-    a0, a1) with the weights as cv2's rounded fixed-point integers."""
+    a0, a1) with the weights as cv2's rounded fixed-point integers.  Past
+    the edge cv2 treats the axes differently: a column clamps its source
+    and weight (``clip_weights``: one tap of weight 1), a row clamps only its
+    two source rows and keeps both weights, whose two truncated products
+    can sum one level below the clamped column's."""
     pos = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
     lo = np.floor(pos).astype(np.int64)
     fr = pos - lo.astype(np.float32)
-    fr[lo < 0] = 0.0
-    fr[lo >= src - 1] = 0.0
-    lo = np.clip(lo, 0, src - 1)
-    hi = np.minimum(lo + 1, src - 1)
+    if clip_weights:
+        fr[lo < 0] = 0.0
+        fr[lo >= src - 1] = 0.0
+        lo = np.clip(lo, 0, src - 1)
+        hi = np.minimum(lo + 1, src - 1)
+    else:
+        hi = np.clip(lo + 1, 0, src - 1)
+        lo = np.clip(lo, 0, src - 1)
     one = np.float32(1 << _COEF_BITS)
     a0 = np.rint((np.float32(1.0) - fr) * one).astype(np.int32)
     a1 = np.rint(fr * one).astype(np.int32)
@@ -153,7 +181,7 @@ def resize_window_u8(fetch_rect, src_hw: Tuple[int, int], dsize: Tuple[int, int]
     dw, dh = int(dsize[0]), int(dsize[1])
     h, w = src_hw
     xlo, xhi, xa0, xa1 = (t[cols[0]:cols[1]] for t in _linear_taps(w, dw))
-    ylo, yhi, ya0, ya1 = (t[rows[0]:rows[1]] for t in _linear_taps(h, dh))
+    ylo, yhi, ya0, ya1 = (t[rows[0]:rows[1]] for t in _linear_taps(h, dh, clip_weights=False))
     r0, c0 = int(ylo.min()), int(xlo.min())
     src = fetch_rect(r0, int(yhi.max()) + 1, c0, int(xhi.max()) + 1).astype(np.int32)
     hor = src[:, xlo - c0] * xa0[None, :, None] + src[:, xhi - c0] * xa1[None, :, None]

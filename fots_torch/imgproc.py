@@ -10,7 +10,9 @@ Each reproduces OpenCV's own arithmetic, vectorised over pixels:
   stepping from their clipped end points, as ``CollectPolyEdges`` and
   ``FillEdgeCollection`` in OpenCV's ``drawing.cpp`` (OpenCV 5) do.  The
   target masks depend on it pixel for pixel, so it is byte-exact.
-- :func:`box_blur3` is ``cv2.blur(x, (3, 3))`` on f32 (``BORDER_REFLECT_101``).
+- :func:`box_blur3` is ``cv2.blur(x, (3, 3))`` on f32 (``BORDER_REFLECT_101``),
+  :func:`blur3_u8` the same on a u8 image (exact).
+- :func:`bgr2gray_u8` is BGR -> grey within one level of ``cv2.cvtColor``.
 - :func:`pad_constant` is ``cv2.copyMakeBorder(..., BORDER_CONSTANT)``.
 - :func:`warp_affine_u8` is ``cv2.warpAffine`` (``INTER_LINEAR``, zero
   border) of a u8 image as OpenCV 5 computes it: the inverse map's source
@@ -201,6 +203,24 @@ def box_blur3(x: np.ndarray) -> np.ndarray:
     rows = xp[:, :-2] + xp[:, 1:-1] + xp[:, 2:]
     s = rows[:-2] + rows[1:-1] + rows[2:]
     return (s * (1.0 / 9.0)).astype(np.float32)
+
+
+def blur3_u8(im: np.ndarray) -> np.ndarray:
+    """``cv2.blur(im, (3, 3))`` of a u8 image [h, w, c]: reflect-101 border,
+    the 3x3 integer sum divided by 9 and rounded (no sum is a half-way
+    case)."""
+    p = np.pad(im.astype(np.int32), ((1, 1), (1, 1), (0, 0)), mode="reflect")
+    rows = p[:, :-2] + p[:, 1:-1] + p[:, 2:]
+    s = rows[:-2] + rows[1:-1] + rows[2:]
+    return np.rint(s / 9.0).astype(np.uint8)
+
+
+def bgr2gray_u8(im: np.ndarray) -> np.ndarray:
+    """Grey levels of a u8 [h, w, 3] BGR image, ``0.299 R + 0.587 G +
+    0.114 B`` in 16-bit fixed point, rounded; within one level of
+    ``cv2.cvtColor(im, cv2.COLOR_BGR2GRAY)``.  Returns [h, w, 1]."""
+    b, g, r = (im[..., i].astype(np.int64) for i in range(3))
+    return ((b * 7471 + g * 38470 + r * 19595 + (1 << 15)) >> 16).astype(np.uint8)[..., None]
 
 
 def pad_constant(im: np.ndarray, top: int, bottom: int, left: int, right: int,

@@ -55,14 +55,16 @@ CUDA_KERNELS = {
 }
 #: the kernels each main path launches (serving, the exported bundle and
 #: evaluation: inference; training: forward and backward of the joint step;
-#: fused_block: K5's own profiling entry, the only path that runs it, as in
-#: the JAX package)
+#: ocr: the recognition-only trainers and their evaluation, whose gradients
+#: never reach an image, so no K4'-bwd; fused_block: K5's own profiling
+#: entry, the only path that runs it, as in the JAX package)
 _SERVING = ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors")
 PATH_KERNELS = {
     "serving": _SERVING,
     "export": _SERVING,
     "evaluation": _SERVING,
     "training": _SERVING + ("instance_norm_bwd", "pack_neighbors_bwd"),
+    "ocr": _SERVING + ("instance_norm_bwd",),
     "fused_block": ("fused_block",),
 }
 

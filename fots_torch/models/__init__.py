@@ -1,5 +1,7 @@
-"""The FOTS model (PyTorch port of ``fots.models``)."""
+"""The FOTS models (PyTorch port of ``fots.models``)."""
 
+from fots_torch.models.crnn import CRNN, BiLSTM
 from fots_torch.models.detector import FOTSDetector, RecognitionHead, Stem
+from fots_torch.models.own import OwnModel
 
-__all__ = ["FOTSDetector", "RecognitionHead", "Stem"]
+__all__ = ["BiLSTM", "CRNN", "FOTSDetector", "OwnModel", "RecognitionHead", "Stem"]

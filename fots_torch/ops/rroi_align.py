@@ -138,18 +138,15 @@ def _lib():
 
 
 def pack_neighbors_cuda(features):
-    """Launch the CUDA pack on a contiguous NHWC map with
-    ``C * itemsize % 16 == 0``; returns [B*H*W, 4C]."""
+    """Launch the CUDA pack on a contiguous NHWC map (any C; the kernel
+    moves each row in the widest vector that divides it); returns
+    [B*H*W, 4C]."""
     build.check_kernel_input(features, "pack_neighbors", _PACK_DTYPES)
     b, h, w, c = features.shape
-    row_bytes = c * features.element_size()
-    if row_bytes % 16 != 0:
-        raise ValueError(f"pack_neighbors: C * itemsize = {row_bytes} bytes is "
-                         "not a multiple of 16")
     n = b * h * w
     out = torch.empty((n, 4 * c), dtype=features.dtype, device=features.device)
     rc = _lib().fots_pack_neighbors(
-        features.data_ptr(), out.data_ptr(), n, w, row_bytes,
+        features.data_ptr(), out.data_ptr(), n, w, c * features.element_size(),
         build.num_sms(features.device),
         build.current_stream_handle(features.device))
     if rc != 0:

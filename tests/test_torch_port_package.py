@@ -32,13 +32,18 @@ def _port_sources():
 
 def test_port_sources_import_no_jax_cv2_or_fots():
     paths = _port_sources()
-    assert len(paths) >= 31
+    assert len(paths) >= 41
     names = {os.path.relpath(p, REPO) for p in paths}
     assert {"fots_torch/ops/fused_block.py", "fots_torch/ops/ctc_decode.py",
             "fots_torch/wordsplit.py", "fots_torch/evaluate.py",
             "fots_torch/data/annotations.py", "fots_torch/cli/detect.py",
             "fots_torch/cli/eval_e2e.py", "fots_torch/export.py", "fots_torch/serving.py",
-            "fots_torch/cli/export.py", "fots_torch/cli/serve.py"} <= names
+            "fots_torch/cli/export.py", "fots_torch/cli/serve.py",
+            "fots_torch/models/crnn.py", "fots_torch/models/own.py",
+            "fots_torch/train_ocr.py", "fots_torch/ocr_eval.py",
+            "fots_torch/data/ocr_crops.py", "fots_torch/cli/train_crnn.py",
+            "fots_torch/cli/train_ocr.py", "fots_torch/cli/eval_ocr.py",
+            "fots_torch/cli/train_crnn_e2e.py"} <= names
     for path in paths:
         with open(path, encoding="utf-8") as f:
             hits = FORBIDDEN.findall(f.read())
@@ -55,6 +60,10 @@ def test_importing_the_port_loads_no_jax_or_fots():
         "import fots_torch.data.annotations, fots_torch.cli.detect\n"
         "import fots_torch.cli.eval_e2e, fots_torch.export, fots_torch.serving\n"
         "import fots_torch.cli.export, fots_torch.cli.serve\n"
+        "import fots_torch.models.crnn, fots_torch.models.own, fots_torch.train_ocr\n"
+        "import fots_torch.ocr_eval, fots_torch.data.ocr_crops, fots_torch.cli.train_crnn\n"
+        "import fots_torch.cli.train_ocr, fots_torch.cli.eval_ocr\n"
+        "import fots_torch.cli.train_crnn_e2e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'cv2', 'fots')]\n"
         "assert not bad, bad\n"
