@@ -122,10 +122,35 @@ result line):
    and beam 8, each within one exact crop of ``fots``'s result on the same
    crops (``ocr_eval_fots_cpu.json``); K1', K1'-bwd, K2', K3' and K4' must
    each have launched.  Reported, not held: samples/s of each trainer, and
-   device busy ms and idle share a step (torch.profiler).
+   device busy ms and idle share a step (torch.profiler);
+12. image files and reference weights (a main path, ``files``): the port's
+   own decoder (``fots_torch.imageio.imread``) must give the 4 smoke scenes'
+   jpgs and the 16 held-out jpgs of ``fots_torch/assets/heldout_eval_jpg``
+   byte for byte as their decoded assets (median decode ms of a 640x960
+   scene and the host's CPU printed); reader 0's first 4 batches from the
+   jpg files must be byte-equal to those from the archive, made in turn in
+   this process and timed by stage (decode, augment, targets, the rest);
+   the in-process engines whose results the CLIs are held to run next.
+   Then, with the launch counts zeroed just before, the CLIs through their
+   ``main``: ``eval_e2e -images_list`` over the held-out jpgs (f32, TF32
+   off) must give ``fots``'s stored summary exactly (phase 10's too);
+   ``detect -test_folder`` over the smoke jpgs must write the in-process
+   engine's rows on the asset pixels (texts equal, numbers within 1e-3);
+   ``serve -test_folder`` must write ``batch_call``'s texts and boxes
+   (within 1e-3 px); ``export -selftest <folder>`` must pass;
+   ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
+   steps at batch 8, 512x512, as phase 8): finite losses, no sample
+   dropped, readers' samples/s, stage ms and the main thread's wait beside
+   phase 8's; ``eval_ocr`` over the PNG crops of
+   ``fots_torch/assets/ocr_eval_png``, greedy and beam 8, every crop read as
+   ``ocr_eval_fots_cpu.json`` says (47/58); ``-h5``: the snapshot written
+   under the reference's keys serves the snapshot's texts through
+   ``load_engine(h5_path=..., masked_norm=True)`` and ``train_joint -h5``
+   warm-starts 173 tensors, skipping 2.  Every training kernel must have
+   launched.
 
 Then it prints a ``{"kernels": [...]}`` JSON line, the serving, export,
-training, training-from-scratch, fused-block, evaluation and ocr JSON lines,
+training, training-from-scratch, fused-block, evaluation, ocr and files JSON lines,
 the card's name and power limit from nvidia-smi, and last the
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
@@ -177,8 +202,13 @@ OCR_STEPS = 10           # train_ocr: the recognizer from scratch
 E2E_STEPS = 10
 E2E_SIZE = 512
 IMAGE_PACK_SHAPE = (2, E2E_SIZE, E2E_SIZE, 3)  # K4' on CRNNE2ETrainer's images
+FILES_JPG = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_jpg")
+OCR_PNG_LIST = os.path.join(REPO, "fots_torch", "assets", "ocr_eval_png", "gt.txt")
+FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8's run
+DECODE_REPEATS = 15
+READER_BATCHES = 4       # reader 0's batches made from files and from the archive
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval", "ocr")
+          "train_joint", "fused_block", "eval", "ocr", "files")
 EXPORT_BATCHES = 6
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
 #: serving kernels: each call of a kernel's wrapper runs one device kernel
@@ -1315,18 +1345,33 @@ def _state_equal(trainer, payload):
     return same, len(got)
 
 
+def _stage_ms(makes, stages) -> dict:
+    """Mean ms a batch of each reader stage (decode, augment, targets, the
+    rest of ``make_s``) over batches with their ``make_s`` and their
+    ``(decode_s, augment_s, targets_s)``."""
+    ms = {k: 1e3 * statistics.mean(st[i] for st in stages)
+          for i, k in enumerate(("decode", "augment", "targets"))}
+    ms["make"] = 1e3 * statistics.mean(makes)
+    ms["other"] = ms["make"] - ms["decode"] - ms["augment"] - ms["targets"]
+    return ms
+
+
 def _readers_in_window(trainer, lo: float, hi: float) -> dict:
     """The data pipeline while ``trainer`` ran its timed window (``lo``,
     ``hi``], perf_counter seconds between two dispatches: the main
     thread's wait for each batch it fetched inside the window, how many of
     those batches the readers had made before it, and their samples/s a
     reader over the batches made inside it (on the loaded host, queue waits
-    excluded; ``None`` when none was made there)."""
+    excluded; ``None`` when none was made there) and over every batch the
+    run fetched."""
     clock = time.time() - time.perf_counter()
     fetched = trainer.fetch_log[4:]  # batch k is fetched between dispatches k - 2 and k - 1
     made_in = [m for _, m, at in trainer.fetch_log if lo + clock < at <= hi + clock]
     per_reader = TRAIN_BATCH / statistics.mean(made_in) if made_in else None
-    return {"main_thread_wait_ms": [round(1e3 * w, 3) for w, _, _ in fetched],
+    makes = [m for _, m, _ in trainer.fetch_log]
+    return {"samples_per_s_per_reader_all_fetched": TRAIN_BATCH / statistics.mean(makes),
+            "stage_ms_per_batch_all_fetched": _stage_ms(makes, trainer.stage_log),
+            "main_thread_wait_ms": [round(1e3 * w, 3) for w, _, _ in fetched],
             "main_thread_wait_share": sum(w for w, _, _ in fetched) / (hi - lo),
             "fetched_in_window_made_before": sum(at <= lo + clock for _, _, at in fetched),
             "fetched_in_window": len(fetched), "made_in_window": len(made_in),
@@ -1804,6 +1849,250 @@ def phase_ocr(images, targets):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 12: the entry points from image files and reference weights
+# --------------------------------------------------------------------------
+
+def _cpu_model() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``), its
+    architecture and the cores this process may use."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.lower().startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not name and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                     if line.lower().startswith("model name")), None)
+    return f"{name or 'model not reported'} ({platform.machine()}, " \
+           f"{len(os.sched_getaffinity(0))} cores)"
+
+
+def _captured(fn, *args):
+    """(``fn(*args)``, what it printed), echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def _rows_close(got, want, what):
+    check(len(got) == len(want), f"{what}: {len(got)} rows vs {len(want)}")
+    for g, w in zip(got, want):
+        g, w = g.split(",", 9), w.split(",", 9)
+        check(g[9] == w[9], f"{what}: text {g[9]!r} vs {w[9]!r}")
+        check(max(abs(float(a) - float(b)) for a, b in zip(g[:9], w[:9])) <= 1e-3,
+              f"{what}: row {g} vs {w}")
+
+
+def phase_files(images, eval_result=None, joint_result=None):
+    """The CLIs over image files and the reference's weights (``-h5``), with
+    the port's own decoder: a main path for the counts."""
+    from fots_torch.checkpoint import load_detector, reference_state_dict
+    from fots_torch.cli import detect, eval_e2e, eval_ocr, serve, train_joint
+    from fots_torch.cli import export as export_cli
+    from fots_torch.cli.detect import load_engine
+    from fots_torch.data.detection import detection_generator
+    from fots_torch.imageio import imread
+    from fots_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir, prefix="files_")
+    list_path, names = _smoke_list(tmp)
+    smoke_files = [os.path.join(REPO, "data", "synth", n) for n in names]
+
+    # (a) the decoder against both decoded assets, byte for byte
+    for path, want in zip(smoke_files, images):
+        got = imread(path)
+        check(got is not None and got.shape == want.shape and np.array_equal(got, want),
+              f"files: {path} decodes differently from smoke_images_u8.npz")
+    with np.load(EVAL_IMAGES) as z:
+        held, held_names = z["images"], [os.path.basename(str(n)) for n in z["names"]]
+    for name, want in zip(held_names, held):
+        got = imread(os.path.join(FILES_JPG, name))
+        check(got is not None and np.array_equal(got, want),
+              f"files: {name} decodes differently from heldout_eval_u8.npz")
+    times = []
+    for _ in range(DECODE_REPEATS):
+        t0 = time.perf_counter()
+        imread(smoke_files[0])
+        times.append(1e3 * (time.perf_counter() - t0))
+    decode_ms = statistics.median(times)
+    cpu = _cpu_model()
+    print(f"phase 12: {len(smoke_files)} smoke scenes and {len(held)} held-out scenes decode "
+          f"byte-equal to their assets; a 640x960 4:2:0 scene in {decode_ms:.3f} ms (median "
+          f"of {DECODE_REPEATS}, {min(times):.3f}-{max(times):.3f}) on {cpu}")
+    folder = os.path.join(tmp, "scenes")
+    os.makedirs(folder)
+    for p in smoke_files:
+        shutil.copy(p, folder)
+    with open(EVAL_REFERENCE) as f:
+        eval_ref = json.load(f)["runs"]["per_image"]
+    with open(OCR_REFERENCE) as f:
+        ocr_ref = json.load(f)["runs"]
+    h5_path = os.path.join(tmp, "snapshot.h5")
+    torch.save({"state_dict": reference_state_dict(load_detector(SNAPSHOT, "cpu")[0])}, h5_path)
+
+    # reader 0's first batches from the jpg files and from the archive, made in
+    # turn in this process: byte-equal, and timed by stage
+    gen_kw = dict(input_size=JOINT_SIZE, batch_size=TRAIN_BATCH, seed=0)
+    gens = {"files": detection_generator(list_path, None, **gen_kw),
+            "archive": detection_generator(list_path, SMOKE_IMAGES, **gen_kw)}
+    made = {k: [] for k in gens}
+    for i in range(READER_BATCHES):
+        for k in (("files", "archive") if i % 2 == 0 else ("archive", "files")):
+            made[k].append(next(gens[k]))
+        a, b = made["files"][-1], made["archive"][-1]
+        for k in ("images", "score_maps", "geo_maps", "training_masks", "gt_idxs"):
+            check(np.array_equal(getattr(a, k), getattr(b, k)),
+                  f"train_joint: batch {i}'s {k} from files differ from the archive's")
+        check(a.image_fns == b.image_fns, f"train_joint: batch {i}'s files")
+    reader = {k: {"samples_per_s": TRAIN_BATCH / statistics.median(b.make_s for b in bs),
+                  "decoded_per_batch": statistics.mean(b.decoded for b in bs),
+                  "stage_ms_per_batch": _stage_ms(
+                      [b.make_s for b in bs],
+                      [(b.decode_s, b.augment_s, b.targets_s) for b in bs])}
+              for k, bs in made.items()}
+    print(f"  reader 0's first {READER_BATCHES} batches byte-equal from files and archive: "
+          f"{reader}")
+
+    # the results the CLIs are held to, before the counted window
+    with load_engine(SNAPSHOT, device="cuda") as engine:
+        detect_want = {name: detect.result_rows(engine(im)[0])
+                       for name, im in zip(names, images)}
+        h5_want = engine.batch_call(list(images), serve_hw=SERVE_HW)
+    with load_engine(SNAPSHOT, mixed_precision=True, device="cuda") as engine:
+        serve_want = engine.batch_call(list(images), serve_hw=SERVE_HW)
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t_path = time.perf_counter()
+    # (b) held-out evaluation from the jpg files
+    with no_tf32():
+        summary = eval_e2e.main(["-model", SNAPSHOT, "-images_list",
+                                 os.path.join(FILES_JPG, "eval.txt")])
+    check(summary == eval_ref["summary"],
+          f"files: eval_e2e -images_list {summary} differs from fots's {eval_ref['summary']}")
+    if eval_result is not None:
+        check(summary["e2e_hmean"] == eval_result["runs"]["per_image"]["e2e_hmean"]
+              and summary["detection_hmean"]
+              == eval_result["runs"]["per_image"]["detection_hmean"],
+              "files: eval_e2e -images_list differs from phase 10's per-image run")
+    t_eval = time.perf_counter()
+    # (c) cli.detect over the folder against the engine on the asset pixels
+    out_dir = os.path.join(tmp, "detect")
+    rows = detect.main(["-model", SNAPSHOT, "-test_folder", folder, "-output", out_dir])
+    t_detect = time.perf_counter()
+    # (d) cli.serve over the folder against batch_call on the asset pixels
+    serve_dir = os.path.join(tmp, "serve")
+    served = serve.main(["-model", SNAPSHOT, "-test_folder", folder, "-output", serve_dir,
+                         "-batch", str(len(names))])
+    t_serve = time.perf_counter()
+    # (e) the exported bundle's selftest on the folder
+    _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
+                                             os.path.join(tmp, "bundle"), "-batch",
+                                             str(len(names)), "-selftest", folder])
+    check("selftest ok" in printed, "export -selftest <folder> did not pass")
+    t_export = time.perf_counter()
+    # (f) train_joint from the jpg files, 10 steps
+    save = os.path.join(tmp, "run")
+    args, trainer = train_joint.build(
+        ["-train_list", list_path, "-save_path", save, "-batch_size", str(TRAIN_BATCH),
+         "-input_size", str(JOINT_SIZE), "-checkpoint_every", str(FILES_STEPS), "-seed", "0",
+         "-num_readers", str(JOINT_READERS), "-disp_interval", "5",
+         "-max_iters", str(FILES_STEPS)])
+    train_joint.run(args, trainer)
+    t_train = time.perf_counter()
+    # (g) eval_ocr over the PNG crops, greedy and beam 8
+    ocr_runs = {run: eval_ocr.main(["-model", SNAPSHOT, "-train_list", OCR_PNG_LIST,
+                                    "-beam", str(ref["beam"]), "-worst", "0"])
+                for run, ref in ocr_ref.items()}
+    t_ocr = time.perf_counter()
+    # (h) -h5: the snapshot under the reference's keys serves as the snapshot does
+    with load_engine(h5_path=h5_path, masked_norm=True, device="cuda") as h5_engine:
+        h5_got = h5_engine.batch_call(list(images), serve_hw=SERVE_HW)
+    (_, h5_trainer), printed = _captured(train_joint.build, [
+        "-train_list", list_path, "-h5", h5_path, "-save_path", os.path.join(tmp, "warm")])
+    del h5_trainer
+    torch.cuda.synchronize()
+    t_h5 = time.perf_counter()
+    launches = {**build.launch_counts, **build.route_counts}
+
+    for kname in build.PATH_KERNELS["training"]:
+        check(launches[kname] > 0, f"kernel {kname} was not launched on the files path")
+    for name in names:
+        _rows_close(rows[name], detect_want[name], f"detect {name}")
+        with open(os.path.join(out_dir, os.path.splitext(name)[0] + ".txt")) as f:
+            check(f.read().split("\n") == rows[name], f"detect {name}: file rows")
+    check(served == len(names), f"serve -test_folder served {served} images")
+    for name, res in zip(names, serve_want):
+        with open(os.path.join(serve_dir, os.path.splitext(name)[0] + ".json")) as f:
+            got = json.load(f)
+        check([g["text"] for g in got] == [r["text"] for r in res] and len(res) > 0,
+              f"serve {name}: texts differ from batch_call's")
+        check(all(np.allclose(g["box"], r["box"], rtol=0.0, atol=1e-3)
+                  for g, r in zip(got, res)), f"serve {name}: boxes differ from batch_call's")
+    hist = trainer.history
+    check([h["step"] for h in hist] == list(range(FILES_STEPS)),
+          f"train_joint from files: steps {[h['step'] for h in hist]}")
+    check(all(math.isfinite(h["loss"]) for h in hist), f"train_joint from files: {hist}")
+    check(trainer.dropped_samples == 0, "train_joint from files: samples dropped")
+    stamps = trainer.dispatch_times
+    readers = _readers_in_window(trainer, stamps[2], stamps[-1])
+    ocr_out = {}
+    for run, ref in ocr_ref.items():
+        metrics, crops = ocr_runs[run]
+        same = sum(c["pred"] == r["pred"] for c, r in zip(crops, ref["crops"]))
+        check(metrics.total == ref["summary"]["total"] and metrics.correct == ref["correct"]
+              and same == len(ref["crops"]) == len(crops),
+              f"eval_ocr {run} over PNG files: {metrics.correct}/{metrics.total}, {same} "
+              f"crops as fots reads them")
+        ocr_out[run] = {"correct": metrics.correct, "total": metrics.total,
+                        "crops_as_fots": same}
+    check([[r["text"] for r in g] for g in h5_got] == [[r["text"] for r in w] for w in h5_want],
+          "-h5 engine's texts differ from the snapshot's")
+    check(f"warm-started 173 tensors from {h5_path} (2 skipped)" in printed,
+          "train_joint -h5: not the 173 imported / 2 skipped of the CPU test")
+
+    archive_readers = {k: (joint_result or {}).get(k) for k in (
+        "samples_per_s_per_reader_in_run", "samples_per_s_per_reader_all_fetched",
+        "stage_ms_per_batch_all_fetched", "main_thread_wait_share")}
+    out = {"decode_ms_640x960": decode_ms, "decode_ms_all": times, "host_cpu": cpu,
+           "eval_e2e_images_list": summary,
+           "train_joint_from_files": {
+               "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,
+               "phase_8_archive": archive_readers},
+           "reader_first_batches": reader,
+           "eval_ocr_png": ocr_out,
+           "seconds": {"eval_e2e": t_eval - t_path, "detect": t_detect - t_eval,
+                       "serve": t_serve - t_detect, "export_selftest": t_export - t_serve,
+                       "train_joint": t_train - t_export, "eval_ocr": t_ocr - t_train,
+                       "h5": t_h5 - t_ocr},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    print(f"  eval_e2e -images_list det hmean {summary['detection_hmean']:.4f} e2e hmean "
+          f"{summary['e2e_hmean']:.4f} (fots's); detect and serve over the folder equal the "
+          f"engine on the asset pixels; export -selftest passed; train_joint from files: losses "
+          f"{[round(h['loss'], 3) for h in hist]}, readers {readers}, phase 8 from the archive "
+          f"{archive_readers}; eval_ocr over PNG files {ocr_out}; -h5 texts equal the "
+          f"snapshot's, train_joint -h5 173 imported / 2 skipped")
+    print(f"  launches {launches}; seconds {out['seconds']}; phase {out['phase_wall_s']:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1870,6 +2159,9 @@ def main(argv=None) -> int:
         results["eval"] = phase_eval()
     if "ocr" in phases:
         results["ocr"] = phase_ocr(images, targets)
+    if "files" in phases:
+        results["files"] = phase_files(images, results.get("eval", (None, None))[1],
+                                       results.get("train_joint", (None, None))[1])
     smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
@@ -1884,6 +2176,7 @@ def main(argv=None) -> int:
     fused_launches, fused = results["fused_block"]
     eval_launches, evaluation = results["eval"]
     ocr_launches, ocr = results["ocr"]
+    files_launches, files = results["files"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -1891,7 +2184,8 @@ def main(argv=None) -> int:
         paths = {"serving": serve_launches[kname], "export": export_launches.get(kname, 0),
                  "training": train_launches[kname],
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
-                 "evaluation": eval_launches[kname], "ocr": ocr_launches[kname]}
+                 "evaluation": eval_launches[kname], "ocr": ocr_launches[kname],
+                 "files": files_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -1912,7 +2206,8 @@ def main(argv=None) -> int:
                         "training": train_launches[f"{kname}/{route}"],
                         "train_joint": joint_launches[f"{kname}/{route}"],
                         "evaluation": eval_launches[f"{kname}/{route}"],
-                        "ocr": ocr_launches[f"{kname}/{route}"]}
+                        "ocr": ocr_launches[f"{kname}/{route}"],
+                        "files": files_launches[f"{kname}/{route}"]}
                 for route in ("cluster", "two_pass")}}
                if f"{kname}/cluster" in serve_launches else {}),
             **r["extra"],
@@ -1930,6 +2225,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fused_block": fused}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"ocr": ocr}))
+    print(json.dumps({"files": files}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

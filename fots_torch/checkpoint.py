@@ -21,6 +21,10 @@ maps each key onto the port's module tree:
 format, which ``fots.checkpoint.load_serving_params`` and
 :func:`load_detector` both read.
 
+The reference's own torch weights (``-h5``: :func:`load_torch_h5`,
+:func:`reference_key_map`, :func:`import_torch_state_dict`) load onto the
+port's module names directly; both sides are torch layout.
+
 Training checkpoints (:func:`save_checkpoint`, :func:`latest_checkpoint`,
 :func:`restore_checkpoint`, after ``fots/checkpoint.py``'s orbax ones) are
 ``step_{N}`` directories holding one ``state.npz`` of the *payload*:
@@ -185,6 +189,145 @@ def load_detector(path: str, device=None) -> Tuple[FOTSDetector, Any, Dict[str, 
     load_flat(model, flat)
     model = model.eval().to(device=dev, memory_format=torch.channels_last)
     return model, step, config
+
+
+# --------------------------------------------------------------------------
+# the reference's torch weights (``-h5``)
+# --------------------------------------------------------------------------
+#
+# The reference trains ``ModelResNetSep2`` in torch and publishes
+# ``torch.save({"state_dict": ...})`` files (``.h5`` by name).  Its keys map
+# onto the port's module names one for one, both in torch layout (OIHW
+# kernels, depthwise (C, 1, kh, kw)), so nothing is transposed.  The map is
+# ``fots/checkpoint.py``'s, kept here by flax path and turned into port
+# names by :func:`torch_key`.
+
+
+def _reference_block_map(ref: str, path: str, sep: bool, downsample: bool = False
+                         ) -> Dict[str, Tuple[str, str]]:
+    """Reference key -> (flax path, kind) for one residual block."""
+    m: Dict[str, Tuple[str, str]] = {}
+    if not sep:  # BasicBlockIn
+        m[f"{ref}.conv1.weight"] = (f"{path}/conv1/kernel", "conv")
+        m[f"{ref}.bn1.weight"] = (f"{path}/in1/scale", "vec")
+        m[f"{ref}.bn1.bias"] = (f"{path}/in1/bias", "vec")
+        m[f"{ref}.conv2.weight"] = (f"{path}/conv2/kernel", "conv")
+        m[f"{ref}.bn2.weight"] = (f"{path}/in2/scale", "vec")
+        m[f"{ref}.bn2.bias"] = (f"{path}/in2/bias", "vec")
+    else:  # BasicBlockSepIn (conv_sep1.2 is an InstanceNorm without affine)
+        m[f"{ref}.conv_sep1.0.weight"] = (f"{path}/sep1/dw/kernel", "dw")
+        m[f"{ref}.conv_sep1.1.weight"] = (f"{path}/sep1/pw/kernel", "conv")
+        m[f"{ref}.conv2.0.weight"] = (f"{path}/conv2/dw/kernel", "dw")
+        m[f"{ref}.conv2.1.weight"] = (f"{path}/conv2/in1/scale", "vec")
+        m[f"{ref}.conv2.1.bias"] = (f"{path}/conv2/in1/bias", "vec")
+        m[f"{ref}.conv2.3.weight"] = (f"{path}/conv2/pw/kernel", "conv")
+        m[f"{ref}.conv2.4.weight"] = (f"{path}/conv2/in2/scale", "vec")
+        m[f"{ref}.conv2.4.bias"] = (f"{path}/conv2/in2/bias", "vec")
+    if downsample:  # conv1x1 + BatchNorm on a stage's first block
+        m[f"{ref}.downsample.0.weight"] = (f"{path}/down_conv/kernel", "conv")
+        m[f"{ref}.downsample.1.weight"] = (f"{path}/down_bn/bn/scale", "vec")
+        m[f"{ref}.downsample.1.bias"] = (f"{path}/down_bn/bn/bias", "vec")
+        m[f"{ref}.downsample.1.running_mean"] = (f"{path}/down_bn/bn/mean", "stat")
+        m[f"{ref}.downsample.1.running_var"] = (f"{path}/down_bn/bn/var", "stat")
+    return m
+
+
+def _reference_flax_map() -> Dict[str, Tuple[str, str]]:
+    m: Dict[str, Tuple[str, str]] = {
+        "layer0.0.weight": ("stem/conv0a/kernel", "conv"),
+        "layer0.1.bn.weight": ("stem/crelu0a/in/scale", "vec"),
+        "layer0.1.bn.bias": ("stem/crelu0a/in/bias", "vec"),
+        "layer0.2.weight": ("stem/conv0b/kernel", "conv"),
+        "layer0.3.bn.weight": ("stem/crelu0b/in/scale", "vec"),
+        "layer0.3.bn.bias": ("stem/crelu0b/in/bias", "vec"),
+        "layer0_1.0.weight": ("stem/conv1a/kernel", "conv"),
+        "layer0_1.2.weight": ("stem/conv1b/kernel", "conv"),
+    }
+    for stage, blocks, sep in ((1, 3, False), (2, 4, False), (3, 6, True), (4, 4, True)):
+        for i in range(blocks):
+            m.update(_reference_block_map(f"layer{stage}.{i}", f"layer{stage}_{i}", sep,
+                                          downsample=stage > 1 and i == 0))
+    for name in ("feature1", "feature2", "feature3", "feature4"):
+        m[f"{name}.weight"] = (f"{name}/kernel", "conv")
+    for name in ("upconv1", "upconv2"):
+        m[f"{name}.0.weight"] = (f"{name}/dw/kernel", "dw")
+        m[f"{name}.1.weight"] = (f"{name}/pw/kernel", "conv")
+    m["conv_attenton.weight"] = ("conv_attention/kernel", "conv")
+    m["conv_attenton.bias"] = ("conv_attention/bias", "vec")
+    for name in ("act", "rbox", "angle"):
+        m[f"{name}.weight"] = (f"{name}/kernel", "conv")
+        m[f"{name}.bias"] = (f"{name}/bias", "vec")
+    for idx in (5, 6, 7, 8, 9):
+        m[f"conv{idx}.weight"] = (f"ocr/conv{idx}/kernel", "conv")
+    m["conv10_s.weight"] = ("ocr/conv10_s/kernel", "conv")
+    m["conv11.weight"] = ("ocr/conv11/kernel", "conv")
+    m["conv11.bias"] = ("ocr/conv11/bias", "vec")
+    for idx in (5, 7):
+        m[f"batch{idx}.weight"] = (f"ocr/batch{idx}/scale", "vec")
+        m[f"batch{idx}.bias"] = (f"ocr/batch{idx}/bias", "vec")
+    m["batch10_s.weight"] = ("ocr/batch10_s/scale", "vec")
+    m["batch10_s.bias"] = ("ocr/batch10_s/bias", "vec")
+    return m
+
+
+def reference_key_map() -> Dict[str, Tuple[str, str]]:
+    """Reference ``ModelResNetSep2`` state-dict key -> (the port's
+    :class:`FOTSDetector` state-dict name, kind: ``conv`` / ``dw`` kernel,
+    ``vec``, BatchNorm ``stat``)."""
+    return {key: (torch_key(("batch_stats/" if kind == "stat" else "params/") + path), kind)
+            for key, (path, kind) in _reference_flax_map().items()}
+
+
+def import_torch_state_dict(state_dict: Mapping[str, Any], model: torch.nn.Module,
+                            skip_substrings: Tuple[str, ...] = ()) -> Tuple[list, list]:
+    """Copy a reference state dict into ``model`` (in place) with
+    ``fots.checkpoint.import_torch_state_dict``'s rules; returns
+    ``(imported, skipped)`` reference keys.  A key holding any of
+    ``skip_substrings`` is skipped (the reference's partial warm start skips
+    ``conv11`` / ``rnn`` when the vocabulary differs); ``num_batches_tracked``
+    is dropped silently; any other key the map does not know is skipped.
+    Parameters the dict does not reach keep their values.  Raises when a
+    mapped tensor's shape differs from the model's."""
+    key_map = reference_key_map()
+    own = model.state_dict()
+    imported, skipped, update = [], [], {}
+    for key, value in state_dict.items():
+        if any(s in key for s in skip_substrings):
+            skipped.append(key)
+            continue
+        if key not in key_map:
+            if not key.endswith("num_batches_tracked"):
+                skipped.append(key)
+            continue
+        name = key_map[key][0]
+        t = torch.as_tensor(np.asarray(value, dtype=np.float32))
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} does not fit {name} "
+                             f"{tuple(own[name].shape)}")
+        update[name] = t
+        imported.append(key)
+    with torch.no_grad():
+        for name, t in update.items():
+            own[name].copy_(t)
+    return imported, skipped
+
+
+def reference_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s weights under the reference's keys (the inverse of
+    :func:`reference_key_map`): what ``torch.save({"state_dict": ...})``
+    writes as a reference weight file."""
+    own = model.state_dict()
+    return {key: own[name].detach().to("cpu", torch.float32).clone()
+            for key, (name, _kind) in reference_key_map().items()}
+
+
+def load_torch_h5(path: str) -> Dict[str, np.ndarray]:
+    """A reference weight file (``torch.save`` of a dict with
+    ``state_dict``, or the state dict itself) as numpy arrays by key, read
+    on the CPU, as ``fots.checkpoint.load_torch_h5`` reads it."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    sd = blob.get("state_dict", blob)
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
 
 
 CHECKPOINT_FILE = "state.npz"

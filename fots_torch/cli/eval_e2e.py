@@ -2,15 +2,18 @@
 ``fots/cli/eval_e2e.py``.
 
 Runs the pipeline over annotated images and reports detection and
-end-to-end precision / recall / hmean.  The port has no image decoder, so
-the images come as decoded pixels from ``-images_npz``: an archive with
-``images`` u8 [N, h, w, 3] (BGR), ``names`` (the image paths), ``gt_names``
-and ``gt_texts`` (each image's annotation file name and content), as
-``tools/make_torch_eval_asset.py`` writes it.
+end-to-end precision / recall / hmean.  The images are the files of
+``-images_list`` (read with :func:`fots_torch.imageio.imread`, each with the
+``gt_<name>.txt`` or ``<name>.txt`` beside it, as ``fots`` reads them; a file
+that reads as nothing is skipped), or decoded pixels from ``-images_npz``:
+an archive with ``images`` u8 [N, h, w, 3] (BGR), ``names`` (the image
+paths), ``gt_names`` and ``gt_texts`` (each image's annotation file name and
+content), as ``tools/make_torch_eval_asset.py`` writes it.  ``-h5`` serves
+the reference's torch weights.
 
 Usage:
   python -m fots_torch.cli.eval_e2e -model artifacts/serving_params.npz \\
-      -images_npz fots_torch/assets/heldout_eval_u8.npz
+      -images_list fots_torch/assets/heldout_eval_jpg/eval.txt
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import time
 import numpy as np
 
 from fots_torch.cli.detect import load_engine
-from fots_torch.data.annotations import parse_annotation_text
+from fots_torch.data.annotations import (load_image_list, parse_annotation_text,
+                                         read_annotation_file)
 from fots_torch.evaluate import E2EMetrics
 
 
@@ -41,16 +45,31 @@ def load_images_npz(path: str):
     return images, names, gt_names, gt_texts
 
 
+def load_images_list(list_path: str):
+    """(images, names, annotation file names, annotation texts) of an image
+    list's files; ``images`` is a lazy iterator of :func:`fots_torch.
+    imageio.imread` results, decoded as the evaluation reaches them (None for
+    a file that reads as nothing)."""
+    from fots_torch.imageio import imread
+
+    names = load_image_list(list_path)
+    gt_names, gt_texts = zip(*(read_annotation_file(p) for p in names)) if names else ((), ())
+    return (imread(p) for p in names), names, list(gt_names), list(gt_texts)
+
+
 def evaluate(engine, images, names, gt_names, gt_texts, *, eval_text_length=3,
              conf_gate=False, ignore_dontcare=False, scale_up=False, serve_hw=None,
              split_words=False, log_every=10):
-    """Evaluate ``engine`` over decoded images.  Returns (summary dict, the
-    running :class:`E2EMetrics`, per-image dump, seconds spent in the
-    engine).  The filtering is ``fots.cli.eval_e2e``'s."""
+    """Evaluate ``engine`` over decoded images (an image that is None is
+    skipped, as ``fots`` skips a file ``cv2.imread`` cannot read).  Returns
+    (summary dict, the running :class:`E2EMetrics`, per-image dump, seconds
+    spent in the engine).  The filtering is ``fots.cli.eval_e2e``'s."""
     metrics = E2EMetrics(ignore_dontcare=ignore_dontcare)
     dump = []
     engine_s = 0.0
     for i, (im, name, gt_name, gt_text) in enumerate(zip(images, names, gt_names, gt_texts)):
+        if im is None:
+            continue
         polys, _tags, labels = parse_annotation_text(gt_text, gt_name, im.shape)
         t0 = time.perf_counter()
         if serve_hw:
@@ -106,13 +125,11 @@ def main(argv=None):
     parser.add_argument("-model", default=None,
                         help=".npz serving snapshot, or a fots_torch.cli.train_joint "
                              "checkpoint directory (step_N or the run directory)")
-    parser.add_argument("-h5", default=None,
-                        help="not ported: the port loads .npz snapshots and its own "
-                             "checkpoints only")
-    parser.add_argument("-images_npz", default=None,
-                        help="archive of decoded images with their annotations")
+    parser.add_argument("-h5", default=None, help="reference torch weights (.h5)")
     parser.add_argument("-images_list", default=None,
-                        help="not ported: a list of jpg paths needs an image decoder")
+                        help="list of image files, each with its annotation file beside it")
+    parser.add_argument("-images_npz", default=None,
+                        help="or: archive of decoded images with their annotations")
     parser.add_argument("-segm_thresh", type=float, default=0.5)
     parser.add_argument("-expand_w", type=float, default=0.0,
                         help="optional crop-width margin as a fraction of box height")
@@ -138,22 +155,17 @@ def main(argv=None):
                         help="default: the card (fails without CUDA); 'cpu' runs the "
                              "kernels' plain versions")
     args = parser.parse_args(argv)
-    if args.h5:
-        parser.error("-h5: fots_torch loads .npz serving snapshots and its own checkpoints "
-                     "only")
-    if args.images_list:
-        parser.error("-images_list: fots_torch has no image decoder; pass decoded pixels "
-                     "with -images_npz (tools/make_torch_eval_asset.py writes such an "
-                     "archive)")
-    if not args.images_npz:
-        parser.error("-images_npz is required")
+    if bool(args.images_list) == bool(args.images_npz):
+        parser.error("give one of -images_list and -images_npz")
 
-    engine = load_engine(args.model, segm_thresh=args.segm_thresh,
+    engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
                          expand_w_frac=args.expand_w, beam=args.beam, device=args.device)
     hw = (tuple(int(v) for v in args.serve_hw.lower().split("x")) if args.serve_hw else None)
+    data = (load_images_list(args.images_list) if args.images_list
+            else load_images_npz(args.images_npz))
     with engine:
         summary, _metrics, dump, _s = evaluate(
-            engine, *load_images_npz(args.images_npz),
+            engine, *data,
             eval_text_length=args.eval_text_length, conf_gate=args.conf_gate,
             ignore_dontcare=args.ignore_dontcare, scale_up=args.scale_up, serve_hw=hw,
             split_words=args.split_words)

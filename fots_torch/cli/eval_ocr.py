@@ -3,13 +3,14 @@ exact-match accuracy, edit distance, per-script tables and the worst cases
 of a recognizer over word crops; optional CSV and HTML reports.  Runs on the
 card unless given ``-device cpu``.
 
-The crops come from a decoded crop archive (``-crops_npz``, split ``eval``
-by default); a ``-train_list`` of crop image files is refused (no image
-decoder).  ``-model`` is a port ``step_N`` checkpoint of the ``-arch``'s
+The crops are the image files of a crop list (``-train_list``, as ``fots``
+takes them), or come from a decoded crop archive (``-crops_npz``, split
+``eval`` by default).  ``-model`` is a port ``step_N`` checkpoint of the ``-arch``'s
 trainer, or for ``-arch fots`` also a serving snapshot (``.npz``).
 
 Usage:
-  python -m fots_torch.cli.eval_ocr -model artifacts/serving_params.npz -beam 8
+  python -m fots_torch.cli.eval_ocr -model artifacts/serving_params.npz -beam 8 \\
+      -train_list fots_torch/assets/ocr_eval_png/gt.txt
 """
 
 from __future__ import annotations
@@ -19,17 +20,19 @@ import json
 from fots_torch.cli.train_crnn import crop_parser, parse
 
 
-def evaluate(trainer, crops_npz: str, split: str, norm_height: int, beam: int = 0):
+def evaluate(trainer, crops_npz: str, split: str, norm_height: int, beam: int = 0,
+             train_list=None):
     """(OCRMetrics, per crop {"gt", "pred", "bucket_width"} in the
-    generator's order) of ``trainer.predict_texts`` over the archive's
-    ``split``, batched as ``fots`` batches it (4 a bucket, no
-    augmentation)."""
+    generator's order) of ``trainer.predict_texts`` over ``train_list``'s
+    crop files when given, else the archive's ``split``, batched as ``fots``
+    batches it (4 a bucket, no augmentation)."""
     from fots_torch.data.ocr_crops import ocr_crop_generator
     from fots_torch.ocr_eval import OCRMetrics
 
     metrics, crops = OCRMetrics(), []
     for batch in ocr_crop_generator(crops_npz, codec=trainer.codec, batch_size=4,
-                                    norm_height=norm_height, in_train=False, split=split):
+                                    norm_height=norm_height, in_train=False, split=split,
+                                    train_list=train_list):
         preds = trainer.predict_texts(batch["images"], beam=beam)
         for p, gt in zip(preds, batch["texts"]):
             metrics.add(p, gt)
@@ -62,7 +65,8 @@ def main(argv=None):
     if args.model:
         load_weights(trainer, args.model)
 
-    metrics, crops = evaluate(trainer, args.crops_npz, args.split, norm_height, args.beam)
+    metrics, crops = evaluate(trainer, args.crops_npz, args.split, norm_height, args.beam,
+                              args.train_list)
     print(json.dumps(metrics.summary(), indent=2, ensure_ascii=False))
     for d, gt, pred in metrics.worst_cases(args.worst):
         print(f"  ed={d}  gt={gt!r}  pred={pred!r}")

@@ -10,10 +10,11 @@ exported on (``-device``; default the card).
 Usage:
   python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
       -batch 16 -height 704 -width 1280
-  # check the bundle against the in-process engine on the first batch of an
-  # archive of decoded images (``images`` u8 [N, h, w, 3] BGR):
+  # check the bundle against the in-process engine on the first batch of a
+  # folder's *.jpg files, or of an archive of decoded images (``images`` u8
+  # [N, h, w, 3] BGR):
   python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
-      -selftest fots_torch/assets/smoke_images_u8.npz
+      -selftest data/synth/
 """
 
 from __future__ import annotations
@@ -24,14 +25,25 @@ import os
 import numpy as np
 
 
+def selftest_images(source: str, batch: int):
+    """The first ``batch`` images of an ``.npz`` archive, or of a folder's
+    sorted ``*.jpg`` files that read as images (``fots``'s selftest)."""
+    if source.endswith(".npz") and os.path.isfile(source):
+        with np.load(source) as z:
+            return list(z["images"][:batch])
+    from fots_torch.cli.detect import folder_images
+    from fots_torch.imageio import imread
+
+    return [im for im in (imread(p) for p in folder_images(source)[:batch]) if im is not None]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("-model", default=None,
                         help=".npz serving snapshot, or a fots_torch.cli.train_joint "
                              "checkpoint directory (step_N or the run directory)")
-    parser.add_argument("-h5", default=None,
-                        help="not ported: importing torch weights is not ported yet")
+    parser.add_argument("-h5", default=None, help="reference torch weights (.h5)")
     parser.add_argument("-out", required=True, help="bundle directory")
     parser.add_argument("-batch", type=int, default=16)
     parser.add_argument("-height", type=int, default=704)
@@ -46,19 +58,16 @@ def main(argv=None):
     parser.add_argument("-device", default=None,
                         help="the device type the bundle is for; default: the card (fails "
                              "without CUDA); 'cpu' runs the kernels' plain versions")
-    parser.add_argument("-selftest", default=None, metavar="IMAGES_NPZ",
+    parser.add_argument("-selftest", default=None, metavar="FOLDER_OR_NPZ",
                         help="after exporting, reload the bundle and check that its results "
-                             "match the in-process engine on the first batch of images of "
-                             "this archive")
+                             "match the in-process engine on the first batch of the folder's "
+                             "*.jpg files (or of the images of an .npz archive)")
     args = parser.parse_args(argv)
-    if args.h5:
-        parser.error("-h5: importing torch weights is not ported yet; fots_torch loads .npz "
-                     "serving snapshots and its own checkpoints")
 
     from fots_torch.cli.detect import load_engine
     from fots_torch.export import ExportedEngine, export_serving
 
-    engine = load_engine(args.model, segm_thresh=args.segm_thresh,
+    engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
                          mixed_precision=args.mixed_precision, device=args.device)
     engine.max_candidates = args.max_candidates
     engine.max_boxes = args.max_boxes
@@ -71,10 +80,9 @@ def main(argv=None):
               f"for device {manifest['device']}")
         if not args.selftest:
             return manifest
-        with np.load(args.selftest) as z:
-            images = list(z["images"][:args.batch])
+        images = selftest_images(args.selftest, args.batch)
         if not images:
-            raise SystemExit(f"selftest: no images in {args.selftest}")
+            raise SystemExit(f"selftest: no readable images in {args.selftest}")
         with ExportedEngine(args.out, device=args.device) as exported:
             got = exported.batch_call(images)
         want = engine.batch_call(images, serve_hw=(args.height, args.width))

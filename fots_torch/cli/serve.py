@@ -1,13 +1,16 @@
 """Batched throughput serving CLI, the counterpart of ``fots/cli/serve.py``.
 
-Serves an archive of decoded images (``images`` u8 [N, h, w, 3] BGR and
-``names``; the port has no image decoder) in fixed-shape letterboxed batches
-through ``FOTSInference.stream`` and writes ``<name>.json`` per image (its
-boxes in source-image pixels and texts).
+Serves the ``*.jpg`` files of ``-test_folder`` (sorted, read with
+:func:`fots_torch.imageio.imread` as each batch is reached; a file that
+reads as nothing is skipped), or an archive of decoded images
+(``-images_npz``: ``images`` u8 [N, h, w, 3] BGR and ``names``), in
+fixed-shape letterboxed batches through ``FOTSInference.stream`` and writes
+``<name>.json`` per image (its boxes in source-image pixels and texts).
+``-h5`` serves the reference's torch weights.
 
 Usage:
   python -m fots_torch.cli.serve -model artifacts/serving_params.npz \\
-      -images_npz fots_torch/assets/smoke_images_u8.npz -output out/ -batch 16
+      -test_folder data/synth/ -output out/ -batch 16
 """
 
 from __future__ import annotations
@@ -26,11 +29,12 @@ def main(argv=None):
     parser.add_argument("-model", default=None,
                         help=".npz serving snapshot, or a fots_torch.cli.train_joint "
                              "checkpoint directory (step_N or the run directory)")
-    parser.add_argument("-h5", default=None,
-                        help="not ported: importing torch weights is not ported yet")
+    parser.add_argument("-h5", default=None, help="reference torch weights (.h5)")
     parser.add_argument("-segm_thresh", type=float, default=0.5)
+    parser.add_argument("-test_folder", default=None, help="folder of *.jpg images")
     parser.add_argument("-images_npz", default=None,
-                        help="archive of decoded images (images, names)")
+                        help="instead of -test_folder: archive of decoded images (images, "
+                             "names)")
     parser.add_argument("-output", default="./out")
     parser.add_argument("-batch", type=int, default=8)
     parser.add_argument("-height", type=int, default=704)
@@ -46,27 +50,41 @@ def main(argv=None):
                         help="default: the card (fails without CUDA); 'cpu' runs the "
                              "kernels' plain versions")
     args = parser.parse_args(argv)
-    if args.h5:
-        parser.error("-h5: importing torch weights is not ported yet; fots_torch loads .npz "
-                     "serving snapshots and its own checkpoints")
     if (args.n_data or 1) > 1 or args.n_model > 1:
         parser.error("-n_data / -n_model: the serving mesh is not ported yet; fots_torch "
                      "serves on one card")
-    if not args.images_npz:
-        parser.error("-images_npz is required: fots_torch has no image decoder")
+    if bool(args.test_folder) == bool(args.images_npz):
+        parser.error("give one of -test_folder and -images_npz")
 
-    from fots_torch.cli.detect import load_engine
+    from fots_torch.cli.detect import folder_images, load_engine
+    from fots_torch.imageio import imread
 
-    engine = load_engine(args.model, segm_thresh=args.segm_thresh,
+    engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
                          mixed_precision=args.mixed_precision, device=args.device)
     os.makedirs(args.output, exist_ok=True)
-    with np.load(args.images_npz) as z:
-        images = z["images"]
-        names = [os.path.splitext(os.path.basename(str(n)))[0] for n in z["names"]]
 
-    def batches():
-        for i in range(0, len(names), args.batch):
-            yield names[i:i + args.batch], list(images[i:i + args.batch])
+    def stem(path):
+        return os.path.splitext(os.path.basename(str(path)))[0]
+
+    if args.images_npz:
+        with np.load(args.images_npz) as z:
+            images = z["images"]
+            names = [stem(n) for n in z["names"]]
+
+        def batches():
+            for i in range(0, len(names), args.batch):
+                yield names[i:i + args.batch], list(images[i:i + args.batch])
+    else:
+        paths = folder_images(args.test_folder)
+
+        def batches():
+            """Each chunk's files decoded as ``stream`` reaches it, so the
+            decoding overlaps the card's work on the previous chunk."""
+            for i in range(0, len(paths), args.batch):
+                keep = [(stem(p), im) for p, im in
+                        ((p, imread(p)) for p in paths[i:i + args.batch]) if im is not None]
+                if keep:
+                    yield [n for n, _ in keep], [im for _, im in keep]
 
     total = 0
     t0 = time.perf_counter()

@@ -1,17 +1,18 @@
 """Standalone CRNN training CLI, the counterpart of
 ``fots/cli/train_crnn.py``; runs on the card unless given ``-device cpu``.
 
-The port has no image decoder: the word crops come from a decoded crop
-archive (``-crops_npz``, one split of it; ``tools/make_torch_ocr_asset.py``
-writes ``fots_torch/assets/ocr_crops_u8.npz``), and a ``-train_list`` of crop
-image files is refused.  ``-model`` resumes a port ``step_N`` checkpoint (or
+The word crops are the image files of a crop list (``-train_list``, a
+``gt.txt`` of ``file, "text"`` lines, as ``fots`` takes them), or come from
+a decoded crop archive (``-crops_npz``, one split of it;
+``tools/make_torch_ocr_asset.py`` writes ``fots_torch/assets/ocr_crops_u8.npz``,
+the default).  ``-model`` resumes a port ``step_N`` checkpoint (or
 a run directory's latest), whose step the run continues: ``-max_iters``
 bounds the global step.  Checkpoints go to ``-save_path/step_N`` (N applied
 updates) every ``-checkpoint_every`` steps and at the end.
 
 Usage:
-  python -m fots_torch.cli.train_crnn -crops_npz fots_torch/assets/ocr_crops_u8.npz \\
-      -max_iters 1000 -save_path runs/crnn
+  python -m fots_torch.cli.train_crnn -train_list crops/gt.txt -max_iters 1000 \\
+      -save_path runs/crnn
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ import os
 
 DEFAULT_CROPS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                              "assets", "ocr_crops_u8.npz")
-NO_DECODER = ("-train_list names crop image files and fots_torch has no image decoder: "
-              "pass the crops decoded in -crops_npz (tools/make_torch_ocr_asset.py writes one)")
 
 
 def crop_parser(description: str, split: str) -> argparse.ArgumentParser:
@@ -30,7 +29,8 @@ def crop_parser(description: str, split: str) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=description,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("-train_list", default=None,
-                        help="a crop list (gt.txt) of image files: refused, no decoder")
+                        help="a crop list (gt.txt of file, \"text\" lines) of image files; "
+                             "read instead of -crops_npz")
     parser.add_argument("-crops_npz", default=DEFAULT_CROPS, help="decoded crop archive")
     parser.add_argument("-split", default=split, choices=("train", "eval"),
                         help="the archive's split to read")
@@ -55,13 +55,14 @@ def training_flags(parser: argparse.ArgumentParser) -> None:
 
 def parse(parser: argparse.ArgumentParser, argv):
     args = parser.parse_args(argv)
-    if args.train_list:
-        parser.error(NO_DECODER)
+    if args.train_list and not os.path.isfile(args.train_list):
+        parser.error(f"-train_list: no such file {args.train_list!r}")
     return args
 
 
 def run_crops(args, trainer, norm_height: int):
-    """Train ``trainer`` on the archive's crop batches as the flags say."""
+    """Train ``trainer`` on the crop batches (the list's files, or the
+    archive's split) as the flags say."""
     from fots_torch.data.ocr_crops import ocr_crop_batches
     from fots_torch.train_ocr import load_weights, train_loop
 
@@ -70,7 +71,8 @@ def run_crops(args, trainer, norm_height: int):
               flush=True)
     batches = ocr_crop_batches(args.crops_npz, num_workers=args.num_readers,
                                batch_size=args.batch_size, norm_height=norm_height,
-                               seed=args.seed, split=args.split, codec=trainer.codec)
+                               seed=args.seed, split=args.split, codec=trainer.codec,
+                               train_list=args.train_list)
     try:
         return train_loop(trainer, batches, args.max_iters, args.disp_interval, args.save_path,
                           args.checkpoint_every)

@@ -3,16 +3,16 @@
 RoIRotated out of the images into 32-pixel strips for an OwnModel's CRNN
 branch.  Runs on the card unless given ``-device cpu``.
 
-The port has no image decoder: the pixels of the list's scenes come from
+The readers decode the list's scene files, or take their pixels from
 ``-images_npz`` (``images`` u8 [N, h, w, 3] BGR and ``names``, matched by
-basename, as ``fots_torch.cli.train_joint`` reads them), the ground truth
+basename), as ``fots_torch.cli.train_joint`` does; the ground truth comes
 from the annotation file beside each entry.  ``-model`` resumes a port
 ``step_N`` checkpoint (continuing its step); checkpoints as in
 :mod:`fots_torch.cli.train_crnn`.
 
 Usage:
   python -m fots_torch.cli.train_crnn_e2e -train_list data/synth_big_train.txt \\
-      -images_npz scenes_u8.npz -save_path runs/crnn_e2e
+      -save_path runs/crnn_e2e
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("-train_list", required=True)
-    parser.add_argument("-images_npz", required=True,
-                        help="archive of the list's decoded images")
+    parser.add_argument("-images_npz", default=None,
+                        help="archive of the list's decoded images (default: read the files)")
     parser.add_argument("-batch_size", type=int, default=2)
     parser.add_argument("-input_size", type=int, default=512)
     parser.add_argument("-base_lr", type=float, default=1e-4)

@@ -1,25 +1,27 @@
 """Joint detection + recognition training CLI, the counterpart of
 ``fots/cli/train_joint.py``; runs on the card unless given ``-device cpu``.
 
-A model is initialised from ``-seed`` (or resumed from a port checkpoint
-with ``-model``: a ``step_N`` directory, or a run directory for its latest);
+A model is initialised from ``-seed``, warm-started from the reference's
+torch weights (``-h5``: every tensor but the vocabulary head's ``conv11`` /
+``rnn``, as ``fots`` does), or resumed from a port checkpoint with
+``-model`` (a ``step_N`` directory, or a run directory for its latest);
 prefetch workers compute the EAST targets and the augmentation in NumPy;
 ``Trainer.train`` writes ``step_N`` checkpoints every ``-checkpoint_every``
 steps and at the end, under ``-save_path`` beside ``train_config.json``
 (which ``fots_torch.cli.eval_e2e -model <save_path>`` reads).
 
-The port has no image decoder: the pixels of the list's images come from
-``-images_npz`` (``images`` u8 [N, h, w, 3] BGR and ``names``, matched to
-the list entries by basename), the ground truth from the annotation file
-beside each entry.  Write a large archive with ``np.savez``: the readers
-memory-map it, where each would keep its own copy of a compressed one.
-``fots``'s ``-h5`` warm start, ``-n_data`` / ``-n_model`` mesh and
-``-debug`` crop dumps are not ported yet.
+The readers decode the list's image files (:func:`fots_torch.imageio.
+imread`) and read the ground truth from the annotation file beside each;
+``-images_npz`` instead takes the pixels from a decoded archive (``images``
+u8 [N, h, w, 3] BGR and ``names``, matched to the list entries by basename;
+write a large one with ``np.savez``: the readers memory-map it, where each
+would keep its own copy of a compressed one).  ``fots``'s ``-n_data`` /
+``-n_model`` mesh and ``-debug`` crop dumps are not ported yet and are
+refused.
 
 Usage:
   python -m fots_torch.cli.train_joint -train_list data/synth_big_train.txt \\
-      -images_npz scenes_u8.npz -batch_size 8 -input_size 512 -max_iters 300000 \\
-      -save_path backup
+      -batch_size 8 -input_size 512 -max_iters 300000 -save_path backup
 """
 
 from __future__ import annotations
@@ -36,10 +38,11 @@ def build(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("-train_list", default="./data/ICDAR2015.txt")
     parser.add_argument("-images_npz", default=None,
-                        help="archive of the list's decoded images (required)")
+                        help="archive of the list's decoded images (default: read the files)")
     parser.add_argument("-save_path", default="backup")
     parser.add_argument("-model", default=None,
                         help="port checkpoint to resume (step_N or a run directory)")
+    parser.add_argument("-h5", default=None, help="reference torch weights to warm-start from")
     parser.add_argument("-batch_size", type=int, default=2)
     parser.add_argument("-num_readers", type=int, default=4)
     parser.add_argument("-input_size", type=int, default=512)
@@ -60,14 +63,22 @@ def build(argv=None):
     parser.add_argument("-no_masked_norm", action="store_true",
                         help="whole-strip InstanceNorm statistics in the recognition head; "
                              "the choice is recorded in save_path/train_config.json")
+    parser.add_argument("-n_data", type=int, default=None, help="not ported: the mesh")
+    parser.add_argument("-n_model", type=int, default=1, help="not ported: the mesh")
+    parser.add_argument("-debug", default=None, metavar="DIR",
+                        help="not ported: the roi crop dumps need an image writer")
     parser.add_argument("-device", default=None,
                         help="default: the card (fails without CUDA); 'cpu' runs the "
                              "kernels' plain versions")
     args = parser.parse_args(argv)
-    if not args.images_npz:
-        parser.error("-images_npz is required: fots_torch has no image decoder")
+    if (args.n_data or 1) > 1 or args.n_model > 1:
+        parser.error("-n_data / -n_model: the training mesh is not ported yet; fots_torch "
+                     "trains on one card")
+    if args.debug:
+        parser.error("-debug: the roi crop dumps are not ported yet (no image writer)")
 
-    from fots_torch.checkpoint import restore_checkpoint
+    from fots_torch.checkpoint import (import_torch_state_dict, load_torch_h5,
+                                       restore_checkpoint)
     from fots_torch.codec import LabelCodec
     from fots_torch.train import Trainer
 
@@ -77,7 +88,13 @@ def build(argv=None):
     os.makedirs(args.save_path, exist_ok=True)
     with open(os.path.join(args.save_path, "train_config.json"), "w") as f:
         json.dump({"masked_norm": not args.no_masked_norm}, f)
-    if args.model:
+    if args.h5 and os.path.exists(args.h5):
+        # partial warm start without the vocabulary head, as fots does
+        imported, skipped = import_torch_state_dict(load_torch_h5(args.h5), trainer.model,
+                                                    skip_substrings=("conv11", "rnn"))
+        print(f"warm-started {len(imported)} tensors from {args.h5} ({len(skipped)} skipped)",
+              flush=True)
+    elif args.model:
         step = restore_checkpoint(args.model, trainer)
         print(f"resumed from {args.model} at step {step}", flush=True)
     return args, trainer

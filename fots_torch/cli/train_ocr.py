@@ -3,9 +3,8 @@
 stem's features) on word crops with width bucketing; runs on the card
 unless given ``-device cpu``.
 
-The crops come from a decoded crop archive (``-crops_npz``); a
-``-train_list`` of crop image files is refused (no image decoder).
-``-model`` resumes a port ``step_N`` checkpoint (continuing its step; a
+The crops are a crop list's image files (``-train_list``) or a decoded
+crop archive's (``-crops_npz``).  ``-model`` resumes a port ``step_N`` checkpoint (continuing its step; a
 serving snapshot ``.npz`` is taken as a warm start at step 0).  Checkpoints
 as in :mod:`fots_torch.cli.train_crnn`.
 

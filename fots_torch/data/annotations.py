@@ -99,15 +99,24 @@ def parse_annotation_text(text: str, gt_name: str, im_shape
     return parse_mlt_lines(lines, im_shape)
 
 
-def load_annotation(im_name: str, im_shape) -> Tuple[np.ndarray, np.ndarray, List[str]]:
-    """Load the ground truth of an image: ``gt_<img>.txt`` beside it, else
-    ``<img>.txt``; no file gives no boxes."""
+def read_annotation_file(im_name: str) -> Tuple[str, str]:
+    """(name, text) of an image's annotation file: ``gt_<img>.txt`` beside
+    it, else ``<img>.txt``; ``("", "")`` when neither exists."""
     txt_fn, txt_fn_gt = gt_path_for_image(im_name)
     for path in (txt_fn_gt, txt_fn):
         if os.path.exists(path):
             with open(path, "r", encoding="utf-8") as f:
-                return parse_annotation_text(f.read(), path, im_shape)
-    return _pack([], [], [])
+                return path, f.read()
+    return "", ""
+
+
+def load_annotation(im_name: str, im_shape) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """Load the ground truth of an image (:func:`read_annotation_file`); no
+    file gives no boxes."""
+    path, text = read_annotation_file(im_name)
+    if not path:
+        return _pack([], [], [])
+    return parse_annotation_text(text, path, im_shape)
 
 
 def load_image_list(list_path: str) -> List[str]:

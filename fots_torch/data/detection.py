@@ -3,11 +3,14 @@
 (pad, shear, scale, invert), crop a square around a word, jitter colours,
 compute the EAST targets at 1/4 scale, batch.
 
-The port has no image decoder, so the pixels come from an ``images_npz``
-archive (``images`` u8 [N, h, w, 3] BGR and ``names``), matched to the
-list's entries by basename; the ground truth comes from the annotation file
-beside each list entry.  An entry with no pixels in the archive raises when
-the generator is built, before any worker starts.  The augmented chain is
+The pixels come from the list's image files, read on the workers by
+:func:`fots_torch.imageio.imread` (``fots`` reads them with ``cv2.imread``;
+the bytes are the same), or from an ``images_npz`` archive (``images`` u8
+[N, h, w, 3] BGR and ``names``) matched to the list's entries by basename;
+the ground truth comes from the annotation file beside each list entry.  A
+listed file that does not exist or reads as nothing is skipped, as ``fots``
+skips it; an entry with no pixels in an archive raises when the generator is
+built, before any worker starts.  The augmented chain is
 computed only over the window the crop keeps (:class:`fots_torch.data.
 augment.LazyImage`): the same pixels as the whole chain, far less work.
 
@@ -23,7 +26,7 @@ import time
 import traceback
 import zipfile
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 from numpy.lib import format as npformat
@@ -32,6 +35,8 @@ from fots_torch.data import augment as aug
 from fots_torch.data.annotations import load_annotation, load_image_list
 from fots_torch.data.prefetch import PrefetchPool
 from fots_torch.geometry import generate_rbox, generate_rbox2
+from fots_torch.imageio import imread
+from fots_torch.kernels import build
 
 
 @dataclass
@@ -54,6 +59,16 @@ class DetectionBatch:
     make_s: float = 0.0
     #: ``time.time()`` when it was made
     made_at: float = 0.0
+    #: of ``make_s``, the seconds spent reading and decoding image files, and
+    #: how many files were decoded for it (dropped samples included; 0 from an
+    #: archive)
+    decode_s: float = 0.0
+    decoded: int = 0
+    #: of ``make_s``, the seconds of the augmentation chain through the
+    #: resized, jittered crop (an archive's page reads included) and of the
+    #: targets (score, geometry, mask, word index)
+    augment_s: float = 0.0
+    targets_s: float = 0.0
 
 
 def _archive_rows(images_npz: str, image_list: List[str]) -> Dict[str, int]:
@@ -66,8 +81,7 @@ def _archive_rows(images_npz: str, image_list: List[str]) -> Dict[str, int]:
     if missing:
         raise FileNotFoundError(
             f"{images_npz} holds no pixels for {len(missing)} list entries, e.g. "
-            f"{missing[:3]}: the port has no image decoder, so every image must be "
-            "in the archive")
+            f"{missing[:3]}: with an archive, every listed image must be in it")
     return {p: index[os.path.basename(p)] for p in image_list}
 
 
@@ -135,7 +149,7 @@ def check_archive(images_npz: str, image_list: List[str], readers: int):
             "which the readers memory-map and share")
 
 
-def detection_generator(train_list: str, images_npz: str, input_size: int = 512,
+def detection_generator(train_list: str, images_npz: Optional[str] = None, input_size: int = 512,
                         batch_size: int = 4, seed: int = 0, in_train: bool = True,
                         allow_empty_frac: float = 0.4, geo_type: int = 0,
                         augment: bool = True) -> Iterator[DetectionBatch]:
@@ -144,9 +158,10 @@ def detection_generator(train_list: str, images_npz: str, input_size: int = 512,
     edge distances, 1 the row / column-scan variant.  ``augment=False``
     skips the pad / shear / scale / invert / jitter chain and crops the top
     left; with ``input_size=-1`` each sample is then the whole image at its
-    /32 size.  Raises at once for a list entry without pixels."""
+    /32 size.  Pixels come from ``images_npz`` when given (raises at once
+    for a list entry without pixels there), else from the files."""
     image_list = load_image_list(train_list)
-    pixels = load_pixels(images_npz, image_list)
+    pixels = load_pixels(images_npz, image_list) if images_npz else None
     return _batches(np.asarray(image_list), pixels, input_size, batch_size, seed, in_train,
                     allow_empty_frac, geo_type, augment)
 
@@ -158,33 +173,53 @@ def _batches(image_list, pixels, input_size, batch_size, seed, in_train, allow_e
     # accumulates across passes: with fewer images than batch_size a
     # per-pass reset would never yield
     batch_items = []
-    dropped = [0]
+    # samples dropped on an exception, seconds spent decoding files, files
+    # decoded, seconds augmenting, seconds making targets
+    counts = [0, 0.0, 0, 0.0, 0.0]
     t0 = time.perf_counter()
     while True:
         if in_train:
             rng.shuffle(index)
         for i in index:
             name = str(image_list[i])
-            item = _load_one(rng, name, pixels[name], input_size, in_train, allow_empty_frac,
-                             geo_type, augment, dropped)
+            item = _load_one(rng, name, None if pixels is None else pixels[name], input_size,
+                             in_train, allow_empty_frac, geo_type, augment, counts)
             if item is None:
                 continue
             batch_items.append(item)
             if len(batch_items) == batch_size:
-                yield _collate(batch_items, dropped, t0)
+                yield _collate(batch_items, counts, t0)
                 batch_items = []
                 t0 = time.perf_counter()
         if not in_train:
             if batch_items:
-                yield _collate(batch_items, dropped, t0)
+                yield _collate(batch_items, counts, t0)
             return
 
 
-def _load_one(rng, im_name, pixels, input_size, in_train, allow_empty_frac, geo_type=0,
-              augment=True, dropped=None):
+def _read_file(im_name, counts):
+    """``fots``'s read of a list entry: None when the file is missing or
+    reads as nothing; the decode is timed into ``counts``."""
+    if not os.path.exists(im_name):
+        return None
+    t0 = time.perf_counter()
     try:
+        return imread(im_name)
+    finally:
+        counts[1] += time.perf_counter() - t0
+        counts[2] += 1
+
+
+def _load_one(rng, im_name, pixels, input_size, in_train, allow_empty_frac, geo_type=0,
+              augment=True, counts=None):
+    try:
+        if pixels is None:
+            pixels = _read_file(im_name, counts if counts is not None else [0, 0.0, 0])
+            if pixels is None:
+                return None
         polys, tags, labels = load_annotation(im_name, pixels.shape)
         allow_empty = rng.uniform() < allow_empty_frac
+        t0 = time.perf_counter()
         im = aug.Source(pixels)
 
         if in_train and augment:
@@ -224,24 +259,30 @@ def _load_one(rng, im_name, pixels, input_size, in_train, allow_empty_frac, geo_
         if in_train and augment:
             # jitter after the crop, as the reference does
             im = aug.color_jitter(rng, im)
+        t1 = time.perf_counter()
 
         gen_fn = generate_rbox2 if geo_type == 1 else generate_rbox
         score, geo, mask, gt_idx, gt_out, labels_out = gen_fn(im.shape[:2], polys, tags, labels)
+        if counts is not None:
+            counts[3] += t1 - t0
+            counts[4] += time.perf_counter() - t1
         if score.sum() == 0 and not allow_empty:
             return None
         return (im_name, im.astype(np.float32), score, geo, mask, gt_idx, gt_out, labels_out)
     except Exception:
         traceback.print_exc()
-        if dropped is not None:
-            dropped[0] += 1
+        if counts is not None:
+            counts[0] += 1
         return None
 
 
-def _collate(items, dropped, t0) -> DetectionBatch:
-    """The batch of ``items``, with the drops counted in ``dropped[0]``
-    (then reset) and its making timed from ``t0``."""
+def _collate(items, counts, t0) -> DetectionBatch:
+    """The batch of ``items``, with the drops, decoded files and stage
+    seconds counted in ``counts`` (then reset) and its making timed from
+    ``t0``."""
     images = np.stack([it[1] for it in items]).astype(np.float32)
-    n_dropped, dropped[0] = dropped[0], 0
+    n_dropped, decode_s, decoded, augment_s, targets_s = counts
+    counts[:] = [0, 0.0, 0, 0.0, 0.0]
     return DetectionBatch(
         images=images / 128.0 - 1.0,
         score_maps=np.stack([it[2] for it in items]),
@@ -251,7 +292,8 @@ def _collate(items, dropped, t0) -> DetectionBatch:
         gt_quads=[it[6] for it in items],
         labels=[it[7] for it in items],
         image_fns=[it[0] for it in items],
-        dropped=n_dropped, make_s=time.perf_counter() - t0, made_at=time.time())
+        dropped=n_dropped, make_s=time.perf_counter() - t0, made_at=time.time(),
+        decode_s=decode_s, decoded=decoded, augment_s=augment_s, targets_s=targets_s)
 
 
 class _DetectionFactory:
@@ -268,11 +310,19 @@ class _DetectionFactory:
                                    seed=self.seed + 1000 * worker_id + worker_id, **self.kwargs)
 
 
-def detection_batches(train_list: str, images_npz: str, num_workers: int = 4, seed: int = 0,
-                      **kwargs) -> PrefetchPool:
-    """Multiprocess-prefetched batches.  :func:`check_archive` runs in
-    this process first, so a missing entry raises before any worker
-    starts."""
-    check_archive(images_npz, load_image_list(train_list), num_workers)
+def detection_batches(train_list: str, images_npz: Optional[str] = None, num_workers: int = 4,
+                      seed: int = 0, **kwargs) -> PrefetchPool:
+    """Multiprocess-prefetched batches.  With an archive, :func:`check_archive`
+    runs in this process first, so a missing entry raises before any worker
+    starts; from files, the decoder is built here once (the workers load
+    it) and a list none of whose files exists raises."""
+    image_list = load_image_list(train_list)
+    if images_npz:
+        check_archive(images_npz, image_list, num_workers)
+    else:
+        if not any(os.path.exists(p) for p in image_list):
+            raise FileNotFoundError(f"{train_list}: none of its {len(image_list)} image files "
+                                    "exists")
+        build.build(["image_decode"])
     return PrefetchPool(_DetectionFactory(train_list, images_npz, seed, kwargs),
                         num_workers=num_workers)

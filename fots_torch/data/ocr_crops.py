@@ -6,21 +6,24 @@ grid, with per-bucket batch sizes halving every 10 buckets; a bucket is
 emitted as a batch when it fills.  The draws from ``rng``, the skips
 (vertical text) and the Arabic reversal are ``fots``'s, in its order.
 
-The port has no image decoder, so the word images come from a decoded crop
-archive (``crops_npz``, written by ``tools/make_torch_ocr_asset.py``):
+The word images are the files of a crop list (``train_list``: ``gt.txt``
+of ``file, "text"`` lines, :func:`parse_crop_list`), read as ``fots`` reads
+them (``cv2.imread`` -> :func:`fots_torch.imageio.imread`, the same bytes,
+grey crops with ``grayscale=True``; a missing or unreadable file is
+skipped), or come from a decoded crop archive (``crops_npz``, written by
+``tools/make_torch_ocr_asset.py``):
 
 - ``pixels``: one flat u8 buffer of every crop, BGR, row-major;
 - ``shapes`` [N, 3] (h, w, c) and ``offsets`` [N] into ``pixels``;
 - ``texts`` [N] (transcriptions) and ``split`` [N] (``"train"`` / ``"eval"``).
 
-A split stands for ``fots``'s crop list (``gt.txt`` of ``file, "text"``
-lines; :func:`parse_crop_list` is ported for those lists).  OpenCV's calls
-have NumPy counterparts: ``cv2.resize`` -> :func:`fots_torch.geometry.
+An archive's split stands for a crop list.  OpenCV's calls have NumPy
+counterparts: ``cv2.resize`` -> :func:`fots_torch.geometry.
 resize_bilinear_u8` (byte-exact), ``cv2.blur`` -> :func:`fots_torch.imgproc.
 blur3_u8` (byte-exact), ``getRotationMatrix2D`` + ``warpAffine`` ->
 :func:`fots_torch.imgproc.warp_affine_u8` (within one level); a grey crop
-(``rgb=False``) is :func:`fots_torch.imgproc.bgr2gray_u8` of the archive's
-BGR pixels (within one level of ``cv2.imread``'s).
+(``rgb=False``) of an archive is :func:`fots_torch.imgproc.bgr2gray_u8` of
+its BGR pixels (within one level of ``cv2.imread``'s).
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from fots_torch.codec import LabelCodec
 from fots_torch.data import augment as aug
 from fots_torch.data.prefetch import PrefetchPool
 from fots_torch.geometry import resize_bilinear_u8
+from fots_torch.imageio import imread
 from fots_torch.imgproc import bgr2gray_u8, blur3_u8, warp_affine_u8
+from fots_torch.kernels import build
 
 BUCKETS = tuple(8 + 4 * i for i in range(1, 100))
 MAX_LABEL_LEN = 64
@@ -103,8 +108,31 @@ def load_crops(crops_npz: str, split: str = "train") -> List[Tuple[np.ndarray, s
     return out
 
 
+def crop_samples(crops_npz: Optional[str], split: str = "train",
+                 train_list: Optional[str] = None) -> list:
+    """(image file path, text) of every entry of ``train_list`` when given,
+    else (u8 [h, w, c] BGR crop, text) of the archive's ``split``."""
+    if train_list:
+        samples = parse_crop_list(train_list)
+        if not samples:
+            raise ValueError(f"{train_list}: no crop")
+        return samples
+    return load_crops(crops_npz, split)
+
+
+def _read_crop(src, rgb: bool) -> Optional[np.ndarray]:
+    """A sample's u8 [h, w, c] image: a file read as ``fots`` reads it
+    (None when missing or unreadable), or an archive crop."""
+    if isinstance(src, str):
+        if not os.path.exists(src):
+            return None
+        im = imread(src, grayscale=not rgb)
+        return None if im is None else (im if rgb else im[:, :, None])
+    return src if rgb else bgr2gray_u8(src)
+
+
 def ocr_crop_generator(
-    crops_npz: str,
+    crops_npz: Optional[str],
     codec: Optional[LabelCodec] = None,
     batch_size: int = 8,
     norm_height: int = 32,
@@ -112,11 +140,13 @@ def ocr_crop_generator(
     in_train: bool = True,
     seed: int = 0,
     split: str = "train",
+    train_list: Optional[str] = None,
 ) -> Iterator[dict]:
     """Yields dicts: images [N, h, wb, C] normalised (x / 128 - 1, f32),
-    labels [N, L] padded, label_lengths [N], texts (host list)."""
+    labels [N, L] padded, label_lengths [N], texts (host list).  The crops
+    are ``train_list``'s files when given, else the archive's ``split``."""
     codec = codec or LabelCodec()
-    samples = load_crops(crops_npz, split)
+    samples = crop_samples(crops_npz, split, train_list)
     rng = np.random.default_rng(seed)
     index = np.arange(len(samples))
     sizes = batch_sizes_per_bucket(batch_size)
@@ -126,9 +156,10 @@ def ocr_crop_generator(
         if in_train:
             rng.shuffle(index)
         for i in index:
-            im, txt = samples[i]
-            if not rgb:
-                im = bgr2gray_u8(im)
+            src, txt = samples[i]
+            im = _read_crop(src, rgb)
+            if im is None:
+                continue
             if im.shape[0] > im.shape[1] and len(txt) > 4:
                 continue  # vertical text is skipped
             scale = norm_height / float(im.shape[0])
@@ -196,11 +227,13 @@ class _OcrCropFactory:
                                   **self.kwargs)
 
 
-def ocr_crop_batches(crops_npz: str, num_workers: int = 2, seed: int = 0,
+def ocr_crop_batches(crops_npz: Optional[str], num_workers: int = 2, seed: int = 0,
                      **kwargs) -> PrefetchPool:
     """Batches of :func:`ocr_crop_generator` from ``num_workers`` spawned
-    workers (worker k seeded ``seed + 7919 k``).  The archive's split is
-    read here first, so a missing or empty one raises before any worker
-    starts."""
-    load_crops(crops_npz, kwargs.get("split", "train"))
+    workers (worker k seeded ``seed + 7919 k``).  The archive's split or the
+    crop list is read here first, so a missing or empty one raises before
+    any worker starts; for a list, the decoder is built here once."""
+    crop_samples(crops_npz, kwargs.get("split", "train"), kwargs.get("train_list"))
+    if kwargs.get("train_list"):
+        build.build(["image_decode"])
     return PrefetchPool(_OcrCropFactory(crops_npz, seed, kwargs), num_workers=num_workers)

@@ -2,7 +2,8 @@
 
 CUDA kernels (``fots_torch/csrc/*.cu``) compile with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface; the host NMS
-(``csrc/nms_core.cpp``) compiles with ``g++``.  Outputs go to
+(``csrc/nms_core.cpp``) and the image decoder (``csrc/image_decode.cpp``)
+compile with ``g++``.  Outputs go to
 ``build/fots_torch/`` beside the package, named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Builds start together (one compiler process per source) and a
@@ -12,6 +13,8 @@ never load a half-written file.
 No PyTorch headers are compiled (``torch.utils.cpp_extension`` would need
 ``ninja`` and minutes per build): the Python wrappers pass
 ``tensor.data_ptr()``, sizes and ``torch.cuda.current_stream().cuda_stream``.
+This module imports torch only inside the helpers that take tensors, so the
+data readers (numpy-only processes) can load the host libraries.
 """
 
 from __future__ import annotations
@@ -25,8 +28,6 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
-import torch
-
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "fots_torch")
@@ -39,6 +40,7 @@ SOURCES = {
     "pack_neighbors": "pack_neighbors.cu",
     "fused_block": "fused_block.cu",
     "nms_core": "nms_core.cpp",
+    "image_decode": "image_decode.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")
@@ -165,6 +167,8 @@ def check_kernel_input(x, what: str, dtypes) -> None:
     for the 4-D activations), and no autograd recording (a launcher's
     output has no ``grad_fn``: differentiable callers go through the op's
     ``torch.autograd.Function``)."""
+    import torch
+
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got "
                          f"one on {x.device}")
@@ -181,8 +185,12 @@ def check_kernel_input(x, what: str, dtypes) -> None:
 
 
 def current_stream_handle(device) -> int:
+    import torch
+
     return torch.cuda.current_stream(device).cuda_stream
 
 
 def num_sms(device) -> int:
+    import torch
+
     return torch.cuda.get_device_properties(device).multi_processor_count

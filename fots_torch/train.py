@@ -267,6 +267,9 @@ class Trainer:
         #: per batch :meth:`train` fetched: (seconds the main thread waited
         #: for it, its ``make_s`` and ``made_at`` where it carries them)
         self.fetch_log: List[tuple] = []
+        #: per batch fetched: its reader's seconds by stage (decode,
+        #: augment, targets) where it carries them
+        self.stage_log: List[tuple] = []
 
     def _build_roi_batch(self, batch) -> RoiBatch:
         cands = hw = None
@@ -367,6 +370,8 @@ class Trainer:
                     return None
                 self.fetch_log.append((time.perf_counter() - t, getattr(batch, "make_s", None),
                                        getattr(batch, "made_at", None)))
+                self.stage_log.append(tuple(getattr(batch, k, None) for k in
+                                            ("decode_s", "augment_s", "targets_s")))
                 self.dropped_samples += int(getattr(batch, "dropped", 0))
                 return batch, pool.submit(self._prepare_maps, batch)
 

@@ -341,6 +341,6 @@ def test_eval_cli_matches_fots_on_one_scene(engines, scene, tmp_path):
                  polys.reshape(-1, 8), labels)
     assert summary == jm.summary() and metrics.tp_e2e_all >= 3
     assert [d["text"] for d in dump[0]["detections"]] == [r["text"] for r in want_res]
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # one input, files or an archive
         port_eval_cli.main(["-model", SNAPSHOT, "-images_list", "data/synth_big_eval.txt",
-                            "-device", "cpu"])
+                            "-images_npz", str(npz), "-device", "cpu"])

@@ -345,8 +345,8 @@ def test_export_cli_selftest(archive, tmp_path, monkeypatch, capsys):
     assert re.search(r"selftest ok: [1-9]\d* boxes identical across 2 images", text)
     for fname in ("detect.pt2", "params.npz", "manifest.json"):
         assert f"{fname}: " in text
-    with pytest.raises(SystemExit):
-        export_cli.main(["-h5", "w.h5", "-out", out])
+    with pytest.raises(SystemExit):  # -out is required
+        export_cli.main(["-h5", "w.h5"])
 
 
 def test_serve_cli_writes_what_stream_returns(archive, tmp_path, monkeypatch):
@@ -366,6 +366,6 @@ def test_serve_cli_writes_what_stream_returns(archive, tmp_path, monkeypatch):
         with open(out / f"{name}.json") as f:
             assert json.load(f) == [{"box": e["box"].tolist(), "text": e["text"]} for e in r]
     assert sum(len(r) for r in res) > 0
-    for bad in (["-n_data", "2"], ["-h5", "w.h5"]):
+    for bad in (["-n_data", "2"], ["-n_model", "2"]):
         with pytest.raises(SystemExit):
             serve_cli.main(args + bad)

@@ -10,7 +10,7 @@
   ``tools/make_torch_ocr_asset.py``); CSV and HTML reports written.
 - ``train_ocr`` and ``train_crnn_e2e``: two steps each, finite losses.
 - Without CUDA and without ``-device cpu`` every entry point raises; a
-  ``-train_list`` of crop image files is refused (no image decoder).
+  ``-train_list`` that does not exist is refused.
 """
 
 import json

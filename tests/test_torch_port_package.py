@@ -75,6 +75,43 @@ def test_importing_the_port_loads_no_jax_or_fots():
     assert res.returncode == 0, res.stderr
 
 
+def test_port_sources_import_no_image_library():
+    """The port reads images with its own decoder (``fots_torch.imageio``):
+    no module of it, nor ``chip_smoke.py``, imports OpenCV or PIL, and the
+    readers' modules load neither torch nor an image library."""
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL)(\.|\s|$)", re.MULTILINE)
+    paths = _port_sources()
+    assert "fots_torch/imageio.py" in {os.path.relpath(p, REPO) for p in paths}
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            assert not pattern.findall(f.read()), path
+    code = ("import sys\n"
+            "import fots_torch.imageio, fots_torch.data.detection, fots_torch.data.ocr_crops\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'cv2', 'PIL', 'jax', 'fots')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_file_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from fots_torch.cli import detect, train_joint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    snapshot = os.path.join(REPO, "artifacts", "serving_params.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect.main(["-model", snapshot, "-test_folder", os.path.join(REPO, "data", "synth"),
+                     "-output", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect.load_engine(h5_path=str(tmp_path / "w.h5"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_joint.main(["-train_list", os.path.join(REPO, "data", "synth", "eval.txt"),
+                          "-save_path", str(tmp_path / "run")])
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from fots_torch import resolve_device
     from fots_torch.models import FOTSDetector

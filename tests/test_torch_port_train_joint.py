@@ -259,6 +259,9 @@ def test_train_joint_cli_from_scratch_checkpoint_resume_and_eval(scene_list, tmp
     # one entry per fetched batch: the main thread's wait, the reader's time
     assert len(trainer.fetch_log) == 3
     assert all(w >= 0 and m > 0 and at > 0 for w, m, at in trainer.fetch_log)
+    # and its reader's stages: no decode from the archive
+    assert len(trainer.stage_log) == 3
+    assert all(d == 0 and a > 0 and t > 0 for d, a, t in trainer.stage_log)
     assert all(np.isfinite([h[k] for k in ttrain.METRIC_KEYS]).all() for h in trainer.history)
     assert sorted(os.listdir(save)) == ["step_2", "step_3", "train_config.json"]
     with open(os.path.join(save, "train_config.json")) as f:
@@ -298,8 +301,8 @@ def test_train_joint_refuses_missing_pixels_and_defaults_to_cuda(scene_list, tmp
             str(tmp_path / "run"), "-max_iters", "1", "-device", "cpu"]
     with pytest.raises(FileNotFoundError, match="no pixels"):
         train_joint.main(argv)
-    with pytest.raises(SystemExit):
-        train_joint.main(argv[:2] + argv[4:])  # no -images_npz
+    with pytest.raises(SystemExit):  # the mesh is not ported
+        train_joint.main(argv[:2] + argv[4:] + ["-n_data", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_joint.main(argv[:-2])
