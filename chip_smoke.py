@@ -33,7 +33,11 @@ result line):
    INs of the narrowest and the widest batch ``eval_ocr`` makes), and K4'
    at every vector width it picks (16-byte rows of the feature maps, the
    3-channel f32 and bf16 images of the CRNN crops at [2, 512, 512, 3]:
-   12- and 6-byte rows), bit-exact, with the image rows' times.  The NMS
+   12- and 6-byte rows), bit-exact, with the image rows' times; K4'-bwd at
+   every vector width it picks (4 floats at the feature maps, 2 at C = 6
+   and 2, 1 at C = 3 and 5), bit-exact, and K4' and K4'-bwd at C = 3 f32 at
+   ``cli.rroi_demo``'s image [1, 640, 960, 3] and at [2, 512, 512, 3],
+   timed beside their plain versions, ``index_add_`` and their bound.  The NMS
    candidates of two maps with more than k pixels tied at 1.0 must equal
    the CPU's;
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
@@ -147,10 +151,26 @@ result line):
    under the reference's keys serves the snapshot's texts through
    ``load_engine(h5_path=..., masked_norm=True)`` and ``train_joint -h5``
    warm-starts 173 tensors, skipping 2.  Every training kernel must have
-   launched.
+   launched;
+13. the image writers (a main path, ``writers``): ``imageio.imencode_jpg``
+   of the sources under ``fots_torch/assets/encode_ref`` must equal the
+   committed ``cv2.imwrite`` files byte for byte (the median encode ms of
+   the 640x960 scene printed); then, each with the launch counts zeroed
+   just before it and read just after: ``cli.rroi_demo`` on the held-out
+   scene ``img_112`` with its ground truth (``-pooled_height 44 -max_rois
+   8``, the card by default) must launch exactly one K4' and one K4'-bwd,
+   give the CPU port's crops within 1e-3 and gradient within 1e-4 of its
+   largest magnitude with the same support, and write files that decode;
+   ``cli.detect`` over the 16 held-out jpgs must write the engine's rows on
+   the asset pixels and, for each image, the port's drawing of its boxes on
+   the letterboxed image, encoded by the port (ms an image with and without
+   the drawing and writing printed); ``train_joint -debug`` (4 steps at batch
+   8, 512x512, a dump every 2) must dump at steps 0 and 2 under ``fots``'s
+   names, every file decoding (host ms a dump adds printed).
 
-Then it prints a ``{"kernels": [...]}`` JSON line, the serving, export,
-training, training-from-scratch, fused-block, evaluation, ocr and files JSON lines,
+Then it prints a ``{"kernels": [...]}`` JSON line (K4' and K4'-bwd at C = 3
+listed as rows of their own), the serving, export, training,
+training-from-scratch, fused-block, evaluation, ocr, files and writers JSON lines,
 the card's name and power limit from nvidia-smi, and last the
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
@@ -202,13 +222,22 @@ OCR_STEPS = 10           # train_ocr: the recognizer from scratch
 E2E_STEPS = 10
 E2E_SIZE = 512
 IMAGE_PACK_SHAPE = (2, E2E_SIZE, E2E_SIZE, 3)  # K4' on CRNNE2ETrainer's images
+DEMO_SCENE = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_jpg", "img_112.jpg")
+DEMO_SHAPE = (1, 640, 960, 3)  # K4' and K4'-bwd on cli.rroi_demo's image
+DEMO_POOLED_HEIGHT = 44
+DEMO_MAX_ROIS = 8
+ENCODE_REF = os.path.join(REPO, "fots_torch", "assets", "encode_ref")
+ENCODE_REPEATS = 15
+DEBUG_STEPS = 4          # train_joint -debug: steps, and a dump every DEBUG_EVERY
+DEBUG_EVERY = 2
+DEBUG_READERS = 2
 FILES_JPG = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_jpg")
 OCR_PNG_LIST = os.path.join(REPO, "fots_torch", "assets", "ocr_eval_png", "gt.txt")
 FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8's run
 DECODE_REPEATS = 15
 READER_BATCHES = 4       # reader 0's batches made from files and from the archive
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval", "ocr", "files")
+          "train_joint", "fused_block", "eval", "ocr", "files", "writers")
 EXPORT_BATCHES = 6
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
 #: serving kernels: each call of a kernel's wrapper runs one device kernel
@@ -238,6 +267,10 @@ KERNEL_META = {
     "pack_neighbors_bwd": ("fots_torch/csrc/pack_neighbors.cu", "fots/ops/rroi_align.py:304"),
     "fused_block": ("fots_torch/csrc/fused_block.cu", "fots/ops/fused_block.py:222"),
 }
+#: the 3-channel f32 rows of K4' and K4'-bwd (cli.rroi_demo's image), listed
+#: as kernels of their own: row -> the kernel it runs
+C3_KERNELS = {"pack_neighbors C=3": "pack_neighbors",
+              "pack_neighbors_bwd C=3": "pack_neighbors_bwd"}
 
 
 def card_peaks(name: str):
@@ -317,7 +350,7 @@ def phase_kernels(dev, peaks):
     H, W = SERVE_HW
     TH, TW = TRAIN_HW
     J = JOINT_SIZE
-    worst = {name: 0.0 for name in KERNEL_META}
+    worst = {name: 0.0 for name in (*KERNEL_META, *C3_KERNELS)}
     seen_plans = set()  # (kernel, route, cluster size, held) phase 2 ran
 
     def rand(shape, dtype=torch.float32, scale=1.0, shift=0.0):
@@ -502,8 +535,8 @@ def phase_kernels(dev, peaks):
         want = trr.pack_neighbors_ref(f)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
-        report("pack_neighbors", f"{str(dtype)[6:]} {shape} bit-exact={equal}", equal,
-               *errors(got, want))
+        name = "pack_neighbors C=3" if (shape[3], dtype) == (3, torch.float32) else "pack_neighbors"
+        report(name, f"{str(dtype)[6:]} {shape} bit-exact={equal}", equal, *errors(got, want))
 
     def pack_bwd_case(shape):
         n = shape[0] * shape[1] * shape[2]
@@ -512,8 +545,8 @@ def phase_kernels(dev, peaks):
         want = trr.pack_neighbors_bwd_ref(g, shape)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
-        report("pack_neighbors_bwd", f"f32 {shape} bit-exact={equal}", equal,
-               *errors(got, want))
+        name = "pack_neighbors_bwd C=3" if shape[3] == 3 else "pack_neighbors_bwd"
+        report(name, f"f32 {shape} bit-exact={equal}", equal, *errors(got, want))
 
     def fused_inputs(shape, dtype, seed):
         """Inputs at the scales of the JAX package's K5 tests."""
@@ -692,10 +725,14 @@ def phase_kernels(dev, peaks):
                          ((TRAIN_BATCH, J // 4, J // 4, 64), torch.float32),
                          ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16),
                          (IMAGE_PACK_SHAPE, torch.float32), (IMAGE_PACK_SHAPE, torch.bfloat16),
+                         (DEMO_SHAPE, torch.float32),
                          ((3, 5, 7, 2), torch.float32), ((2, 3, 5, 1), torch.bfloat16)):
         pack_case(shape, dtype)
+    # K4'-bwd likewise takes any C: vectors of 4 floats, of 2 (C = 6, 2) and
+    # of 1 (C = 3, 5: the RoIRotate demo's image and the CRNN crops' images)
     for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (TRAIN_BATCH, J // 4, J // 4, 64),
-                  (3, 5, 7, 8), (2, 3, 5, 4)):
+                  (3, 5, 7, 8), (2, 3, 5, 4), IMAGE_PACK_SHAPE, DEMO_SHAPE, (3, 5, 7, 3),
+                  (2, 3, 5, 6), (2, 3, 5, 5), (3, 4, 6, 2)):
         pack_bwd_case(shape)
 
     # NMS candidates with more than k pixels tied at 1.0 (the snapshot's
@@ -827,6 +864,44 @@ def phase_kernels(dev, peaks):
         lambda: trr.pack_neighbors_bwd_ref(gq, tuple(xt.shape)),
         lambda: acc.index_add_(0, quad_index, gq_rows), 5 * nbt, 3 * xt.numel(),
         "index_add_ of the 4N quad rows into N + W + 1 rows")
+
+    # K4' and K4'-bwd at C = 3 f32 (12-byte rows: 4-byte vectors in the pack,
+    # 1-float vectors in its backward), at cli.rroi_demo's image (the main
+    # path's shape) and at the CRNN crops' images.  K4' reads 12 B and
+    # writes 48 B a pixel, K4'-bwd reads 48 B (g) and writes 12 B (df) with
+    # three adds an element: 60 B a pixel each
+    c3_rows = {name: {} for name in C3_KERNELS}
+    for shape in (DEMO_SHAPE, IMAGE_PACK_SHAPE):
+        x3 = rand(shape)
+        b3, h3, w3, c3 = shape
+        n3 = b3 * h3 * w3
+        g3 = rand((n3, 4 * c3))
+        index3 = (torch.arange(n3, device=dev)[:, None]
+                  + torch.tensor([0, 1, w3, w3 + 1], device=dev)[None, :]).reshape(-1)
+        acc3 = torch.zeros((n3 + w3 + 1, c3), device=dev)
+        g3_rows = g3.view(n3 * 4, c3)
+        nb3 = x3.numel() * 4
+        row("c3 fwd", shape, "f32", lambda: trr.pack_neighbors_cuda(x3),
+            lambda: trr.pack_neighbors_ref(x3), None, 5 * nb3, 0,
+            "null: no single PyTorch call builds the quads")
+        row("c3 bwd", shape, "f32", lambda: trr.pack_neighbors_bwd_cuda(g3, shape),
+            lambda: trr.pack_neighbors_bwd_ref(g3, shape),
+            lambda: acc3.index_add_(0, index3, g3_rows), 5 * nb3, 3 * x3.numel(),
+            "index_add_ of the 4N quad rows into N + W + 1 rows")
+        c3_rows["pack_neighbors C=3"][shape] = rows.pop("c3 fwd")
+        c3_rows["pack_neighbors_bwd C=3"][shape] = rows.pop("c3 bwd")
+    for name, by_shape in c3_rows.items():
+        # the entry is the main path's shape (printed with the rows below);
+        # the crops' images ride along
+        r = by_shape[IMAGE_PACK_SHAPE]
+        print(f"  {name} at {IMAGE_PACK_SHAPE} f32: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
+              f"({r['library_note']}), bound {1e3 * max(r['bound']):.4f} ms")
+        entry = dict(by_shape[DEMO_SHAPE])
+        entry["extra"] = {"at_" + "x".join(map(str, IMAGE_PACK_SHAPE)): {
+            k: (1e3 * max(v) if k == "bound" else v)
+            for k, v in by_shape[IMAGE_PACK_SHAPE].items() if k != "extra"}}
+        rows[name] = entry
 
     # K5' at the profile entry's own inputs.  Its bound counts x, the
     # residual and the weights read once, the output written once, and one
@@ -1789,16 +1864,17 @@ def phase_ocr(images, targets):
     stats = {name: {"samples_per_s": _samples_per_s(tr), "step_ms": _step_ms_by_shape(tr)}
              for name, tr in (("train_crnn", crnn), ("train_ocr", recognizer),
                               ("train_crnn_e2e", e2e))}
-    # resume: the state of step_20 restored bit for bit, then two more steps
-    # numbered from 20 (the CLI's -model path, on the batches at hand)
+    # resume: the state of step_20 (saved after step i = 20, 21 updates)
+    # restored bit for bit, then two more steps (the CLI's -model path, on
+    # the batches at hand): the history goes on from update 21
     ckpt = os.path.join(crnn_dir, f"step_{CRNN_CKPT_EVERY}")
     resumed = CRNNTrainer(device="cuda")
     restore_checkpoint(ckpt, resumed)
     same, n_held = _state_equal(resumed, read_checkpoint(ckpt))
-    check(same and resumed.global_step == CRNN_CKPT_EVERY,
+    check(same and resumed.global_step == CRNN_CKPT_EVERY + 1,
           f"train_crnn: the state restored from {ckpt} differs from the checkpoint")
-    train_loop(resumed, [crnn_batch] * 2, CRNN_CKPT_EVERY + 2, disp_interval=0)
-    check([h["step"] for h in resumed.history] == [CRNN_CKPT_EVERY, CRNN_CKPT_EVERY + 1],
+    train_loop(resumed, [crnn_batch] * 2, 2, disp_interval=0)
+    check([h["step"] for h in resumed.history] == [CRNN_CKPT_EVERY + 1, CRNN_CKPT_EVERY + 2],
           f"train_crnn resumed: steps {[h['step'] for h in resumed.history]}")
     for name, tr in (("train_ocr", recognizer), ("train_crnn_e2e", e2e)):
         vals = [h["loss"] for h in tr.history]
@@ -2093,6 +2169,204 @@ def phase_files(images, eval_result=None, joint_result=None):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the image writers and the entry points that write images
+# --------------------------------------------------------------------------
+
+def _encode_sources():
+    """The committed encoder references' sources ({name: u8 image}) and
+    manifest (``tools/make_torch_encode_refs.py``)."""
+    with np.load(os.path.join(ENCODE_REF, "sources.npz")) as z:
+        src = {k: z[k] for k in z.files}
+    with np.load(EVAL_IMAGES) as z:
+        src["img_112"] = z["images"][0]
+    with open(os.path.join(ENCODE_REF, "manifest.json")) as f:
+        return src, json.load(f)
+
+
+def phase_writers():
+    """The JPEG encoder against ``cv2.imwrite``'s committed files, then (a
+    main path) the three entry points that write images, each with the
+    launch counts zeroed just before it: ``cli.rroi_demo`` (K4' and K4'-bwd
+    at C = 3), ``cli.detect``'s annotated images, ``train_joint -debug``."""
+    import fots_torch.imageio as imageio
+    from fots_torch.cli import detect, rroi_demo, train_joint
+    from fots_torch.cli.detect import load_engine
+    from fots_torch.imgproc import polylines
+    from fots_torch.kernels import build
+    from fots_torch.profiling import card_name_and_power_limit
+
+    t_phase = time.perf_counter()
+    smi = card_name_and_power_limit()
+    cpu = _cpu_model()
+    build_dir = os.path.join(REPO, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir, prefix="writers_")
+
+    # (a) the encoder: the committed cv2.imwrite files, byte for byte
+    src, manifest = _encode_sources()
+    sizes = {}
+    for name, entry in manifest.items():
+        with open(os.path.join(ENCODE_REF, entry["file"]), "rb") as f:
+            want = f.read()
+        got = imageio.imencode_jpg(src[name])
+        check(got == want, f"writers: imencode_jpg({name}) differs from cv2.imwrite's file "
+              f"({len(got)} vs {len(want)} bytes)")
+        sizes[name] = len(got)
+    times = []
+    for _ in range(ENCODE_REPEATS):
+        t0 = time.perf_counter()
+        imageio.imencode_jpg(src["img_112"])
+        times.append(1e3 * (time.perf_counter() - t0))
+    encode_ms = statistics.median(times)
+    print(f"phase 13: imencode_jpg equals cv2.imwrite's bytes on {sizes}; the 640x960 scene "
+          f"encodes in {encode_ms:.3f} ms (median of {ENCODE_REPEATS}, "
+          f"{min(times):.3f}-{max(times):.3f}) on {cpu}; card {smi}")
+
+    # the results the path is held to, before the counted windows
+    demo_args = ["-image", DEMO_SCENE, "-pooled_height", str(DEMO_POOLED_HEIGHT),
+                 "-max_rois", str(DEMO_MAX_ROIS)]
+    _, cpu_crops, cpu_grad = rroi_demo.main(demo_args + ["-out_dir", os.path.join(tmp, "cpu"),
+                                                         "-device", "cpu"])
+    with np.load(EVAL_IMAGES) as z:
+        held, held_names = z["images"], [os.path.basename(str(n)) for n in z["names"]]
+    with load_engine(SNAPSHOT, device="cuda") as engine:
+        detect_want = {name: detect.result_rows(engine(im)[0])
+                       for name, im in zip(held_names, held)}
+    list_path, _ = _smoke_list(tmp)
+    launches = {}
+
+    # (b) cli.rroi_demo on the card
+    demo_dir = os.path.join(tmp, "demo")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    energy, crops, grad = rroi_demo.main(demo_args + ["-out_dir", demo_dir])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches["rroi_demo"] = dict(build.launch_counts)
+    check(launches["rroi_demo"]["pack_neighbors"] == 1
+          and launches["rroi_demo"]["pack_neighbors_bwd"] == 1
+          and sum(launches["rroi_demo"].values()) == 2,
+          f"rroi_demo: launches {launches['rroi_demo']}, not one K4' and one K4'-bwd")
+    crop_err = float(np.abs(crops - cpu_crops).max())
+    grad_err = float(np.abs(grad - cpu_grad).max()) / float(np.abs(cpu_grad).max())
+    check(crops.shape == cpu_crops.shape and crop_err <= 1e-3,
+          f"rroi_demo: crops {crops.shape} differ from the CPU port's by {crop_err}")
+    check(grad_err <= 1e-4, f"rroi_demo: the gradient differs by {grad_err} of its max")
+    check(np.array_equal(grad != 0, cpu_grad != 0), "rroi_demo: the gradient's support differs")
+    demo_files = sorted(os.listdir(demo_dir))
+    check(demo_files == sorted([f"crop{i}.jpg" for i in range(len(crops))]
+                               + ["grad.jpg", "grad_overlay.jpg"]),
+          f"rroi_demo wrote {demo_files}")
+    for name in demo_files:
+        im = imageio.imread(os.path.join(demo_dir, name))
+        check(im is not None and im.ndim == 3, f"rroi_demo: {name} does not decode")
+    print(f"  rroi_demo on {DEMO_SHAPE} f32, {len(crops)} rois at {crops.shape[1:3]}: energy "
+          f"{energy:.6e}; crops within {crop_err:.3e} and the gradient within {grad_err:.3e} "
+          f"of its max of the CPU port's, same support; launches {launches['rroi_demo']}; "
+          f"{demo_s:.3f} s; {len(demo_files)} files decode")
+
+    # (c) cli.detect over the held-out jpgs, each drawing and write timed
+    det_dir = os.path.join(tmp, "detect")
+    drawn, write_s = [], []
+    draw_results, imwrite = detect.draw_results, imageio.imwrite
+
+    def timed_draw(im_resized, results):
+        t = time.perf_counter()
+        out = draw_results(im_resized, results)
+        write_s.append(time.perf_counter() - t)
+        drawn.append((np.array(im_resized, copy=True), [r["box"].copy() for r in results]))
+        return out
+
+    def timed_write(path, im):
+        t = time.perf_counter()
+        out = imwrite(path, im)
+        write_s.append(time.perf_counter() - t)
+        return out
+
+    detect.draw_results, imageio.imwrite = timed_draw, timed_write
+    try:
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows = detect.main(["-model", SNAPSHOT, "-test_folder", FILES_JPG, "-output", det_dir])
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+    finally:
+        detect.draw_results, imageio.imwrite = draw_results, imwrite
+    launches["detect"] = dict(build.launch_counts)
+    check(sorted(rows) == sorted(held_names), f"detect wrote {sorted(rows)}")
+    for (im_resized, boxes), name in zip(drawn, sorted(rows)):
+        _rows_close(rows[name], detect_want[name], f"writers detect {name}")
+        want = im_resized.copy()
+        for b in boxes:
+            polylines(want, b[:8].reshape(4, 2).astype(np.int32), (0, 255, 0))
+        with open(os.path.join(det_dir, name), "rb") as f:
+            check(f.read() == imageio.imencode_jpg(want),
+                  f"detect {name}: the annotated jpg is not the drawing of its rows")
+    n_img = len(rows)
+    detect_ms = 1e3 * detect_s / n_img
+    write_ms = 1e3 * sum(write_s) / n_img
+    print(f"  detect over {n_img} held-out jpgs: rows equal the engine's on the asset pixels, "
+          f"each annotated jpg is the drawing of its rows; {detect_ms:.2f} ms an image, of "
+          f"which drawing and writing {write_ms:.2f} ms ({detect_ms - write_ms:.2f} without); "
+          f"launches {launches['detect']}; card {smi}")
+
+    # (d) train_joint -debug: dumps at steps 0 and 2 of 4
+    debug_dir = os.path.join(tmp, "debug")
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    args, trainer = train_joint.build(
+        ["-train_list", list_path, "-images_npz", SMOKE_IMAGES, "-save_path",
+         os.path.join(tmp, "run"), "-batch_size", str(TRAIN_BATCH), "-input_size",
+         str(JOINT_SIZE), "-checkpoint_every", "1000", "-seed", "0", "-num_readers",
+         str(DEBUG_READERS), "-disp_interval", "2", "-max_iters", str(DEBUG_STEPS),
+         "-debug", debug_dir, "-debug_every", str(DEBUG_EVERY)])
+    train_joint.run(args, trainer)
+    torch.cuda.synchronize()
+    launches["train_joint_debug"] = dict(build.launch_counts)
+    dumped = [s for s, _, _ in trainer.debug_log]
+    check(dumped == list(range(0, DEBUG_STEPS, DEBUG_EVERY)), f"train_joint -debug at {dumped}")
+    files = sorted(os.listdir(debug_dir))
+    check(len(files) == sum(n for _, n, _ in trainer.debug_log) > 0,
+          f"train_joint -debug: {len(files)} files for {trainer.debug_log}")
+    pattern = re.compile(r"crop_(\d{6})_(\d{2})_(pred|gt)_[0-9A-Za-z_-]+\.jpg")
+    for name in files:
+        m = pattern.fullmatch(name)
+        check(m is not None and int(m.group(1)) in dumped, f"train_joint -debug: file {name}")
+        im = imageio.imread(os.path.join(debug_dir, name))
+        check(im is not None and im.shape[0] == 44, f"train_joint -debug: {name} does not decode")
+    check(all(math.isfinite(h["loss"]) for h in trainer.history), "train_joint -debug: losses")
+    dump_ms = [1e3 * t for _, _, t in trainer.debug_log]
+    print(f"  train_joint -debug, {DEBUG_STEPS} steps at b{TRAIN_BATCH} {JOINT_SIZE}: "
+          f"{len(files)} crops at steps {dumped}; a dumped step adds "
+          f"{[round(v, 3) for v in dump_ms]} host ms; launches {launches['train_joint_debug']}")
+
+    total = {k: sum(run.get(k, 0) for run in launches.values()) for k in build.launch_counts}
+    for run, kernels in (("rroi_demo", ("pack_neighbors", "pack_neighbors_bwd")),
+                         ("detect", build.PATH_KERNELS["serving"]),
+                         ("train_joint_debug", build.PATH_KERNELS["training"])):
+        for kname in kernels:
+            check(launches[run][kname] > 0, f"kernel {kname} was not launched by {run}")
+    out = {"card": smi, "host_cpu": cpu, "encode_bytes": sizes, "encode_ms_640x960": encode_ms,
+           "encode_ms_all": times,
+           "rroi_demo": {"shape": list(DEMO_SHAPE), "rois": int(crops.shape[0]),
+                         "pooled": list(crops.shape[1:3]), "energy": energy,
+                         "crop_max_abs_err": crop_err, "grad_err_of_max": grad_err,
+                         "seconds": demo_s, "launches": launches["rroi_demo"]},
+           "detect": {"images": n_img, "ms_per_image": detect_ms,
+                      "draw_write_ms_per_image": write_ms,
+                      "ms_per_image_without_writing": detect_ms - write_ms,
+                      "boxes": sum(len(r) for r in rows.values())},
+           "train_joint_debug": {"steps": DEBUG_STEPS, "dumped_steps": dumped,
+                                 "crops": len(files), "dump_host_ms": dump_ms},
+           "launches": launches, "phase_wall_s": time.perf_counter() - t_phase}
+    print(f"  launches {total}; phase {out['phase_wall_s']:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return total, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2162,6 +2436,8 @@ def main(argv=None) -> int:
     if "files" in phases:
         results["files"] = phase_files(images, results.get("eval", (None, None))[1],
                                        results.get("train_joint", (None, None))[1])
+    if "writers" in phases:
+        results["writers"] = phase_writers()
     smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
@@ -2177,6 +2453,7 @@ def main(argv=None) -> int:
     eval_launches, evaluation = results["eval"]
     ocr_launches, ocr = results["ocr"]
     files_launches, files = results["files"]
+    writers_launches, writers = results["writers"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -2185,7 +2462,7 @@ def main(argv=None) -> int:
                  "training": train_launches[kname],
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
                  "evaluation": eval_launches[kname], "ocr": ocr_launches[kname],
-                 "files": files_launches[kname]}
+                 "files": files_launches[kname], "writers": writers_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -2213,6 +2490,20 @@ def main(argv=None) -> int:
             **r["extra"],
             **({"ptxas": ptxas.get("fused_block", {})} if kname == "fused_block" else {}),
         })
+    # the C = 3 f32 rows: launched by cli.rroi_demo's one forward and backward
+    for kname, base in C3_KERNELS.items():
+        r = rows[kname]
+        by_bytes, by_ops = r["bound"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": KERNEL_META[base][0],
+            "replaces": KERNEL_META[base][1],
+            "launches": writers["rroi_demo"]["launches"][base],
+            "max_abs_err": worst[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": r["library_ms"], "library_call": r["library_note"],
+            "shape": r["shape"], "dtype": r["dtype"],
+            "paths": {"writers": writers["rroi_demo"]["launches"][base]}, **r["extra"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": {"images_per_s": ips, "batch": BATCH,
                               "serve_hw": list(SERVE_HW), "dtype": "bf16",
@@ -2226,6 +2517,7 @@ def main(argv=None) -> int:
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"ocr": ocr}))
     print(json.dumps({"files": files}))
+    print(json.dumps({"writers": writers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,10 @@ data pipeline (:mod:`fots_torch.data`, :mod:`fots_torch.imgproc`), the
 recognition-only stack (:mod:`fots_torch.models.crnn`,
 :mod:`fots_torch.models.own`, :mod:`fots_torch.train_ocr`,
 :mod:`fots_torch.ocr_eval`, :mod:`fots_torch.data.ocr_crops` and their
-CLIs), and the fused residual-block kernel behind its profiling entry
+CLIs), image files read and written byte for byte as OpenCV does
+(:mod:`fots_torch.imageio`; the drawing of :mod:`fots_torch.imgproc`,
+:mod:`fots_torch.debug_vis`, :mod:`fots_torch.cli.rroi_demo`), and the fused
+residual-block kernel behind its profiling entry
 (:mod:`fots_torch.ops.fused_block`, :mod:`fots_torch.profiling`).  Every TPU kernel of ``fots`` has its
 counterpart, hand-written CUDA for ``sm_90a`` under ``fots_torch/csrc/``,
 built at first use by :mod:`fots_torch.kernels.build`, each behind a

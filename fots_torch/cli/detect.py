@@ -5,9 +5,13 @@ Loads a serving snapshot (``.npz``), a port checkpoint directory or the
 reference's torch weights (``-h5``), runs the per-image pipeline on every
 ``*.jpg`` of ``-test_folder`` (sorted; read with :func:`fots_torch.imageio.
 imread`), prints each image's texts and writes ``<name>.txt`` of
-``x1,y1,...,x4,y4,score,text`` rows.  ``fots`` also writes the annotated
-image; the port has no image writer or text renderer yet, so it writes the
-rows only and says so once.
+``x1,y1,...,x4,y4,score,text`` rows and ``<name>.jpg``: the letterboxed
+image the engine ran on with each box drawn in green
+(:func:`fots_torch.imgproc.polylines`, written by
+:func:`fots_torch.imageio.imwrite`; both byte for byte with OpenCV).
+``fots`` also writes each box's text with ``cv2.putText``; OpenCV 5 renders
+it from a built-in TrueType font the port does not have, so the port draws
+the boxes only and says so once.
 
 Usage:
   python -m fots_torch.cli.detect -model artifacts/serving_params.npz \\
@@ -21,6 +25,8 @@ import argparse
 import glob
 import json
 import os
+
+import numpy as np
 
 from fots_torch.checkpoint import detector_from_checkpoint, load_detector
 from fots_torch.pipeline import FOTSInference
@@ -88,6 +94,17 @@ def result_rows(results) -> list:
     return rows
 
 
+def draw_results(im_resized, results) -> np.ndarray:
+    """A copy of the engine's letterboxed image with each result's box drawn
+    as ``fots`` draws it (green, 1 px, ``LINE_8``), without its text."""
+    from fots_torch.imgproc import polylines
+
+    draw = np.array(im_resized, np.uint8, copy=True)
+    for r in results:
+        polylines(draw, r["box"][:8].reshape(4, 2).astype(np.int32), (0, 255, 0))
+    return draw
+
+
 def main(argv=None):
     """Returns {image basename: its rows}."""
     parser = argparse.ArgumentParser(description=__doc__,
@@ -99,8 +116,7 @@ def main(argv=None):
     parser.add_argument("-segm_thresh", type=float, default=0.5)
     parser.add_argument("-test_folder", required=True, help="folder of *.jpg images")
     parser.add_argument("-output", default="./out",
-                        help="where <name>.txt rows go (annotated images are not written: "
-                             "the port has no image writer yet)")
+                        help="where <name>.txt rows and the annotated <name>.jpg go")
     parser.add_argument("-scale_up", action="store_true")
     parser.add_argument("-split_words", action="store_true",
                         help="split multi-word lines into word boxes")
@@ -109,23 +125,24 @@ def main(argv=None):
                              "kernels' plain versions")
     args = parser.parse_args(argv)
 
-    from fots_torch.imageio import imread
+    from fots_torch.imageio import imread, imwrite
 
     engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh, device=args.device)
     os.makedirs(args.output, exist_ok=True)
-    print("annotated images are not written (no image writer in fots_torch yet); "
-          f"rows go to {args.output}/<name>.txt")
+    print("the annotated images show the boxes without their texts (cv2.putText's "
+          "TrueType rendering is not ported)")
     out = {}
     with engine:
         for path in folder_images(args.test_folder):
             im = imread(path)
             if im is None:
                 continue
-            results, _im_resized = engine(im, scale_up=args.scale_up,
-                                          split_words=args.split_words)
+            results, im_resized = engine(im, scale_up=args.scale_up,
+                                         split_words=args.split_words)
             for r in results:
                 print(r["text"])
             base = os.path.basename(path)
+            imwrite(os.path.join(args.output, base), draw_results(im_resized, results))
             rows = result_rows(results)
             with open(os.path.join(args.output, os.path.splitext(base)[0] + ".txt"), "w") as f:
                 f.write("\n".join(rows))

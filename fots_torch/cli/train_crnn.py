@@ -6,9 +6,11 @@ The word crops are the image files of a crop list (``-train_list``, a
 a decoded crop archive (``-crops_npz``, one split of it;
 ``tools/make_torch_ocr_asset.py`` writes ``fots_torch/assets/ocr_crops_u8.npz``,
 the default).  ``-model`` resumes a port ``step_N`` checkpoint (or
-a run directory's latest), whose step the run continues: ``-max_iters``
-bounds the global step.  Checkpoints go to ``-save_path/step_N`` (N applied
-updates) every ``-checkpoint_every`` steps and at the end.
+a run directory's latest).  Steps are numbered as ``fots`` numbers them:
+``i`` counts this run's batches from 0, so a resumed run takes
+``-max_iters`` more steps; ``-save_path/step_i`` is written after every
+step i > 0 with i % ``-checkpoint_every`` == 0, and ``step_{min(i + 1,
+max_iters)}`` at the end.  Each printed loss is the step's own.
 
 Usage:
   python -m fots_torch.cli.train_crnn -train_list crops/gt.txt -max_iters 1000 \\
@@ -60,7 +62,7 @@ def parse(parser: argparse.ArgumentParser, argv):
     return args
 
 
-def run_crops(args, trainer, norm_height: int):
+def run_crops(args, trainer, norm_height: int, running_sum: bool = False):
     """Train ``trainer`` on the crop batches (the list's files, or the
     archive's split) as the flags say."""
     from fots_torch.data.ocr_crops import ocr_crop_batches
@@ -75,7 +77,7 @@ def run_crops(args, trainer, norm_height: int):
                                train_list=args.train_list)
     try:
         return train_loop(trainer, batches, args.max_iters, args.disp_interval, args.save_path,
-                          args.checkpoint_every)
+                          args.checkpoint_every, running_sum=running_sum)
     finally:
         batches.stop()
 

@@ -7,7 +7,7 @@ The readers decode the list's scene files, or take their pixels from
 ``-images_npz`` (``images`` u8 [N, h, w, 3] BGR and ``names``, matched by
 basename), as ``fots_torch.cli.train_joint`` does; the ground truth comes
 from the annotation file beside each entry.  ``-model`` resumes a port
-``step_N`` checkpoint (continuing its step); checkpoints as in
+``step_N`` checkpoint; steps, prints and checkpoints as in
 :mod:`fots_torch.cli.train_crnn`.
 
 Usage:

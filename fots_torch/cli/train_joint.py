@@ -15,9 +15,10 @@ imread`) and read the ground truth from the annotation file beside each;
 ``-images_npz`` instead takes the pixels from a decoded archive (``images``
 u8 [N, h, w, 3] BGR and ``names``, matched to the list entries by basename;
 write a large one with ``np.savez``: the readers memory-map it, where each
-would keep its own copy of a compressed one).  ``fots``'s ``-n_data`` /
-``-n_model`` mesh and ``-debug`` crop dumps are not ported yet and are
-refused.
+would keep its own copy of a compressed one).  ``-debug DIR`` writes the
+crops of the rois sampled for every ``-debug_every``-th step to DIR, named
+and encoded as ``fots`` writes them.  ``fots``'s ``-n_data`` / ``-n_model``
+mesh is not ported yet and is refused.
 
 Usage:
   python -m fots_torch.cli.train_joint -train_list data/synth_big_train.txt \\
@@ -66,7 +67,9 @@ def build(argv=None):
     parser.add_argument("-n_data", type=int, default=None, help="not ported: the mesh")
     parser.add_argument("-n_model", type=int, default=1, help="not ported: the mesh")
     parser.add_argument("-debug", default=None, metavar="DIR",
-                        help="not ported: the roi crop dumps need an image writer")
+                        help="dump the sampled rois' image crops to DIR every -debug_every "
+                             "steps (as fots's data/tshow hook)")
+    parser.add_argument("-debug_every", type=int, default=1000)
     parser.add_argument("-device", default=None,
                         help="default: the card (fails without CUDA); 'cpu' runs the "
                              "kernels' plain versions")
@@ -74,8 +77,6 @@ def build(argv=None):
     if (args.n_data or 1) > 1 or args.n_model > 1:
         parser.error("-n_data / -n_model: the training mesh is not ported yet; fots_torch "
                      "trains on one card")
-    if args.debug:
-        parser.error("-debug: the roi crop dumps are not ported yet (no image writer)")
 
     from fots_torch.checkpoint import (import_torch_state_dict, load_torch_h5,
                                        restore_checkpoint)
@@ -109,7 +110,8 @@ def run(args, trainer):
                                 seed=args.seed, geo_type=args.geo_type, augment=not args.no_aug)
     try:
         trainer.train(batches, max_steps=args.max_iters, log_every=args.disp_interval,
-                      checkpoint_dir=args.save_path, checkpoint_every=args.checkpoint_every)
+                      checkpoint_dir=args.save_path, checkpoint_every=args.checkpoint_every,
+                      debug_dir=args.debug, debug_every=args.debug_every)
     finally:
         batches.stop()
     return trainer

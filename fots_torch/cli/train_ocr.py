@@ -4,9 +4,10 @@ stem's features) on word crops with width bucketing; runs on the card
 unless given ``-device cpu``.
 
 The crops are a crop list's image files (``-train_list``) or a decoded
-crop archive's (``-crops_npz``).  ``-model`` resumes a port ``step_N`` checkpoint (continuing its step; a
-serving snapshot ``.npz`` is taken as a warm start at step 0).  Checkpoints
-as in :mod:`fots_torch.cli.train_crnn`.
+crop archive's (``-crops_npz``).  ``-model`` resumes a port ``step_N`` checkpoint (a serving snapshot ``.npz``
+is taken as a warm start).  Steps and checkpoints as in
+:mod:`fots_torch.cli.train_crnn`; the printed loss is the sum since the
+last print over ``max(1, i % disp_interval + 1)``, as ``fots`` prints it.
 
 Usage:
   python -m fots_torch.cli.train_ocr -crops_npz fots_torch/assets/ocr_crops_u8.npz \\
@@ -29,7 +30,7 @@ def main(argv=None):
 
     trainer = FOTSRecognizerTrainer(lr=args.base_lr, norm_height=args.norm_height,
                                     seed=args.seed, device=args.device)
-    return run_crops(args, trainer, args.norm_height)
+    return run_crops(args, trainer, args.norm_height, running_sum=True)
 
 
 if __name__ == "__main__":

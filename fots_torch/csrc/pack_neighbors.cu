@@ -23,11 +23,14 @@
 // shifted sums on the TPU): the pack is linear, so the cotangent of row i is
 //   df[i] = g[i, 0] + g[i-1, 1] + g[i-W, 2] + g[i-W-1, 3]
 // (a term is zero where its row index is < 0).  It is written as a gather:
-// each thread owns one 16-byte vector of df and reads the four slots that
-// copied it, so no two threads write one address and no atomics are needed;
-// the sum order is fixed, so the result is deterministic (and, in f32,
+// each thread owns one vector of df and reads the four slots that copied
+// it, so no two threads write one address and no atomics are needed; the
+// sum order is fixed, so the result is deterministic (and, in f32,
 // bit-identical to the plain version's left-to-right sum).  Bytes bound it
-// too: it reads g (4x the map) once and writes the map once.
+// too: it reads g (4x the map) once and writes the map once.  Like the
+// forward it takes rows of any C: the vector is 4, 2 or 1 floats, the
+// widest that divides C and both pointers (the 64-channel focr rows take 4;
+// the 3-channel f32 image of the RoIRotate gradient demo takes 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,27 +63,30 @@ __global__ void pack_neighbors_kernel(const typename Vec<V>::T* __restrict__ x,
   }
 }
 
-// grid-stride over the n_rows * vecs_per_row float4 vectors of df
-__global__ void pack_neighbors_bwd_kernel(const float4* __restrict__ g, float4* __restrict__ df,
-                                          long long n_rows, long long width, int vecs_per_row) {
+// L f32 lanes, aligned so that a load or store of one is one vector access
+template <int L> struct alignas(4 * L) FVec { float v[L]; };
+
+// grid-stride over the n_rows * vecs_per_row L-float vectors of df
+template <int L>
+__global__ void pack_neighbors_bwd_kernel(const FVec<L>* __restrict__ g,
+                                          FVec<L>* __restrict__ df, long long n_rows,
+                                          long long width, int vecs_per_row) {
   const long long total = n_rows * vecs_per_row;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long grow = 4LL * vecs_per_row;  // float4s per row of g
+  const long long grow = 4LL * vecs_per_row;  // vectors per row of g
   for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < total; v += stride) {
     const long long i = v / vecs_per_row;
     const int k = (int)(v - i * vecs_per_row);
     // slot s of row i - off[s] read row i: off = {0, 1, W, W + 1}
-    float4 acc = g[i * grow + k];
+    FVec<L> acc = g[i * grow + k];
     const long long src[3] = {i - 1, i - width, i - width - 1};
 #pragma unroll
     for (int s = 1; s < 4; s++) {
       const long long r = src[s - 1];
       if (r >= 0) {
-        const float4 t = g[r * grow + s * vecs_per_row + k];
-        acc.x += t.x;
-        acc.y += t.y;
-        acc.z += t.z;
-        acc.w += t.w;
+        const FVec<L> t = g[r * grow + s * vecs_per_row + k];
+#pragma unroll
+        for (int j = 0; j < L; j++) acc.v[j] += t.v[j];
       }
     }
     df[v] = acc;
@@ -123,22 +129,34 @@ int fots_pack_neighbors(const void* x, void* out, long long n_rows, long long wi
   return (int)cudaGetLastError();
 }
 
-// f32 only.  g: [n_rows, 4 * C] contiguous, df: [n_rows, C]; both 16-byte
-// aligned and C % 4 == 0.  Returns a cudaError_t code.
+// f32 only.  g: [n_rows, 4 * C] contiguous, df: [n_rows, C]; any C > 0.
+// Returns a cudaError_t code.
 int fots_pack_neighbors_bwd(const float* g, float* df, long long n_rows, long long width,
                             int channels, int num_sms, void* stream) {
-  if (channels % 4 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(df) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int vecs = channels / 4;
+  if (channels <= 0) return (int)cudaErrorInvalidValue;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(df);
+  int lanes = 4;
+  while (lanes > 1 && (channels % lanes != 0 || align % (4 * lanes) != 0)) lanes /= 2;
+  const int vecs = channels / lanes;
   const long long total = n_rows * vecs;
   if (total == 0) return 0;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   const long long cap = (long long)num_sms * 16;
   if (blocks > cap) blocks = cap;
-  pack_neighbors_bwd_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(g), reinterpret_cast<float4*>(df), n_rows, width, vecs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+#define FOTS_PACK_BWD_LAUNCH(L)                                                           \
+  case L:                                                                                 \
+    pack_neighbors_bwd_kernel<L><<<(unsigned)blocks, threads, 0, s>>>(                    \
+        reinterpret_cast<const FVec<L>*>(g), reinterpret_cast<FVec<L>*>(df), n_rows, width, \
+        vecs);                                                                            \
+    break;
+    FOTS_PACK_BWD_LAUNCH(4)
+    FOTS_PACK_BWD_LAUNCH(2)
+    FOTS_PACK_BWD_LAUNCH(1)
+#undef FOTS_PACK_BWD_LAUNCH
+  }
   return (int)cudaGetLastError();
 }
 

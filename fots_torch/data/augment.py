@@ -5,8 +5,8 @@ The same functions with the same defaults take the same draws from the same
 ``np.random.Generator`` methods in the same order (``color_jitter``'s hue
 and grey draws and ``word_centered_crop``'s 31 tries included), so a seed
 picks the same pads, shears, scales, crops and jitters as ``fots``: the
-polygons are equal in float64, the pixels differ only where OpenCV's
-rounding is not reproduced exactly (:mod:`fots_torch.imgproc`).
+polygons are equal in float64 and the pixels byte for byte
+(:mod:`fots_torch.imgproc` reproduces OpenCV's rounding).
 
 Each function takes a u8 image array, or a :class:`LazyImage`.  The
 augmented chain pads a scene by 300-500 px a side and scales it up to 2x
@@ -74,7 +74,8 @@ class Warp(LazyImage):
         self.shape = src.shape
 
     def region(self, y0, y1, x0, x1):
-        sx, sy = warp_source_coords(self.m, np.arange(y0, y1), np.arange(x0, x1))
+        sx, sy = warp_source_coords(self.m, np.arange(y0, y1), np.arange(x0, x1),
+                                    self.shape[1])
         ry0, ry1 = int(np.floor(sy.min())), int(np.floor(sy.max())) + 2
         rx0, rx1 = int(np.floor(sx.min())), int(np.floor(sx.max())) + 2
         # every tap lies in the rectangle, which reads 0 outside the source

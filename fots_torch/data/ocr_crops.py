@@ -21,7 +21,7 @@ An archive's split stands for a crop list.  OpenCV's calls have NumPy
 counterparts: ``cv2.resize`` -> :func:`fots_torch.geometry.
 resize_bilinear_u8` (byte-exact), ``cv2.blur`` -> :func:`fots_torch.imgproc.
 blur3_u8` (byte-exact), ``getRotationMatrix2D`` + ``warpAffine`` ->
-:func:`fots_torch.imgproc.warp_affine_u8` (within one level); a grey crop
+:func:`fots_torch.imgproc.warp_affine_u8` (byte-exact); a grey crop
 (``rgb=False``) of an archive is :func:`fots_torch.imgproc.bgr2gray_u8` of
 its BGR pixels (within one level of ``cv2.imread``'s).
 """

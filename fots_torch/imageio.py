@@ -1,4 +1,6 @@
-"""Image files on the host: :func:`imread`, the port's ``cv2.imread``.
+"""Image files on the host: :func:`imread`, the port's ``cv2.imread``, and
+:func:`imwrite` / :func:`imencode_jpg`, its ``cv2.imwrite`` /
+``cv2.imencode(".jpg")`` of JPEG.
 
 The card's machine has no OpenCV and no image decoder, so the port reads
 its own files: baseline JPEG and 8-bit PNG, decoded by
@@ -20,7 +22,12 @@ RGB, RGBA or palette, not interlaced.  Any other encoding (progressive or
 arithmetic JPEG, 12-bit samples, CMYK, YCCK or RGB-coded JPEG, PNG below or
 above 8 bits, interlaced, or with an eXIf chunk, a gamma-tagged colour PNG
 read as grayscale) and a truncated or corrupt file raise ``ValueError`` naming
-the file; ``cv2`` reads some of those.  Host code (numpy and the standard
+the file; ``cv2`` reads some of those.
+
+The writer is ``fots_torch/csrc/image_encode.cpp`` (g++ as well): baseline
+JPEG as libjpeg-turbo writes it under ``cv2.imwrite``'s defaults (quality
+95, 4:2:0 for BGR, one component for grey, standard Huffman tables), byte
+for byte.  ``fots`` writes only ``.jpg``, so only JPEG is written.  Host code (numpy and the standard
 library only): the data readers call it on their spawned workers.
 """
 
@@ -173,3 +180,50 @@ def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
     else:
         return None
     return _orient(im, orientation)
+
+
+JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
+JPEG_QUALITY = 95   # cv2.imwrite's default, the only one fots writes
+
+
+def _encoder() -> ctypes.CDLL:
+    lib = build.load("image_encode")
+    if not getattr(lib, "_fots_typed", False):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.fots_jpeg_encode.restype = ctypes.c_int64
+        lib.fots_jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, u8p, ctypes.c_int64]
+        lib._fots_typed = True
+    return lib
+
+
+def imencode_jpg(im: np.ndarray) -> bytes:
+    """``cv2.imencode(".jpg", im)[1].tobytes()`` of a u8 image: [H, W] grey
+    or [H, W, 3] BGR."""
+    im = np.asarray(im)
+    if im.dtype != np.uint8:
+        raise TypeError(f"imencode_jpg: a u8 image, got {im.dtype}")
+    if not (im.ndim == 2 or (im.ndim == 3 and im.shape[2] == 3)):
+        raise ValueError(f"imencode_jpg: [H, W] or [H, W, 3], got {im.shape}")
+    im = np.ascontiguousarray(im)
+    h, w = im.shape[:2]
+    channels = 1 if im.ndim == 2 else 3
+    cap = 1024 + 440 * (h // 8 + 2) * (w // 8 + 2) * 2
+    out = np.empty(cap, np.uint8)
+    n = _encoder().fots_jpeg_encode(_u8(im), h, w, channels, JPEG_QUALITY, _u8(out), cap)
+    if n < 0:
+        raise ValueError(f"imencode_jpg: cannot encode an image of shape {im.shape}"
+                         if n == -1 else f"imencode_jpg: output of {-n} bytes over {cap}")
+    return out[:n].tobytes()
+
+
+def imwrite(path: str, im: np.ndarray) -> bool:
+    """``cv2.imwrite(path, im)`` for a JPEG file name (``.jpg``, ``.jpeg``,
+    ``.jpe``); any other extension raises ``ValueError``."""
+    if not str(path).lower().endswith(JPEG_EXTENSIONS):
+        raise ValueError(f"imwrite: {path}: the port writes JPEG files only "
+                         f"({', '.join(JPEG_EXTENSIONS)})")
+    data = imencode_jpg(im)
+    with open(path, "wb") as f:
+        f.write(data)
+    return True

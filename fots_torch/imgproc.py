@@ -12,14 +12,39 @@ Each reproduces OpenCV's own arithmetic, vectorised over pixels:
   target masks depend on it pixel for pixel, so it is byte-exact.
 - :func:`box_blur3` is ``cv2.blur(x, (3, 3))`` on f32 (``BORDER_REFLECT_101``),
   :func:`blur3_u8` the same on a u8 image (exact).
-- :func:`bgr2gray_u8` is BGR -> grey within one level of ``cv2.cvtColor``.
+- :func:`bgr2gray_u8` is ``cv2.cvtColor`` BGR -> grey (exact: OpenCV's
+  15-bit fixed-point coefficients).
 - :func:`pad_constant` is ``cv2.copyMakeBorder(..., BORDER_CONSTANT)``.
 - :func:`warp_affine_u8` is ``cv2.warpAffine`` (``INTER_LINEAR``, zero
-  border) of a u8 image as OpenCV 5 computes it: the inverse map's source
-  coordinates and the bilinear lerps in f32, rounded half to even.
+  border) of a u8 image as OpenCV 5 computes it (exact): the inverse map's
+  source coordinates and the bilinear lerps in f32 with fused multiply-adds,
+  rounded half to even.  The coordinates are rounded differently in the
+  vector body of a row (16 pixels a step) and in its scalar tail.
 - :func:`bgr2hsv_u8` is ``cv2.cvtColor`` BGR->HSV on u8 with H in 0..179,
   through OpenCV's ``hsv_shift = 12`` division tables (exact);
-  :func:`hsv2bgr_u8` is HSV->BGR in f32 (within one level of OpenCV's).
+  :func:`hsv2bgr_u8` is HSV->BGR in f32 with fused multiply-adds (exact):
+  OpenCV's vector body (32 pixels a step) truncates, its scalar tail rounds.
+
+The fused multiply-adds are :func:`fma_f32`, exact in f64 arithmetic.
+
+Drawing, for the images the entry points write (each byte for byte):
+
+- :func:`polylines` is ``cv2.polylines(img, [pts], True, color, 1)``
+  (``LINE_8``, shift 0): every edge is the clipped 8-connected line
+  :func:`line_pixels` walks;
+- :func:`get_rotation_matrix_2d` is ``cv2.getRotationMatrix2D`` (its centre
+  a ``Point2f``) in f64;
+- :func:`apply_color_map_jet` is ``cv2.applyColorMap(g, COLORMAP_JET)`` of a
+  grey u8 image, through :data:`JET_LUT`: GNU Octave's ``jet`` at 256 points
+  in f64, stored as f32, interpolated at OpenCV's f32 ``linspace(0, 1, 256)``
+  and scaled by 255 as OpenCV's ``ColorMap`` builds its table;
+- :func:`add_weighted_u8` is ``cv2.addWeighted`` of two u8 images (gamma
+  0): ``fma(a, alpha, fma(b, beta, 0))`` in f32, rounded half to even.
+
+``cv2.putText`` has no counterpart: OpenCV 5 draws even the Hershey faces
+through its built-in TrueType fonts, antialiased (a ``LINE_8`` render at
+scale 0.5 holds over a hundred grey levels), so there is no stroke table to
+reproduce.
 
 The bilinear u8 resize is :func:`fots_torch.geometry.resize_bilinear_u8`.
 """
@@ -216,11 +241,11 @@ def blur3_u8(im: np.ndarray) -> np.ndarray:
 
 
 def bgr2gray_u8(im: np.ndarray) -> np.ndarray:
-    """Grey levels of a u8 [h, w, 3] BGR image, ``0.299 R + 0.587 G +
-    0.114 B`` in 16-bit fixed point, rounded; within one level of
-    ``cv2.cvtColor(im, cv2.COLOR_BGR2GRAY)``.  Returns [h, w, 1]."""
+    """``cv2.cvtColor(im, cv2.COLOR_BGR2GRAY)`` of a u8 [h, w, 3] BGR image:
+    ``0.299 R + 0.587 G + 0.114 B`` in OpenCV's 15-bit fixed point, rounded.
+    Returns [h, w, 1]."""
     b, g, r = (im[..., i].astype(np.int64) for i in range(3))
-    return ((b * 7471 + g * 38470 + r * 19595 + (1 << 15)) >> 16).astype(np.uint8)[..., None]
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)[..., None]
 
 
 def pad_constant(im: np.ndarray, top: int, bottom: int, left: int, right: int,
@@ -247,21 +272,52 @@ def invert_affine(m) -> np.ndarray:
     return np.asarray(m, np.float64).reshape(2, 3)
 
 
-def warp_source_coords(m, rows: np.ndarray, cols: np.ndarray):
+WARP_VECTOR = 16   # warpAffine's u8 vector body: destination pixels a step
+
+
+def fma_f32(a, b, c) -> np.ndarray:
+    """``a * b + c`` of f32 values rounded once to f32, as a fused
+    multiply-add computes it.  The product is exact in f64; the sum's
+    rounding error comes from Knuth's two-sum, and decides the one case in
+    which rounding the f64 sum to f32 would round twice: a sum halfway
+    between two f32 values."""
+    a64, b64, c64 = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a64 * b64
+    s = p + c64
+    z = s - p
+    err = (p - (s - z)) + (c64 - z)
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    d = s - r64
+    away = np.nextafter(r, np.where(d > 0, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (d != 0) & (2 * d == away.astype(np.float64) - r64)
+    return np.where(tie & (err != 0) & ((err > 0) == (d > 0)), away, r)
+
+
+def warp_source_coords(m, rows: np.ndarray, cols: np.ndarray, width: int):
     """f32 source coordinates (sx, sy) [len(rows), len(cols)] of destination
-    pixels ``rows`` x ``cols`` under forward matrix ``m``: the inverse map in
-    f32, ``i00 x + i01 y + i02``."""
+    pixels ``rows`` x ``cols`` of a ``width``-wide warp under forward matrix
+    ``m``: the inverse map ``i0 x + i1 y + i2`` in f32, as warpAffine's u8
+    kernel rounds it: ``fma(x, i0, i1 y + i2)`` in a row's vector body (the
+    first ``width // 16 * 16`` pixels), ``fma(x, i0, i1 y) + i2`` in its
+    scalar tail."""
     inv = invert_affine(m).astype(np.float32)
     y = np.asarray(rows, np.float32)[:, None]
     x = np.asarray(cols, np.float32)[None, :]
-    return inv[0, 0] * x + inv[0, 1] * y + inv[0, 2], inv[1, 0] * x + inv[1, 1] * y + inv[1, 2]
+    body = np.asarray(cols)[None, :] < width // WARP_VECTOR * WARP_VECTOR
+    out = []
+    for i0, i1, i2 in inv:
+        vec = fma_f32(x, i0, i1 * y + i2)
+        tail = fma_f32(x, i0, i1 * y) + i2
+        out.append(np.where(body, vec, tail))
+    return out[0], out[1]
 
 
 def bilinear_sample_u8(fetch, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
     """u8 bilinear sampling at f32 coordinates as warpAffine interpolates:
-    two f32 lerps along x, one along y, rounded half to even.
-    ``fetch(ys, xs)`` returns the source's u8 pixels [..., c] at integer
-    coordinates, zero outside."""
+    two f32 lerps along x and one along y, each a fused multiply-add,
+    rounded half to even.  ``fetch(ys, xs)`` returns the source's u8 pixels
+    [..., c] at integer coordinates, zero outside."""
     ix, iy = np.floor(sx), np.floor(sy)
     a = (sx - ix)[..., None]
     b = (sy - iy)[..., None]
@@ -270,9 +326,9 @@ def bilinear_sample_u8(fetch, sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
     p01 = fetch(iy, ix + 1).astype(np.float32)
     p10 = fetch(iy + 1, ix).astype(np.float32)
     p11 = fetch(iy + 1, ix + 1).astype(np.float32)
-    v0 = p00 + a * (p01 - p00)
-    v1 = p10 + a * (p11 - p10)
-    return np.clip(np.rint(v0 + b * (v1 - v0)), 0, 255).astype(np.uint8)
+    v0 = fma_f32(a, p01 - p00, p00)
+    v1 = fma_f32(a, p11 - p10, p10)
+    return np.clip(np.rint(fma_f32(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
 
 
 def zero_border_fetch(im: np.ndarray):
@@ -293,7 +349,7 @@ def warp_affine_u8(im: np.ndarray, m, dsize: Tuple[int, int]) -> np.ndarray:
     0) of a u8 image [h, w, c]; ``dsize`` is (width, height)."""
     if im.dtype != np.uint8 or im.ndim != 3:
         raise ValueError(f"expected a u8 [h, w, c] image, got {im.dtype} {im.shape}")
-    sx, sy = warp_source_coords(m, np.arange(dsize[1]), np.arange(dsize[0]))
+    sx, sy = warp_source_coords(m, np.arange(dsize[1]), np.arange(dsize[0]), dsize[0])
     return bilinear_sample_u8(zero_border_fetch(im), sx, sy)
 
 
@@ -327,26 +383,104 @@ def bgr2hsv_u8(im: np.ndarray) -> np.ndarray:
 
 
 _SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+HSV_VECTOR = 32   # HSV->BGR's u8 vector body: pixels a step
 
 
 def hsv2bgr_u8(im: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(im, COLOR_HSV2BGR)`` of u8 HSV (H in 0..179) in f32
-    arithmetic."""
+    """``cv2.cvtColor(im, COLOR_HSV2BGR)`` of a u8 HSV image [h, w, 3] (H in
+    0..179) in f32 arithmetic, as OpenCV 5 computes it row by row: the
+    sector table with ``1 - s h`` and ``1 - s (1 - h)`` as fused
+    multiply-adds, times 255, truncated in a row's vector body (the first
+    ``w // 32 * 32`` pixels) and rounded half to even in its tail."""
     f32 = np.float32
+    one = f32(1.0)
     h = im[..., 0].astype(f32) * f32(6.0 / 180.0)
     s = im[..., 1].astype(f32) * f32(1.0 / 255.0)
     v = im[..., 2].astype(f32) * f32(1.0 / 255.0)
     h = np.fmod(h, f32(6.0))
     sector = np.floor(h).astype(np.int64)
     h = h - sector.astype(f32)
-    bad = (sector < 0) | (sector >= 6)
-    sector = np.where(bad, 0, sector)
-    h = np.where(bad, f32(0), h)
-    one = f32(1.0)
-    tab = np.stack([v, v * (one - s), v * (one - s * h), v * (one - s * (one - h))], -1)
-    idx = _SECTOR[sector]                                      # [..., 3]
-    bgr = np.take_along_axis(tab, idx, axis=-1)
-    gray = (s == 0)[..., None]
-    bgr = np.where(gray, v[..., None], bgr)
-    return np.clip(np.rint(bgr * f32(255.0)), 0, 255).astype(np.uint8)
+    tab = np.stack([v, v * (one - s), v * fma_f32(-s, h, one),
+                    v * fma_f32(-s, one - h, one)], -1)
+    bgr = np.take_along_axis(tab, _SECTOR[sector], axis=-1) * f32(255.0)
+    body = np.arange(im.shape[-2]) < im.shape[-2] // HSV_VECTOR * HSV_VECTOR
+    out = np.where(body[:, None], np.floor(bgr), np.rint(bgr))
+    return np.clip(out, 0, 255).astype(np.uint8)
 
+
+# --------------------------------------------------------------------------
+# drawing and colour maps
+# --------------------------------------------------------------------------
+
+def polylines(img: np.ndarray, pts, color) -> np.ndarray:
+    """``cv2.polylines(img, [pts], True, color, 1)`` in place (and
+    returned): one closed polyline of int32 [n, 2] points (x, y),
+    ``LINE_8``, thickness 1, shift 0."""
+    pts = np.asarray(pts)
+    if pts.dtype != np.int32 or pts.ndim != 2:
+        raise TypeError(f"polylines takes int32 [n, 2] points (as cv2 does), got "
+                        f"{pts.dtype} {pts.shape}")
+    size = (img.shape[1], img.shape[0])
+    pts = pts.astype(np.int64)
+    for i in range(len(pts)):
+        xs, ys = line_pixels(size, tuple(pts[i - 1]), tuple(pts[i]))
+        img[ys, xs] = color
+    return img
+
+
+def get_rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: f64 [2, 3], the
+    centre rounded to f32 as cv2's ``Point2f`` holds it."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = float(angle) * (np.pi / 180)
+    alpha = np.cos(a) * float(scale)
+    beta = np.sin(a) * float(scale)
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def _jet_lut() -> np.ndarray:
+    f32 = np.float32
+    n = 256
+    x = np.arange(n) * (1.0 / (n - 1))
+    x[-1] = 1.0
+    r = (((x >= 3 / 8) & (x < 5 / 8)) * (4 * x - 3 / 2) + ((x >= 5 / 8) & (x < 7 / 8))
+         + (x >= 7 / 8) * (-4 * x + 9 / 2))
+    g = (((x >= 1 / 8) & (x < 3 / 8)) * (4 * x - 1 / 2) + ((x >= 3 / 8) & (x < 5 / 8))
+         + ((x >= 5 / 8) & (x < 7 / 8)) * (-4 * x + 7 / 2))
+    b = ((x < 1 / 8) * (4 * x + 1 / 2) + ((x >= 1 / 8) & (x < 3 / 8))
+         + ((x >= 3 / 8) & (x < 5 / 8)) * (-4 * x + 5 / 2))
+    pts = np.arange(n, dtype=f32) * (f32(1) / f32(n - 1))      # OpenCV's linspace
+    hi = np.maximum(np.arange(n), 1)
+    lo = hi - 1
+    out = []
+    for y in (b, g, r):                                       # interp1 at its own nodes
+        y = y.astype(f32)
+        v = y[lo] + ((pts - pts[lo]) * (y[hi] - y[lo])) / (pts[hi] - pts[lo])
+        out.append(np.rint(v * f32(255)))
+    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
+
+
+#: ``COLORMAP_JET``'s table, BGR [256, 3]
+JET_LUT = _jet_lut()
+
+
+def apply_color_map_jet(gray: np.ndarray) -> np.ndarray:
+    """``cv2.applyColorMap(gray, cv2.COLORMAP_JET)`` of a u8 [h, w] image:
+    BGR [h, w, 3]."""
+    gray = np.asarray(gray)
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise TypeError(f"apply_color_map_jet takes a u8 [h, w] image, got "
+                        f"{gray.dtype} {gray.shape}")
+    return JET_LUT[gray]
+
+
+def add_weighted_u8(a: np.ndarray, alpha: float, b: np.ndarray, beta: float) -> np.ndarray:
+    """``cv2.addWeighted(a, alpha, b, beta, 0)`` of two u8 images of one
+    shape."""
+    if a.shape != b.shape or a.dtype != np.uint8 or b.dtype != np.uint8:
+        raise ValueError(f"add_weighted_u8: two u8 images of one shape, got "
+                         f"{a.dtype} {a.shape} and {b.dtype} {b.shape}")
+    f32 = np.float32
+    v = fma_f32(a.astype(f32), f32(alpha), fma_f32(b.astype(f32), f32(beta), f32(0)))
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)

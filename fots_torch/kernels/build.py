@@ -2,8 +2,8 @@
 
 CUDA kernels (``fots_torch/csrc/*.cu``) compile with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface; the host NMS
-(``csrc/nms_core.cpp``) and the image decoder (``csrc/image_decode.cpp``)
-compile with ``g++``.  Outputs go to
+(``csrc/nms_core.cpp``) and the image decoder and encoder
+(``csrc/image_decode.cpp``, ``csrc/image_encode.cpp``) compile with ``g++``.  Outputs go to
 ``build/fots_torch/`` beside the package, named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Builds start together (one compiler process per source) and a
@@ -41,6 +41,7 @@ SOURCES = {
     "fused_block": "fused_block.cu",
     "nms_core": "nms_core.cpp",
     "image_decode": "image_decode.cpp",
+    "image_encode": "image_encode.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")

@@ -157,15 +157,13 @@ def pack_neighbors_cuda(features):
 
 def pack_neighbors_bwd_cuda(g, feature_shape):
     """Launch K4'-bwd on the quads' cotangent ``g`` [B*H*W, 4C] (f32,
-    contiguous, C % 4 == 0); returns the map's cotangent [B, H, W, C]."""
+    contiguous, any C); returns the map's cotangent [B, H, W, C]."""
     build.check_kernel_input(g, "pack_neighbors_bwd", (torch.float32,))
     b, h, w, c = feature_shape
     n = b * h * w
     if g.shape != (n, 4 * c):
         raise ValueError(f"pack_neighbors_bwd: cotangent shape {tuple(g.shape)}, "
                          f"expected {(n, 4 * c)}")
-    if c % 4 != 0:
-        raise ValueError(f"pack_neighbors_bwd: C = {c} is not a multiple of 4")
     df = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
     rc = _lib().fots_pack_neighbors_bwd(
         g.data_ptr(), df.data_ptr(), n, w, c, build.num_sms(g.device),

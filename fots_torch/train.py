@@ -21,8 +21,9 @@ equal seeds draw the same), roi sampling from its ``np.random.Generator``.
 A run starts from scratch (:func:`fots_torch.models.detector.init_detector`
 from the seed) or from a given model, writes ``step_N`` checkpoints
 (:mod:`fots_torch.checkpoint`) and resumes from them; the training CLI is
-:mod:`fots_torch.cli.train_joint`.  Left out so far: the debug crop dumps
-and data-parallel training over a mesh.
+:mod:`fots_torch.cli.train_joint`, whose ``-debug`` writes the sampled rois'
+crops (:mod:`fots_torch.debug_vis`).  Left out so far: data-parallel training
+over a mesh.
 """
 
 from __future__ import annotations
@@ -270,6 +271,9 @@ class Trainer:
         #: per batch fetched: its reader's seconds by stage (decode,
         #: augment, targets) where it carries them
         self.stage_log: List[tuple] = []
+        #: per roi crop dump of :meth:`train`: (step index, crops written,
+        #: host seconds)
+        self.debug_log: List[tuple] = []
 
     def _build_roi_batch(self, batch) -> RoiBatch:
         cands = hw = None
@@ -345,8 +349,16 @@ class Trainer:
         self._pending.clear()
         return out
 
+    def _dump_rois(self, batch, roi_batch, out_dir: str, step_idx: int) -> None:
+        from fots_torch.debug_vis import dump_roi_crops
+
+        t = time.perf_counter()
+        n = dump_roi_crops(batch.images, roi_batch, self.codec, out_dir, step_idx)
+        self.debug_log.append((step_idx, n, time.perf_counter() - t))
+
     def train(self, batches, max_steps: int, log_every: int = 5,
-              checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10000):
+              checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10000,
+              debug_dir: Optional[str] = None, debug_every: int = 1000):
         """Pipelined loop up to global step ``max_steps``.  The step index
         starts at :attr:`global_step` (so a resumed run continues its
         numbering and ``max_steps`` is a global bound).  One prefetch
@@ -358,7 +370,11 @@ class Trainer:
         up its step index and applies no update.  With ``checkpoint_dir``,
         a checkpoint labelled with the applied updates is written after
         every index i with (i + 1) % ``checkpoint_every`` == 0 (and the
-        averagers reset), and one at the end."""
+        averagers reset), and one at the end.  With ``debug_dir``, the rois
+        sampled for every step i with i % ``debug_every`` == 0 are cropped
+        from its images and written there before the step is dispatched
+        (:func:`fots_torch.debug_vis.dump_roi_crops`, host only, as ``fots``
+        does); :attr:`debug_log` keeps (i, crops written, host seconds)."""
         from fots_torch.checkpoint import save_checkpoint
 
         it = iter(batches)
@@ -386,7 +402,10 @@ class Trainer:
                     break
                 nxt = fetch() if step_idx + 1 < max_steps else None
                 try:
-                    self.step(cur[0], defer=True, prepared=rois.result(), step_idx=step_idx)
+                    prepared = rois.result()
+                    if debug_dir and step_idx % debug_every == 0:
+                        self._dump_rois(cur[0], prepared[0], debug_dir, step_idx)
+                    self.step(cur[0], defer=True, prepared=prepared, step_idx=step_idx)
                     ok = True
                 except Exception:
                     traceback.print_exc()

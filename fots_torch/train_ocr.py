@@ -269,31 +269,35 @@ def load_weights(trainer: _OcrTrainer, path: str) -> int:
 
 def train_loop(trainer: _OcrTrainer, batches, max_iters: int, disp_interval: int = 10,
                save_path: Optional[str] = None, checkpoint_every: int = 1000,
-               eval_interval: int = 0) -> _OcrTrainer:
-    """The recognition CLIs' loop: one ``trainer.step`` per batch until the
-    global step reaches ``max_iters`` (a resumed trainer continues its
-    numbering); the mean loss since the last print every ``disp_interval``
-    steps; with ``save_path`` a ``step_N`` checkpoint (N applied updates)
-    after every step i with (i + 1) % ``checkpoint_every`` == 0 and one at the
-    end; with ``eval_interval`` (:class:`CRNNE2ETrainer`) the exact reads of
-    the batch just trained every ``eval_interval`` steps."""
+               eval_interval: int = 0, running_sum: bool = False) -> _OcrTrainer:
+    """The recognition CLIs' loop, numbered as ``fots``'s: ``i`` counts this
+    run's batches from 0, so a resumed trainer takes ``max_iters`` more
+    steps (its history goes on from its global step).  Every
+    ``disp_interval`` steps it prints step i's loss, or with ``running_sum``
+    (``train_ocr``) the losses summed since the last print divided by
+    ``max(1, i % disp_interval + 1)``; with ``eval_interval``
+    (:class:`CRNNE2ETrainer`) the exact reads of the batch just trained every
+    ``eval_interval`` steps; with ``save_path`` a checkpoint labelled ``i``
+    after every step i > 0 with i % ``checkpoint_every`` == 0, and one
+    labelled ``min(i + 1, max_iters)`` at the end."""
     from fots_torch.checkpoint import save_checkpoint
 
-    losses: List[float] = []
-    for batch in batches:
-        i = trainer.global_step
+    i, running = 0, 0.0
+    for i, batch in enumerate(batches):
         if i >= max_iters:
             break
-        losses.append(trainer.step(batch))
+        loss = trainer.step(batch)
+        running += loss
         if disp_interval and i % disp_interval == 0:
-            print(f"step {i} ctc_loss {sum(losses) / len(losses):.4f}", flush=True)
-            losses = []
+            shown = running / max(1, i % disp_interval + 1) if running_sum else loss
+            print(f"step {i} ctc_loss {shown:.4f}", flush=True)
+            running = 0.0
         if eval_interval and i > 0 and i % eval_interval == 0:
             preds, gts = trainer.predict(batch)
             print(f"  eval: {sum(p == g for p, g in zip(preds, gts))}/{len(gts)} exact",
                   flush=True)
-        if save_path and (i + 1) % checkpoint_every == 0:
-            save_checkpoint(save_path, trainer, trainer.global_step)
+        if save_path and i > 0 and i % checkpoint_every == 0:
+            save_checkpoint(save_path, trainer, i)
     if save_path:
-        print(f"saved {save_checkpoint(save_path, trainer, trainer.global_step)}", flush=True)
+        print(f"saved {save_checkpoint(save_path, trainer, min(i + 1, max_iters))}", flush=True)
     return trainer

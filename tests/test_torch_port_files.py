@@ -273,7 +273,8 @@ def test_eval_e2e_images_list_matches_fots(tmp_path, fots_uses):
 def test_detect_cli_rows_match_fots(tmp_path, scene_folder, fots_uses, capsys):
     rows = port_detect_cli.main(["-model", SNAPSHOT, "-test_folder", scene_folder, "-output",
                                  str(tmp_path / "port"), "-device", "cpu"])
-    assert "annotated images are not written" in capsys.readouterr().out
+    assert "the boxes without their texts" in capsys.readouterr().out
+    assert all(os.path.isfile(tmp_path / "port" / base) for base in rows)
     jax_detect_cli.main(["-model", SNAPSHOT, "-test_folder", scene_folder, "-output",
                          str(tmp_path / "fots")])
     assert sorted(rows) == ["img_000.jpg", "img_001.jpg"]

@@ -292,6 +292,23 @@ def test_train_joint_cli_from_scratch_checkpoint_resume_and_eval(scene_list, tmp
         assert isinstance(results, list)
 
 
+def test_train_joint_reader_pixels_and_targets_equal_fots(scene_list):
+    """The CLI's reader at its test settings (one worker, seed 0, 128 px
+    augmented crops) makes the batches ``fots``'s does from the same draws:
+    targets and augmented pixels byte for byte."""
+    from fots.data.detection import detection_generator as fots_generator
+    from fots_torch.data.detection import detection_generator
+
+    got = detection_generator(scene_list, SMOKE_IMAGES, input_size=128, batch_size=2, seed=0)
+    want = fots_generator(scene_list, input_size=128, batch_size=2, seed=0)
+    for _ in range(3):
+        a, b = next(got), next(want)
+        for k in ("images", "score_maps", "geo_maps", "training_masks", "gt_idxs"):
+            x, y = getattr(a, k), getattr(b, k)
+            assert x.dtype == y.dtype and np.array_equal(x, y), k
+        assert a.labels == b.labels
+
+
 def test_train_joint_refuses_missing_pixels_and_defaults_to_cuda(scene_list, tmp_path,
                                                                 monkeypatch):
     bad = tmp_path / "bad.txt"
