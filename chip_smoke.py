@@ -31,15 +31,18 @@ result line):
    autograd of the plain version.  K2', K3', K1' and K1'-bwd also at the
    recognition trainers' crop buckets (the stem's CReLU-INs and the head's
    INs of the narrowest and the widest batch ``eval_ocr`` makes), and K4'
-   at every vector width it picks (16-byte rows of the feature maps, the
-   3-channel f32 and bf16 images of the CRNN crops at [2, 512, 512, 3]:
-   12- and 6-byte rows), bit-exact, with the image rows' times; K4'-bwd at
-   every vector width it picks (4 floats at the feature maps, 2 at C = 6
-   and 2, 1 at C = 3 and 5), bit-exact, and K4' and K4'-bwd at C = 3 f32 at
-   ``cli.rroi_demo``'s image [1, 640, 960, 3] and at [2, 512, 512, 3],
-   timed beside their plain versions, ``index_add_`` and their bound.  The NMS
-   candidates of two maps with more than k pixels tied at 1.0 must equal
-   the CPU's;
+   on both of its kernels, bit-exact: the 16-byte kernel at the feature
+   maps, the narrow kernel at f32 C = 1, 2, 3, 5, 6, 7 and bf16 C = 1, 2, 3,
+   5, 6, 7, 12 (two images with an odd width, fewer rows than one block's
+   span, a row count no span divides, a source 4 bytes past a 16-byte
+   boundary) and at the 3-channel f32 and bf16 images of the CRNN crops at
+   [2, 512, 512, 3], with the image rows' times; K4'-bwd likewise on its
+   4-float and narrow kernels at f32 C = 1, 2, 3, 5, 6, 7, and K4' and
+   K4'-bwd at C = 3 f32 at ``cli.rroi_demo``'s image [1, 640, 960, 3] and
+   at [2, 512, 512, 3], timed beside their plain versions, ``index_add_``
+   and their bound.  Every timed row has its event-bracketed ms and its
+   device-busy ms (torch.profiler).  The NMS candidates of two maps with
+   more than k pixels tied at 1.0 must equal the CPU's;
 3. the CUDA port against the CPU port (f32, TF32 off for this phase only)
    on one serving batch of two smoke images at 704x1280 with the shipped
    snapshot: same box count per image, quad corners within 1 px,
@@ -155,16 +158,19 @@ result line):
 13. the image writers (a main path, ``writers``): ``imageio.imencode_jpg``
    of the sources under ``fots_torch/assets/encode_ref`` must equal the
    committed ``cv2.imwrite`` files byte for byte (the median encode ms of
-   the 640x960 scene printed); then, each with the launch counts zeroed
+   the 640x960 scene printed), and ``imgproc.put_text`` the committed
+   ``cv2.putText`` renders under ``fots_torch/assets/text_ref``; then, each
+   with the launch counts zeroed
    just before it and read just after: ``cli.rroi_demo`` on the held-out
    scene ``img_112`` with its ground truth (``-pooled_height 44 -max_rois
    8``, the card by default) must launch exactly one K4' and one K4'-bwd,
    give the CPU port's crops within 1e-3 and gradient within 1e-4 of its
    largest magnitude with the same support, and write files that decode;
    ``cli.detect`` over the 16 held-out jpgs must write the engine's rows on
-   the asset pixels and, for each image, the port's drawing of its boxes on
-   the letterboxed image, encoded by the port (ms an image with and without
-   the drawing and writing printed); ``train_joint -debug`` (4 steps at batch
+   the asset pixels and, for each image, the port's drawing of its rows on
+   the letterboxed image (each box, then its text, as ``fots`` draws them),
+   encoded by the port (ms an image with and without the drawing and
+   writing, and ``put_text``'s ms, printed); ``train_joint -debug`` (4 steps at batch
    8, 512x512, a dump every 2) must dump at steps 0 and 2 under ``fots``'s
    names, every file decoding (host ms a dump adds printed).
 
@@ -227,6 +233,7 @@ DEMO_SHAPE = (1, 640, 960, 3)  # K4' and K4'-bwd on cli.rroi_demo's image
 DEMO_POOLED_HEIGHT = 44
 DEMO_MAX_ROIS = 8
 ENCODE_REF = os.path.join(REPO, "fots_torch", "assets", "encode_ref")
+TEXT_REF = os.path.join(REPO, "fots_torch", "assets", "text_ref")
 ENCODE_REPEATS = 15
 DEBUG_STEPS = 4          # train_joint -debug: steps, and a dump every DEBUG_EVERY
 DEBUG_EVERY = 2
@@ -529,24 +536,38 @@ def phase_kernels(dev, peaks):
         report("spatial_norm", f"CReLU-IN {str(dtype)[6:]} {shape} groups={groups}",
                forward_ok(got, want, dtype), *errors(got, want))
 
-    def pack_case(shape, dtype):
-        f = rand(shape, dtype)
+    def sliced(shape, dtype, offset):
+        """A contiguous tensor of ``shape`` that starts ``offset`` elements
+        into its storage (offset 0: a fresh tensor)."""
+        n = math.prod(shape)
+        return rand((n + offset,), dtype)[offset:].view(shape)
+
+    def pack_route(row_bytes, *tensors):
+        wide = row_bytes % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+        return "16-byte" if wide else "narrow"
+
+    def pack_case(shape, dtype, offset=0):
+        f = sliced(shape, dtype, offset)
         got = trr.pack_neighbors(f)
         want = trr.pack_neighbors_ref(f)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         name = "pack_neighbors C=3" if (shape[3], dtype) == (3, torch.float32) else "pack_neighbors"
-        report(name, f"{str(dtype)[6:]} {shape} bit-exact={equal}", equal, *errors(got, want))
+        route = pack_route(shape[3] * f.element_size(), f, got)
+        report(name, f"{str(dtype)[6:]} {shape} {route} source at +{f.data_ptr() % 16} bytes "
+               f"bit-exact={equal}", equal, *errors(got, want))
 
-    def pack_bwd_case(shape):
+    def pack_bwd_case(shape, offset=0):
         n = shape[0] * shape[1] * shape[2]
-        g = rand((n, 4 * shape[3]))
+        g = sliced((n, 4 * shape[3]), torch.float32, offset)
         got = trr.pack_neighbors_bwd_cuda(g, shape)
         want = trr.pack_neighbors_bwd_ref(g, shape)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         name = "pack_neighbors_bwd C=3" if shape[3] == 3 else "pack_neighbors_bwd"
-        report(name, f"f32 {shape} bit-exact={equal}", equal, *errors(got, want))
+        route = pack_route(shape[3] * 4, g, got)
+        report(name, f"f32 {shape} {route} g at +{g.data_ptr() % 16} bytes bit-exact={equal}",
+               equal, *errors(got, want))
 
     def fused_inputs(shape, dtype, seed):
         """Inputs at the scales of the JAX package's K5 tests."""
@@ -717,23 +738,41 @@ def phase_kernels(dev, peaks):
             in_case(n, h, w // 4, c, torch.float32, True, 0.01)
             bwd_case(n, h, w // 4, c, True, 0.01)
 
-    # K4' moves a row in the widest vector that divides it: 16 bytes at the
-    # serving and training maps, 4 at the 3-channel f32 images of the CRNN
-    # crops (12-byte rows), 2 at 3-channel bf16 (6 bytes), 8 at 2-channel f32
+    # K4': the 16-byte kernel at the serving and training maps (and rows of
+    # 32 and 48 bytes), the narrow kernel at every other row.  Narrow cases:
+    # each C of f32 and bf16 at B = 2 with odd W (rows that run from one
+    # image into the next), with fewer rows than one block's span, with a
+    # row count no span divides, from a source 4 bytes past a 16-byte
+    # boundary (a sliced view; also a 16-byte row, which then goes narrow),
+    # and at the three timed shapes
     for shape, dtype in (((BATCH, H // 4, W // 4, 64), torch.bfloat16),
                          ((TRAIN_BATCH, TH // 4, TW // 4, 64), torch.float32),
                          ((TRAIN_BATCH, J // 4, J // 4, 64), torch.float32),
                          ((3, 5, 7, 8), torch.float32), ((2, 3, 5, 24), torch.bfloat16),
                          (IMAGE_PACK_SHAPE, torch.float32), (IMAGE_PACK_SHAPE, torch.bfloat16),
-                         (DEMO_SHAPE, torch.float32),
-                         ((3, 5, 7, 2), torch.float32), ((2, 3, 5, 1), torch.bfloat16)):
+                         (DEMO_SHAPE, torch.float32)):
         pack_case(shape, dtype)
-    # K4'-bwd likewise takes any C: vectors of 4 floats, of 2 (C = 6, 2) and
-    # of 1 (C = 3, 5: the RoIRotate demo's image and the CRNN crops' images)
+    for dtype, channels in ((torch.float32, (1, 2, 3, 5, 6, 7)),
+                            (torch.bfloat16, (1, 2, 3, 5, 6, 7, 12))):
+        for c in channels:
+            pack_case((2, 5, 7, c), dtype)          # N = 70, under one span
+            pack_case((2, 37, 61, c), dtype)        # N = 4514, ragged last span
+            # 4 bytes into the storage
+            pack_case((2, 37, 61, c), dtype, offset=1 if dtype == torch.float32 else 2)
+    pack_case((2, 37, 61, 4), torch.float32, offset=1)
+    pack_case((2, 3, 5, 8), torch.bfloat16, offset=2)
+    pack_case(IMAGE_PACK_SHAPE, torch.float32, offset=1)
+    # K4'-bwd: the 4-float kernel at the training maps (and C = 8, 4), the
+    # narrow kernel at every other C, in the same cases
     for shape in ((TRAIN_BATCH, TH // 4, TW // 4, 64), (TRAIN_BATCH, J // 4, J // 4, 64),
-                  (3, 5, 7, 8), (2, 3, 5, 4), IMAGE_PACK_SHAPE, DEMO_SHAPE, (3, 5, 7, 3),
-                  (2, 3, 5, 6), (2, 3, 5, 5), (3, 4, 6, 2)):
+                  (3, 5, 7, 8), (2, 3, 5, 4), IMAGE_PACK_SHAPE, DEMO_SHAPE):
         pack_bwd_case(shape)
+    for c in (1, 2, 3, 5, 6, 7):
+        pack_bwd_case((2, 5, 7, c))
+        pack_bwd_case((2, 37, 61, c))
+        pack_bwd_case((2, 37, 61, c), offset=1)
+    pack_bwd_case((2, 37, 61, 4), offset=1)
+    pack_bwd_case(DEMO_SHAPE, offset=1)
 
     # NMS candidates with more than k pixels tied at 1.0 (the snapshot's
     # saturated sigmoid) at the serving map size: the card takes the same
@@ -780,7 +819,10 @@ def phase_kernels(dev, peaks):
 
     def row(name, shape, dtype, kernel, plain, library, nbytes, ops, library_note=None,
             rate=f32_rate, **extra):
-        rows[name] = dict(ms=cuda_median_ms(kernel), plain_ms=cuda_median_ms(plain),
+        # ms: CUDA events around each call; device_busy_ms: the device's busy
+        # time a call (torch.profiler), without its waits for the host
+        rows[name] = dict(ms=cuda_median_ms(kernel), device_busy_ms=cuda_busy_ms(kernel),
+                          plain_ms=cuda_median_ms(plain),
                           library_ms=None if library is None else cuda_median_ms(library),
                           library_note=library_note, bound=(nbytes / bw, ops / rate),
                           shape=list(shape), dtype=dtype, extra=extra)
@@ -894,8 +936,9 @@ def phase_kernels(dev, peaks):
         # the entry is the main path's shape (printed with the rows below);
         # the crops' images ride along
         r = by_shape[IMAGE_PACK_SHAPE]
-        print(f"  {name} at {IMAGE_PACK_SHAPE} f32: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
+        print(f"  {name} at {IMAGE_PACK_SHAPE} f32: kernel {r['ms']:.4f} ms, device busy "
+              f"{r['device_busy_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']} ms "
               f"({r['library_note']}), bound {1e3 * max(r['bound']):.4f} ms")
         entry = dict(by_shape[DEMO_SHAPE])
         entry["extra"] = {"at_" + "x".join(map(str, IMAGE_PACK_SHAPE)): {
@@ -925,9 +968,7 @@ def phase_kernels(dev, peaks):
         "F.conv2d + F.instance_norm + add + relu: four PyTorch calls, no single one "
         "computes the function", rate=bf16_rate,
         bound_ms_recompute_design=1e3 * max(4 * act_bytes / bw, 2 * conv_ops / bf16_rate),
-        bound_ms_compute_once_design=1e3 * max(5 * act_bytes / bw, conv_ops / bf16_rate),
-        # without the card's waits for the host between the launches of one call
-        device_busy_ms=cuda_busy_ms(lambda: tfb.conv_in_act_cuda(fx, fw, fg, fb_, fr)))
+        bound_ms_compute_once_design=1e3 * max(5 * act_bytes / bw, conv_ops / bf16_rate))
 
     # the stem's CReLU-IN as served now (K2' + fold + K3') and as PR 1 ran
     # it (torch.cat + K1'), for the record
@@ -936,19 +977,19 @@ def phase_kernels(dev, peaks):
     cat_ms = cuda_median_ms(lambda: tin.instance_norm_cuda(torch.cat([xs, -xs], -1),
                                                            sc32, bi32, 1e-5, 0.01))
     for name, r in rows.items():
-        print(f"  {name} at {tuple(r['shape'])} {r['dtype']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms ({r['library_note']}), "
-              f"bound {1e3 * max(r['bound']):.4f} ms"
+        print(f"  {name} at {tuple(r['shape'])} {r['dtype']}: kernel {r['ms']:.4f} ms, device "
+              f"busy {r['device_busy_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']} ms ({r['library_note']}), bound "
+              f"{1e3 * max(r['bound']):.4f} ms"
               + (f"; by route {r['extra']['route_ms']}, device busy "
-                 f"{r['extra']['route_device_busy_ms']}" if "route_ms" in r["extra"] else "")
-              + (f"; device busy {r['extra']['device_busy_ms']:.4f} ms"
-                 if "device_busy_ms" in r["extra"] else ""))
+                 f"{r['extra']['route_device_busy_ms']}" if "route_ms" in r["extra"] else ""))
     print(f"  CReLU-IN at {tuple(xs.shape)} bf16: K2'+fold+K3' {crelu_ms:.4f} ms, "
           f"torch.cat + K1' {cat_ms:.4f} ms")
     for tag, r in image_rows.items():
         r["bound_ms"] = 1e3 * max(r.pop("bound"))
         print(f"  pack_neighbors at {tuple(r['shape'])} {tag} (C = 3): kernel {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
+              f"ms, device busy {r['device_busy_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms "
               f"({r['library_note']}), bound {r['bound_ms']:.4f} ms")
     rows["pack_neighbors"]["extra"]["images_c3"] = image_rows
     return worst, rows, {"crelu_ms": crelu_ms, "cat_plus_in_ms": cat_ms}
@@ -2190,9 +2231,10 @@ def phase_writers():
     launch counts zeroed just before it: ``cli.rroi_demo`` (K4' and K4'-bwd
     at C = 3), ``cli.detect``'s annotated images, ``train_joint -debug``."""
     import fots_torch.imageio as imageio
+    from fots_torch import imgproc
     from fots_torch.cli import detect, rroi_demo, train_joint
     from fots_torch.cli.detect import load_engine
-    from fots_torch.imgproc import polylines
+    from fots_torch.imgproc import polylines, put_text
     from fots_torch.kernels import build
     from fots_torch.profiling import card_name_and_power_limit
 
@@ -2222,6 +2264,18 @@ def phase_writers():
     print(f"phase 13: imencode_jpg equals cv2.imwrite's bytes on {sizes}; the 640x960 scene "
           f"encodes in {encode_ms:.3f} ms (median of {ENCODE_REPEATS}, "
           f"{min(times):.3f}-{max(times):.3f}) on {cpu}; card {smi}")
+    # put_text: the committed cv2.putText renders, byte for byte
+    with open(os.path.join(TEXT_REF, "cases.json")) as f:
+        text_cases = json.load(f)["cases"]
+    with np.load(os.path.join(TEXT_REF, "refs.npz")) as z:
+        text_refs = {k: z[k] for k in z.files}
+    for case in text_cases:
+        got = put_text(text_refs[case["name"] + "_bg"].copy(), case["text"],
+                       tuple(case["org"]), tuple(case["color"]))
+        check(np.array_equal(got, text_refs[case["name"]]),
+              f"writers: put_text differs from cv2.putText's render {case['name']}")
+    print(f"  put_text equals the {len(text_cases)} committed cv2.putText renders "
+          f"({', '.join(c['name'] for c in text_cases)})")
 
     # the results the path is held to, before the counted windows
     demo_args = ["-image", DEMO_SCENE, "-pooled_height", str(DEMO_POOLED_HEIGHT),
@@ -2269,14 +2323,21 @@ def phase_writers():
 
     # (c) cli.detect over the held-out jpgs, each drawing and write timed
     det_dir = os.path.join(tmp, "detect")
-    drawn, write_s = [], []
+    drawn, write_s, text_s = [], [], []
     draw_results, imwrite = detect.draw_results, imageio.imwrite
 
     def timed_draw(im_resized, results):
         t = time.perf_counter()
         out = draw_results(im_resized, results)
         write_s.append(time.perf_counter() - t)
-        drawn.append((np.array(im_resized, copy=True), [r["box"].copy() for r in results]))
+        drawn.append((np.array(im_resized, copy=True),
+                      [(r["box"].copy(), r["text"]) for r in results]))
+        return out
+
+    def timed_text(*args):
+        t = time.perf_counter()
+        out = put_text(*args)
+        text_s.append(time.perf_counter() - t)
         return out
 
     def timed_write(path, im):
@@ -2285,7 +2346,7 @@ def phase_writers():
         write_s.append(time.perf_counter() - t)
         return out
 
-    detect.draw_results, imageio.imwrite = timed_draw, timed_write
+    detect.draw_results, imageio.imwrite, imgproc.put_text = timed_draw, timed_write, timed_text
     try:
         torch.cuda.synchronize()
         build.reset_launch_counts()
@@ -2294,23 +2355,31 @@ def phase_writers():
         torch.cuda.synchronize()
         detect_s = time.perf_counter() - t0
     finally:
-        detect.draw_results, imageio.imwrite = draw_results, imwrite
+        detect.draw_results, imageio.imwrite, imgproc.put_text = draw_results, imwrite, put_text
     launches["detect"] = dict(build.launch_counts)
     check(sorted(rows) == sorted(held_names), f"detect wrote {sorted(rows)}")
-    for (im_resized, boxes), name in zip(drawn, sorted(rows)):
+    n_texts = 0
+    for (im_resized, results), name in zip(drawn, sorted(rows)):
         _rows_close(rows[name], detect_want[name], f"writers detect {name}")
+        # fots's drawing: each box, then its text, in the rows' order
         want = im_resized.copy()
-        for b in boxes:
+        for b, text in results:
             polylines(want, b[:8].reshape(4, 2).astype(np.int32), (0, 255, 0))
+            put_text(want, text, (int(b[0]), int(b[1]) - 3), (0, 255, 0))
+            n_texts += bool(text)
         with open(os.path.join(det_dir, name), "rb") as f:
             check(f.read() == imageio.imencode_jpg(want),
                   f"detect {name}: the annotated jpg is not the drawing of its rows")
     n_img = len(rows)
+    check(len(text_s) == sum(len(r) for _, r in drawn) and n_texts > 0,
+          f"detect: {len(text_s)} put_text calls for {n_texts} texts")
     detect_ms = 1e3 * detect_s / n_img
     write_ms = 1e3 * sum(write_s) / n_img
+    text_ms = 1e3 * sum(text_s) / n_img
     print(f"  detect over {n_img} held-out jpgs: rows equal the engine's on the asset pixels, "
-          f"each annotated jpg is the drawing of its rows; {detect_ms:.2f} ms an image, of "
-          f"which drawing and writing {write_ms:.2f} ms ({detect_ms - write_ms:.2f} without); "
+          f"each annotated jpg is the drawing of its rows with {n_texts} texts; "
+          f"{detect_ms:.2f} ms an image, of which drawing and writing {write_ms:.2f} ms "
+          f"({detect_ms - write_ms:.2f} without), put_text {text_ms:.3f} ms; "
           f"launches {launches['detect']}; card {smi}")
 
     # (d) train_joint -debug: dumps at steps 0 and 2 of 4
@@ -2356,7 +2425,8 @@ def phase_writers():
                          "crop_max_abs_err": crop_err, "grad_err_of_max": grad_err,
                          "seconds": demo_s, "launches": launches["rroi_demo"]},
            "detect": {"images": n_img, "ms_per_image": detect_ms,
-                      "draw_write_ms_per_image": write_ms,
+                      "draw_write_ms_per_image": write_ms, "put_text_ms_per_image": text_ms,
+                      "texts": n_texts, "text_refs": len(text_cases),
                       "ms_per_image_without_writing": detect_ms - write_ms,
                       "boxes": sum(len(r) for r in rows.values())},
            "train_joint_debug": {"steps": DEBUG_STEPS, "dumped_steps": dumped,
@@ -2466,7 +2536,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_busy_ms": r["device_busy_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": 1e3 * max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": r["library_ms"], "library_call": r["library_note"],
@@ -2498,7 +2568,8 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": KERNEL_META[base][0],
             "replaces": KERNEL_META[base][1],
             "launches": writers["rroi_demo"]["launches"][base],
-            "max_abs_err": worst[kname], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": worst[kname], "ms": r["ms"], "device_busy_ms": r["device_busy_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": 1e3 * max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": r["library_ms"], "library_call": r["library_note"],

@@ -6,12 +6,10 @@ reference's torch weights (``-h5``), runs the per-image pipeline on every
 ``*.jpg`` of ``-test_folder`` (sorted; read with :func:`fots_torch.imageio.
 imread`), prints each image's texts and writes ``<name>.txt`` of
 ``x1,y1,...,x4,y4,score,text`` rows and ``<name>.jpg``: the letterboxed
-image the engine ran on with each box drawn in green
-(:func:`fots_torch.imgproc.polylines`, written by
-:func:`fots_torch.imageio.imwrite`; both byte for byte with OpenCV).
-``fots`` also writes each box's text with ``cv2.putText``; OpenCV 5 renders
-it from a built-in TrueType font the port does not have, so the port draws
-the boxes only and says so once.
+image the engine ran on with each box drawn in green and its text above it
+(:func:`fots_torch.imgproc.polylines` and :func:`fots_torch.imgproc.put_text`,
+written by :func:`fots_torch.imageio.imwrite`; each byte for byte with
+OpenCV 5).
 
 Usage:
   python -m fots_torch.cli.detect -model artifacts/serving_params.npz \\
@@ -95,13 +93,16 @@ def result_rows(results) -> list:
 
 
 def draw_results(im_resized, results) -> np.ndarray:
-    """A copy of the engine's letterboxed image with each result's box drawn
-    as ``fots`` draws it (green, 1 px, ``LINE_8``), without its text."""
-    from fots_torch.imgproc import polylines
+    """A copy of the engine's letterboxed image with each result drawn as
+    ``fots`` draws it, in its order: the box (green, 1 px, ``LINE_8``), then
+    its text in green at ``(int(x1), int(y1) - 3)``."""
+    from fots_torch.imgproc import polylines, put_text
 
     draw = np.array(im_resized, np.uint8, copy=True)
     for r in results:
-        polylines(draw, r["box"][:8].reshape(4, 2).astype(np.int32), (0, 255, 0))
+        b = r["box"]
+        polylines(draw, b[:8].reshape(4, 2).astype(np.int32), (0, 255, 0))
+        put_text(draw, r["text"], (int(b[0]), int(b[1]) - 3), (0, 255, 0))
     return draw
 
 
@@ -129,8 +130,6 @@ def main(argv=None):
 
     engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh, device=args.device)
     os.makedirs(args.output, exist_ok=True)
-    print("the annotated images show the boxes without their texts (cv2.putText's "
-          "TrueType rendering is not ported)")
     out = {}
     with engine:
         for path in folder_images(args.test_folder):

@@ -41,16 +41,21 @@ Drawing, for the images the entry points write (each byte for byte):
 - :func:`add_weighted_u8` is ``cv2.addWeighted`` of two u8 images (gamma
   0): ``fma(a, alpha, fma(b, beta, 0))`` in f32, rounded half to even.
 
-``cv2.putText`` has no counterpart: OpenCV 5 draws even the Hershey faces
-through its built-in TrueType fonts, antialiased (a ``LINE_8`` render at
-scale 0.5 holds over a hundred grey levels), so there is no stroke table to
-reproduce.
+- :func:`put_text` is ``cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX,
+  0.5, color, 1)``, the one text call of ``fots``: OpenCV 5 draws the
+  Hershey faces from its built-in TrueType font (Rubik), antialiased.  Each
+  glyph lands on whole pixels, so the port draws from an atlas of OpenCV's
+  own coverage bitmaps and pen advances (``assets/text_glyphs/``, measured
+  from ``cv2`` by ``tools/make_torch_text_refs.py``), blended glyph after
+  glyph as OpenCV blends them.
 
 The bilinear u8 resize is :func:`fots_torch.geometry.resize_bilinear_u8`.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import Tuple
 
 import numpy as np
@@ -425,6 +430,55 @@ def polylines(img: np.ndarray, pts, color) -> np.ndarray:
     for i in range(len(pts)):
         xs, ys = line_pixels(size, tuple(pts[i - 1]), tuple(pts[i]))
         img[ys, xs] = color
+    return img
+
+
+TEXT_ATLAS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                          "text_glyphs", "atlas.npz")
+
+
+@functools.lru_cache(maxsize=None)
+def _text_atlas() -> dict:
+    """{char: (dy, dx, u8 coverage bitmap, advance)} of ``TEXT_ATLAS``."""
+    with np.load(TEXT_ATLAS) as z:
+        a = {k: z[k] for k in z.files}
+    return {chr(c): (int(dy), int(dx), a["pixels"][o:o + h * w].reshape(h, w), int(adv))
+            for c, dy, dx, h, w, o, adv in zip(a["chars"], a["dy"], a["dx"], a["height"],
+                                                a["width"], a["offset"], a["advance"])}
+
+
+def put_text(img: np.ndarray, text: str, org, color) -> np.ndarray:
+    """``cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 1)``
+    in place (and returned) on a u8 image (H, W) or (H, W, C), ``org`` the
+    bottom-left of the text on its baseline.  The pen starts at ``org`` and
+    moves by each character's advance; each glyph's coverage ``a`` blends
+    over the image, clipped at its edges, as ``(c * a + p * (255 - a) +
+    127) // 255`` per channel (colour ``c``, pixel ``p``), glyph after glyph,
+    so overlapping glyphs blend twice.  Raises ``ValueError`` for a character
+    outside the atlas (the ICDAR 2015 alphabet)."""
+    atlas = _text_atlas()
+    missing = sorted(set(text) - atlas.keys())
+    if missing:
+        raise ValueError(f"put_text: no glyph for {missing} (the atlas holds the ICDAR "
+                         "2015 alphabet)")
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise TypeError(f"put_text draws on u8 (H, W) or (H, W, C) images, got "
+                        f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    col = np.asarray(color, np.int32)[:img.shape[2]] if img.ndim == 3 else np.int32(color[0])
+    x, y = int(org[0]), int(org[1])
+    for ch in text:
+        dy, dx, m, advance = atlas[ch]
+        y0, x0 = y + dy, x + dx
+        ya, yb = max(y0, 0), min(y0 + m.shape[0], h)
+        xa, xb = max(x0, 0), min(x0 + m.shape[1], w)
+        if ya < yb and xa < xb:
+            a = m[ya - y0:yb - y0, xa - x0:xb - x0].astype(np.int32)
+            if img.ndim == 3:
+                a = a[..., None]
+            p = img[ya:yb, xa:xb].astype(np.int32)
+            img[ya:yb, xa:xb] = (col * a + p * (255 - a) + 127) // 255
+        x += advance
     return img
 
 

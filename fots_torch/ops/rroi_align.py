@@ -138,9 +138,9 @@ def _lib():
 
 
 def pack_neighbors_cuda(features):
-    """Launch the CUDA pack on a contiguous NHWC map (any C; the kernel
-    moves each row in the widest vector that divides it); returns
-    [B*H*W, 4C]."""
+    """Launch the CUDA pack on a contiguous NHWC map (any C: rows of a
+    multiple of 16 bytes on a 16-byte aligned map take the streaming kernel,
+    every other row the narrow kernel); returns [B*H*W, 4C]."""
     build.check_kernel_input(features, "pack_neighbors", _PACK_DTYPES)
     b, h, w, c = features.shape
     n = b * h * w
@@ -157,7 +157,9 @@ def pack_neighbors_cuda(features):
 
 def pack_neighbors_bwd_cuda(g, feature_shape):
     """Launch K4'-bwd on the quads' cotangent ``g`` [B*H*W, 4C] (f32,
-    contiguous, any C); returns the map's cotangent [B, H, W, C]."""
+    contiguous, any C: C a multiple of 4 on a 16-byte aligned ``g`` takes
+    the 4-float kernel, every other C the narrow kernel); returns the map's
+    cotangent [B, H, W, C]."""
     build.check_kernel_input(g, "pack_neighbors_bwd", (torch.float32,))
     b, h, w, c = feature_shape
     n = b * h * w

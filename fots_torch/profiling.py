@@ -5,6 +5,7 @@ breakdown; and the timing of the fused residual-block kernel K5'.
                                     [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
+    python3 -m fots_torch.profiling --path pack
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -25,7 +26,10 @@ is then a copy, so what is left is its dispatch), the host letterbox
 alone, and one profiled window of each engine on the letterboxed batch.
 ``instance_norm``: K1' and K1'-bwd on their two routes (and the
 cluster route's other possible cuts) at every shape the serving, training
-and evaluation paths give them, one JSON line per shape.  Needs a CUDA card.
+and evaluation paths give them, one JSON line per shape.  ``pack``: K4' and
+K4'-bwd at the 3-channel images (narrow rows) and the 64-channel maps
+(16-byte rows), device-busy and event-bracketed ms beside the bound and
+``index_add_``, one JSON line per shape.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import tempfile
 import time
 from typing import Optional
@@ -283,19 +288,25 @@ def cuda_busy_ms(fn, reps=10, warmup=2):
     """Device-busy time of one call of ``fn``: the union of the kernel, copy
     and memset intervals torch.profiler records over ``reps`` calls, over
     ``reps``.  Unlike :func:`cuda_median_ms` it leaves out the time the card
-    waits for a slow host between the launches of one call."""
+    waits for a slow host between the launches of one call.  A window in
+    which the profiler recorded no device activity at all (seen now and then
+    on the card's machine, with the kernels' results right) is profiled
+    again, up to three windows, each retry reported on stderr."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
-    if not spans:
-        raise RuntimeError("the profiler recorded no device activity")
-    return _union_us(spans) / (1e3 * reps)
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
+        if spans:
+            return _union_us(spans) / (1e3 * reps)
+        print(f"cuda_busy_ms: window {attempt + 1} recorded no device activity",
+              file=sys.stderr)
+    raise RuntimeError("the profiler recorded no device activity in 3 windows")
 
 
 #: (divisor of the image's height and width, channels) of the detector's
@@ -432,6 +443,61 @@ def profile_instance_norm(device="cuda", reps=15):
                "plan": default._asdict(), "ms": times, "device_busy_ms": busy}
 
 
+#: (kernel, shape, dtype) K4' and K4'-bwd are timed at by ``--path pack``:
+#: the 3-channel images of CRNNE2ETrainer and cli.rroi_demo (narrow rows),
+#: then the focr maps of serving and training (16-byte rows)
+PACK_SHAPES = (("pack_neighbors", (2, 512, 512, 3), torch.float32),
+               ("pack_neighbors", (2, 512, 512, 3), torch.bfloat16),
+               ("pack_neighbors", (1, 640, 960, 3), torch.float32),
+               ("pack_neighbors_bwd", (2, 512, 512, 3), torch.float32),
+               ("pack_neighbors_bwd", (1, 640, 960, 3), torch.float32),
+               ("pack_neighbors", (16, 176, 320, 64), torch.bfloat16),
+               ("pack_neighbors", (8, 160, 240, 64), torch.float32),
+               ("pack_neighbors_bwd", (8, 160, 240, 64), torch.float32))
+
+
+def profile_pack(device="cuda", bytes_per_s=3.35e12):
+    """K4' and K4'-bwd at ``PACK_SHAPES``: device-busy ms a call
+    (:func:`cuda_busy_ms`), event-bracketed ms (:func:`cuda_median_ms`), the
+    bound (the map read once and its quads written once, or the reverse: 5x
+    the map's bytes, at ``bytes_per_s``), the plain version's device-busy ms
+    and, for the backward, ``index_add_`` of the quad rows.  Yields one dict
+    per row; ``library`` names the built source, so runs of two versions of
+    ``csrc/pack_neighbors.cu`` tell apart."""
+    from fots_torch.kernels import build
+    from fots_torch.ops import rroi_align as trr
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the pack profile times CUDA kernels: it needs a card")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    library = os.path.basename(build.library_path("pack_neighbors"))
+    for kernel, shape, dtype in PACK_SHAPES:
+        b, h, w, c = shape
+        n = b * h * w
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        nbytes = 5 * x.numel() * x.element_size()
+        row = {"kernel": kernel, "shape": list(shape), "dtype": str(dtype)[6:],
+               "library": library, "bound_ms": 1e3 * nbytes / bytes_per_s}
+        if kernel == "pack_neighbors":
+            fns = {"kernel": lambda: trr.pack_neighbors_cuda(x),
+                   "plain": lambda: trr.pack_neighbors_ref(x)}
+        else:
+            g = torch.randn((n, 4 * c), generator=gen, device=dev)
+            index = (torch.arange(n, device=dev)[:, None]
+                     + torch.tensor([0, 1, w, w + 1], device=dev)[None, :]).reshape(-1)
+            acc = torch.zeros((n + w + 1, c), device=dev)
+            fns = {"kernel": lambda: trr.pack_neighbors_bwd_cuda(g, shape),
+                   "plain": lambda: trr.pack_neighbors_bwd_ref(g, shape),
+                   "index_add_": lambda: acc.index_add_(0, index, g.view(4 * n, c))}
+        for name, fn in fns.items():
+            row[f"{name}_device_busy_ms"] = cuda_busy_ms(fn)
+            if name != "plain":
+                row[f"{name}_ms"] = cuda_median_ms(fn)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_device_busy_ms"]
+        yield row
+
+
 FUSED_BLOCK_SHAPE = (16, 88, 160, 128)
 #: activation-sized tensors each variant moves through device memory per
 #: iteration: conv (x, y), statistics (y), apply (y, r, out) for the two
@@ -540,7 +606,7 @@ def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda")
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("serve", "train", "export", "fused_block",
-                                       "instance_norm"),
+                                       "instance_norm", "pack"),
                     default="serve")
     ap.add_argument("--scratch", action="store_true",
                     help="train: from scratch on an augmented 512x512 batch")
@@ -555,8 +621,9 @@ def main(argv=None) -> int:
         shape = tuple(int(v) for v in args.shape.split(","))
         print(json.dumps(profile_fused_block(shape, args.iters), indent=2))
         return 0
-    if args.path == "instance_norm":
-        for row in profile_instance_norm():
+    if args.path in ("instance_norm", "pack"):
+        rows = profile_instance_norm() if args.path == "instance_norm" else profile_pack()
+        for row in rows:
             print(json.dumps(row), flush=True)
         print(card_name_and_power_limit())
         return 0

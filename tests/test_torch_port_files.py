@@ -273,12 +273,17 @@ def test_eval_e2e_images_list_matches_fots(tmp_path, fots_uses):
 def test_detect_cli_rows_match_fots(tmp_path, scene_folder, fots_uses, capsys):
     rows = port_detect_cli.main(["-model", SNAPSHOT, "-test_folder", scene_folder, "-output",
                                  str(tmp_path / "port"), "-device", "cpu"])
-    assert "the boxes without their texts" in capsys.readouterr().out
+    printed = capsys.readouterr().out
     assert all(os.path.isfile(tmp_path / "port" / base) for base in rows)
     jax_detect_cli.main(["-model", SNAPSHOT, "-test_folder", scene_folder, "-output",
                          str(tmp_path / "fots")])
     assert sorted(rows) == ["img_000.jpg", "img_001.jpg"]
     for base, got_rows in rows.items():
+        # the annotated image: fots's boxes and texts on fots's letterbox,
+        # byte for byte, and each text printed
+        assert ((tmp_path / "port" / base).read_bytes()
+                == (tmp_path / "fots" / base).read_bytes())
+        assert all(f"{r.split(',', 9)[9]}\n" in printed for r in got_rows)
         name = os.path.splitext(base)[0] + ".txt"
         with open(tmp_path / "port" / name) as f:
             assert f.read().split("\n") == got_rows

@@ -86,24 +86,27 @@ def test_masked_instance_norm_ref_matches_jnp(dtype):
     assert (_np(got)[1, :, 7:] == 0).all()
 
 
-def test_pack_neighbors_ref_bit_exact_vs_pallas_kernel():
-    """At 2x16x32x64 the Pallas pack really runs (interpret mode); the port
+@pytest.mark.parametrize("c", [64, 1, 2, 3, 5, 6, 7])
+def test_pack_neighbors_ref_bit_exact_vs_pallas_kernel(c):
+    """At 2x16x32xC the Pallas pack really runs (interpret mode); the port
     must equal it on every row, out-of-map rows (zeros) included, and equal
-    the XLA pack on the rows whose neighbours are all in the map."""
+    the XLA pack on the rows whose neighbours are all in the map.  C: the
+    focr maps' 64 and every narrow row the card's phase 2 holds K4' at."""
     rng = np.random.default_rng(3)
-    f = rng.random((2, 16, 32, 64), np.float32)
+    f = rng.random((2, 16, 32, c), np.float32)
     want = np.asarray(jrr._pack_neighbors_pallas(jnp.asarray(f), interpret=True))
     got = trr.pack_neighbors(_t(f)).numpy()
-    assert got.shape == want.shape == (2 * 16 * 32, 256)
+    assert got.shape == want.shape == (2 * 16 * 32, 4 * c)
     np.testing.assert_array_equal(got, want)
     xla = np.asarray(jrr._pack_neighbors_xla(jnp.asarray(f)))
     in_map = 2 * 16 * 32 - 32 - 1
     np.testing.assert_array_equal(got[:in_map], xla[:in_map])
 
 
-def test_pack_neighbors_ref_bf16_bit_exact():
+@pytest.mark.parametrize("c", [64, 1, 2, 3, 5, 6, 7, 12])
+def test_pack_neighbors_ref_bf16_bit_exact(c):
     rng = np.random.default_rng(4)
-    f = jnp.asarray(rng.random((2, 16, 32, 64), np.float32)).astype(jnp.bfloat16)
+    f = jnp.asarray(rng.random((2, 16, 32, c), np.float32)).astype(jnp.bfloat16)
     want = np.asarray(jrr._pack_neighbors_pallas(f, interpret=True).astype(jnp.float32))
     got = trr.pack_neighbors(_t(np.asarray(f.astype(jnp.float32))).to(torch.bfloat16))
     np.testing.assert_array_equal(got.float().numpy(), want)

@@ -195,7 +195,8 @@ def test_spatial_norm_plain_out_mul1_matches_pallas_interpret(slope):
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 5, 8), (1, 4, 1, 4), (3, 2, 7, 16)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 8), (1, 4, 1, 4), (3, 2, 7, 16)]
+                         + [(2, 5, 7, c) for c in (1, 2, 3, 5, 6, 7)])
 def test_pack_neighbors_backward_matches_pallas_vjp(shape):
     """pack_neighbors_bwd_ref and the pack's autograd vs
     _pack_pallas_diff_bwd, bit-exact (a sum of four terms in one order)."""

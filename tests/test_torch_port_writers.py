@@ -14,9 +14,9 @@ OpenCV and fots (CPU).
 - ``debug_vis`` against ``fots.debug_vis`` on the same rois: crops equal,
   files equal byte for byte under the same names.
 - ``cli.detect -device cpu`` over two held-out scenes: each annotated
-  ``.jpg`` is ``cv2.polylines`` of the port's own boxes on the port's own
-  letterboxed image, written by ``cv2.imwrite`` (the text is not drawn:
-  OpenCV 5's ``putText`` renders TrueType, which the port does not have).
+  ``.jpg`` is ``cv2.polylines`` and ``cv2.putText`` of the port's own rows,
+  in ``fots``'s order, on the port's own letterboxed image, written by
+  ``cv2.imwrite`` (``put_text`` itself: ``tests/test_torch_port_text.py``).
 - ``train_joint -debug -device cpu``, 2 steps: every dump equals, name and
   bytes, what ``fots``'s hook writes from the same images and rois.
 """
@@ -225,7 +225,7 @@ def test_detect_cli_writes_cv2s_drawing_of_its_own_boxes(tmp_path, monkeypatch):
 
     def record(im_resized, results):
         drawn[len(drawn)] = (np.array(im_resized, copy=True),
-                             [r["box"].copy() for r in results])
+                             [(r["box"].copy(), r["text"]) for r in results])
         return original(im_resized, results)
 
     monkeypatch.setattr(detect, "draw_results", record)
@@ -234,10 +234,13 @@ def test_detect_cli_writes_cv2s_drawing_of_its_own_boxes(tmp_path, monkeypatch):
     assert sorted(rows) == [os.path.basename(p) for p in SCENES[:2]]
     assert sum(len(r) for r in rows.values()) >= 4
     for i, base in enumerate(sorted(rows)):
-        im, boxes = drawn[i]
+        im, results = drawn[i]
+        assert all(text for _, text in results)
         want = im.copy()
-        for b in boxes:
+        for b, text in results:
             cv2.polylines(want, [b[:8].reshape(4, 2).astype(np.int32)], True, (0, 255, 0), 1)
+            cv2.putText(want, text, (int(b[0]), int(b[1]) - 3), cv2.FONT_HERSHEY_SIMPLEX, 0.5,
+                        (0, 255, 0), 1)
         assert (tmp_path / "out" / base).read_bytes() == cv2.imencode(".jpg", want)[1].tobytes()
         assert os.path.isfile(tmp_path / "out" / (os.path.splitext(base)[0] + ".txt"))
 
