@@ -134,9 +134,15 @@ result line):
    own decoder (``fots_torch.imageio.imread``) must give the 4 smoke scenes'
    jpgs and the 16 held-out jpgs of ``fots_torch/assets/heldout_eval_jpg``
    byte for byte as their decoded assets (median decode ms of a 640x960
-   scene and the host's CPU printed); reader 0's first 4 batches from the
+   scene and the host's CPU printed), and every file of
+   ``fots_torch/assets/decode_ref`` (progressive, hand-scripted progressive,
+   truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG) to the SHA-256 of
+   ``cv2.imread``'s colour and grey bytes in its manifest (the progressive
+   and the sequential decode ms of the 640x960 scene ``img_112`` printed,
+   timed in turns); reader 0's first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
-   this process and timed by stage (decode, augment, targets, the rest);
+   this process and timed by stage (decode, augment, targets, the rest), and
+   a detection reader over the progressive jpgs must drop none;
    the in-process engines whose results the CLIs are held to run next.
    Then, with the launch counts zeroed just before, the CLIs through their
    ``main``: ``eval_e2e -images_list`` over the held-out jpgs (f32, TF32
@@ -144,7 +150,12 @@ result line):
    ``detect -test_folder`` over the smoke jpgs must write the in-process
    engine's rows on the asset pixels (texts equal, numbers within 1e-3);
    ``serve -test_folder`` must write ``batch_call``'s texts and boxes
-   (within 1e-3 px); ``export -selftest <folder>`` must pass;
+   (within 1e-3 px); over the progressive copies of four held-out scenes
+   (``decode_ref/prog``), ``eval_e2e -images_list`` must give ``fots``'s
+   committed counts (``decode_ref/eval_fots_cpu.json``) within one match,
+   and ``detect`` and ``serve -test_folder`` at their defaults the engines'
+   results on the decoded pixels, with K1'-K4' launched;
+   ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
    dropped, readers' samples/s, stage ms and the main thread's wait beside
@@ -185,6 +196,7 @@ exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -239,6 +251,8 @@ DEBUG_STEPS = 4          # train_joint -debug: steps, and a dump every DEBUG_EVE
 DEBUG_EVERY = 2
 DEBUG_READERS = 2
 FILES_JPG = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_jpg")
+DECODE_REF = os.path.join(REPO, "fots_torch", "assets", "decode_ref")
+PROG_JPG = os.path.join(DECODE_REF, "prog")  # progressive copies of 4 held-out scenes
 OCR_PNG_LIST = os.path.join(REPO, "fots_torch", "assets", "ocr_eval_png", "gt.txt")
 FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8's run
 DECODE_REPEATS = 15
@@ -2013,6 +2027,20 @@ def _rows_close(got, want, what):
               f"{what}: row {g} vs {w}")
 
 
+def _dump_counts(dump) -> dict:
+    """Match / detection / ground-truth totals of an ``eval_e2e -dump_json``
+    dump, through the port's ``E2EMetrics``."""
+    from fots_torch.evaluate import E2EMetrics
+
+    m = E2EMetrics()
+    for rec in dump:
+        dets = [(np.asarray(d["box"]), d["text"]) for d in rec["detections"]]
+        m.add_image(dets, np.asarray([g["box"] for g in rec["gt"]]).reshape(-1, 8),
+                    [g["text"] for g in rec["gt"]])
+    return {"tp": m.tp_all, "tp_e2e": m.tp_e2e_all, "tp_e2e_ed1": m.tp_e2e_ed1_all,
+            "detections": m.detections_all, "gt": m.gt_all}
+
+
 def phase_files(images, eval_result=None, joint_result=None):
     """The CLIs over image files and the reference's weights (``-h5``), with
     the port's own decoder: a main path for the counts."""
@@ -2052,6 +2080,33 @@ def phase_files(images, eval_result=None, joint_result=None):
     print(f"phase 12: {len(smoke_files)} smoke scenes and {len(held)} held-out scenes decode "
           f"byte-equal to their assets; a 640x960 4:2:0 scene in {decode_ms:.3f} ms (median "
           f"of {DECODE_REPEATS}, {min(times):.3f}-{max(times):.3f}) on {cpu}")
+    # every file cv2 read for fots_torch/assets/decode_ref/manifest.json, to its hashes
+    with open(os.path.join(DECODE_REF, "manifest.json")) as f:
+        manifest = json.load(f)
+    for rel, entry in manifest.items():
+        for key in ("colour", "grey"):
+            got = imread(os.path.join(DECODE_REF, rel), grayscale=key == "grey")
+            check(got is not None and list(got.shape) == entry[key]["shape"]
+                  and hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"],
+                  f"files: {rel} ({key}) decodes differently from cv2.imread's bytes")
+    # the same 640x960 scene, progressive and sequential (both quality 95,
+    # 4:2:0), timed in turns
+    decode_pair = {"progressive": os.path.join(PROG_JPG, "img_112.jpg"),
+                   "sequential": os.path.join(FILES_JPG, "img_112.jpg")}
+    pair_times = {k: [] for k in decode_pair}
+    for i in range(DECODE_REPEATS):
+        for k in (("progressive", "sequential") if i % 2 == 0 else ("sequential", "progressive")):
+            t0 = time.perf_counter()
+            imread(decode_pair[k])
+            pair_times[k].append(1e3 * (time.perf_counter() - t0))
+    pair_ms = {k: statistics.median(v) for k, v in pair_times.items()}
+    print(f"  {len(manifest)} files of decode_ref (progressive, hand-scripted progressive, "
+          f"truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG) decode to cv2.imread's "
+          f"hashes, colour and grey; img_112 640x960 4:2:0 q95: progressive "
+          f"{pair_ms['progressive']:.3f} ms ({min(pair_times['progressive']):.3f}-"
+          f"{max(pair_times['progressive']):.3f}), sequential {pair_ms['sequential']:.3f} ms "
+          f"({min(pair_times['sequential']):.3f}-{max(pair_times['sequential']):.3f}), medians "
+          f"of {DECODE_REPEATS} in turns")
     folder = os.path.join(tmp, "scenes")
     os.makedirs(folder)
     for p in smoke_files:
@@ -2085,14 +2140,35 @@ def phase_files(images, eval_result=None, joint_result=None):
               for k, bs in made.items()}
     print(f"  reader 0's first {READER_BATCHES} batches byte-equal from files and archive: "
           f"{reader}")
+    with open(os.path.join(PROG_JPG, "eval.txt")) as f:
+        prog_names = [line.strip() for line in f if line.strip()]
+    prog_files = [os.path.join(PROG_JPG, n) for n in prog_names]
+    prog_list = os.path.join(tmp, "prog_list.txt")
+    with open(prog_list, "w") as f:
+        f.writelines(p + "\n" for p in prog_files)
+    prog_gen = detection_generator(prog_list, None, input_size=JOINT_SIZE,
+                                   batch_size=len(prog_files), seed=0)
+    prog_batches = [next(prog_gen) for _ in range(3)]
+    check(all(b.dropped == 0 for b in prog_batches)
+          and {os.path.basename(n) for b in prog_batches for n in b.image_fns} == set(prog_names),
+          f"files: the detection reader dropped progressive files "
+          f"{[(b.dropped, b.image_fns) for b in prog_batches]}")
+    print(f"  a detection reader over {len(prog_files)} progressive jpgs: "
+          f"{sum(len(b.image_fns) for b in prog_batches)} samples in 3 batches, none dropped")
 
     # the results the CLIs are held to, before the counted window
     with load_engine(SNAPSHOT, device="cuda") as engine:
         detect_want = {name: detect.result_rows(engine(im)[0])
                        for name, im in zip(names, images)}
         h5_want = engine.batch_call(list(images), serve_hw=SERVE_HW)
+        prog_images = [imread(p) for p in prog_files]
+        prog_detect_want = {n: detect.result_rows(engine(im)[0])
+                            for n, im in zip(prog_names, prog_images)}
     with load_engine(SNAPSHOT, mixed_precision=True, device="cuda") as engine:
         serve_want = engine.batch_call(list(images), serve_hw=SERVE_HW)
+        prog_serve_want = engine.batch_call(prog_images, serve_hw=SERVE_HW)
+    with open(os.path.join(DECODE_REF, "eval_fots_cpu.json")) as f:
+        prog_eval_ref = json.load(f)["run"]
 
     torch.cuda.synchronize()
     build.reset_launch_counts()
@@ -2118,6 +2194,23 @@ def phase_files(images, eval_result=None, joint_result=None):
     served = serve.main(["-model", SNAPSHOT, "-test_folder", folder, "-output", serve_dir,
                          "-batch", str(len(names))])
     t_serve = time.perf_counter()
+    # (d') the progressive copies of four held-out scenes through eval_e2e,
+    # cli.detect and cli.serve at their defaults
+    before = dict(build.launch_counts)
+    prog_dump = os.path.join(tmp, "prog_dump.json")
+    with no_tf32():
+        prog_summary = eval_e2e.main(["-model", SNAPSHOT, "-images_list",
+                                      os.path.join(PROG_JPG, "eval.txt"), "-dump_json",
+                                      prog_dump])
+    prog_detect_dir = os.path.join(tmp, "prog_detect")
+    prog_rows = detect.main(["-model", SNAPSHOT, "-test_folder", PROG_JPG, "-output",
+                             prog_detect_dir])
+    prog_serve_dir = os.path.join(tmp, "prog_serve")
+    prog_served = serve.main(["-model", SNAPSHOT, "-test_folder", PROG_JPG, "-output",
+                              prog_serve_dir])
+    torch.cuda.synchronize()
+    prog_launches = {k: build.launch_counts[k] - before[k] for k in before}
+    t_prog = time.perf_counter()
     # (e) the exported bundle's selftest on the folder
     _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
                                              os.path.join(tmp, "bundle"), "-batch",
@@ -2162,6 +2255,30 @@ def phase_files(images, eval_result=None, joint_result=None):
               f"serve {name}: texts differ from batch_call's")
         check(all(np.allclose(g["box"], r["box"], rtol=0.0, atol=1e-3)
                   for g, r in zip(got, res)), f"serve {name}: boxes differ from batch_call's")
+    for kname in build.PATH_KERNELS["serving"]:
+        check(prog_launches[kname] > 0,
+              f"kernel {kname} was not launched over the progressive files")
+    with open(prog_dump) as f:
+        prog_counts = _dump_counts(json.load(f))
+    ref_counts = prog_eval_ref["counts"]
+    check(prog_counts["gt"] == ref_counts["gt"]
+          and all(abs(prog_counts[k] - ref_counts[k]) <= 1 for k in ("tp", "tp_e2e", "detections")),
+          f"files: eval_e2e over the progressive jpgs {prog_counts} vs fots's {ref_counts}")
+    check(sorted(prog_rows) == sorted(prog_names), f"detect over the progressive jpgs: "
+          f"{sorted(prog_rows)}")
+    for name in prog_names:
+        _rows_close(prog_rows[name], prog_detect_want[name], f"detect progressive {name}")
+    check(prog_served == len(prog_names), f"serve over the progressive jpgs: {prog_served}")
+    for name, res in zip(prog_names, prog_serve_want):
+        with open(os.path.join(prog_serve_dir, os.path.splitext(name)[0] + ".json")) as f:
+            got = json.load(f)
+        check([g["text"] for g in got] == [r["text"] for r in res] and len(res) > 0
+              and all(np.allclose(g["box"], r["box"], rtol=0.0, atol=1e-3)
+                      for g, r in zip(got, res)),
+              f"serve progressive {name}: differs from batch_call on the decoded pixels")
+    print(f"  progressive jpgs: eval_e2e {prog_counts} (fots {ref_counts}; det hmean "
+          f"{prog_summary['detection_hmean']:.4f} e2e hmean {prog_summary['e2e_hmean']:.4f}); "
+          f"detect and serve equal the engines on the decoded pixels; launches {prog_launches}")
     hist = trainer.history
     check([h["step"] for h in hist] == list(range(FILES_STEPS)),
           f"train_joint from files: steps {[h['step'] for h in hist]}")
@@ -2188,6 +2305,10 @@ def phase_files(images, eval_result=None, joint_result=None):
         "samples_per_s_per_reader_in_run", "samples_per_s_per_reader_all_fetched",
         "stage_ms_per_batch_all_fetched", "main_thread_wait_share")}
     out = {"decode_ms_640x960": decode_ms, "decode_ms_all": times, "host_cpu": cpu,
+           "decode_ms_img_112": pair_ms, "decode_ms_img_112_all": pair_times,
+           "decode_ref_files": len(manifest),
+           "progressive": {"eval_counts": prog_counts, "fots_eval_counts": ref_counts,
+                           "eval_summary": prog_summary, "launches": prog_launches},
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,
@@ -2195,7 +2316,8 @@ def phase_files(images, eval_result=None, joint_result=None):
            "reader_first_batches": reader,
            "eval_ocr_png": ocr_out,
            "seconds": {"eval_e2e": t_eval - t_path, "detect": t_detect - t_eval,
-                       "serve": t_serve - t_detect, "export_selftest": t_export - t_serve,
+                       "serve": t_serve - t_detect, "progressive": t_prog - t_serve,
+                       "export_selftest": t_export - t_prog,
                        "train_joint": t_train - t_export, "eval_ocr": t_ocr - t_train,
                        "h5": t_h5 - t_ocr},
            "phase_wall_s": time.perf_counter() - t_phase}

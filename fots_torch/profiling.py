@@ -6,6 +6,7 @@ breakdown; and the timing of the fused residual-block kernel K5'.
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
     python3 -m fots_torch.profiling --path pack
+    python3 -m fots_torch.profiling --path decode [--files A.jpg,B.jpg]
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -29,7 +30,14 @@ cluster route's other possible cuts) at every shape the serving, training
 and evaluation paths give them, one JSON line per shape.  ``pack``: K4' and
 K4'-bwd at the 3-channel images (narrow rows) and the 64-channel maps
 (16-byte rows), device-busy and event-bracketed ms beside the bound and
-``index_add_``, one JSON line per shape.  Needs a CUDA card.
+``index_add_``, one JSON line per shape.  ``decode``: the host reader
+``imageio.imread`` (``csrc/image_decode.cpp``) on the 640x960 scene
+``img_112`` sequential and progressive and on the first smoke scene, colour
+and grey, median, min and max ms of 15 in turns, one JSON line per file; a
+file the decoder refuses is reported with its reason.  To compare two
+versions of the decoder, run it from two copies of the repository that
+differ in ``imageio.py`` and ``csrc/image_decode.cpp``, in turns in one
+call.  Every other path needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import argparse
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -603,10 +612,43 @@ def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda")
     return out
 
 
+#: ``--path decode``'s files, relative to the repository
+DECODE_FILES = ("fots_torch/assets/heldout_eval_jpg/img_112.jpg",
+                "fots_torch/assets/decode_ref/prog/img_112.jpg", "data/synth/img_000.jpg")
+
+
+def profile_decode(reps: int = 15) -> list:
+    """Host ms of ``imageio.imread`` on each of :data:`DECODE_FILES`, colour
+    and grey, the files taken in turns; a file the decoder refuses is
+    reported with its reason."""
+    from fots_torch import imageio
+
+    times = {(f, g): [] for f in DECODE_FILES for g in (False, True)}
+    refused = {}
+    for i in range(reps):
+        order = list(times) if i % 2 == 0 else list(times)[::-1]
+        for f, grey in order:
+            t0 = time.perf_counter()
+            try:
+                imageio.imread(os.path.join(_REPO, f), grayscale=grey)
+            except ValueError as e:
+                refused[(f, grey)] = str(e)
+            times[(f, grey)].append(1e3 * (time.perf_counter() - t0))
+    rows = []
+    for (f, grey), ts in times.items():
+        row = {"file": f, "grey": grey}
+        if (f, grey) in refused:
+            row["refused"] = refused[(f, grey)]
+        else:
+            row.update(ms=statistics.median(ts), ms_min=min(ts), ms_max=max(ts), reps=reps)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("serve", "train", "export", "fused_block",
-                                       "instance_norm", "pack"),
+                                       "instance_norm", "pack", "decode"),
                     default="serve")
     ap.add_argument("--scratch", action="store_true",
                     help="train: from scratch on an augmented 512x512 batch")
@@ -617,6 +659,11 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default=",".join(map(str, FUSED_BLOCK_SHAPE)),
                     help="fused_block: N,H,W,C")
     args = ap.parse_args(argv)
+    if args.path == "decode":
+        for row in profile_decode():
+            print(json.dumps(row), flush=True)
+        print(card_name_and_power_limit())
+        return 0
     if args.path == "fused_block":
         shape = tuple(int(v) for v in args.shape.split(","))
         print(json.dumps(profile_fused_block(shape, args.iters), indent=2))

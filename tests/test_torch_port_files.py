@@ -18,7 +18,8 @@ fots on the CPU (f32).
 - Entries from files, on 2 ``data/synth`` scenes at their own size, one
   fots engine for the module: ``eval_e2e -images_list`` gives fots's
   summary and texts (boxes within 0.05 px, as in
-  ``test_torch_port_eval.py``; read 1.7e-3); ``cli.detect``'s ``.txt`` rows
+  ``test_torch_port_eval.py``; read 1.7e-3), also over two committed
+  progressive jpgs and a 16-bit PNG crop; ``cli.detect``'s ``.txt`` rows
   equal ``fots.cli.detect``'s (texts equal, corners and scores within
   1e-3); ``cli.serve -test_folder`` writes what ``-images_npz`` of the
   ``cv2``-decoded pixels writes; ``cli.export``'s ``-selftest`` folder
@@ -268,6 +269,42 @@ def test_eval_e2e_images_list_matches_fots(tmp_path, fots_uses):
         np.testing.assert_allclose([d["box"] for d in g["detections"]],
                                    [d["box"] for d in w["detections"]], atol=0.05)
     assert sum(len(d["detections"]) for d in got) >= 8
+
+
+def test_eval_e2e_progressive_and_16_bit_files_match_fots(tmp_path, fots_uses):
+    """``eval_e2e -images_list`` over two committed progressive scenes and a
+    16-bit PNG crop of a third: fots reads them with ``cv2.imread``, the port
+    with its own decoder, and both give the same summary and texts."""
+    prog = os.path.join(REPO, "fots_torch", "assets", "decode_ref", "prog")
+    files = []
+    for name in ("img_112", "img_113"):
+        for f in (f"{name}.jpg", f"gt_{name}.txt"):
+            shutil.copy(os.path.join(prog, f), tmp_path)
+        files.append(str(tmp_path / f"{name}.jpg"))
+    crop = cv2.imread(os.path.join(prog, "img_114.jpg"))[:480, :640].astype(np.uint16) * 257
+    crop += np.arange(crop.size, dtype=np.uint16).reshape(crop.shape) % 199  # low bytes
+    files.append(str(tmp_path / "img_114_16bit.png"))
+    assert cv2.imwrite(files[-1], crop)
+    with open(os.path.join(prog, "gt_img_114.txt"), encoding="utf-8") as f:
+        kept = [line for line in f if all(
+            0 <= float(v) < lim for v, lim in zip(line.split(",")[:8], (640, 480) * 4))]
+    assert kept
+    (tmp_path / "gt_img_114_16bit.txt").write_text("".join(kept), encoding="utf-8")
+    lst = _write_list(tmp_path / "eval.txt", files)
+    got_dump, want_dump = tmp_path / "port.json", tmp_path / "fots.json"
+    summary = port_eval_cli.main(["-model", SNAPSHOT, "-images_list", lst, "-device", "cpu",
+                                  "-dump_json", str(got_dump)])
+    jax_eval_cli.main(["-model", SNAPSHOT, "-images_list", lst, "-out_json",
+                       str(tmp_path / "fots_summary.json"), "-dump_json", str(want_dump)])
+    with open(tmp_path / "fots_summary.json") as f:
+        assert summary == json.load(f)
+    got, want = json.loads(got_dump.read_text()), json.loads(want_dump.read_text())
+    assert [d["image"] for d in got] == [d["image"] for d in want] == files
+    for g, w in zip(got, want):
+        assert [d["text"] for d in g["detections"]] == [d["text"] for d in w["detections"]]
+        np.testing.assert_allclose([d["box"] for d in g["detections"]],
+                                   [d["box"] for d in w["detections"]], atol=0.05)
+    assert all(len(d["detections"]) >= 1 for d in got)
 
 
 def test_detect_cli_rows_match_fots(tmp_path, scene_folder, fots_uses, capsys):
