@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels   # a subset (no result line)
-    python3 chip_smoke.py --serve-bundle DIR OUT   # phase 5's fresh process
+    python3 chip_smoke.py --serve-bundle DIR OUT [--no-tf32]   # a fresh process of 5, 14
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -183,11 +183,34 @@ result line):
    encoded by the port (ms an image with and without the drawing and
    writing, and ``put_text``'s ms, printed); ``train_joint -debug`` (4 steps at batch
    8, 512x512, a dump every 2) must dump at steps 0 and 2 under ``fots``'s
-   names, every file decoding (host ms a dump adds printed).
+   names, every file decoding (host ms a dump adds printed);
+14. the transports (a main path, ``transports``), each part with the launch
+   counts zeroed just before it and read just after: (a) the dense path,
+   bf16, the 4 smoke scenes repeated to 16 at 704x1280 through
+   ``FOTSInference.detect_maps`` (head maps to the host in one copy),
+   ``ops.nms.get_boxes`` per image and ``recognize_boxes`` over the raw focr
+   map: per image the boxes must equal ``get_boxes_from_candidates`` over
+   ``extract_candidates`` of the same maps with k = every pixel exactly, and
+   match ``detect_boxes_batch``'s f32-transport boxes (the same count,
+   corners within 1 px), and the texts over the raw focr must equal those
+   over that batch's ``PackedFocr``; (b) ``transport="yuv420"`` against the
+   u8 host letterbox on the 16 held-out scenes at 704x1280 bf16,
+   ``batch_call`` and ``stream`` (3 batches): every image must yield text
+   and ``stream`` must give ``batch_call``'s texts on both; printed: the box
+   counts, how many images and texts differ, the host letterbox's ms of
+   each streamed batch, h2d bytes a batch and images/s of each whole stream
+   (its letterboxes included); K1', K2', K3' and K4' must have
+   launched on (a) and on (b); (c) one bundle exported for ``cuda`` and
+   ``cpu`` from an f32 engine at batch 2, 704x1280 (the strip buckets the 2
+   smoke images use): its cuda programs served in a fresh process
+   (``--serve-bundle ... --no-tf32``), its cpu programs here, held to each
+   other as phase 3 holds the ports: the same box count per image, corners
+   within 1 px, identical texts.
 
 Then it prints a ``{"kernels": [...]}`` JSON line (K4' and K4'-bwd at C = 3
 listed as rows of their own), the serving, export, training,
-training-from-scratch, fused-block, evaluation, ocr, files and writers JSON lines,
+training-from-scratch, fused-block, evaluation, ocr, files, writers and transports
+JSON lines,
 the card's name and power limit from nvidia-smi, and last the
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
@@ -207,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -258,8 +282,9 @@ FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8'
 DECODE_REPEATS = 15
 READER_BATCHES = 4       # reader 0's batches made from files and from the archive
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval", "ocr", "files", "writers")
+          "train_joint", "fused_block", "eval", "ocr", "files", "writers", "transports")
 EXPORT_BATCHES = 6
+TRANSPORT_BATCHES = 3    # stream batches of the held-out scenes a transport (phase 14)
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
 #: serving kernels: each call of a kernel's wrapper runs one device kernel
 #: with one of its fragments, so a trace of graph replays, which move no
@@ -1168,7 +1193,8 @@ def phase_export(images):
         # 1. export; no program carries a weight
         bundle = os.path.join(tmp, "bundle")
         t0 = time.perf_counter()
-        manifest = export_serving(eng, bundle, BATCH, *SERVE_HW, roi_pad=ROI_PAD)
+        manifest = export_serving(eng, bundle, BATCH, *SERVE_HW, roi_pad=ROI_PAD,
+                                  platforms=("cuda",))
         out["export_s"] = time.perf_counter() - t0
         out["files_bytes"] = {f: os.path.getsize(os.path.join(bundle, f))
                               for f in sorted(os.listdir(bundle))}
@@ -1177,7 +1203,7 @@ def phase_export(images):
             check(not f.endswith(".pt2") or size < weights / 8,
                   f"{f} ({size} bytes) is large enough to carry the weights ({weights})")
         print(f"  exported {len(manifest['programs'])} programs in {out['export_s']:.1f} s; "
-              f"torch {manifest['torch_version']}, device {manifest['device']}")
+              f"torch {manifest['torch_version']}, platforms {manifest['platforms']}")
 
         # 2. a fresh process serves it without the model code
         served_path = os.path.join(tmp, "served.json")
@@ -2214,7 +2240,8 @@ def phase_files(images, eval_result=None, joint_result=None):
     # (e) the exported bundle's selftest on the folder
     _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
                                              os.path.join(tmp, "bundle"), "-batch",
-                                             str(len(names)), "-selftest", folder])
+                                             str(len(names)), "-platforms", "cuda",
+                                             "-selftest", folder])
     check("selftest ok" in printed, "export -selftest <folder> did not pass")
     t_export = time.perf_counter()
     # (f) train_joint from the jpg files, 10 steps
@@ -2559,6 +2586,206 @@ def phase_writers():
     return total, out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the dense path, the yuv420 transport, a cuda,cpu bundle
+# --------------------------------------------------------------------------
+
+def _timed_stream(eng, scenes, batches: int):
+    """(results of the last batch, images/s of the whole stream, every batch's
+    host letterbox included, on the host clock, and the ms of each batch's
+    letterbox) of ``stream`` over ``scenes`` repeated."""
+    letterbox, lb_ms = eng._letterbox, []
+
+    def timed(images, serve_hw):
+        t = time.perf_counter()
+        out = letterbox(images, serve_hw)
+        lb_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    eng._letterbox = timed
+    try:
+        t0 = time.perf_counter()
+        for last in eng.stream(iter([scenes] * batches), serve_hw=SERVE_HW):
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._letterbox
+    return last, batches * len(scenes) / wall, lb_ms
+
+
+def phase_transports(images):
+    """The dense detection path, the yuv420 transport and a bundle for two
+    device types, each with the launch counts zeroed just before it."""
+    from fots_torch.checkpoint import load_detector
+    from fots_torch.export import ExportedEngine, export_serving
+    from fots_torch.kernels import build
+    from fots_torch.ops.nms import extract_candidates, get_boxes, get_boxes_from_candidates
+    from fots_torch.pipeline import FOTSInference
+    from fots_torch.profiling import card_name_and_power_limit
+    from fots_torch.serving import bucket_rois, host_letterbox
+
+    t_phase = time.perf_counter()
+    smi = card_name_and_power_limit()
+    print(f"phase 14: transports; [{smi}]")
+    model, _, config = load_detector(SNAPSHOT, "cuda")
+    masked = config.get("masked_norm", False)
+    batch = [images[i % len(images)] for i in range(BATCH)]
+    out = {"card": smi, "batch": BATCH, "serve_hw": list(SERVE_HW), "dtype": "bf16"}
+    launches = {}
+
+    # (a) the dense path: maps to the host, get_boxes, texts from the raw focr
+    with FOTSInference(model, masked_norm=masked, mixed_precision=True, cand_transport="f32",
+                       device="cuda") as eng:
+        boxed, _ = host_letterbox(batch, SERVE_HW)
+        norm = boxed.astype(np.float32) / 128.0 - 1.0
+        thresholds = (eng.segm_thresh, eng.iou_th1, eng.iou_th2)
+        eng.detect_maps(norm)  # warm-up, not counted
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        segm, rbox, angle, focr = eng.detect_maps(norm)
+        maps_s = time.perf_counter() - t0
+        dense = [get_boxes(segm[i], rbox[i], angle[i], *thresholds) for i in range(BATCH)]
+        nms_s = time.perf_counter() - t0 - maps_s
+        texts = [eng.recognize_boxes(dense[i], focr, batch_index=i) for i in range(BATCH)]
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        launches["dense"] = dict(build.launch_counts)
+        hs, ws = segm.shape[1:]
+        cands = extract_candidates(*(torch.from_numpy(a).cuda() for a in (segm, rbox, angle)),
+                                   hs * ws, eng.segm_thresh).cpu().numpy()
+        for i in range(BATCH):
+            check(np.array_equal(get_boxes_from_candidates(cands[i], hs, ws, *thresholds),
+                                 dense[i]),
+                  f"image {i}: get_boxes and get_boxes_from_candidates (k = all) differ")
+        t0 = time.perf_counter()
+        sparse, packed = eng.detect_boxes_batch(boxed)
+        sparse_texts = [eng.recognize_boxes(dense[i], packed, batch_index=i)
+                        for i in range(BATCH)]
+        torch.cuda.synchronize()
+        sparse_s = time.perf_counter() - t0
+    check([b.shape[0] for b in dense] == [b.shape[0] for b in sparse],
+          f"dense boxes {[b.shape[0] for b in dense]} vs candidate path "
+          f"{[b.shape[0] for b in sparse]}")
+    corner = max([float(np.abs(d[:, :8] - s[:, :8]).max()) for d, s in zip(dense, sparse)
+                  if d.size] or [0.0])
+    check(corner <= 1.0, f"dense and candidate-path corners differ by {corner} px")
+    check(texts == sparse_texts, "texts from the raw focr differ from the PackedFocr's")
+    check(all(any(t) for t in texts), "an image of the dense path yielded no text")
+    out["dense"] = {"boxes": [int(b.shape[0]) for b in dense], "max_corner_px": corner,
+                    "maps_ms": 1e3 * maps_s, "host_nms_ms": 1e3 * nms_s,
+                    "batch_ms": 1e3 * dense_s, "candidate_path_batch_ms": 1e3 * sparse_s,
+                    "launches": launches["dense"]}
+    print(f"  (a) dense, b{BATCH} {SERVE_HW}: boxes {out['dense']['boxes']} = the candidate "
+          f"path's (k = all: exactly; f32 transport: corners within {corner:.4f} px), texts "
+          f"from the raw focr = the PackedFocr's; detect_maps {1e3 * maps_s:.2f} ms, host "
+          f"get_boxes {1e3 * nms_s:.2f} ms, with recognition {1e3 * dense_s:.2f} ms a batch "
+          f"(candidate path {1e3 * sparse_s:.2f}); launches {launches['dense']}")
+
+    # (b) yuv420 against the u8 host letterbox, on the held-out scenes
+    with np.load(EVAL_IMAGES) as z:
+        scenes = list(z["images"])
+    res, lb_ms, h2d, ips = {}, {}, {}, {}
+    for transport in ("u8", "yuv420"):
+        with FOTSInference(model, masked_norm=masked, mixed_precision=True, transport=transport,
+                           device_letterbox=False, device="cuda") as eng:
+            raw, _ = eng._letterbox(scenes, SERVE_HW)
+            h2d[transport] = int(sum(a.nbytes for a in raw) if isinstance(raw, tuple)
+                                 else raw.nbytes)
+            eng.detect_boxes_batch(raw)  # warm-up, not counted
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            res[transport] = eng.batch_call(scenes, serve_hw=SERVE_HW)
+            streamed, ips[transport], lb_ms[transport] = _timed_stream(eng, scenes,
+                                                                       TRANSPORT_BATCHES)
+            launches[transport] = dict(build.launch_counts)
+        check([[e["text"] for e in r] for r in streamed]
+              == [[e["text"] for e in r] for r in res[transport]],
+              f"{transport}: stream's texts differ from batch_call's")
+        check(all(len(r) > 0 for r in res[transport]),
+              f"{transport}: an image of the held-out scenes yielded no text")
+    counts = {t: [len(r) for r in res[t]] for t in res}
+    # texts of an image that the other transport's results of it lack (as multisets)
+    only = {t: sum(sum((Counter(e["text"] for e in a) - Counter(e["text"] for e in b)).values())
+                   for a, b in zip(res[t], res[o]))
+            for t, o in (("u8", "yuv420"), ("yuv420", "u8"))}
+    differ = sum(sorted(e["text"] for e in a) != sorted(e["text"] for e in b)
+                 for a, b in zip(res["yuv420"], res["u8"]))
+    n_texts = {t: sum(len(r) for r in res[t]) for t in res}
+    out["yuv420"] = {"scenes": len(scenes), "boxes": counts, "texts": n_texts,
+                     "images_with_other_texts": differ, "texts_only_in": only,
+                     "host_letterbox_ms": lb_ms, "h2d_bytes_per_batch": h2d,
+                     "stream_images_per_s": ips,
+                     "launches": {t: launches[t] for t in ("u8", "yuv420")}}
+    print(f"  (b) yuv420 vs u8 host letterbox, {len(scenes)} held-out scenes at {SERVE_HW} bf16: "
+          f"boxes {counts}; {differ} images read other texts ({only['yuv420']} texts only "
+          f"under yuv420, {only['u8']} only under u8, of {n_texts}); host letterbox ms a "
+          f"batch {lb_ms}; h2d bytes a batch {h2d}; "
+          f"[{smi}] stream images/s over {TRANSPORT_BATCHES} batches {ips}; launches "
+          f"{ {t: launches[t] for t in ('u8', 'yuv420')} }")
+    for path in ("dense", "yuv420"):
+        for name in build.PATH_KERNELS["serving"]:
+            check(launches[path][name] > 0, f"kernel {name} was not launched on the {path} path")
+
+    # (c) one bundle for cuda and cpu, f32; each device type's programs
+    # against the other's, as phase 3 holds the CUDA port against the CPU port
+    model32, _, _ = load_detector(SNAPSHOT, "cuda")
+    pair = list(images[:2])
+    with tempfile.TemporaryDirectory(prefix="fots_bundle2_") as tmp, \
+            FOTSInference(model32, masked_norm=masked, device_letterbox=False,
+                          device="cuda") as eng:
+        # the strip buckets the two images use (masked IN: a strip does not
+        # depend on its bucket's width, and no roi changes bucket)
+        with no_tf32():
+            boxes, _ = eng.detect_boxes_batch(host_letterbox(pair, SERVE_HW)[0])
+        eng.strip_buckets = tuple(sorted(bucket_rois(boxes, eng.expand_w_frac,
+                                                     eng.strip_buckets)[2]))
+        bundle = os.path.join(tmp, "bundle")
+        t0 = time.perf_counter()
+        manifest = export_serving(eng, bundle, len(pair), *SERVE_HW, platforms=("cuda", "cpu"))
+        export_s = time.perf_counter() - t0
+        check(manifest["platforms"] == ["cuda", "cpu"] and all(
+            sorted(p["files"]) == ["cpu", "cuda"] for p in manifest["programs"].values()),
+              f"the manifest lists {manifest['platforms']}")
+        served_path = os.path.join(tmp, "served.json")
+        _run_child([os.path.abspath(__file__), "--serve-bundle", bundle, served_path,
+                    "--no-tf32"], "serve-bundle cuda")
+        with open(served_path) as f:
+            served = json.load(f)
+        with ExportedEngine(bundle, device="cpu") as cpu_engine:
+            t0 = time.perf_counter()
+            on_cpu = cpu_engine.batch_call(pair)
+            cpu_s = time.perf_counter() - t0
+    got = [[{"box": np.asarray(e["box"]), "text": e["text"]} for e in r]
+           for r in served["results"]]
+    check([len(r) for r in got] == [len(r) for r in on_cpu],
+          f"bundle box counts: cuda {[len(r) for r in got]} vs cpu {[len(r) for r in on_cpu]}")
+    check(all(len(r) > 0 for r in on_cpu), "the cpu programs found no text")
+    bundle_corner = 0.0
+    for g_img, w_img in zip(got, on_cpu):
+        for g, w in zip(g_img, w_img):
+            check(g["text"] == w["text"], f"bundle texts differ: {g['text']!r} vs {w['text']!r}")
+            bundle_corner = max(bundle_corner, float(np.abs(g["box"][:8] - w["box"][:8]).max()))
+    check(bundle_corner <= 1.0, f"bundle corners differ by {bundle_corner} px across devices")
+    out["bundle"] = {"batch": len(pair), "dtype": "f32", "platforms": manifest["platforms"],
+                     "strip_buckets": manifest["strip_buckets"],
+                     "programs": len(manifest["programs"]), "export_s": export_s,
+                     "boxes": [len(r) for r in on_cpu], "max_corner_px": bundle_corner,
+                     "cuda_load_s": served["load_s"], "cpu_batch_s": cpu_s,
+                     "cuda_setup_launches": served["launches"]}
+    print(f"  (c) a cuda,cpu bundle, f32 b{len(pair)} {SERVE_HW}, buckets "
+          f"{manifest['strip_buckets']}: exported in {export_s:.1f} s; the cuda programs in a "
+          f"fresh process (loaded in {served['load_s']:.1f} s) and the cpu programs here "
+          f"({cpu_s:.2f} s a batch): boxes {out['bundle']['boxes']}, texts identical, corners "
+          f"within {bundle_corner:.4f} px")
+    total = {k: launches["dense"][k] + launches["yuv420"][k] + launches["u8"][k]
+             for k in build.launch_counts}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"  launches {total}; phase {out['phase_wall_s']:.1f} s")
+    return total, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2566,7 +2793,10 @@ def main(argv=None) -> int:
                     "lines are printed only when every phase ran")
     ap.add_argument("--serve-bundle", nargs=2, metavar=("BUNDLE", "OUT_JSON"),
                     help="serve one batch from an exported bundle in this process and "
-                    "write the results to OUT_JSON (phase 5 runs this in a fresh process)")
+                    "write the results to OUT_JSON (phases 5 and 14 run this in a fresh "
+                    "process)")
+    ap.add_argument("--no-tf32", action="store_true",
+                    help="with --serve-bundle: f32 convolutions and matmuls in full f32")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2578,6 +2808,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     if args.serve_bundle:
+        if args.no_tf32:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         return serve_bundle(*args.serve_bundle)
     from fots_torch.kernels import build
     from fots_torch.profiling import card_name_and_power_limit
@@ -2630,6 +2862,8 @@ def main(argv=None) -> int:
                                        results.get("train_joint", (None, None))[1])
     if "writers" in phases:
         results["writers"] = phase_writers()
+    if "transports" in phases:
+        results["transports"] = phase_transports(list(images))
     smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
@@ -2646,6 +2880,7 @@ def main(argv=None) -> int:
     ocr_launches, ocr = results["ocr"]
     files_launches, files = results["files"]
     writers_launches, writers = results["writers"]
+    transports_launches, transports = results["transports"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -2654,7 +2889,8 @@ def main(argv=None) -> int:
                  "training": train_launches[kname],
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
                  "evaluation": eval_launches[kname], "ocr": ocr_launches[kname],
-                 "files": files_launches[kname], "writers": writers_launches[kname]}
+                 "files": files_launches[kname], "writers": writers_launches[kname],
+                 "transports": transports_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -2711,6 +2947,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ocr": ocr}))
     print(json.dumps({"files": files}))
     print(json.dumps({"writers": writers}))
+    print(json.dumps({"transports": transports}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,17 +2,18 @@
 ``fots/cli/export.py``.
 
 Writes the detection program and one recognition program per strip bucket
-(``torch.export``) plus the weights into a directory that
-:class:`fots_torch.export.ExportedEngine` serves without the model code
-(see ``fots_torch/export.py``).  A bundle serves on the device type it was
-exported on (``-device``; default the card).
+(``torch.export``), each traced once for every device type of
+``-platforms`` (default ``cuda,cpu``; ``cuda`` needs a card), plus the
+weights once, into a directory that :class:`fots_torch.export.ExportedEngine`
+serves on each of those device types without the model code (see
+``fots_torch/export.py``).
 
 Usage:
   python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
       -batch 16 -height 704 -width 1280
-  # check the bundle against the in-process engine on the first batch of a
-  # folder's *.jpg files, or of an archive of decoded images (``images`` u8
-  # [N, h, w, 3] BGR):
+  # check the bundle on each of its device types against the in-process
+  # engine there, on the first batch of a folder's *.jpg files, or of an
+  # archive of decoded images (``images`` u8 [N, h, w, 3] BGR):
   python -m fots_torch.cli.export -model artifacts/serving_params.npz -out bundle/ \\
       -selftest data/synth/
 """
@@ -55,37 +56,54 @@ def main(argv=None):
     parser.add_argument("-roi_pad", type=int, default=32)
     parser.add_argument("-mixed_precision", action="store_true", default=True)
     parser.add_argument("-f32", dest="mixed_precision", action="store_false")
-    parser.add_argument("-device", default=None,
-                        help="the device type the bundle is for; default: the card (fails "
-                             "without CUDA); 'cpu' runs the kernels' plain versions")
+    parser.add_argument("-platforms", default="cuda,cpu",
+                        help="comma-separated device types the bundle serves on (cuda, "
+                             "cpu); listing cuda needs a card")
     parser.add_argument("-selftest", default=None, metavar="FOLDER_OR_NPZ",
-                        help="after exporting, reload the bundle and check that its results "
-                             "match the in-process engine on the first batch of the folder's "
-                             "*.jpg files (or of the images of an .npz archive)")
+                        help="after exporting, reload the bundle on each of its device types "
+                             "and check that its results match the in-process engine there on "
+                             "the first batch of the folder's *.jpg files (or of the images "
+                             "of an .npz archive)")
     args = parser.parse_args(argv)
 
     from fots_torch.cli.detect import load_engine
     from fots_torch.export import ExportedEngine, export_serving
 
+    platforms = tuple(p for p in args.platforms.split(",") if p)
     engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
-                         mixed_precision=args.mixed_precision, device=args.device)
+                         mixed_precision=args.mixed_precision,
+                         device="cuda" if "cuda" in platforms else "cpu")
     engine.max_candidates = args.max_candidates
     engine.max_boxes = args.max_boxes
     with engine:
         manifest = export_serving(engine, args.out, batch=args.batch, height=args.height,
-                                  width=args.width, roi_pad=args.roi_pad)
+                                  width=args.width, roi_pad=args.roi_pad, platforms=platforms)
         total = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out))
         print(f"exported {len(manifest['programs'])} programs (buckets "
               f"{manifest['strip_buckets']}) + params to {args.out} ({total / 1e6:.1f} MB) "
-              f"for device {manifest['device']}")
+              f"for platforms {manifest['platforms']}")
         if not args.selftest:
             return manifest
         images = selftest_images(args.selftest, args.batch)
         if not images:
             raise SystemExit(f"selftest: no readable images in {args.selftest}")
-        with ExportedEngine(args.out, device=args.device) as exported:
-            got = exported.batch_call(images)
-        want = engine.batch_call(images, serve_hw=(args.height, args.width))
+        for platform in platforms:
+            with ExportedEngine(args.out, device=platform) as exported:
+                got = exported.batch_call(images)
+            if platform == engine.device.type:
+                want = engine.batch_call(images, serve_hw=(args.height, args.width))
+            else:
+                with engine.copy_to(platform) as other:
+                    want = other.batch_call(images, serve_hw=(args.height, args.width))
+            n_boxes = _selftest(got, want)
+            print(f"selftest ok: {n_boxes} boxes identical across {len(images)} images "
+                  f"on {platform}")
+    return manifest
+
+
+def _selftest(got, want) -> int:
+    """The number of boxes of ``got``, which must equal ``want``: the same
+    count per image, texts, and boxes within 1e-4 px."""
     n_boxes = 0
     for g_img, w_img in zip(got, want):
         if len(g_img) != len(w_img):
@@ -96,8 +114,7 @@ def main(argv=None):
             if not np.allclose(g["box"], w["box"], rtol=0.0, atol=1e-4):
                 raise SystemExit(f"selftest: boxes differ: {g['box']} vs {w['box']}")
             n_boxes += 1
-    print(f"selftest ok: {n_boxes} boxes identical across {len(images)} images")
-    return manifest
+    return n_boxes
 
 
 if __name__ == "__main__":

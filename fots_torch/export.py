@@ -2,27 +2,36 @@
 a host runtime that serves from them without the model code.
 
 Port of ``fots/export.py``.  :func:`export_serving` writes, from a
-:class:`fots_torch.pipeline.FOTSInference`, a directory that holds
+:class:`fots_torch.pipeline.FOTSInference`, a directory that holds, for each
+device type it lists (``"cuda"``, ``"cpu"``):
 
-- ``detect.pt2``: u8 normalization (x/128 - 1) + the detector forward (bf16
-  backbone with f32 heads under mixed precision) + top-k NMS candidate
-  extraction (u16 pack while the 1/4-scale map has < 2^16 pixels) + the focr
-  neighbour pack -> (candidates [B, 8, k], quads [B*H/4*W/4, 4C]), at one
-  fixed (batch, height, width);
-- ``recognize_<w>.pt2``, one per strip-width bucket: RoIRotate over the
-  quads + the CTC head + argmax -> (ids, confidences) of ``roi_pad`` rois;
-- ``params.npz``: the weights, once (bf16 stored as f32, its dtype in the
+- ``detect.<device>.pt2``: u8 normalization (x/128 - 1) + the detector
+  forward (bf16 backbone with f32 heads under mixed precision) + top-k NMS
+  candidate extraction (u16 pack while the 1/4-scale map has < 2^16 pixels)
+  + the focr neighbour pack -> (candidates [B, 8, k], quads [B*H/4*W/4,
+  4C]), at one fixed (batch, height, width);
+- ``recognize_<w>.<device>.pt2``, one per strip-width bucket: RoIRotate over
+  the quads + the CTC head + argmax -> (ids, confidences) of ``roi_pad``
+  rois;
+
+and, once for every device type,
+
+- ``params.npz``: the weights (bf16 stored as f32, its dtype in the
   manifest's ``param_dtypes``): every program takes them as its first
   input, so no ``.pt2`` holds a weight;
-- ``manifest.json``: shapes, thresholds, buckets and the codec.
+- ``manifest.json``: the device types, each program's file for each of
+  them, shapes, thresholds, buckets and the codec.
 
 Each program is ``torch.export`` of the engine's own body (no
 ``torch.compile``): the ATen ops it traced, run eagerly, and the serving
 kernels K1'-K4' as the registered ops ``torch.ops.fots_torch.*``, so loading
 a program needs only the ops registered (this module imports them).
 
-A bundle is for the device type it was exported on (``"cuda"`` or
-``"cpu"``): the traced factory calls keep their device.
+A traced program is for one device type (its factory calls keep their
+device), so every program is traced once for each listed type, the other
+type's from a copy of the engine on that device; one bundle then serves on
+each of them, as ``fots``'s bundle serves on each platform it was lowered
+for.
 
 :class:`ExportedEngine` wires the programs up as ``FOTSInference.batch_call``
 does (host letterbox, detect, host NMS, the box cap, bucketed recognition in
@@ -51,7 +60,9 @@ from fots_torch.serving import (assemble_results, bucket_rois, cap_boxes, host_l
                                 roi_chunks)
 
 MANIFEST = "manifest.json"
-FORMAT = "fots-torch-serving-v1"
+FORMAT = "fots-torch-serving-v2"
+#: the device types a bundle can list
+PLATFORMS = ("cuda", "cpu")
 #: rois per recognition program call
 ROI_PAD = 32
 
@@ -103,18 +114,21 @@ def _export(module, params, args, path: str):
 
 
 def export_serving(engine, out_dir: str, batch: int, height: int, width: int,
-                   roi_pad: int = ROI_PAD) -> Dict:
+                   roi_pad: int = ROI_PAD, platforms: Sequence[str] = PLATFORMS) -> Dict:
     """Export ``engine``'s serving programs and weights to ``out_dir``.
 
     ``engine``: a :class:`fots_torch.pipeline.FOTSInference`.  The detection
     program takes [batch, height, width, 3] u8; one recognition program per
-    ``engine.strip_buckets`` entry takes ``roi_pad`` rois.  The bundle is for
-    ``engine.device``'s type.  Prints each file's size; returns the manifest
-    (also written to ``out_dir/manifest.json``)."""
-    from fots_torch.pipeline import PackedFocr
-
+    ``engine.strip_buckets`` entry takes ``roi_pad`` rois.  Every program is
+    traced for each device type of ``platforms``; ``"cuda"`` without a card
+    raises before anything is written.  Prints each file's size; returns
+    the manifest (also written to ``out_dir/manifest.json``)."""
     if height % 32 or width % 32:
         raise ValueError("serving height/width must be /32 multiples")
+    platforms = tuple(platforms)
+    if not platforms or len(set(platforms)) != len(platforms) or set(platforms) - set(PLATFORMS):
+        raise ValueError(f"platforms must be distinct device types of {PLATFORMS}; "
+                         f"got {platforms}")
     # the bundle must decode without the exporting process: only the plain
     # LabelCodec's state (alphabet, case) round-trips through the manifest
     if type(engine.codec) is not LabelCodec:
@@ -127,36 +141,25 @@ def export_serving(engine, out_dir: str, batch: int, height: int, width: int,
         if key.endswith("conv11.weight") and v.shape[0] != engine.codec.num_classes:
             raise ValueError(f"vocab head {key} has {v.shape[0]} classes but the engine "
                              f"codec expects {engine.codec.num_classes}")
+    for p in platforms:
+        resolve_device(p)
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "params.npz"),
              **{k: v.float().cpu().numpy() for k, v in params.items()})
 
-    dev = engine.device
-    images = torch.zeros((batch, height, width, 3), dtype=torch.uint8, device=dev)
-    detect = _Stateless(engine.model, lambda im: engine._detect_body(im.float() / 128.0 - 1.0))
-    (cand_shape, cand_dtype), (quad_shape, quad_dtype) = _export(
-        detect, params, (images,), os.path.join(out_dir, "detect.pt2"))
-    programs = {"detect": {"file": "detect.pt2",
-                           "images": [list(images.shape), "uint8"],
-                           "candidates": [cand_shape, cand_dtype],
-                           "quads": [quad_shape, quad_dtype]}}
-
-    quads = torch.zeros(quad_shape, dtype=getattr(torch, quad_dtype), device=dev)
-    rois = torch.zeros((roi_pad, 6), dtype=torch.float32, device=dev)
-    fshape = (batch, height // 4, width // 4, quad_shape[1] // 4)
-    for w in engine.strip_buckets:
-        def recognize(q, r, w=w):
-            return engine._recognize(PackedFocr(q, fshape), r, w)
-
-        fname = f"recognize_{w}.pt2"
-        _export(_Stateless(engine.model, recognize), params, (quads, rois),
-                os.path.join(out_dir, fname))
-        programs[f"recognize_{w}"] = {"file": fname, "width": w}
+    programs: Dict[str, Dict] = {}
+    for p in platforms:
+        if p == engine.device.type:
+            _export_programs(engine, params, out_dir, batch, height, width, roi_pad, programs)
+        else:
+            with engine.copy_to(p) as other:
+                _export_programs(other, {k: v.to(other.device) for k, v in params.items()},
+                                 out_dir, batch, height, width, roi_pad, programs)
 
     manifest = {
         "format": FORMAT,
         "torch_version": torch.__version__,
-        "device": dev.type,
+        "platforms": list(platforms),
         "batch": batch, "height": height, "width": width,
         "max_candidates": engine.max_candidates,
         "strip_buckets": list(engine.strip_buckets),
@@ -178,6 +181,37 @@ def export_serving(engine, out_dir: str, batch: int, height: int, width: int,
     for fname in sorted(os.listdir(out_dir)):
         print(f"  {fname}: {os.path.getsize(os.path.join(out_dir, fname))} bytes")
     return manifest
+
+
+def _export_programs(engine, params, out_dir: str, batch: int, height: int, width: int,
+                     roi_pad: int, programs: Dict[str, Dict]) -> None:
+    """Trace ``engine``'s detection program and one recognition program per
+    strip bucket for ``engine.device``'s type into ``out_dir``, adding each
+    file (and, the first time, each program's shapes: every device type's
+    are the same) to ``programs``."""
+    from fots_torch.pipeline import PackedFocr
+
+    dev = engine.device
+    images = torch.zeros((batch, height, width, 3), dtype=torch.uint8, device=dev)
+    detect = _Stateless(engine.model, lambda im: engine._detect_body(im.float() / 128.0 - 1.0))
+    fname = f"detect.{dev.type}.pt2"
+    (cand_shape, cand_dtype), (quad_shape, quad_dtype) = _export(
+        detect, params, (images,), os.path.join(out_dir, fname))
+    programs.setdefault("detect", {"files": {}, "images": [list(images.shape), "uint8"],
+                                   "candidates": [cand_shape, cand_dtype],
+                                   "quads": [quad_shape, quad_dtype]})["files"][dev.type] = fname
+
+    quads = torch.zeros(quad_shape, dtype=getattr(torch, quad_dtype), device=dev)
+    rois = torch.zeros((roi_pad, 6), dtype=torch.float32, device=dev)
+    fshape = (batch, height // 4, width // 4, quad_shape[1] // 4)
+    for w in engine.strip_buckets:
+        def recognize(q, r, w=w):
+            return engine._recognize(PackedFocr(q, fshape), r, w)
+
+        fname = f"recognize_{w}.{dev.type}.pt2"
+        _export(_Stateless(engine.model, recognize), params, (quads, rois),
+                os.path.join(out_dir, fname))
+        programs.setdefault(f"recognize_{w}", {"files": {}, "width": w})["files"][dev.type] = fname
 
 
 class _Program:
@@ -230,8 +264,9 @@ class ExportedEngine:
     """Host runtime over an exported bundle (see the module docstring).
 
     ``device`` None is the card (raises without CUDA); ``"cpu"`` runs the
-    kernels' plain versions.  A bundle of another format or another device
-    type is refused.  ``codec`` None builds the manifest's
+    kernels' plain versions, each from the programs traced for its type.  A
+    bundle of another format, or one without programs for the device's
+    type, is refused.  ``codec`` None builds the manifest's
     :class:`LabelCodec`.  Close the engine (or use it as a context manager)
     to stop its NMS thread pool."""
 
@@ -241,9 +276,10 @@ class ExportedEngine:
             m = json.load(f)
         if m.get("format") != FORMAT:
             raise ValueError(f"not a fots_torch serving bundle: {bundle_dir}")
-        if m["device"] != self.device.type:
-            raise ValueError(f"bundle {bundle_dir} was exported for {m['device']} and "
-                             f"cannot serve on {self.device.type}: export it there")
+        if self.device.type not in m["platforms"]:
+            raise ValueError(f"bundle {bundle_dir} was exported for "
+                             f"{', '.join(m['platforms'])} and cannot serve on "
+                             f"{self.device.type}: export it with that platform")
         self.manifest = m
         with np.load(os.path.join(bundle_dir, "params.npz")) as z:
             self.params = {k: torch.from_numpy(z[k]).to(self.device).to(getattr(torch, dt))
@@ -254,7 +290,7 @@ class ExportedEngine:
         self.codec = codec
 
         def path(name):
-            return os.path.join(bundle_dir, m["programs"][name]["file"])
+            return os.path.join(bundle_dir, m["programs"][name]["files"][self.device.type])
 
         graphs = self.device.type == "cuda"
         shape, _ = m["programs"]["detect"]["images"]

@@ -3,7 +3,8 @@
 The port's own copy of what it needs from ``fots/geometry.py``: the strip
 width rule, the detected-box and ground-truth-quad -> rotated-roi
 conversions, the per-pixel
-quad decode of the NMS adaptor, with the same arithmetic (f32 steps where
+quad decode of the NMS adaptor (over dense maps and over gathered
+candidates), with the same arithmetic (f32 steps where
 the reference decodes in C float), the /32 input sizing over a NumPy
 bilinear u8 resize (``cv2.resize``'s ``INTER_LINEAR`` in its fixed-point
 arithmetic; the port imports no OpenCV), and the EAST training targets
@@ -95,6 +96,19 @@ def rroi_from_box(box8: np.ndarray, batch_idx: int = 0, expand_w_frac: float = 0
     angle = -angle / math.pi * 180.0
     return (np.array([batch_idx, int(center[0]), int(center[1]), h, w, angle],
                      dtype=np.float64), w, h)
+
+
+def decode_quads_np(segm: np.ndarray, geo: np.ndarray, angle: np.ndarray,
+                    segm_thresh: float = 0.5, scale_factor: float = 4.0,
+                    precision: float = 10000.0):
+    """The NMS adaptor's per-pixel quad decode over dense maps: segm [H, W],
+    geo [H, W, 4] (top, bottom, left, right), angle [H, W, 2] (sin, cos).
+    Returns (quads [N, 4, 2], scores [N], corner_probs [N, 4], xs [N], ys
+    [N]) of the pixels above ``segm_thresh``, in row-major scan order."""
+    ys, xs = np.nonzero(segm > segm_thresh)
+    quads, probs = decode_candidates_np(geo[ys, xs], angle[ys, xs, 0], angle[ys, xs, 1],
+                                        xs, ys, scale_factor, precision)
+    return quads, segm[ys, xs], probs, xs, ys
 
 
 def decode_candidates_np(r: np.ndarray, a_sin: np.ndarray, a_cos: np.ndarray,

@@ -13,7 +13,10 @@ Each reproduces OpenCV's own arithmetic, vectorised over pixels:
 - :func:`box_blur3` is ``cv2.blur(x, (3, 3))`` on f32 (``BORDER_REFLECT_101``),
   :func:`blur3_u8` the same on a u8 image (exact).
 - :func:`bgr2gray_u8` is ``cv2.cvtColor`` BGR -> grey (exact: OpenCV's
-  15-bit fixed-point coefficients).
+  15-bit fixed-point coefficients), :func:`bgr2yuv_u8` BGR -> YUV (exact,
+  14-bit); :func:`resize_area_u8` is ``cv2.resize(..., INTER_AREA)`` of a
+  2-channel u8 image to a smaller size (exact), the ``yuv420`` transport's
+  chroma.
 - :func:`pad_constant` is ``cv2.copyMakeBorder(..., BORDER_CONSTANT)``.
 - :func:`warp_affine_u8` is ``cv2.warpAffine`` (``INTER_LINEAR``, zero
   border) of a u8 image as OpenCV 5 computes it (exact): the inverse map's
@@ -55,6 +58,7 @@ The bilinear u8 resize is :func:`fots_torch.geometry.resize_bilinear_u8`.
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import Tuple
 
@@ -251,6 +255,80 @@ def bgr2gray_u8(im: np.ndarray) -> np.ndarray:
     Returns [h, w, 1]."""
     b, g, r = (im[..., i].astype(np.int64) for i in range(3))
     return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)[..., None]
+
+
+def bgr2yuv_u8(im: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(im, cv2.COLOR_BGR2YUV)`` of a u8 [h, w, 3] BGR image, in
+    OpenCV's 14-bit fixed point: ``Y = (4899 R + 9617 G + 1868 B + 2^13) >>
+    14``, ``U = ((B - Y) 8061 + (128 << 14) + 2^13) >> 14``, ``V = ((R - Y)
+    14369 + (128 << 14) + 2^13) >> 14``, each clipped to [0, 255] (the vector
+    body and the scalar tail of a row agree)."""
+    b, g, r = (im[..., i].astype(np.int32) for i in range(3))
+    half = 1 << 13
+    y = (r * 4899 + g * 9617 + b * 1868 + half) >> 14
+    u = ((b - y) * 8061 + (128 << 14) + half) >> 14
+    v = ((r - y) * 14369 + (128 << 14) + half) >> 14
+    return np.clip(np.stack([y, u, v], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _area_taps(src: int, dst: int):
+    """``computeResizeAreaTab`` of OpenCV's ``resize.cpp`` for one axis,
+    grouped by output pixel: (source index [dst, K], f32 weight [dst, K]) in
+    the order OpenCV accumulates them (unused slots weigh 0)."""
+    scale = src / dst
+    taps = []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(math.floor(f2), src - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(f2 - s2, 1.0, cell) / cell))
+        taps.append(row)
+    k = max(len(row) for row in taps)
+    idx = np.zeros((dst, k), np.int64)
+    wt = np.zeros((dst, k), np.float32)
+    for d, row in enumerate(taps):
+        for j, (s, a) in enumerate(row):
+            idx[d, j], wt[d, j] = s, a
+    return idx, wt
+
+
+def resize_area_u8(im: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(im, dsize, interpolation=cv2.INTER_AREA)`` of a u8 [h, w,
+    2] image to a size no larger on either axis; ``dsize`` is (width,
+    height).  Integral factors on both axes average each cell as an integer
+    sum times the f32 ``1 / area`` (OpenCV's ``resizeAreaFast_``); any other
+    factor weighs each source pixel by its f32 overlap, a horizontal pass
+    then a vertical one, accumulated in f32 without fused multiply-adds
+    (``ResizeArea_Invoker``).  Both round half to even."""
+    if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 2:
+        raise ValueError(f"expected a u8 [h, w, 2] image, got {im.dtype} {im.shape}")
+    dw, dh = int(dsize[0]), int(dsize[1])
+    h, w = im.shape[:2]
+    if not (0 < dw <= w and 0 < dh <= h):
+        raise ValueError(f"INTER_AREA here only shrinks: {w}x{h} -> {dw}x{dh}")
+    sx, sy = w / dw, h / dh
+    if sx == int(sx) and sy == int(sy):
+        sx, sy = int(sx), int(sy)
+        cells = im.astype(np.int32).reshape(dh, sy, dw, sx, 2).sum(axis=(1, 3))
+        out = cells.astype(np.float32) * (np.float32(1.0) / np.float32(sx * sy))
+    else:
+        xi, xw = _area_taps(w, dw)
+        yi, yw = _area_taps(h, dh)
+        src = im.astype(np.float32)
+        hor = src[:, xi[:, 0]] * xw[None, :, 0, None]
+        for j in range(1, xi.shape[1]):
+            hor = hor + src[:, xi[:, j]] * xw[None, :, j, None]
+        out = yw[:, 0, None, None] * hor[yi[:, 0]]
+        for j in range(1, yi.shape[1]):
+            out = out + yw[:, j, None, None] * hor[yi[:, j]]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def pad_constant(im: np.ndarray, top: int, bottom: int, left: int, right: int,

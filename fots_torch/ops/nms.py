@@ -1,14 +1,19 @@
 """NMS candidates on the device, locality-aware NMS on the host.
 
-Port of the serving half of ``fots/ops/nms.py``:
+Port of ``fots/ops/nms.py``:
 
 1. :func:`extract_candidates` keeps the score/geometry/angle maps on the
    device and ships only the top-k above-threshold pixels, packed
    channel-first ``[B, 8, k]`` (optionally as 16-bit patterns, see
    :func:`pack_candidates_u16`);
-2. :func:`get_boxes_from_candidates_batch` restores the reference's
-   row-major scan order, decodes quads (NumPy) and merges them with the
-   C++ locality-aware NMS (``fots_torch/csrc/nms_core.cpp`` via ctypes).
+2. :func:`get_boxes_from_candidates_batch` (and
+   :func:`get_boxes_from_candidates` for one image) restores the
+   reference's row-major scan order, decodes quads (NumPy) and merges them
+   with the C++ locality-aware NMS (``fots_torch/csrc/nms_core.cpp`` via
+   ctypes);
+3. :func:`get_boxes` does the same from dense host maps (the maps of
+   ``FOTSInference.detect_maps``), and :func:`quad_iou` is the merge's
+   rotated-quad IoU.
 
 The top k are chosen as ``jax.lax.top_k`` chooses them: by descending
 score, equal scores by ascending pixel index (a stable descending sort;
@@ -28,7 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fots_torch.geometry import decode_candidates_np
+from fots_torch.geometry import decode_candidates_np, decode_quads_np
 from fots_torch.kernels import build
 
 PRECISION = 10000.0
@@ -45,8 +50,19 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_longlong),
             ctypes.POINTER(ctypes.c_float), ctypes.c_int,
         ]
+        lib.fots_quad_iou.restype = ctypes.c_double
+        lib.fots_quad_iou.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2
         lib._fots_typed = True
     return lib
+
+
+def quad_iou(qa, qb) -> float:
+    """Rotated-quad IoU (|I| / (|A| + |B| - |I|)) of two quads of 4 (x, y)
+    corners, on the merge's 1e-4 fixed point (truncated)."""
+    qa = np.ascontiguousarray(np.asarray(qa, np.float64).reshape(8))
+    qb = np.ascontiguousarray(np.asarray(qb, np.float64).reshape(8))
+    return float(_lib().fots_quad_iou(qa.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                                      qb.ctypes.data_as(ctypes.POINTER(ctypes.c_double))))
 
 
 def locality_aware_nms(quads, scores, probs, xs, ys, map_w, map_h,
@@ -124,6 +140,15 @@ def unpack_candidates(cands: np.ndarray) -> np.ndarray:
     return out
 
 
+def get_boxes_from_candidates(cands, map_h: int, map_w: int, segm_thresh=0.5,
+                              iou_th1=0.4, iou_th2=0.2) -> np.ndarray:
+    """Boxes [M, 9] of one image's candidate pack [8, k] (f32, or the u16
+    transport's uint16): equal to :func:`get_boxes` over the same maps
+    whenever every pixel above the threshold is among the k."""
+    return get_boxes_from_candidates_batch(np.asarray(cands)[None], map_h, map_w,
+                                           segm_thresh, iou_th1, iou_th2)[0]
+
+
 def get_boxes_from_candidates_batch(cands, map_h: int, map_w: int,
                                     segm_thresh=0.5, iou_th1=0.4, iou_th2=0.2,
                                     pool: Optional[Executor] = None
@@ -165,3 +190,14 @@ def get_boxes_from_candidates_batch(cands, map_h: int, map_w: int,
     if pool is None or b <= 1 or counts.sum() == 0:
         return [merge_one(i) for i in range(b)]
     return list(pool.map(merge_one, range(b)))
+
+
+def get_boxes(segm, geo, angle, segm_thresh=0.5, iou_th1=0.4, iou_th2=0.2) -> np.ndarray:
+    """Boxes [M, 9] of one image's dense host maps: segm [H, W], geo [H, W,
+    4], angle [H, W, 2] (sin, cos), every pixel above ``segm_thresh`` decoded
+    in row-major scan order and merged."""
+    segm = np.asarray(segm)
+    quads, scores, probs, xs, ys = decode_quads_np(segm, np.asarray(geo), np.asarray(angle),
+                                                   segm_thresh)
+    return locality_aware_nms(quads, scores, probs, xs, ys, segm.shape[1], segm.shape[0],
+                              iou_th1, iou_th2)

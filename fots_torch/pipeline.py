@@ -21,11 +21,18 @@ overlap the next batch's device work.
 The per-image path runs one image at its own /32 size through the same
 detection and recognition calls and waits for each result.
 
-Left out of this port so far: the yuv420 transport and the mesh.
+``transport="yuv420"`` ships each letterboxed batch as full-size luma and
+half-size chroma (1.5 bytes a pixel in place of 3) and rebuilds BGR on the
+device before the same forward.  :meth:`FOTSInference.detect_maps` is the
+dense detection path: the head maps to the host in one copy (for
+:func:`fots_torch.ops.nms.get_boxes`), the focr map left on the device.
+
+Left out of this port so far: the mesh.
 """
 
 from __future__ import annotations
 
+import copy
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -44,7 +51,8 @@ from fots_torch.ops.nms import (extract_candidates, get_boxes_from_candidates_ba
                                 pack_candidates_u16)
 from fots_torch.ops.rroi_align import pack_neighbors, rroi_align, rroi_align_packed
 from fots_torch.serving import (assemble_results, bucket_rois, cap_boxes, check_images,
-                                host_letterbox, letterbox_scales, roi_chunks)
+                                host_letterbox, host_letterbox_yuv420, letterbox_scales,
+                                roi_chunks)
 from fots_torch.wordsplit import split_detection
 
 # Strip-width buckets; the coarse grid matches training without masked IN,
@@ -117,6 +125,23 @@ def device_letterbox_batch(raw, serve_hw: Tuple[int, int], tables=None):
     return F.pad(x, (0, 0, 0, W - nw, 0, H - nh), value=-1.0)
 
 
+def yuv420_to_normalized(y, uv):
+    """The ``yuv420`` transport's batch (Y [B, H, W], UV [B, H/2, W/2, 2] u8,
+    ``cv2.COLOR_BGR2YUV``'s convention) as normalized f32 BGR [B, H, W, 3]:
+    the chroma upsampled 2x by nearest neighbour, ``b = y + u/0.492``, ``r =
+    y + v/0.877``, ``g = (y - 0.299 r - 0.114 b)/0.587``, clipped to [0, 255],
+    then x/128 - 1."""
+    yf = y.float()
+    uvf = uv.float() - 128.0
+    uvf = uvf.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    uvf = uvf[:, :yf.shape[1], :yf.shape[2]]
+    u, v = uvf[..., 0], uvf[..., 1]
+    b = yf + u / 0.492
+    r = yf + v / 0.877
+    g = (yf - 0.299 * r - 0.114 * b) / 0.587
+    return torch.clamp(torch.stack([b, g, r], dim=-1), 0.0, 255.0) / 128.0 - 1.0
+
+
 class FOTSInference:
     """Serving engine around an eval-mode :class:`FOTSDetector`.
 
@@ -133,7 +158,10 @@ class FOTSInference:
     ``device_letterbox`` (the serving setting, and the default here) resizes
     a batch of one source shape on the device in f32; without it, as for a
     batch of mixed shapes, each image is resized on the host and rounded to
-    u8, which is what ``fots``'s CLIs do.
+    u8, which is what ``fots``'s CLIs do.  ``transport`` is how a served
+    batch crosses to the device: ``"u8"`` BGR pixels, or ``"yuv420"``, luma
+    and half-size chroma letterboxed on the host (whatever
+    ``device_letterbox`` says) and turned back into BGR on the device.
     ``codec`` (default: the 86-character :class:`LabelCodec`) decodes the
     recognition head's ids; its alphabet must match the head's width.
     Close the engine (or use it as a context manager) to stop its NMS thread
@@ -152,9 +180,11 @@ class FOTSInference:
                  masked_norm: bool = False, cand_transport: str = "u16",
                  device=None, expand_w_frac: float = 0.0, beam: int = 0,
                  max_boxes: Optional[int] = None, device_letterbox: bool = True,
-                 codec: Optional[LabelCodec] = None):
+                 codec: Optional[LabelCodec] = None, transport: str = "u8"):
         if cand_transport not in ("u16", "f32"):
             raise ValueError(f"unknown cand_transport {cand_transport!r}")
+        if transport not in ("u8", "yuv420"):
+            raise ValueError(f"unknown transport {transport!r}")
         self.device = resolve_device(device)
         model = model.eval().to(device=self.device,
                                 memory_format=torch.channels_last)
@@ -173,12 +203,23 @@ class FOTSInference:
         self.expand_w_frac = expand_w_frac
         self.beam = int(beam)
         self.max_boxes = max_boxes
-        self.device_letterbox = device_letterbox
+        self.transport = transport
+        self.device_letterbox = device_letterbox and transport == "u8"
         self._tables = {}  # letterbox tap tables on the device, by shape pair
         self._pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="fots-nms")
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
+
+    def copy_to(self, device) -> "FOTSInference":
+        """This engine with every setting on ``device``, over a copy of its
+        model there (close the copy too)."""
+        other = copy.copy(self)
+        other.device = resolve_device(device)
+        other.model = copy.deepcopy(self.model).to(other.device)
+        other._tables = {}
+        other._pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="fots-nms")
+        return other
 
     def __enter__(self):
         return self
@@ -193,7 +234,10 @@ class FOTSInference:
         ``device_letterbox`` a batch of one source shape is only stacked: the
         device letterboxes it.  Otherwise the batch is letterboxed here,
         image by image (bilinear resize, zero padding, which normalizes to
-        the background value), to [B, H, W, 3] at ``serve_hw``."""
+        the background value), to [B, H, W, 3] at ``serve_hw``, or under
+        ``yuv420`` to a (Y, UV) pair."""
+        if self.transport == "yuv420":
+            return host_letterbox_yuv420(images_bgr, serve_hw)
         if self.device_letterbox and len({im.shape for im in images_bgr}) == 1:
             check_images(images_bgr)
             return np.stack(images_bgr), letterbox_scales(images_bgr, serve_hw)
@@ -204,7 +248,13 @@ class FOTSInference:
         """Queue letterbox + forward + candidate extraction + focr pack;
         returns (candidate pack on its way to the host, PackedFocr).  ``raw``
         [B, h, w, 3]: u8 pixels, normalized here (and letterboxed, unless
-        already at ``serve_hw``), or f32 already normalized at ``serve_hw``."""
+        already at ``serve_hw``), or f32 already normalized at ``serve_hw``;
+        or a ``yuv420`` (Y, UV) pair at ``serve_hw``."""
+        if isinstance(raw, tuple):
+            y, uv = (to_device_async(torch.from_numpy(a), self.device) for a in raw)
+            x = yuv420_to_normalized(y, uv)
+            cands, quads = self._detect_body(x)
+            return HostCopy(cands), self._packed(quads, x.shape)
         x = to_device_async(torch.from_numpy(raw), self.device)
         key = (tuple(raw.shape[1:3]), tuple(serve_hw))
         if raw.dtype != np.uint8:
@@ -218,8 +268,14 @@ class FOTSInference:
                 self._tables[key] = letterbox_tables(key[0], key[1], self.device)
             x = device_letterbox_batch(x, serve_hw, self._tables[key])
         cands, quads = self._detect_body(x)
-        b, h, w = x.shape[:3]
-        return HostCopy(cands), PackedFocr(quads, (b, h // 4, w // 4, quads.shape[1] // 4))
+        return HostCopy(cands), self._packed(quads, x.shape)
+
+    @staticmethod
+    def _packed(quads, shape) -> PackedFocr:
+        """The focr quads of a batch of ``shape`` [B, H, W, ...] with their
+        map's shape (B, H/4, W/4, C)."""
+        b, h, w = shape[:3]
+        return PackedFocr(quads, (b, h // 4, w // 4, quads.shape[1] // 4))
 
     def _detect_body(self, x):
         """Forward + candidate extraction + focr pack of a normalized f32
@@ -244,13 +300,33 @@ class FOTSInference:
             cands[:n], serve_hw[0] // 4, serve_hw[1] // 4, self.segm_thresh,
             self.iou_th1, self.iou_th2, pool=self._pool), self.max_boxes)
 
-    def detect_boxes_batch(self, batch: np.ndarray):
+    def detect_boxes_batch(self, batch):
         """Detection of a batch already at its serving size: [B, H, W, 3] u8
-        pixels or normalized f32.  Device candidate extraction, host NMS, the
-        box cap.  Returns (per-image boxes [M, 9], PackedFocr)."""
-        hw = tuple(batch.shape[1:3])
+        pixels or normalized f32, or a ``yuv420`` (Y, UV) pair.  Device
+        candidate extraction, host NMS, the box cap.  Returns (per-image
+        boxes [M, 9], PackedFocr)."""
+        lead = batch[0] if isinstance(batch, tuple) else batch
+        hw = tuple(lead.shape[1:3])
         cands, focr = self._dispatch_detect(batch, hw)
-        return self._host_boxes(cands, batch.shape[0], hw), focr
+        return self._host_boxes(cands, lead.shape[0], hw), focr
+
+    @torch.inference_mode()
+    def detect_maps(self, images_norm: np.ndarray):
+        """The dense detection path: the detector over a batch at its own size,
+        [B, H, W, 3] normalized f32 (x/128 - 1) or u8 pixels.  Returns (segm
+        [B, Hs, Ws], rbox [B, Hs, Ws, 4], angle [B, Hs, Ws, 2]) as host f32,
+        brought over in one channel-first [B, 7, Hs, Ws] copy, and the raw
+        focr map [B, Hs, Ws, C] left on the device (``recognize_boxes`` takes
+        it as ``focr``)."""
+        x = to_device_async(torch.from_numpy(np.ascontiguousarray(images_norm)), self.device)
+        if x.dtype == torch.uint8:
+            x = x.float() / 128.0 - 1.0
+        out = self.model(x.to(self.compute_dtype))
+        maps = torch.cat([out["segm"][0].float(), out["rbox"][0].float(),
+                          out["angle"][0].float()], dim=-1)
+        maps = HostCopy(maps.permute(0, 3, 1, 2).contiguous()).numpy()
+        return (maps[:, 0], np.moveaxis(maps[:, 1:5], 1, -1), np.moveaxis(maps[:, 5:7], 1, -1),
+                out["focr"])
 
     def detect(self, image_bgr: np.ndarray, scale_up: bool = False):
         """Detect text boxes in one raw u8 BGR image.  Returns (boxes [N, 9] in

@@ -1,12 +1,16 @@
 """Where the serving or training time goes on the card: a torch.profiler
-breakdown; and the timing of the fused residual-block kernel K5'.
+breakdown; and the timing of the fused residual-block kernel K5'.  Also the
+tracing helpers of ``fots/profiling.py`` for any caller: :func:`trace` (a
+torch.profiler trace that TensorBoard or Perfetto reads), :class:`StepTimer`
+(wall-clock steps and their percentiles) and :class:`MetricsLogger` (an
+append-only JSONL log).
 
     python3 -m fots_torch.profiling [--path serve|train|export] [--scratch] [--batch N]
                                     [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
     python3 -m fots_torch.profiling --path pack
-    python3 -m fots_torch.profiling --path decode [--files A.jpg,B.jpg]
+    python3 -m fots_torch.profiling --path decode
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -43,6 +47,7 @@ call.  Every other path needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -51,8 +56,9 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional
 from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -81,6 +87,63 @@ _CATEGORIES = (("in_bwd_", "instance_norm_bwd (K1'-bwd)"),
                ("upsample", "resize"), ("reduce", "reduction"),
                ("softmax", "softmax"), ("cat", "concat"),
                ("elementwise", "elementwise"))
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "fots_torch_trace")):
+    """Profile the block (host, and the card when CUDA is there) with
+    torch.profiler and write its trace under ``log_dir`` as TensorBoard's
+    profiler plugin reads it (a ``*.pt.trace.json`` Chrome trace, which
+    Perfetto opens too).  Yields ``log_dir``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts,
+                                on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield log_dir
+
+
+@dataclass
+class StepTimer:
+    """Wall-clock time of each ``with`` block (host clock: synchronise inside
+    the block to time device work) and their percentiles."""
+
+    times: List[float] = field(default_factory=list)
+    _t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> Dict[str, float]:
+        """mean, p50, p90 and p99 seconds and steps a second ({} before a step)."""
+        if not self.times:
+            return {}
+        a = np.asarray(self.times)
+        return {"mean_s": float(a.mean()), "p50_s": float(np.percentile(a, 50)),
+                "p90_s": float(np.percentile(a, 90)), "p99_s": float(np.percentile(a, 99)),
+                "steps_per_s": float(1.0 / a.mean())}
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics: one ``{"step", "time", <metric>: float}``
+    record a line, flushed as it is written; close it when done."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "a")
+
+    def log(self, step: int, **metrics) -> None:
+        rec = {"step": step, "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
 
 
 def _category(name: str) -> str:
@@ -207,7 +270,7 @@ def profile_export(model, config, batch, serve_hw, batches: int) -> dict:
             FOTSInference(model, masked_norm=config.get("masked_norm", False),
                           mixed_precision=True, device="cuda",
                           device_letterbox=False) as eng:
-        export_serving(eng, tmp, len(batch), *serve_hw)
+        export_serving(eng, tmp, len(batch), *serve_hw, platforms=("cuda",))
         with ExportedEngine(tmp) as ex:
             t0 = time.perf_counter()
             for _ in range(batches):

@@ -1,6 +1,7 @@
 """The host stages of batched serving, shared by the in-process engine
 (:class:`fots_torch.pipeline.FOTSInference`) and the runtime of an exported
-bundle (:class:`fots_torch.export.ExportedEngine`): the host letterbox, the
+bundle (:class:`fots_torch.export.ExportedEngine`): the host letterbox (u8
+BGR, or the ``yuv420`` transport's luma and half-size chroma), the
 per-image box cap, bucketing the boxes' rois by strip width, fixed roi
 chunks padded with a dummy roi, and the results in source-image pixels.
 
@@ -16,6 +17,7 @@ import numpy as np
 
 from fots_torch.codec import LabelCodec
 from fots_torch.geometry import resize_bilinear_u8, rroi_from_box, strip_width_for_box
+from fots_torch.imgproc import bgr2yuv_u8, resize_area_u8
 from fots_torch.wordsplit import split_detection
 
 #: the roi that pads a recognition chunk (its strip is never read back)
@@ -48,6 +50,27 @@ def host_letterbox(images_bgr: Sequence[np.ndarray], serve_hw,
         nh, nw = int(im.shape[0] * s), int(im.shape[1] * s)
         out[i, :nh, :nw] = resize_bilinear_u8(im, (nw, nh))
     return out, scales
+
+
+def host_letterbox_yuv420(images_bgr: Sequence[np.ndarray], serve_hw
+                          ) -> Tuple[Tuple[np.ndarray, np.ndarray], List[float]]:
+    """The ``yuv420`` transport's letterbox: ((Y [B, H, W], UV [B, H/2, W/2,
+    2]) u8, per-image scale).  Each image is resized as :func:`host_letterbox`
+    resizes it, converted to YUV (``cv2.COLOR_BGR2YUV``), its luma put in the
+    top-left corner of a zero canvas and its chroma, shrunk to half size by
+    area averaging (``cv2.INTER_AREA``), in that of a canvas of 128 (grey)."""
+    check_images(images_bgr)
+    H, W = serve_hw
+    scales = letterbox_scales(images_bgr, serve_hw)
+    y = np.zeros((len(images_bgr), H, W), np.uint8)
+    uv = np.full((len(images_bgr), H // 2, W // 2, 2), 128, np.uint8)
+    for i, (im, s) in enumerate(zip(images_bgr, scales)):
+        nh, nw = int(im.shape[0] * s), int(im.shape[1] * s)
+        yuv = bgr2yuv_u8(resize_bilinear_u8(im, (nw, nh)))
+        y[i, :nh, :nw] = yuv[..., 0]
+        ch, cw = (nh + 1) // 2, (nw + 1) // 2
+        uv[i, :ch, :cw] = resize_area_u8(yuv[..., 1:], (cw, ch))
+    return (y, uv), scales
 
 
 def cap_boxes(per_image_boxes: List[np.ndarray], max_boxes: Optional[int]):

@@ -79,7 +79,7 @@ def port():
 @pytest.fixture(scope="module")
 def bundle(port, tmp_path_factory):
     out = str(tmp_path_factory.mktemp("bundle"))
-    manifest = export_serving(port, out, 2, *SERVE_HW)
+    manifest = export_serving(port, out, 2, *SERVE_HW, platforms=("cpu",))
     return out, manifest
 
 
@@ -212,10 +212,10 @@ def test_manifest(bundle, port):
     out, manifest = bundle
     with open(os.path.join(out, MANIFEST)) as f:
         assert json.load(f) == manifest
-    renamed = (FOTS_MANIFEST_KEYS - {"jax_version", "platforms"}) | {"torch_version", "device"}
+    renamed = (FOTS_MANIFEST_KEYS - {"jax_version"}) | {"torch_version"}
     assert set(manifest) == renamed
-    assert manifest["format"] == FORMAT == "fots-torch-serving-v1"
-    assert manifest["torch_version"] == torch.__version__ and manifest["device"] == "cpu"
+    assert manifest["format"] == FORMAT == "fots-torch-serving-v2"
+    assert manifest["torch_version"] == torch.__version__ and manifest["platforms"] == ["cpu"]
     assert (manifest["batch"], manifest["height"], manifest["width"]) == (2, *SERVE_HW)
     assert manifest["strip_buckets"] == list(BUCKETS) and manifest["roi_pad"] == 32
     assert manifest["masked_norm"] is True and manifest["mixed_precision"] is False
@@ -225,6 +225,7 @@ def test_manifest(bundle, port):
     assert set(manifest["param_dtypes"]) == set(port.model.state_dict())
     progs = manifest["programs"]
     assert sorted(progs) == ["detect", "recognize_128", "recognize_64"]
+    assert all(p["files"] == {"cpu": f"{name}.cpu.pt2"} for name, p in progs.items())
     assert progs["detect"]["candidates"] == [[2, 8, port.max_candidates], "int16"]
     assert progs["detect"]["quads"] == [[2 * 160 * 240, 256], "float32"]
 
@@ -250,7 +251,7 @@ def test_no_program_carries_a_tensor(bundle):
 
 def test_bundle_refuses_another_device_or_format(bundle, tmp_path):
     out, manifest = bundle
-    for key, value, match in (("device", "cuda", "exported for cuda"),
+    for key, value, match in (("platforms", ["cuda"], "exported for cuda"),
                               ("format", "fots-serving-v1", "not a fots_torch serving bundle")):
         copy = tmp_path / key
         shutil.copytree(out, copy)
@@ -312,7 +313,7 @@ def test_letterbox_and_box_cap_on_a_tiny_engine(tmp_path):
     with FOTSInference(model, segm_thresh=0.3, device="cpu", device_letterbox=False,
                        max_boxes=2) as eng:
         eng.strip_buckets = (32,)
-        export_serving(eng, str(tmp_path), 2, 64, 96, roi_pad=4)
+        export_serving(eng, str(tmp_path), 2, 64, 96, roi_pad=4, platforms=("cpu",))
         want = eng.batch_call(ims, serve_hw=(64, 96))
     with ExportedEngine(str(tmp_path), device="cpu") as exported:
         assert exported.serve_hw == (64, 96)
@@ -338,12 +339,13 @@ def test_export_cli_selftest(archive, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(port_pipeline, "FINE_STRIP_BUCKETS", BUCKETS)
     out = str(tmp_path / "b")
     manifest = export_cli.main(["-model", SNAPSHOT, "-out", out, "-batch", "2", "-height",
-                                "320", "-width", "480", "-device", "cpu", "-selftest", archive])
+                                "320", "-width", "480", "-platforms", "cpu", "-selftest",
+                                archive])
     assert manifest["max_candidates"] == 1024 and manifest["mixed_precision"] is True
     assert manifest["strip_buckets"] == list(BUCKETS)
     text = capsys.readouterr().out
-    assert re.search(r"selftest ok: [1-9]\d* boxes identical across 2 images", text)
-    for fname in ("detect.pt2", "params.npz", "manifest.json"):
+    assert re.search(r"selftest ok: [1-9]\d* boxes identical across 2 images on cpu", text)
+    for fname in ("detect.cpu.pt2", "params.npz", "manifest.json"):
         assert f"{fname}: " in text
     with pytest.raises(SystemExit):  # -out is required
         export_cli.main(["-h5", "w.h5"])

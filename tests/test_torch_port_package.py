@@ -63,7 +63,7 @@ def test_importing_the_port_loads_no_jax_or_fots():
         "import fots_torch.models.crnn, fots_torch.models.own, fots_torch.train_ocr\n"
         "import fots_torch.ocr_eval, fots_torch.data.ocr_crops, fots_torch.cli.train_crnn\n"
         "import fots_torch.cli.train_ocr, fots_torch.cli.eval_ocr\n"
-        "import fots_torch.cli.train_crnn_e2e\n"
+        "import fots_torch.cli.train_crnn_e2e, fots_torch.config\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'cv2', 'fots')]\n"
         "assert not bad, bad\n"
