@@ -205,12 +205,36 @@ result line):
    smoke images use): its cuda programs served in a fresh process
    (``--serve-bundle ... --no-tf32``), its cpu programs here, held to each
    other as phase 3 holds the ports: the same box count per image, corners
-   within 1 px, identical texts.
+   within 1 px, identical texts;
+15. the mesh (a main path, ``mesh``; ``fots_torch.parallel``, TF32 off):
+   (a) world 1 under NCCL in this process: the serving batch (bf16, the 4
+   smoke scenes repeated to 16 at 704x1280) through
+   ``FOTSInference(mesh=)`` must give the unmeshed engine's texts and box
+   counts, corners within 1 px, and one training step (f32, batch 8 at
+   640x960 from the snapshot, ground-truth rois) through ``Trainer(mesh=)``
+   the unmeshed step within phase 6's limits, each with the launch counts
+   zeroed just before it and read just after (K1'-K4' on the serving run,
+   with K1'-bwd and K4'-bwd on the step); then 3 more batches and steps of
+   each, timed (ms a batch / step, meshed and unmeshed: DDP's cost at world
+   1); (b) two ranks spawned on the card over gloo (``fots_torch.parallel.
+   selfcheck``, CUDA tensors): the same serving batch and step, held as in
+   (a) to (a)'s unmeshed results, each rank running the CUDA kernels, rank
+   0's ms a batch / step printed (gloo on one card: not NCCL across cards),
+   and the batch once more letterboxed on the host (as ``cli.serve``
+   serves; f32, since in bf16 one process's texts already depend on the
+   batch's row count, which (a) prints), held to the unmeshed engine's,
+   with the ms of rank 0's letterbox (its 8 images) against the whole
+   batch's;
+   (c) four ranks, data 2 x model 2, on the card over gloo, 750 classes (the
+   snapshot's weights and a fresh ``conv11``, which splits 375 + 375): one
+   step of the 4 asset scenes shrunk to 160x224 against one process within
+   phase 6's limits, each model rank holding its rows of ``conv11``; the
+   phase's seconds.
 
 Then it prints a ``{"kernels": [...]}`` JSON line (K4' and K4'-bwd at C = 3
 listed as rows of their own), the serving, export, training,
-training-from-scratch, fused-block, evaluation, ocr, files, writers and transports
-JSON lines,
+training-from-scratch, fused-block, evaluation, ocr, files, writers, transports and
+mesh JSON lines,
 the card's name and power limit from nvidia-smi, and last the
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
@@ -282,7 +306,7 @@ FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8'
 DECODE_REPEATS = 15
 READER_BATCHES = 4       # reader 0's batches made from files and from the archive
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval", "ocr", "files", "writers", "transports")
+          "train_joint", "fused_block", "eval", "ocr", "files", "writers", "transports", "mesh")
 EXPORT_BATCHES = 6
 TRANSPORT_BATCHES = 3    # stream batches of the held-out scenes a transport (phase 14)
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
@@ -2596,9 +2620,9 @@ def _timed_stream(eng, scenes, batches: int):
     letterbox) of ``stream`` over ``scenes`` repeated."""
     letterbox, lb_ms = eng._letterbox, []
 
-    def timed(images, serve_hw):
+    def timed(*args):
         t = time.perf_counter()
-        out = letterbox(images, serve_hw)
+        out = letterbox(*args)
         lb_ms.append(1e3 * (time.perf_counter() - t))
         return out
 
@@ -2786,6 +2810,191 @@ def phase_transports(images):
     return total, out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the mesh
+# --------------------------------------------------------------------------
+
+#: phase 3's and phase 6's limits: corners within 1 px and identical texts;
+#: loss terms within 1e-4, each gradient within 3e-2 of its tensor's largest
+#: magnitude (the median within 2e-3), one Adam step within 1e-3 lr where the
+#: gradient's sign is resolved, BatchNorm statistics within 1e-4
+MESH_CORNER_PX = 1.0
+MESH_WIDE = 750          # classes of (c): conv11 splits over the model axis
+MESH_SCENE_HW = (160, 224)  # (c): the asset scenes shrunk 4 times, cut to /32
+MESH_TIMED = 3           # timed serving batches of (a) and (b), train steps of (b);
+                         # (a) times 2 * MESH_TIMED steps of each trainer in turns
+
+
+def _card_limits():
+    from fots_torch.parallel.selfcheck import Limits
+
+    return Limits(loss_rel=1e-4, loss_abs=1e-5, grad_rel=3e-2, grad_median=2e-3,
+                  param_lr=1e-3, stat_rel=1e-4, cand_rel=1e-4, cand_abs=1e-4)
+
+
+def _held(res, what):
+    check(res["failures"] == [], f"{what}: {res['failures'][:6]}")
+    return {k: v for k, v in res.items() if k != "failures"}
+
+
+def phase_mesh(images, targets, device="cuda", serve_hw=SERVE_HW, batch=BATCH,
+               train_order=tuple(i % 4 for i in range(TRAIN_BATCH))):
+    """The mesh: (a) world 1 under NCCL in this process, the serving batch
+    and one training step through ``FOTSInference(mesh=)`` and
+    ``Trainer(mesh=)`` against the unmeshed engine and step; (b) two ranks
+    sharing the card over gloo, the same batch and step; (c) four ranks,
+    data 2 x model 2, on the card over gloo, 750 classes, one step of four
+    shrunk scenes against one process.  TF32 off throughout."""
+    import torch.distributed as dist
+
+    from fots_torch.parallel import make_mesh
+    from fots_torch.parallel import selfcheck as sc
+    from fots_torch.train import asset_batch
+
+    limits = _card_limits()
+    t_phase = time.perf_counter()
+    scenes = [images[i % len(images)] for i in range(batch)]
+    train_batch = asset_batch(images, targets, list(train_order))
+    serve = dict(snapshot=SNAPSHOT, device=device, masked_norm=True, mixed_precision=True,
+                 images=scenes, serve_hw=serve_hw, time_batches=MESH_TIMED)
+    # as cli.serve letterboxes, in f32: in bf16 the host-letterboxed texts of
+    # one process already depend on the batch's row count (the 16-row and
+    # 8-row runs of (a) below)
+    host_serve = dict(serve, device_letterbox=False, mixed_precision=False)
+    host_bf16 = dict(host_serve, mixed_precision=True, time_batches=0)
+    train = dict(snapshot=SNAPSHOT, device=device, lr=TRAIN_LR, batches=[train_batch])
+    print(f"phase 15: the mesh; (a) world 1 ({'nccl' if device == 'cuda' else 'gloo'}): "
+          f"serving bf16 b{batch} at {serve_hw}, a training step f32 b{len(train_order)} at "
+          f"{train_batch.images.shape[1:3]}, meshed against unmeshed")
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="fots_mesh_")
+    try:
+        with no_tf32():
+            dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                    store=dist.FileStore(os.path.join(tmp, "store1"), 1),
+                                    rank=0, world_size=1)
+            try:
+                mesh = make_mesh(1, 1)
+                plain_serve = sc.run_serve(serve, None)
+                plain_host = sc.run_serve(host_serve, None)
+                rows_bf16 = [sc.run_serve(dict(host_bf16, images=scenes[:n]), None)["results"][0]
+                             for n in (batch, batch // 2)]
+                mesh_serve = sc.run_serve(serve, mesh)
+                plain_train = sc.run_train(train, None)
+                mesh_train = sc.run_train(train, mesh)
+                # then steps of the two trainers in turns (unmeshed, meshed, meshed,
+                # unmeshed, ...), each unpipelined: upload, roi sampling and dispatch
+                # on the host clock until the card is idle
+                trainers = {"unmeshed": plain_train.pop("trainer"),
+                            "meshed": mesh_train.pop("trainer")}
+                step_ms = {k: [] for k in trainers}
+                for i in range(2 * MESH_TIMED):
+                    for k in (("unmeshed", "meshed") if i % 2 == 0 else ("meshed", "unmeshed")):
+                        step_ms[k] += sc.timed_ms(lambda: trainers[k].step(train_batch), 1,
+                                                device)
+                del trainers
+            finally:
+                dist.destroy_process_group()
+        a_serve = _held(sc.compare_serve(mesh_serve, plain_serve, limits, px=MESH_CORNER_PX,
+                                         px_rel=0.0, candidates=False), "(a) serving")
+        a_train = _held(sc.compare_train(mesh_train, plain_train, limits, TRAIN_LR),
+                        "(a) training step")
+        for name in ("instance_norm", "spatial_stats", "spatial_norm", "pack_neighbors"):
+            check(device != "cuda" or mesh_serve["launches"][name] > 0,
+                  f"(a) meshed serving launched no {name}")
+        for name in ("instance_norm", "instance_norm_bwd", "spatial_stats", "spatial_norm",
+                     "pack_neighbors", "pack_neighbors_bwd"):
+            check(device != "cuda" or mesh_train["launches"][name] > 0,
+                  f"(a) meshed training launched no {name}")
+        rows_differ = [i for i in range(batch // 2)
+                       if [e["text"] for e in rows_bf16[0][i]] != [e["text"] for e in
+                                                                    rows_bf16[1][i]]]
+        rows_px = max((float(np.abs(np.asarray(e["box"][:8]) - np.asarray(f["box"][:8])).max())
+                       for i in range(batch // 2) for e, f in zip(rows_bf16[0][i],
+                                                                  rows_bf16[1][i])),
+                      default=0.0)
+        out["a"] = {"bf16_host_letterbox_16_vs_8_rows": {"texts_differ": rows_differ,
+                                                         "max_corner_px": rows_px},
+                    "serving": a_serve, "train": a_train,
+                    "serve_batch_ms": {"unmeshed": plain_serve["batch_ms"],
+                                       "meshed": mesh_serve["batch_ms"]},
+                    "train_step_ms": step_ms,
+                    "launches_serving": mesh_serve["launches"],
+                    "launches_training": mesh_train["launches"]}
+        print(f"  (a) serving: corners within {a_serve['max_corner_px']:.4f} px, texts equal; "
+              f"batch ms unmeshed {plain_serve['batch_ms']} meshed {mesh_serve['batch_ms']}")
+        print(f"  (a) bf16, host letterbox, one process: the texts of images {rows_differ} "
+              f"differ between 16 rows and the first 8, corners within {rows_px:.4f} px")
+        print(f"  (a) training: {a_train}; step ms in turns: unmeshed "
+              f"{step_ms['unmeshed']}, meshed {step_ms['meshed']}")
+        del mesh_serve, mesh_train
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        print("  (b) two ranks sharing the card over gloo: the same serving batch (letterboxed "
+              "on the card; then on the host, f32) and step")
+        t0 = time.perf_counter()
+        got = sc.finish(sc.start([("serve", serve), ("train", dict(train, time_steps=MESH_TIMED)),
+                                  ("serve", host_serve)],
+                                 os.path.join(tmp, "w2"), n_data=2), os.path.join(tmp, "w2"))
+        b_serve = _held(sc.compare_serve(got[0], plain_serve, limits, px=MESH_CORNER_PX,
+                                         px_rel=0.0, candidates=False), "(b) serving")
+        b_host = _held(sc.compare_serve(got[2], plain_host, limits, px=MESH_CORNER_PX,
+                                        px_rel=0.0, candidates=False),
+                       "(b) serving, host letterbox")
+        b_train = _held(sc.compare_train(got[1], plain_train, limits, TRAIN_LR),
+                        "(b) training step")
+        for rec, what in ((got[0], "serving"), (got[1], "training")):
+            check(device != "cuda" or rec["launches"]["instance_norm"] > 0,
+                  f"(b) rank 0's {what} ran no CUDA kernel")
+        out["b"] = {"serving": b_serve, "train": b_train, "seconds": time.perf_counter() - t0,
+                    "rank0_serve_batch_ms": got[0]["batch_ms"],
+                    "rank0_train_step_ms": got[1]["step_ms"],
+                    "rank0_launches_serving": got[0]["launches"],
+                    "rank0_launches_training": got[1]["launches"],
+                    "host_letterbox": {
+                        "serving": b_host,
+                        "unmeshed_batch_ms": plain_host["batch_ms"],
+                        "unmeshed_letterbox_ms": plain_host["letterbox_ms"],
+                        "rank0_batch_ms": got[2]["batch_ms"],
+                        "rank0_letterbox_ms": got[2]["letterbox_ms"]},
+                    "note": "gloo between two processes on one card: not NCCL across cards"}
+        print(f"  (b) {out['b']['seconds']:.1f} s; serving within "
+              f"{b_serve['max_corner_px']:.4f} px; training {b_train}; rank 0 batch ms "
+              f"{got[0]['batch_ms']}, step ms {got[1]['step_ms']} (gloo on one card, not "
+              f"NCCL across cards)")
+        print(f"  (b) host letterbox: within {b_host['max_corner_px']:.4f} px; letterbox ms of "
+              f"rank 0's rows {got[2]['letterbox_ms']} against the whole batch's "
+              f"{plain_host['letterbox_ms']}; batch ms rank 0 {got[2]['batch_ms']}, unmeshed "
+              f"{plain_host['batch_ms']}")
+        del got, plain_serve, plain_train, plain_host
+
+        print(f"  (c) four ranks, data 2 x model 2, {MESH_WIDE} classes, one step of 4 scenes "
+              f"at {MESH_SCENE_HW} against one process")
+        t0 = time.perf_counter()
+        small = sc.scene_batch(images, targets, [0, 1, 2, 3], scale=4, width=MESH_SCENE_HW[1])
+        wide = dict(snapshot=SNAPSHOT, nclass=MESH_WIDE, seed=0, device=device, lr=TRAIN_LR,
+                    batches=[small])
+        ctx = sc.start([("train", wide)], os.path.join(tmp, "w4"), n_data=2, n_model=2)
+        with no_tf32():
+            want = sc.single([("train", wide)])[0]
+        got = sc.finish(ctx, os.path.join(tmp, "w4"))[0]
+        c_train = _held(sc.compare_train(got, want, limits, TRAIN_LR), "(c) training step")
+        rows = sc.conv11_rows_hold(got, want)
+        check(rows is None, f"(c) {rows}")
+        out["c"] = {"train": c_train, "seconds": time.perf_counter() - t0,
+                    "conv11_rows": [[d, m, list(w.shape)] for d, m, w in got["conv11_rows"]]}
+        print(f"  (c) {out['c']['seconds']:.1f} s; {c_train}; conv11 rows "
+              f"{out['c']['conv11_rows']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15: {out['seconds']:.1f} s")
+    launches = {k: out["a"]["launches_serving"].get(k, 0) + out["a"]["launches_training"].get(k, 0)
+                for k in out["a"]["launches_serving"]}
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2864,6 +3073,8 @@ def main(argv=None) -> int:
         results["writers"] = phase_writers()
     if "transports" in phases:
         results["transports"] = phase_transports(list(images))
+    if "mesh" in phases:
+        results["mesh"] = phase_mesh(images, targets)
     smi = card_name_and_power_limit()
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
@@ -2881,6 +3092,7 @@ def main(argv=None) -> int:
     files_launches, files = results["files"]
     writers_launches, writers = results["writers"]
     transports_launches, transports = results["transports"]
+    mesh_launches, mesh = results["mesh"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -2890,7 +3102,7 @@ def main(argv=None) -> int:
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
                  "evaluation": eval_launches[kname], "ocr": ocr_launches[kname],
                  "files": files_launches[kname], "writers": writers_launches[kname],
-                 "transports": transports_launches[kname]}
+                 "transports": transports_launches[kname], "mesh": mesh_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -2948,6 +3160,7 @@ def main(argv=None) -> int:
     print(json.dumps({"files": files}))
     print(json.dumps({"writers": writers}))
     print(json.dumps({"transports": transports}))
+    print(json.dumps({"mesh": mesh}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

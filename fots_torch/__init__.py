@@ -16,7 +16,9 @@ CLIs), image files read and written byte for byte as OpenCV does
 (:mod:`fots_torch.imageio`; the drawing of :mod:`fots_torch.imgproc`,
 :mod:`fots_torch.debug_vis`, :mod:`fots_torch.cli.rroi_demo`), and the fused
 residual-block kernel behind its profiling entry
-(:mod:`fots_torch.ops.fused_block`, :mod:`fots_torch.profiling`).  Every TPU kernel of ``fots`` has its
+(:mod:`fots_torch.ops.fused_block`, :mod:`fots_torch.profiling`), and the
+device mesh (:mod:`fots_torch.parallel`: data-parallel training and serving
+over ``torch.distributed``, the vocabulary head split over 'model').  Every TPU kernel of ``fots`` has its
 counterpart, hand-written CUDA for ``sm_90a`` under ``fots_torch/csrc/``,
 built at first use by :mod:`fots_torch.kernels.build`, each behind a
 ``torch.autograd.Function`` whose backward is a kernel too where the TPU

@@ -35,7 +35,10 @@ applied updates).  The format is the port's own (orbax and JAX are absent
 on the card); :func:`train_state_from_fots` carries a ``fots`` TrainState
 into it, the joint trainer's or an ``OcrTrainState`` of the recognition-only
 trainers (:mod:`fots_torch.train_ocr`, whose CLIs save and resume the same
-``step_N`` directories).  :func:`state_dict_from_fots` maps the flax
+``step_N`` directories).  A trainer on a mesh writes the file a single-card
+run writes (the vocabulary head's rows gathered over the model axis, rank 0
+writing, every rank waiting for it) and restores each rank's rows from any
+such file, so runs resume across meshes.  :func:`state_dict_from_fots` maps the flax
 variables of the detector, the CRNN or the OwnModel
 (:func:`model_state_dict_from_flat`).
 """
@@ -334,20 +337,51 @@ CHECKPOINT_FILE = "state.npz"
 
 
 def checkpoint_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                       global_step: int) -> Dict[str, np.ndarray]:
+                       global_step: int, mesh=None) -> Dict[str, np.ndarray]:
     """The checkpoint arrays of a model and its Adam optimizer (f32 host
-    copies; Adam's step counts as f32 scalars, as torch keeps them)."""
+    copies; Adam's step counts as f32 scalars, as torch keeps them).  Under
+    ``mesh`` the sharded vocabulary head's weights and moments are gathered
+    over the model axis (every rank must call this)."""
+    sharded = set()
+    if mesh is not None:
+        from fots_torch.parallel import mesh as pmesh
+
+        sharded = set(pmesh.sharded_names(model))
+        group, n = pmesh.model_group(mesh), pmesh.axis_size(mesh, pmesh.MODEL_AXIS)
+
+    def host(name, t):
+        t = t.detach()
+        if name in sharded:
+            t = pmesh.gather_rows(t, group, n)
+        return t.cpu().numpy()
+
     out: Dict[str, np.ndarray] = {}
     for name, t in model.state_dict().items():
-        out[f"model/{name}"] = t.detach().cpu().numpy()
+        out[f"model/{name}"] = host(name, t)
     for name, p in model.named_parameters():
         st = optimizer.state.get(p)
         if not st:
             continue
-        out[f"exp_avg/{name}"] = st["exp_avg"].detach().cpu().numpy()
-        out[f"exp_avg_sq/{name}"] = st["exp_avg_sq"].detach().cpu().numpy()
+        out[f"exp_avg/{name}"] = host(name, st["exp_avg"])
+        out[f"exp_avg_sq/{name}"] = host(name, st["exp_avg_sq"])
         out[f"adam_step/{name}"] = np.asarray(float(st["step"]), np.float32)
     out["global_step"] = np.asarray(int(global_step), np.int64)
+    return out
+
+
+def _local_rows(payload: Mapping[str, np.ndarray], model: torch.nn.Module, mesh
+                ) -> Dict[str, np.ndarray]:
+    """``payload`` with this model rank's rows of the sharded vocabulary
+    head's weights and moments."""
+    from fots_torch.parallel import mesh as pmesh
+
+    n, index = pmesh.axis_size(mesh, pmesh.MODEL_AXIS), pmesh.axis_index(mesh, pmesh.MODEL_AXIS)
+    out = dict(payload)
+    for name in pmesh.sharded_names(model):
+        for group in ("model", "exp_avg", "exp_avg_sq"):
+            key = f"{group}/{name}"
+            if key in out:
+                out[key] = np.array_split(np.asarray(out[key]), n, axis=0)[index]
     return out
 
 
@@ -384,14 +418,22 @@ def load_payload(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def save_checkpoint(ckpt_dir: str, trainer, step: int) -> str:
-    """Write ``trainer``'s state as ``ckpt_dir/step_{step}``; returns the path."""
+    """Write ``trainer``'s state as ``ckpt_dir/step_{step}``; returns the
+    path.  On a mesh (``trainer.mesh``) every rank calls this: the shards
+    are gathered, rank 0 writes, and every rank returns once it has."""
+    mesh = getattr(trainer, "mesh", None)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
-    os.makedirs(path, exist_ok=True)
-    payload = checkpoint_payload(trainer.model, trainer.optimizer, trainer.global_step)
-    tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
-    with open(tmp, "wb") as f:
-        np.savez(f, **payload)
-    os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+    payload = checkpoint_payload(trainer.model, trainer.optimizer, trainer.global_step, mesh)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+    if mesh is not None:
+        from fots_torch.parallel.mesh import barrier
+
+        barrier(mesh)
     return path
 
 
@@ -424,9 +466,13 @@ def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
 def restore_checkpoint(path: str, trainer) -> int:
     """Restore ``trainer`` from a ``step_N`` directory (or the latest under
     ``path``): weights, BatchNorm statistics, Adam's state and the global
-    step, which a resumed :meth:`fots_torch.train.Trainer.train` continues.
-    Returns the step."""
-    trainer.global_step = load_payload(trainer.model, trainer.optimizer, read_checkpoint(path))
+    step, which a resumed :meth:`fots_torch.train.Trainer.train` continues;
+    on a mesh, each rank's rows of the vocabulary head.  Returns the step."""
+    payload = read_checkpoint(path)
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None:
+        payload = _local_rows(payload, trainer.model, mesh)
+    trainer.global_step = load_payload(trainer.model, trainer.optimizer, payload)
     return trainer.global_step
 
 

@@ -32,7 +32,7 @@ from fots_torch.pipeline import FOTSInference
 
 def load_engine(model_path=None, h5_path=None, nclass=87, segm_thresh=0.5,
                 mixed_precision=False, expand_w_frac=0.0, masked_norm=None, beam=0,
-                device=None) -> FOTSInference:
+                device=None, n_data=None, n_model=1) -> FOTSInference:
     """A :class:`FOTSInference` around ``h5_path`` (the reference's torch
     weights, imported onto a detector initialised from seed 0 by
     :func:`fots_torch.models.detector.init_detector`, as ``fots`` does) or
@@ -42,7 +42,20 @@ def load_engine(model_path=None, h5_path=None, nclass=87, segm_thresh=0.5,
     that ``fots_torch.cli.train_joint`` writes beside a run's checkpoints;
     torch weights carry none (unmasked unless given).  The engine letterboxes
     on the host, as ``fots``'s CLIs do.  ``device`` None is the card (raises
-    without CUDA); ``"cpu"`` runs the kernels' plain versions."""
+    without CUDA); ``"cpu"`` runs the kernels' plain versions.  ``n_data``
+    or ``n_model`` above 1 serves on an ``n_data`` x ``n_model`` mesh (as
+    ``fots`` does for ``n_data``; None: the world over ``n_model``): one
+    process a card, started by torchrun (each rank then loads the weights
+    onto its own card)."""
+    mesh = None
+    if (n_data or 1) > 1 or n_model > 1:
+        from fots_torch.parallel import init_from_env, make_mesh
+
+        if init_from_env(device) == 1:
+            raise ValueError(f"a {n_data or 1}x{n_model} serving mesh needs one process a "
+                             f"card: run under torchrun --nproc-per-node "
+                             f"{(n_data or 1) * n_model}")
+        mesh = make_mesh(n_data=n_data, n_model=n_model)
     if h5_path or not model_path:
         import torch
 
@@ -75,7 +88,7 @@ def load_engine(model_path=None, h5_path=None, nclass=87, segm_thresh=0.5,
                          f"directories and torch weights (-h5); got {model_path!r}")
     return FOTSInference(model, segm_thresh=segm_thresh, mixed_precision=mixed_precision,
                          expand_w_frac=expand_w_frac, masked_norm=bool(masked_norm),
-                         beam=beam, device=device, device_letterbox=False)
+                         beam=beam, device=device, device_letterbox=False, mesh=mesh)
 
 
 def folder_images(folder: str):

@@ -6,11 +6,14 @@ reads as nothing is skipped), or an archive of decoded images
 (``-images_npz``: ``images`` u8 [N, h, w, 3] BGR and ``names``), in
 fixed-shape letterboxed batches through ``FOTSInference.stream`` and writes
 ``<name>.json`` per image (its boxes in source-image pixels and texts).
-``-h5`` serves the reference's torch weights.
+``-h5`` serves the reference's torch weights.  ``-n_data N [-n_model M]``
+serves on a mesh of N x M cards, one process a card under torchrun: each
+rank decodes and serves its rows of every batch, rank 0 writes the files.
 
 Usage:
   python -m fots_torch.cli.serve -model artifacts/serving_params.npz \\
       -test_folder data/synth/ -output out/ -batch 16
+  torchrun --nproc-per-node 4 -m fots_torch.cli.serve -n_data 4 ...
 """
 
 from __future__ import annotations
@@ -43,25 +46,30 @@ def main(argv=None):
     parser.add_argument("-f32", dest="mixed_precision", action="store_false",
                         help="disable bf16 inference")
     parser.add_argument("-n_data", type=int, default=None,
-                        help="not ported: the serving mesh")
-    parser.add_argument("-n_model", type=int, default=1, help="not ported: the serving mesh")
+                        help="data-parallel serving mesh size (cards; under torchrun)")
+    parser.add_argument("-n_model", type=int, default=1,
+                        help="cards the vocabulary head's classes split over")
     parser.add_argument("-split_words", action="store_true")
     parser.add_argument("-device", default=None,
                         help="default: the card (fails without CUDA); 'cpu' runs the "
                              "kernels' plain versions")
     args = parser.parse_args(argv)
-    if (args.n_data or 1) > 1 or args.n_model > 1:
-        parser.error("-n_data / -n_model: the serving mesh is not ported yet; fots_torch "
-                     "serves on one card")
     if bool(args.test_folder) == bool(args.images_npz):
         parser.error("give one of -test_folder and -images_npz")
 
     from fots_torch.cli.detect import folder_images, load_engine
     from fots_torch.imageio import imread
+    from fots_torch.parallel import mesh as pmesh
 
+    if ((args.n_data or 1) > 1 or args.n_model > 1) and pmesh.init_from_env(args.device) == 1:
+        parser.error(f"-n_data / -n_model above 1 need one process a card: run under "
+                     f"torchrun --nproc-per-node {(args.n_data or 1) * args.n_model}")
     engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
-                         mixed_precision=args.mixed_precision, device=args.device)
-    os.makedirs(args.output, exist_ok=True)
+                         mixed_precision=args.mixed_precision, device=args.device,
+                         n_data=args.n_data, n_model=args.n_model)
+    main_rank = pmesh.is_main(engine.mesh)
+    if main_rank:
+        os.makedirs(args.output, exist_ok=True)
 
     def stem(path):
         return os.path.splitext(os.path.basename(str(path)))[0]
@@ -79,12 +87,28 @@ def main(argv=None):
 
         def batches():
             """Each chunk's files decoded as ``stream`` reaches it, so the
-            decoding overlaps the card's work on the previous chunk."""
+            decoding overlaps the card's work on the previous chunk.  On a
+            mesh a rank decodes its own rows of a chunk only (the others
+            stay None); a file of its rows that reads as nothing is served
+            as a black image and not written, which the data ranks agree on
+            before the chunk is served."""
             for i in range(0, len(paths), args.batch):
-                keep = [(stem(p), im) for p, im in
-                        ((p, imread(p)) for p in paths[i:i + args.batch]) if im is not None]
-                if keep:
-                    yield [n for n, _ in keep], [im for _, im in keep]
+                chunk = paths[i:i + args.batch]
+                if engine.mesh is None:
+                    keep = [(stem(p), im) for p, im in ((p, imread(p)) for p in chunk)
+                            if im is not None]
+                    if keep:
+                        yield [n for n, _ in keep], [im for _, im in keep]
+                    continue
+                rows = engine.shard.rows(len(chunk))
+                mine = [imread(p) for p in chunk[rows]]
+                read = pmesh.all_gather_objects([im is not None for im in mine], engine.mesh,
+                                                pmesh.DATA_AXIS)
+                ok = [flag for part in read for flag in part]
+                images = [None] * len(chunk)
+                images[rows.start:rows.start + len(mine)] = [
+                    np.zeros((32, 32, 3), np.uint8) if im is None else im for im in mine]
+                yield [stem(p) if good else None for p, good in zip(chunk, ok)], images
 
     total = 0
     t0 = time.perf_counter()
@@ -93,12 +117,16 @@ def main(argv=None):
                                               split_words=args.split_words,
                                               with_context=True):
             for name, res in zip(chunk, res_batch):
-                out = [{"box": r["box"].tolist(), "text": r["text"]} for r in res]
-                with open(os.path.join(args.output, name + ".json"), "w") as f:
-                    json.dump(out, f)
+                if name is None:
+                    continue
+                if main_rank:
+                    out = [{"box": r["box"].tolist(), "text": r["text"]} for r in res]
+                    with open(os.path.join(args.output, name + ".json"), "w") as f:
+                        json.dump(out, f)
                 total += 1
     dt = time.perf_counter() - t0
-    print(f"{total} images in {dt:.2f}s = {total / max(dt, 1e-9):.2f} images/sec")
+    if main_rank:
+        print(f"{total} images in {dt:.2f}s = {total / max(dt, 1e-9):.2f} images/sec")
     return total
 
 

@@ -6,6 +6,11 @@ worker) and feed one bounded queue; the consumer blocks on ``queue.get``.
 Workers are spawned, not forked (the parent holds CUDA and threads), so a
 factory must be a picklable top-level callable; they import NumPy and the
 port's data modules only.
+
+On a mesh one reader pool feeds the global batch, as in ``fots``: rank 0
+runs it and :class:`BroadcastBatches` sends each batch to every rank (the
+readers draw from one seeded generator in sequence, so pools on every rank
+could not reproduce one pool's order).
 """
 
 from __future__ import annotations
@@ -85,3 +90,35 @@ class PrefetchPool:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+class BroadcastBatches:
+    """The batches of ``source`` on every rank of ``group`` (a gloo group:
+    host objects travel pickled): rank ``src`` iterates ``source`` and
+    broadcasts each item, then None at its end; the other ranks pass
+    ``source=None`` and yield what arrives.  Every rank must iterate in
+    step.  :meth:`stop` stops the source."""
+
+    def __init__(self, source, group, src: int = 0):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self._source = source
+        self._group = group
+        self._src = src
+        self._main = dist.get_rank() == src
+        self._it = iter(source) if self._main else None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        box = [next(self._it, None) if self._main else None]
+        self._dist.broadcast_object_list(box, src=self._src, group=self._group)
+        if box[0] is None:
+            raise StopIteration
+        return box[0]
+
+    def stop(self):
+        if self._main and hasattr(self._source, "stop"):
+            self._source.stop()

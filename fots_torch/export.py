@@ -122,7 +122,10 @@ def export_serving(engine, out_dir: str, batch: int, height: int, width: int,
     ``engine.strip_buckets`` entry takes ``roi_pad`` rois.  Every program is
     traced for each device type of ``platforms``; ``"cuda"`` without a card
     raises before anything is written.  Prints each file's size; returns
-    the manifest (also written to ``out_dir/manifest.json``)."""
+    the manifest (also written to ``out_dir/manifest.json``).  A bundle is
+    single-device: a meshed engine is refused, as ``fots`` refuses it."""
+    if getattr(engine, "mesh", None) is not None:
+        raise ValueError("export_serving requires a single-device engine")
     if height % 32 or width % 32:
         raise ValueError("serving height/width must be /32 multiples")
     platforms = tuple(platforms)

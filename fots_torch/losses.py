@@ -16,6 +16,14 @@ Mask-weighted reductions over fixed-shape maps, as in ``fots``:
   1e5 per forbidden transition) that enters the loss.  Those rows go
   through :func:`ctc_loss_optax`, a port of optax's recursion, so the value
   and gradient are optax's.
+
+Under a mesh each reduction takes ``group`` (the data group): every ratio
+of sums (dice, the masked means, OHEM's mean over the batch, CTC's sum over
+the rois divided by their count) is then formed from sums all-reduced over
+the global batch (:func:`fots_torch.parallel.mesh.all_reduce_sum`, whose
+gradient is the global batch's too), so each rank computes the loss one
+device computes on the whole batch.  Without ``group`` the arithmetic is
+unchanged.
 """
 
 from __future__ import annotations
@@ -27,21 +35,30 @@ import torch
 import torch.nn.functional as F
 
 from fots_torch.device import to_device_async
+from fots_torch.parallel.mesh import all_reduce_sum
 
 
-def dice_loss(pred, target):
+def dice_loss(pred, target, group=None):
     """Reference dice: -(2 * I + 1) / (sum + 1)."""
+    if group is not None:
+        inter, sp, st = all_reduce_sum(torch.stack(
+            [torch.sum(pred * target), torch.sum(pred), torch.sum(target)]), group).unbind()
+        return -((2.0 * inter + 1.0) / (sp + st + 1.0))
     inter = torch.sum(pred * target)
     return -((2.0 * inter + 1.0) / (torch.sum(pred) + torch.sum(target) + 1.0))
 
 
-def _masked_mean(x, mask):
-    cnt = torch.sum(mask)
-    return torch.where(cnt > 0, torch.sum(x * mask) / torch.clamp_min(cnt, 1.0),
+def _masked_mean(x, mask, group=None):
+    if group is not None:
+        num, cnt = all_reduce_sum(torch.stack([torch.sum(x * mask), torch.sum(mask)]),
+                                  group).unbind()
+    else:
+        num, cnt = torch.sum(x * mask), torch.sum(mask)
+    return torch.where(cnt > 0, num / torch.clamp_min(cnt, 1.0),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def iou_loss(geo_gt, mask, geo_pred):
+def iou_loss(geo_gt, mask, geo_pred, group=None):
     """EAST IoU loss; geo [B, H, W, 4] (top, bottom, left, right), mask
     [B, H, W]; the left and right halves under validity masks d3 > 0 and
     d4 > 0."""
@@ -60,7 +77,7 @@ def iou_loss(geo_gt, mask, geo_pred):
         # distances make union + 1 <= 0 there, and 0 * nan is nan)
         ratio = torch.where(m > 0, (inter + 1.0) / (union + 1.0),
                             torch.ones((), dtype=inter.dtype, device=inter.device))
-        return _masked_mean(-torch.log(torch.clamp_min(ratio, 1e-8)), m)
+        return _masked_mean(-torch.log(torch.clamp_min(ratio, 1e-8)), m, group)
 
     return half(d3_gt, d3_p) + half(d4_gt, d4_p)
 
@@ -75,9 +92,10 @@ def resize_map(x, out_hw):
     return t[:, 0] if squeeze else t.permute(0, 2, 3, 1)
 
 
-def ohem_score_loss(pred, score_gt, training_mask, n_hard_neg: int = 512):
+def ohem_score_loss(pred, score_gt, training_mask, n_hard_neg: int = 512, group=None):
     """Per-image OHEM: balanced BCE over every positive pixel plus the
-    ``n_hard_neg`` highest-loss negatives (``torch.topk``)."""
+    ``n_hard_neg`` highest-loss negatives (``torch.topk``), averaged over the
+    (global) batch."""
     b = pred.shape[0]
     tgt = (score_gt > 0.5).to(pred.dtype)
     m = training_mask.to(pred.dtype)
@@ -90,20 +108,28 @@ def ohem_score_loss(pred, score_gt, training_mask, n_hard_neg: int = 512):
     hard_neg = torch.topk(neg_ce, k, dim=1).values.sum(-1)
     pos_sum = (ce * pos).reshape(b, -1).sum(-1)
     n_sel = pos.reshape(b, -1).sum(-1) + torch.clamp_max(neg.reshape(b, -1).sum(-1), float(k))
-    return torch.mean((pos_sum + hard_neg) / torch.clamp_min(n_sel, 1.0))
+    per_image = (pos_sum + hard_neg) / torch.clamp_min(n_sel, 1.0)
+    if group is not None:
+        total, count = all_reduce_sum(torch.stack([per_image.sum(), per_image.new_tensor(b)]),
+                                      group).unbind()
+        return total / count
+    return torch.mean(per_image)
 
 
 def detection_loss(outputs: Dict, score_gt, training_mask, geo_gt, angle_gt,
-                   multi_scale: bool = True, ohem: bool = False) -> Dict[str, torch.Tensor]:
+                   multi_scale: bool = True, ohem: bool = False,
+                   group=None) -> Dict[str, torch.Tensor]:
     """Full EAST loss.  outputs: the detector's dict (NHWC lists);
     score_gt / training_mask / angle_gt [B, Hs, Ws]; geo_gt [B, Hs, Ws, 4].
-    Returns scalars total, segm, angle, iou."""
+    Returns scalars total, segm, angle, iou; with ``group``, of the global
+    batch."""
     segm_p = outputs["segm"][0][..., 0]
     angle_p = outputs["angle"][0]
     geo_p = outputs["rbox"][0]
 
     def score_fn(p, gt, m):
-        return ohem_score_loss(p, gt, m) if ohem else dice_loss(p * m, gt * m)
+        return (ohem_score_loss(p, gt, m, group=group) if ohem
+                else dice_loss(p * m, gt * m, group))
 
     segm_loss = score_fn(segm_p, score_gt, training_mask)
     if multi_scale:
@@ -113,9 +139,10 @@ def detection_loss(outputs: Dict, score_gt, training_mask, geo_gt, angle_gt,
                                          resize_map(training_mask, hw2))
 
     byte_mask = (score_gt > 0.5).to(segm_p.dtype)
-    angle_loss = (_masked_mean((angle_p[..., 0] - torch.sin(angle_gt)) ** 2, byte_mask)
-                  + _masked_mean((angle_p[..., 1] - torch.cos(angle_gt)) ** 2, byte_mask))
-    box_loss = iou_loss(geo_gt, byte_mask, geo_p)
+    angle_loss = (_masked_mean((angle_p[..., 0] - torch.sin(angle_gt)) ** 2, byte_mask, group)
+                  + _masked_mean((angle_p[..., 1] - torch.cos(angle_gt)) ** 2, byte_mask,
+                                 group))
+    box_loss = iou_loss(geo_gt, byte_mask, geo_p, group)
 
     if multi_scale:
         angle_p2 = outputs["angle"][1]
@@ -124,9 +151,9 @@ def detection_loss(outputs: Dict, score_gt, training_mask, geo_gt, angle_gt,
         bm2 = (resize_map(score_gt, hw2) > 0.5).to(segm_p.dtype)
         ag2 = resize_map(angle_gt, hw2)
         angle_loss = (angle_loss
-                      + _masked_mean((angle_p2[..., 0] - torch.sin(ag2)) ** 2, bm2)
-                      + _masked_mean((angle_p2[..., 1] - torch.cos(ag2)) ** 2, bm2))
-        box_loss = box_loss + iou_loss(resize_map(geo_gt, hw2) / 2.0, bm2, geo_p2)
+                      + _masked_mean((angle_p2[..., 0] - torch.sin(ag2)) ** 2, bm2, group)
+                      + _masked_mean((angle_p2[..., 1] - torch.cos(ag2)) ** 2, bm2, group))
+        box_loss = box_loss + iou_loss(resize_map(geo_gt, hw2) / 2.0, bm2, geo_p2, group)
 
     total = segm_loss + angle_loss * 2.0 + 0.5 * box_loss
     return {"total": total, "segm": segm_loss, "angle": angle_loss, "iou": box_loss}
@@ -183,8 +210,9 @@ def repeat_infeasible_rows(labels, label_lengths, logit_lengths) -> np.ndarray:
 
 
 def ctc_loss(log_probs, labels, label_lengths, logit_lengths=None, roi_mask=None,
-             optax_rows: Optional[np.ndarray] = None):
-    """CTC (blank 0) with warp-ctc's batch-mean reduction over valid rois.
+             optax_rows: Optional[np.ndarray] = None, group=None):
+    """CTC (blank 0) with warp-ctc's batch-mean reduction over valid rois
+    (with ``group``: the sum over every rank's rois over their global count).
 
     log_probs [N, T, K]; labels [N, L] padded with 0; label_lengths [N];
     logit_lengths [N] frames per row (default T); roi_mask [N] 0/1.  Rows
@@ -216,5 +244,9 @@ def ctc_loss(log_probs, labels, label_lengths, logit_lengths=None, roi_mask=None
     if roi_mask is None:
         roi_mask = torch.ones((n,), dtype=log_probs.dtype, device=dev)
     roi_mask = roi_mask.to(dev).to(log_probs.dtype) * feasible
+    if group is not None:
+        num, cnt = all_reduce_sum(torch.stack([torch.sum(per_example * roi_mask),
+                                               torch.sum(roi_mask)]), group).unbind()
+        return num / torch.clamp_min(cnt, 1.0)
     cnt = torch.clamp_min(torch.sum(roi_mask), 1.0)
     return torch.sum(per_example * roi_mask) / cnt

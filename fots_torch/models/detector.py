@@ -14,7 +14,11 @@ are NCHW in channels_last memory, which is the same bytes.
 
 ``model.train()`` is flax's ``train=True``: BatchNorm on batch statistics
 and channel dropout (rate 0.2) where ``fots`` has it, with masks drawn
-from the ``generator`` passed to ``forward`` / ``recognize``.
+from the ``generator`` passed to ``forward`` / ``recognize``.  Under a mesh
+:func:`fots_torch.parallel.shard_init` replaces ``ocr.conv11`` by a
+column-parallel :class:`fots_torch.parallel.mesh.VocabShard` where the
+model axis divides ``nclass``, and ``generator`` is a ``RowDraw`` over the
+global batch (the detector's images, the recognizer's rois).
 """
 
 from __future__ import annotations

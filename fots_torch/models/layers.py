@@ -12,7 +12,9 @@ BatchNorm computes in f32 and returns ``promote(input, scale, bias)``.
 
 Train mode (``module.train()``) is flax's ``train=True``: BatchNorm
 normalises with the batch's biased statistics and updates its running
-ones, and :class:`Dropout` drops whole channels.
+ones, and :class:`Dropout` drops whole channels.  Under a mesh
+(:mod:`fots_torch.parallel`) BatchNorm's statistics are the global batch's
+and the dropout masks are drawn at the global batch's shape.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from fots_torch.device import to_device_async
 from fots_torch.ops.instance_norm import crelu_instance_norm, instance_norm
+from fots_torch.parallel.mesh import all_reduce_sum, global_draw
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -103,15 +106,28 @@ class CReLUIN(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+def channel_sums(x32: torch.Tensor) -> torch.Tensor:
+    """Σx and Σx² per channel of an NCHW tensor, and its count per channel,
+    as one vector [2C + 1]."""
+    c = x32.shape[1]
+    return torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                      x32.new_full((1,), float(x32.numel() // c))])
+
+
 class BatchNorm(nn.Module):
     """BatchNorm (eps 1e-5) with flax's arithmetic, in f32:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  Eval mode uses the
     running statistics.  Train mode uses the batch's, with the *biased*
     variance ``max(E[x^2] - E[x]^2, 0)`` for both the normalisation and the
     running update ``r = 0.9 r + 0.1 batch`` (``F.batch_norm`` would update
-    with the unbiased variance)."""
+    with the unbiased variance).  With ``group`` (a mesh's data group) the
+    batch is the global one: the per-channel sums, sums of squares and
+    counts are all-reduced over it, through autograd, so the gradient is the
+    global batch's too (the arithmetic ``nn.SyncBatchNorm`` does not keep)."""
 
     momentum = 0.9
+    #: the data group of a mesh (set by the trainer); None: this process's batch
+    group = None
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -121,12 +137,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def _sums(self, x32):
+        """Σx, Σx² per channel and the count over the data group ([2C + 1])."""
+        return all_reduce_sum(channel_sums(x32), self.group)
+
     def forward(self, x):
         shape = (1, -1, 1, 1)
         x32 = x.float()
-        if self.training:
+        if self.training and self.group is not None:
+            c = x32.shape[1]
+            sums = self._sums(x32)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp_min(sums[c:2 * c] / sums[2 * c] - mean * mean, 0.0)
+        elif self.training:
             mean = x32.mean(dim=(0, 2, 3))
             var = torch.clamp_min((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -147,7 +173,9 @@ class Dropout(nn.Module):
     kept values scaled by ``1 / (1 - rate)``.  The mask is drawn on the CPU
     from ``generator`` (a CPU ``torch.Generator``; the default one if None)
     and moved to x's device, so a CUDA run and a CPU run drawing from
-    equally seeded generators drop the same channels."""
+    equally seeded generators drop the same channels.  Under a mesh
+    ``generator`` is a :class:`fots_torch.parallel.mesh.RowDraw`: the mask is
+    drawn for the global batch and this rank keeps its rows."""
 
     def __init__(self, rate: float = 0.2):
         super().__init__()
@@ -157,7 +185,7 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0], x.shape[1]), generator=generator)
+        u = global_draw((x.shape[0], x.shape[1]), generator)
         mask = to_device_async(u < keep, x.device)[:, :, None, None]
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -27,7 +27,18 @@ device before the same forward.  :meth:`FOTSInference.detect_maps` is the
 dense detection path: the head maps to the host in one copy (for
 :func:`fots_torch.ops.nms.get_boxes`), the focr map left on the device.
 
-Left out of this port so far: the mesh.
+``FOTSInference(mesh=...)`` serves over a ('data', 'model') mesh
+(:mod:`fots_torch.parallel`), one process a card, each called with the
+same images: the batch is padded to a multiple of the data axis, each rank
+letterboxes its rows and runs them through the detector and recognises
+their boxes (another rank's images may be left out, as None), and
+``batch_call``, ``stream`` and ``__call__`` return the whole batch's
+results on every rank.  ``conv11`` runs column-parallel over 'model' where
+it divides; the ranks of a model group share the boxes of their first
+rank, so their recognition calls stay in step.  ``fots`` packs the focr map
+with its XLA pack under a mesh (its Pallas pack has no sharded wrapper);
+here every rank holds whole images, so K4' stays on the path, and the
+crops are the same, since both packs' edges are weight-masked.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from fots_torch.ops.ctc_decode import prefix_beam_search_topk
 from fots_torch.ops.nms import (extract_candidates, get_boxes_from_candidates_batch,
                                 pack_candidates_u16)
 from fots_torch.ops.rroi_align import pack_neighbors, rroi_align, rroi_align_packed
+from fots_torch.parallel import mesh as pmesh
 from fots_torch.serving import (assemble_results, bucket_rois, cap_boxes, check_images,
                                 host_letterbox, host_letterbox_yuv420, letterbox_scales,
                                 roi_chunks)
@@ -164,6 +176,9 @@ class FOTSInference:
     ``device_letterbox`` says) and turned back into BGR on the device.
     ``codec`` (default: the 86-character :class:`LabelCodec`) decodes the
     recognition head's ids; its alphabet must match the head's width.
+    ``mesh`` (:func:`fots_torch.parallel.make_mesh`; None: one device)
+    serves data-parallel (see the module's docstring); ``model`` is then
+    this rank's, its vocabulary head sharded where the model axis divides it.
     Close the engine (or use it as a context manager) to stop its NMS thread
     pool.
     """
@@ -180,7 +195,7 @@ class FOTSInference:
                  masked_norm: bool = False, cand_transport: str = "u16",
                  device=None, expand_w_frac: float = 0.0, beam: int = 0,
                  max_boxes: Optional[int] = None, device_letterbox: bool = True,
-                 codec: Optional[LabelCodec] = None, transport: str = "u8"):
+                 codec: Optional[LabelCodec] = None, transport: str = "u8", mesh=None):
         if cand_transport not in ("u16", "f32"):
             raise ValueError(f"unknown cand_transport {cand_transport!r}")
         if transport not in ("u8", "yuv420"):
@@ -188,6 +203,11 @@ class FOTSInference:
         self.device = resolve_device(device)
         model = model.eval().to(device=self.device,
                                 memory_format=torch.channels_last)
+        self.mesh = mesh
+        self.shard = pmesh.batch_sharding(mesh)
+        self._data_parallel = self.shard.n
+        if mesh is not None:
+            pmesh.shard_init(model, mesh)
         if mixed_precision:
             model = cast_params_bf16(model)
         self.model = model
@@ -213,7 +233,9 @@ class FOTSInference:
 
     def copy_to(self, device) -> "FOTSInference":
         """This engine with every setting on ``device``, over a copy of its
-        model there (close the copy too)."""
+        model there (close the copy too).  Single-device engines only."""
+        if self.mesh is not None:
+            raise ValueError("copy_to needs a single-device engine")
         other = copy.copy(self)
         other.device = resolve_device(device)
         other.model = copy.deepcopy(self.model).to(other.device)
@@ -227,18 +249,60 @@ class FOTSInference:
     def __exit__(self, *exc):
         self.close()
 
+    # -------- mesh helpers --------
+
+    def _pad_to_shards(self, n: int) -> int:
+        """``n`` rounded up to a multiple of the data axis."""
+        return self.shard.padded(n)
+
+    def _my_images(self, images_bgr, serve_hw):
+        """This rank's images of a batch padded to the data axis with black
+        images, how many of them are the caller's, and whether the batch's
+        images share one shape.  Every rank checks every image it is given;
+        it letterboxes only its own, and another rank's may be None (a rank
+        that read only its own).  Without a mesh, the batch."""
+        given = [im for im in images_bgr if im is not None]
+        check_images(given)
+        same = len({im.shape for im in given}) == 1
+        n = len(images_bgr)
+        if self.mesh is None:
+            return list(images_bgr), n, same
+        rows = self.shard.rows(n)
+        mine = list(images_bgr[rows.start:rows.stop])
+        blank = (np.zeros_like(mine[0]) if mine
+                 else np.zeros(tuple(serve_hw) + (3,), np.uint8))
+        return mine + [blank] * (rows.stop - rows.start - len(mine)), len(mine), same
+
+    def _agree(self, boxes):
+        """The boxes of model rank 0 on every rank of this model group (their
+        recognition calls gather over it)."""
+        if pmesh.axis_size(self.mesh, pmesh.MODEL_AXIS) > 1:
+            boxes = pmesh.all_gather_objects(boxes, self.mesh, pmesh.MODEL_AXIS)[0]
+        return boxes
+
+    def _gather_results(self, results, n: int):
+        """Every data rank's per-image results in batch order."""
+        if self.mesh is None:
+            return results
+        parts = pmesh.all_gather_objects(results, self.mesh, pmesh.DATA_AXIS)
+        return [r for part in parts for r in part][:n]
+
     # -------- detection --------
 
-    def _letterbox(self, images_bgr: List[np.ndarray], serve_hw):
+    def _letterbox(self, images_bgr: List[np.ndarray], serve_hw,
+                   same_shape: Optional[bool] = None):
         """(u8 batch, per-image scale) for :meth:`_dispatch_detect`.  Under
-        ``device_letterbox`` a batch of one source shape is only stacked: the
-        device letterboxes it.  Otherwise the batch is letterboxed here,
-        image by image (bilinear resize, zero padding, which normalizes to
-        the background value), to [B, H, W, 3] at ``serve_hw``, or under
+        ``device_letterbox`` a batch of one source shape (``same_shape``,
+        by default read from ``images_bgr``) is only stacked: the device
+        letterboxes it.  Otherwise the batch is letterboxed here, image by
+        image (bilinear resize, zero padding, which normalizes to the
+        background value), to [B, H, W, 3] at ``serve_hw``, or under
         ``yuv420`` to a (Y, UV) pair."""
         if self.transport == "yuv420":
             return host_letterbox_yuv420(images_bgr, serve_hw)
-        if self.device_letterbox and len({im.shape for im in images_bgr}) == 1:
+        if same_shape is None:
+            same_shape = len({im.shape for im in images_bgr}) == 1
+        if self.device_letterbox and same_shape:
             check_images(images_bgr)
             return np.stack(images_bgr), letterbox_scales(images_bgr, serve_hw)
         return host_letterbox(images_bgr, serve_hw)
@@ -292,13 +356,16 @@ class FOTSInference:
         return cands, pack_neighbors(out["focr"])
 
     def _host_boxes(self, cands_copy: HostCopy, n: int, serve_hw):
-        """Host decode + NMS of a candidate pack -> per-image boxes [M, 9]."""
+        """Host decode + NMS of a candidate pack -> per-image boxes [M, 9]
+        of its first ``n`` images (none on a rank that holds only padding)."""
+        if n == 0:
+            return self._agree([])
         cands = cands_copy.numpy()
         if cands.dtype == np.int16:
             cands = cands.view(np.uint16)
-        return cap_boxes(get_boxes_from_candidates_batch(
+        return self._agree(cap_boxes(get_boxes_from_candidates_batch(
             cands[:n], serve_hw[0] // 4, serve_hw[1] // 4, self.segm_thresh,
-            self.iou_th1, self.iou_th2, pool=self._pool), self.max_boxes)
+            self.iou_th1, self.iou_th2, pool=self._pool), self.max_boxes))
 
     def detect_boxes_batch(self, batch):
         """Detection of a batch already at its serving size: [B, H, W, 3] u8
@@ -338,13 +405,15 @@ class FOTSInference:
     # -------- recognition --------
 
     @classmethod
-    def _roi_chunk(cls, width: int) -> int:
+    def _roi_chunk(cls, width: int, shards: int = 1) -> int:
         """Fixed roi count per recognition call at this strip width: the
         frame budget over the width, rounded down to a power of two, in
-        [4, 64]."""
+        [4, 64], then up to a multiple of ``shards`` (the data axis), as
+        ``fots`` pads it."""
         c = max(1, cls.CHUNK_FRAME_BUDGET // max(width, 1))
         c = 1 << (c.bit_length() - 1)
-        return max(4, min(64, c))
+        c = max(4, min(64, c))
+        return -(-c // shards) * shards
 
     def _box_conf(self, ids, logp_max):
         """Per-box mean of exp(max logp) over character frames (0 when none)."""
@@ -425,7 +494,8 @@ class FOTSInference:
                 ids, conf = self._recognize_from_image(images_norm, sel, width * 4)
                 pieces.append((idxs, ids, conf, None))
             else:
-                for chunk, sel in roi_chunks(rois, idxs, self._roi_chunk(width)):
+                chunk_size = self._roi_chunk(width, self._data_parallel)
+                for chunk, sel in roi_chunks(rois, idxs, chunk_size):
                     sel = to_device_async(torch.from_numpy(sel), self.device)
                     if self.beam > 0:
                         ids, conf, *beams = self._recognize_topk(focr, sel, width)
@@ -459,7 +529,8 @@ class FOTSInference:
                                                   self.strip_buckets)
         jobs = []
         for width, idxs in sorted(buckets.items()):
-            for chunk, sel in roi_chunks(rois_arr, idxs, self._roi_chunk(width)):
+            chunk_size = self._roi_chunk(width, self._data_parallel)
+            for chunk, sel in roi_chunks(rois_arr, idxs, chunk_size):
                 rois = to_device_async(torch.from_numpy(sel), self.device)
                 ids, conf = self._recognize(focr, rois, width)
                 jobs.append((chunk, HostCopy(ids), HostCopy(conf)))
@@ -492,12 +563,14 @@ class FOTSInference:
         Returns per image a list of {'box': [8 coords + score] in
         source-image pixels, 'text', 'conf'} (plus 'words' with
         ``split_words``)."""
-        raw, scales = self._letterbox(images_bgr, serve_hw)
+        n = len(images_bgr)
+        mine, n_local, same = self._my_images(images_bgr, serve_hw)
+        raw, scales = self._letterbox(mine, serve_hw, same)
         cands, focr = self._dispatch_detect(raw, serve_hw)
-        boxes = self._host_boxes(cands, len(images_bgr), serve_hw)
+        boxes = self._host_boxes(cands, n_local, serve_hw)
         keys, jobs = self._recognize_dispatch(boxes, focr)
-        return self._recognize_finish(len(images_bgr), boxes, keys, jobs, scales,
-                                      split_words)
+        return self._gather_results(self._recognize_finish(n_local, boxes, keys, jobs, scales,
+                                                           split_words), n)
 
     def stream(self, batch_iter, serve_hw: Tuple[int, int] = (704, 1280),
                split_words: bool = False, with_context: bool = False):
@@ -517,23 +590,26 @@ class FOTSInference:
             if item is None:
                 return False
             ctx, images = item if with_context else (None, item)
-            raw, scales = self._letterbox(images, serve_hw)
+            n = len(images)
+            mine, n_local, same = self._my_images(images, serve_hw)
+            raw, scales = self._letterbox(mine, serve_hw, same)
             cands, focr = self._dispatch_detect(raw, serve_hw)
-            inflight.append((ctx, len(images), scales, cands, focr))
+            inflight.append((ctx, n, n_local, scales, cands, focr))
             return True
 
         if pull():
             pull()
         while inflight or rec_pending:
             if inflight:
-                ctx, n, scales, cands, focr = inflight.popleft()
-                boxes = self._host_boxes(cands, n, serve_hw)
+                ctx, n, n_local, scales, cands, focr = inflight.popleft()
+                boxes = self._host_boxes(cands, n_local, serve_hw)
                 keys, jobs = self._recognize_dispatch(boxes, focr)
-                rec_pending.append((ctx, n, scales, boxes, keys, jobs))
+                rec_pending.append((ctx, n, n_local, scales, boxes, keys, jobs))
                 pull()  # the next forward overlaps this batch's recognition
             if rec_pending and (len(rec_pending) > 1 or not inflight):
-                ctx, n, scales, boxes, keys, jobs = rec_pending.popleft()
-                res = self._recognize_finish(n, boxes, keys, jobs, scales, split_words)
+                ctx, n, n_local, scales, boxes, keys, jobs = rec_pending.popleft()
+                res = self._gather_results(self._recognize_finish(
+                    n_local, boxes, keys, jobs, scales, split_words), n)
                 yield (ctx, res) if with_context else res
 
     # -------- one image end to end --------
@@ -542,7 +618,16 @@ class FOTSInference:
                  split_words: bool = False):
         """The whole pipeline on one u8 BGR image at its own /32 size.  Returns
         (list of {'box': [8 coords + score] in resized-image pixels, 'text',
-        'conf'} (plus 'words' with ``split_words``), the resized image)."""
+        'conf'} (plus 'words' with ``split_words``), the resized image).  On a
+        mesh the image is data shard 0's (the others hold padding, which
+        nothing reads) and every rank returns its result."""
+        if self.mesh is not None:
+            mine = (self._call_one(image_bgr, scale_up, split_words)
+                    if self.shard.index == 0 else None)
+            return pmesh.all_gather_objects(mine, self.mesh, pmesh.DATA_AXIS)[0]
+        return self._call_one(image_bgr, scale_up, split_words)
+
+    def _call_one(self, image_bgr: np.ndarray, scale_up: bool, split_words: bool):
         boxes, focr, im_resized = self.detect(image_bgr, scale_up=scale_up)
         texts, ids, confs = self.recognize_boxes(boxes, focr, return_ids=True)
         out = []

@@ -6,6 +6,7 @@ torch.profiler trace that TensorBoard or Perfetto reads), :class:`StepTimer`
 append-only JSONL log).
 
     python3 -m fots_torch.profiling [--path serve|train|export] [--scratch] [--batch N]
+    python3 -m fots_torch.profiling --path train --mesh   # the same step on a world-1 mesh
                                     [--batches N]
     python3 -m fots_torch.profiling --path fused_block [--iters K] [--shape N,H,W,C]
     python3 -m fots_torch.profiling --path instance_norm
@@ -220,6 +221,11 @@ def _summary(events, wall: float, batches: int) -> dict:
         by_cat[_category(e.name)] += us
         by_name[e.name] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    host = defaultdict(float)  # host ops by self time (a FunctionEvent's)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.name] += getattr(e, "self_cpu_time_total", 0.0)
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:15]
     per = 1e3 * batches  # us over the window -> ms per batch
     return {
         "batches": batches, "wall_ms_per_batch": 1e3 * wall / batches,
@@ -230,6 +236,7 @@ def _summary(events, wall: float, batches: int) -> dict:
         "ms_per_batch_by_category": {k: v / per for k, v in
                                      sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_batch": [[name[:90], us / per] for name, us in top],
+        "top_host_ops_self_ms_per_batch": [[name[:90], us / per] for name, us in top_host],
     }
 
 
@@ -715,6 +722,8 @@ def main(argv=None) -> int:
                     default="serve")
     ap.add_argument("--scratch", action="store_true",
                     help="train: from scratch on an augmented 512x512 batch")
+    ap.add_argument("--mesh", action="store_true",
+                    help="train: Trainer(mesh=) on a world-1 NCCL mesh in this process")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10,
@@ -761,8 +770,21 @@ def main(argv=None) -> int:
         with np.load(os.path.join(assets, "train_targets.npz")) as z:
             targets = {k: z[k] for k in z.files}
         batch = asset_batch(images, targets, [i % len(images) for i in range(args.batch or 8)])
-        out = profile_training(Trainer(model, learning_rate=1e-4, device="cuda"), batch,
-                               args.batches)
+        mesh = None
+        if args.mesh:
+            import torch.distributed as dist
+
+            from fots_torch.parallel import make_mesh
+
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+            mesh = make_mesh(1, 1)
+        try:
+            out = profile_training(Trainer(model, learning_rate=1e-4, device="cuda", mesh=mesh),
+                                   batch, args.batches)
+        finally:
+            if mesh is not None:
+                dist.destroy_process_group()
+        out["mesh"] = None if mesh is None else "1x1 (nccl)"
     out["device"] = torch.cuda.get_device_name(0)
     out["card_and_power_limit"] = card_name_and_power_limit()
     print(json.dumps(out))

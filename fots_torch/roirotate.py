@@ -19,6 +19,10 @@ one ``RoiBatch`` in both packages):
 :func:`fots_torch.geometry.box_points` / :func:`bounding_rect` (the card's
 machine has no OpenCV): the same float32 arithmetic, so the same integer
 rectangles.
+
+Under a mesh every rank samples the same batch from the global host batch
+(and the all-gathered candidates) with the same generator, then
+:func:`shard_rois` keeps the rois of its own images.
 """
 
 from __future__ import annotations
@@ -221,3 +225,29 @@ def sample_rois(
     lengths[n:] = 0
     return RoiBatch(rois=rois_arr, labels=labels_mat, label_lengths=lengths, roi_mask=mask,
                     strip_width=int(width), n_predicted=n_pred, n_gt=n_gt)
+
+
+def shard_rois(roi_batch: RoiBatch, rows: slice):
+    """The valid rois of images ``rows`` (a rank's slice of the global batch)
+    with their batch index counted from the slice's start, as a
+    :class:`RoiBatch` of that many slots (``strip_width`` and the counts
+    stay the global batch's), and their indices in ``roi_batch``.  A rank
+    whose images hold no roi gets one masked :data:`DUMMY_ROI` (index: the
+    first masked slot, or 0), so every rank runs the recognizer."""
+    bid = roi_batch.rois[:, 0]
+    keep = np.nonzero((roi_batch.roi_mask > 0) & (bid >= rows.start) & (bid < rows.stop))[0]
+    if keep.size:
+        rois = roi_batch.rois[keep].copy()
+        rois[:, 0] -= rows.start
+        mask = roi_batch.roi_mask[keep]
+        labels, lengths = roi_batch.labels[keep], roi_batch.label_lengths[keep]
+    else:
+        free = np.nonzero(roi_batch.roi_mask <= 0)[0]
+        keep = free[:1] if free.size else np.zeros((1,), np.int64)
+        rois = np.asarray([DUMMY_ROI], np.float32)
+        mask = np.zeros((1,), np.float32)
+        labels = np.zeros((1, roi_batch.labels.shape[1]), roi_batch.labels.dtype)
+        lengths = np.zeros((1,), roi_batch.label_lengths.dtype)
+    return RoiBatch(rois=rois, labels=labels, label_lengths=lengths, roi_mask=mask,
+                    strip_width=roi_batch.strip_width, n_predicted=roi_batch.n_predicted,
+                    n_gt=roi_batch.n_gt), keep

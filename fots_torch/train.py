@@ -22,8 +22,20 @@ A run starts from scratch (:func:`fots_torch.models.detector.init_detector`
 from the seed) or from a given model, writes ``step_N`` checkpoints
 (:mod:`fots_torch.checkpoint`) and resumes from them; the training CLI is
 :mod:`fots_torch.cli.train_joint`, whose ``-debug`` writes the sampled rois'
-crops (:mod:`fots_torch.debug_vis`).  Left out so far: data-parallel training
-over a mesh.
+crops (:mod:`fots_torch.debug_vis`).
+
+``Trainer(mesh=...)`` trains over a ('data', 'model') mesh
+(:mod:`fots_torch.parallel`) and computes what one device computes on the
+global batch, as ``fots``'s pjit step does.  Every rank is handed the same
+global host batch and keeps its rows; BatchNorm and the losses reduce over
+the data group through autograd, so every rank computes the global loss;
+DistributedDataParallel over the data group averages the gradients, which
+the collectives' adjoints made ``n_data`` times each rank's share.  Dropout
+masks and candidate priorities are drawn at the global shape from the
+shared seed (each rank keeps its rows); each step's candidates are
+all-gathered, so every rank samples the same global roi batch and
+recognises the rois of its own images; ``conv11`` runs column-parallel over
+'model' where it divides.  Metrics are the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -31,21 +43,24 @@ from __future__ import annotations
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, replace
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from fots_torch.codec import LabelCodec
 from fots_torch.data.detection import DetectionBatch
 from fots_torch.device import resolve_device, to_device_async
 from fots_torch.losses import ctc_loss, detection_loss, repeat_infeasible_rows
 from fots_torch.models.detector import FOTSDetector, init_detector
+from fots_torch.models.layers import BatchNorm
 from fots_torch.ops.rroi_align import rroi_align
 from fots_torch.device import HostCopy
+from fots_torch.parallel import mesh as pmesh
 from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBatch,
-                                  sample_rois)
+                                  sample_rois, shard_rois)
 
 METRIC_KEYS = ("loss", "segm_loss", "angle_loss", "iou_loss", "ctc_loss")
 ROI_CANDIDATES_K = 128  # random candidate pixels shipped to the host sampler
@@ -140,14 +155,15 @@ def extract_roi_candidates(segm_pred, score_gt, geo_pred, angle_pred,
                            generator: Optional[torch.Generator] = None):
     """``k`` random pixels per image where ``segm_pred > 0.5`` inside ground
     -truth text, without replacement (top-k over uniform priorities, drawn
-    on the CPU from ``generator`` unless given as ``priorities`` [B, H*W]),
-    packed channel-first [B, 8, k] as ``(score, d0..d3, sin, cos,
+    on the CPU from ``generator`` unless given as ``priorities`` [B, H*W];
+    a :class:`fots_torch.parallel.mesh.RowDraw` draws them for the global
+    batch), packed channel-first [B, 8, k] as ``(score, d0..d3, sin, cos,
     flat_idx)``; slots past the valid pixels carry score -1."""
     b, h, w = segm_pred.shape
     k = min(k, h * w)
     valid = ((segm_pred > 0.5) & (score_gt > 0)).reshape(b, h * w)
     if priorities is None:
-        priorities = torch.rand((b, h * w), generator=generator)
+        priorities = pmesh.global_draw((b, h * w), generator)
     pri = torch.where(valid, to_device_async(priorities.float(), segm_pred.device),
                       torch.full((), -1.0, device=segm_pred.device))
     top_pri, idx = torch.topk(pri, k, dim=1)
@@ -162,25 +178,29 @@ def extract_roi_candidates(segm_pred, score_gt, geo_pred, angle_pred,
 def train_losses(model: FOTSDetector, batch: Dict[str, torch.Tensor], strip_width: int,
                  ctc_frames: int, generator: Optional[torch.Generator] = None,
                  multi_scale: bool = True, ohem: bool = False, masked_norm: bool = True,
-                 optax_rows=None):
+                 optax_rows=None, roi_draw=None, group=None):
     """The step's loss (``fots/train.py`` ``loss_fn``): returns (total, the
     five metric terms by :data:`METRIC_KEYS`, the detector's outputs).
     ``ctc_frames``: :func:`ctc_frame_count` of the batch's rois;
-    ``optax_rows``: :func:`fots_torch.losses.repeat_infeasible_rows` of them."""
+    ``optax_rows``: :func:`fots_torch.losses.repeat_infeasible_rows` of them.
+    Under a mesh ``model`` is the DDP-wrapped detector, ``generator`` /
+    ``roi_draw`` the draws over the global images / rois, and ``group`` the
+    data group the losses reduce over."""
+    net = model.module if isinstance(model, DistributedDataParallel) else model
     out = model(batch["images"], generator)
     det = detection_loss(out, batch["score_maps"], batch["training_masks"],
                          batch["geo_maps"], batch["angle_gt"], multi_scale=multi_scale,
-                         ohem=ohem)
+                         ohem=ohem, group=group)
     rois = batch["rois"]
     strips = rroi_align(out["focr"], rois, POOLED_HEIGHT, strip_width, 0.25)
     valid_w = None
     if masked_norm:
         aspect = rois[:, 4] / torch.clamp_min(rois[:, 3], 1e-6)
         valid_w = torch.clamp(torch.ceil(POOLED_HEIGHT * aspect), 1, strip_width).to(torch.int32)
-    logp = model.recognize(strips, valid_w, generator)
+    logp = net.recognize(strips, valid_w, generator if roi_draw is None else roi_draw)
     frames = torch.full((logp.shape[0],), ctc_frames, dtype=torch.int64)  # on the host
     ctc = ctc_loss(logp, batch["labels"], batch["label_lengths"], frames, batch["roi_mask"],
-                   optax_rows=optax_rows)
+                   optax_rows=optax_rows, group=group)
     total = det["total"] + ctc
     terms = {"loss": total, "segm_loss": det["segm"], "angle_loss": det["angle"],
              "iou_loss": det["iou"], "ctc_loss": ctc}
@@ -190,13 +210,15 @@ def train_losses(model: FOTSDetector, batch: Dict[str, torch.Tensor], strip_widt
 def train_step(model: FOTSDetector, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], strip_width: int, ctc_frames: int,
                optax_rows=None, generator: Optional[torch.Generator] = None,
-               multi_scale: bool = True, ohem: bool = False, masked_norm: bool = True):
+               multi_scale: bool = True, ohem: bool = False, masked_norm: bool = True,
+               roi_draw=None, group=None):
     """One optimisation step.  Returns (metric vector [5] in
-    :data:`METRIC_KEYS` order, next step's roi candidates [B, 8, k]), both
-    still on the device."""
+    :data:`METRIC_KEYS` order, next step's roi candidates [B, 8, k] of this
+    rank's images), both still on the device."""
     optimizer.zero_grad(set_to_none=True)
     total, terms, out = train_losses(model, batch, strip_width, ctc_frames, generator,
-                                     multi_scale, ohem, masked_norm, optax_rows)
+                                     multi_scale, ohem, masked_norm, optax_rows, roi_draw,
+                                     group)
     total.backward()
     optimizer.step()
     with torch.no_grad():
@@ -204,6 +226,21 @@ def train_step(model: FOTSDetector, optimizer: torch.optim.Optimizer,
                                        out["rbox"][0], out["angle"][0], generator=generator)
         metric_vec = torch.stack([terms[k].detach() for k in METRIC_KEYS])
     return metric_vec, cands
+
+
+class Prepared(NamedTuple):
+    """The host side of a step: the global roi batch, the upload buffers
+    (this rank's rows and rois under a mesh), the CTC frame window and
+    optax's rows of the recognised rois, the :class:`RoiBatch` this rank
+    recognises and those rois' indices in the global one (None without a
+    mesh)."""
+
+    roi_batch: RoiBatch
+    host: list
+    frames: int
+    optax_rows: np.ndarray
+    recognised: RoiBatch
+    roi_index: Optional[np.ndarray]
 
 
 @dataclass
@@ -231,13 +268,17 @@ class Trainer:
     ``model``'s weights (e.g. :func:`fots_torch.checkpoint.load_detector`).
     ``device=None`` trains on
     CUDA and raises without it; ``device="cpu"`` runs the kernels' plain
-    versions."""
+    versions.  ``mesh`` (:func:`fots_torch.parallel.make_mesh`; None: one
+    device) trains data-parallel, each rank given the same global batches,
+    whose size the data axis must divide; ``model`` is then this rank's
+    (with its vocabulary-head rows under a model axis) and :attr:`ddp` the
+    DistributedDataParallel around it."""
 
     def __init__(self, model: Optional[FOTSDetector] = None,
                  codec: Optional[LabelCodec] = None, learning_rate: float = 1e-3,
                  seed: int = 0, use_predicted_rois: bool = True,
                  ohem: bool = False, masked_norm: bool = True, multi_scale: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
         self.codec = codec or LabelCodec()
         if model is None:
@@ -246,6 +287,17 @@ class Trainer:
         self._gen = torch.Generator().manual_seed(seed)  # dropout, priorities
         self._np_rng = np.random.default_rng(seed)       # roi sampling
         self.model = model.to(device=self.device, memory_format=torch.channels_last).train()
+        self.mesh = mesh
+        self.shard = pmesh.batch_sharding(mesh)
+        self.ddp = None
+        if mesh is not None:
+            group = pmesh.data_group(mesh)
+            pmesh.shard_init(self.model, mesh)
+            for mod in self.model.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.group = group
+            self.ddp = DistributedDataParallel(self.model, process_group=group,
+                                               broadcast_buffers=False)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=learning_rate,
                                           betas=(0.5, 0.999), eps=1e-8)
         self.use_predicted_rois = use_predicted_rois
@@ -284,25 +336,40 @@ class Trainer:
                 cands, hw = pc, phw
         return sample_rois(self._np_rng, batch.score_maps, batch.gt_idxs, batch.gt_quads,
                            batch.labels, batch.images.shape[1:3], self.codec,
-                           pred_candidates=cands, pred_map_hw=hw)
+                           max_rois=MAX_ROIS, pred_candidates=cands, pred_map_hw=hw)
 
     def _host_tensor(self, a) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.pin_memory() if self.device.type == "cuda" else t
 
+    def _rows(self, b: int) -> slice:
+        """This rank's rows of a global batch of ``b``."""
+        if b % self.shard.n:
+            raise ValueError(f"a batch of {b} does not split over {self.shard.n} data ranks")
+        return self.shard.rows(b)
+
     def _prepare_maps(self, batch) -> List[torch.Tensor]:
-        """The image and map upload buffers (independent of earlier steps)."""
+        """The image and map upload buffers of this rank's rows
+        (independent of earlier steps)."""
+        if self.mesh is not None:
+            rows = self._rows(batch.images.shape[0])
+            batch = replace(batch, **{k: getattr(batch, k)[rows] for k in
+                                      ("images", "score_maps", "geo_maps", "training_masks")})
         return [self._host_tensor(a) for a in pack_host_maps(batch)]
 
-    def _prepare_rois(self, batch, maps: List[torch.Tensor]):
-        """Roi sampling (waits for the previous step's candidates) and the
-        roi buffer; returns what :meth:`step` takes as ``prepared``."""
+    def _prepare_rois(self, batch, maps: List[torch.Tensor]) -> Prepared:
+        """Roi sampling on the global batch (waits for the previous step's
+        candidates) and the roi buffer of the rois this rank recognises;
+        returns what :meth:`step` takes as ``prepared``."""
         roi_batch = self._build_roi_batch(batch)
-        host = maps + [self._host_tensor(pack_rois(roi_batch))]
         frames = ctc_frame_count(roi_batch.rois, roi_batch.roi_mask, roi_batch.strip_width)
-        optax_rows = repeat_infeasible_rows(roi_batch.labels, roi_batch.label_lengths,
-                                            np.full(len(roi_batch.roi_mask), frames))
-        return roi_batch, host, frames, optax_rows
+        rec, index = roi_batch, None
+        if self.mesh is not None:
+            rec, index = shard_rois(roi_batch, self._rows(batch.images.shape[0]))
+        host = maps + [self._host_tensor(pack_rois(rec))]
+        optax_rows = repeat_infeasible_rows(rec.labels, rec.label_lengths,
+                                            np.full(len(rec.roi_mask), frames))
+        return Prepared(roi_batch, host, frames, optax_rows, rec, index)
 
     def _prepare(self, batch):
         """Host side of a step: packing, roi sampling, pinned buffers."""
@@ -322,15 +389,28 @@ class Trainer:
         ``step_idx`` labels the step in the history (default: the applied
         updates before it)."""
         step_idx = self.global_step if step_idx is None else step_idx
-        roi_batch, host, frames, optax_rows = (prepared if prepared is not None
-                                               else self._prepare(batch))
-        dev = [t.to(self.device, non_blocking=True) for t in host]
-        dev_batch = unpack_device_batch(*dev, tuple(batch.images.shape[1:3]))
+        prep = prepared if prepared is not None else self._prepare(batch)
+        rec = prep.recognised
+        dev = [t.to(self.device, non_blocking=True) for t in prep.host]
+        dev_batch = unpack_device_batch(*dev, tuple(batch.images.shape[1:3]),
+                                        max_rois=len(rec.roi_mask))
         # F.ctc_loss reads the lengths on the host: hand it the host copy
-        dev_batch["label_lengths"] = torch.from_numpy(roi_batch.label_lengths).long()
-        metric_vec, cands = train_step(self.model, self.optimizer, dev_batch,
-                                       roi_batch.strip_width, frames, optax_rows, self._gen,
-                                       self.multi_scale, self.ohem, self.masked_norm)
+        dev_batch["label_lengths"] = torch.from_numpy(rec.label_lengths).long()
+        if self.mesh is None:
+            metric_vec, cands = train_step(self.model, self.optimizer, dev_batch,
+                                           rec.strip_width, prep.frames, prep.optax_rows,
+                                           self._gen, self.multi_scale, self.ohem,
+                                           self.masked_norm)
+        else:
+            b = batch.images.shape[0]
+            metric_vec, cands = train_step(
+                self.ddp, self.optimizer, dev_batch, rec.strip_width, prep.frames,
+                prep.optax_rows, pmesh.RowDraw(self._gen, b, self._rows(b)), self.multi_scale,
+                self.ohem, self.masked_norm,
+                roi_draw=pmesh.RowDraw(self._gen, len(prep.roi_batch.roi_mask),
+                                       prep.roi_index),
+                group=pmesh.data_group(self.mesh))
+            cands = pmesh.gather_data_rows(cands, self.mesh)
         self.global_step += 1
         self.dispatch_times.append(time.perf_counter())
         self._prev_cands = (HostCopy(cands), tuple(batch.score_maps.shape[1:3]))
@@ -374,7 +454,14 @@ class Trainer:
         sampled for every step i with i % ``debug_every`` == 0 are cropped
         from its images and written there before the step is dispatched
         (:func:`fots_torch.debug_vis.dump_roi_crops`, host only, as ``fots``
-        does); :attr:`debug_log` keeps (i, crops written, host seconds)."""
+        does); :attr:`debug_log` keeps (i, crops written, host seconds).
+        Under a mesh every rank iterates the same ``batches`` (see
+        :class:`fots_torch.data.prefetch.BroadcastBatches`); rank 0 prints,
+        dumps and writes the checkpoints.  There a batch that raises ends
+        the run on the rank that raised: the other ranks may already wait
+        in the step's collectives, and a rank that went on alone would pair
+        its collectives with theirs across steps.  torchrun then stops the
+        other ranks."""
         from fots_torch.checkpoint import save_checkpoint
 
         it = iter(batches)
@@ -403,11 +490,13 @@ class Trainer:
                 nxt = fetch() if step_idx + 1 < max_steps else None
                 try:
                     prepared = rois.result()
-                    if debug_dir and step_idx % debug_every == 0:
+                    if debug_dir and step_idx % debug_every == 0 and pmesh.is_main(self.mesh):
                         self._dump_rois(cur[0], prepared[0], debug_dir, step_idx)
                     self.step(cur[0], defer=True, prepared=prepared, step_idx=step_idx)
                     ok = True
                 except Exception:
+                    if self.mesh is not None:
+                        raise  # the other ranks may be inside this step's collectives
                     traceback.print_exc()
                     ok = False
                 rois = None if nxt is None else sample(*nxt)
@@ -415,8 +504,9 @@ class Trainer:
                 if ok and log_every and step_idx % log_every == 0:
                     self.drain_metrics()
                     msg = " ".join(f"{k}: {a.val():.3f}" for k, a in self.metrics.items())
-                    print(f"step {step_idx} {msg} time {time.perf_counter() - t0:.3f}s",
-                          flush=True)
+                    if pmesh.is_main(self.mesh):
+                        print(f"step {step_idx} {msg} time {time.perf_counter() - t0:.3f}s",
+                              flush=True)
                     t0 = time.perf_counter()
                 if checkpoint_dir and (step_idx + 1) % checkpoint_every == 0:
                     self.drain_metrics()

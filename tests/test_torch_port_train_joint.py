@@ -318,7 +318,7 @@ def test_train_joint_refuses_missing_pixels_and_defaults_to_cuda(scene_list, tmp
             str(tmp_path / "run"), "-max_iters", "1", "-device", "cpu"]
     with pytest.raises(FileNotFoundError, match="no pixels"):
         train_joint.main(argv)
-    with pytest.raises(SystemExit):  # the mesh is not ported
+    with pytest.raises(SystemExit):  # -n_data 2 without a process group
         train_joint.main(argv[:2] + argv[4:] + ["-n_data", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
