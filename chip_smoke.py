@@ -136,10 +136,14 @@ result line):
    byte for byte as their decoded assets (median decode ms of a 640x960
    scene and the host's CPU printed), and every file of
    ``fots_torch/assets/decode_ref`` (progressive, hand-scripted progressive,
-   truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG) to the SHA-256 of
-   ``cv2.imread``'s colour and grey bytes in its manifest (the progressive
-   and the sequential decode ms of the 640x960 scene ``img_112`` printed,
-   timed in turns); reader 0's first 4 batches from the
+   truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG, block-smoothed
+   progressive, CMYK, YCCK, RGB-coded, arithmetic-coded and lossless JPEG,
+   gamma-tagged PNG) to the SHA-256 of ``cv2.imread``'s colour and grey
+   bytes in its manifest, or to nothing where its entry is null (the
+   decode ms of the 640x960 scene ``img_112`` printed in five forms,
+   sequential, progressive, block-smoothed, CMYK and arithmetic-coded, timed
+   in turns); a BMP must raise ``ValueError`` naming the format; reader 0's
+   first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
    this process and timed by stage (decode, augment, targets, the rest), and
    a detection reader over the progressive jpgs must drop none;
@@ -222,9 +226,9 @@ result line):
    0's ms a batch / step printed (gloo on one card: not NCCL across cards),
    and the batch once more letterboxed on the host (as ``cli.serve``
    serves; f32, since in bf16 one process's texts already depend on the
-   batch's row count, which (a) prints), held to the unmeshed engine's,
-   with the ms of rank 0's letterbox (its 8 images) against the whole
-   batch's;
+   batch's row count, which (a) prints: ROADMAP's known behaviours), held
+   to the unmeshed engine's, with the ms of rank 0's letterbox (its 8
+   images) against the whole batch's;
    (c) four ranks, data 2 x model 2, on the card over gloo, 750 classes (the
    snapshot's weights and a fresh ``conv11``, which splits 375 + 375): one
    step of the 4 asset scenes shrunk to 160x224 against one process within
@@ -2101,6 +2105,7 @@ def phase_files(images, eval_result=None, joint_result=None):
     from fots_torch.data.detection import detection_generator
     from fots_torch.imageio import imread
     from fots_torch.kernels import build
+    from fots_torch.profiling import card_name_and_power_limit
 
     t_phase = time.perf_counter()
     build_dir = os.path.join(REPO, "build")
@@ -2136,27 +2141,42 @@ def phase_files(images, eval_result=None, joint_result=None):
     for rel, entry in manifest.items():
         for key in ("colour", "grey"):
             got = imread(os.path.join(DECODE_REF, rel), grayscale=key == "grey")
+            if entry[key] is None:  # cv2 reads nothing (a lossless frame's other colour space)
+                check(got is None, f"files: {rel} ({key}) decodes where cv2.imread gives None")
+                continue
             check(got is not None and list(got.shape) == entry[key]["shape"]
                   and hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"],
                   f"files: {rel} ({key}) decodes differently from cv2.imread's bytes")
-    # the same 640x960 scene, progressive and sequential (both quality 95,
-    # 4:2:0), timed in turns
-    decode_pair = {"progressive": os.path.join(PROG_JPG, "img_112.jpg"),
-                   "sequential": os.path.join(FILES_JPG, "img_112.jpg")}
-    pair_times = {k: [] for k in decode_pair}
+    bmp = os.path.join(tmp, "not_a_jpeg.jpg")
+    with open(bmp, "wb") as f:
+        f.write(b"BM" + bytes(60))
+    try:
+        imread(bmp)
+        check(False, "files: a BMP read as something")
+    except ValueError as e:
+        check("BMP" in str(e) and bmp in str(e), f"files: the BMP refusal says {e}")
+    # the same 640x960 scene in five forms, timed in turns: sequential and
+    # progressive (quality 95, 4:2:0), block-smoothed (the progressive file
+    # cut in its second scan), CMYK (quality 50) and arithmetic-coded
+    decode_forms = {"sequential": os.path.join(FILES_JPG, "img_112.jpg"),
+                    "progressive": os.path.join(PROG_JPG, "img_112.jpg"),
+                    "block_smoothed": os.path.join(DECODE_REF, "scene_smoothed.jpg"),
+                    "cmyk": os.path.join(DECODE_REF, "scene_cmyk.jpg"),
+                    "arithmetic": os.path.join(DECODE_REF, "scene_arith.jpg")}
+    forms = list(decode_forms)
+    pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
-        for k in (("progressive", "sequential") if i % 2 == 0 else ("sequential", "progressive")):
+        for k in forms[i % len(forms):] + forms[:i % len(forms)]:
             t0 = time.perf_counter()
-            imread(decode_pair[k])
+            imread(decode_forms[k])
             pair_times[k].append(1e3 * (time.perf_counter() - t0))
     pair_ms = {k: statistics.median(v) for k, v in pair_times.items()}
-    print(f"  {len(manifest)} files of decode_ref (progressive, hand-scripted progressive, "
-          f"truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG) decode to cv2.imread's "
-          f"hashes, colour and grey; img_112 640x960 4:2:0 q95: progressive "
-          f"{pair_ms['progressive']:.3f} ms ({min(pair_times['progressive']):.3f}-"
-          f"{max(pair_times['progressive']):.3f}), sequential {pair_ms['sequential']:.3f} ms "
-          f"({min(pair_times['sequential']):.3f}-{max(pair_times['sequential']):.3f}), medians "
-          f"of {DECODE_REPEATS} in turns")
+    smi = card_name_and_power_limit()
+    print(f"  {len(manifest)} files of decode_ref decode to cv2.imread's hashes, colour and "
+          f"grey; a BMP is refused by name; img_112 640x960 decode ms on {cpu} (card {smi}), "
+          f"medians of {DECODE_REPEATS} in turns: " + ", ".join(
+              f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f})"
+              for k, v in pair_times.items()))
     folder = os.path.join(tmp, "scenes")
     os.makedirs(folder)
     for p in smoke_files:
@@ -2355,7 +2375,7 @@ def phase_files(images, eval_result=None, joint_result=None):
     archive_readers = {k: (joint_result or {}).get(k) for k in (
         "samples_per_s_per_reader_in_run", "samples_per_s_per_reader_all_fetched",
         "stage_ms_per_batch_all_fetched", "main_thread_wait_share")}
-    out = {"decode_ms_640x960": decode_ms, "decode_ms_all": times, "host_cpu": cpu,
+    out = {"decode_ms_640x960": decode_ms, "decode_ms_all": times, "host_cpu": cpu, "card": smi,
            "decode_ms_img_112": pair_ms, "decode_ms_img_112_all": pair_times,
            "decode_ref_files": len(manifest),
            "progressive": {"eval_counts": prog_counts, "fots_eval_counts": ref_counts,
@@ -2859,7 +2879,8 @@ def phase_mesh(images, targets, device="cuda", serve_hw=SERVE_HW, batch=BATCH,
                  images=scenes, serve_hw=serve_hw, time_batches=MESH_TIMED)
     # as cli.serve letterboxes, in f32: in bf16 the host-letterboxed texts of
     # one process already depend on the batch's row count (the 16-row and
-    # 8-row runs of (a) below)
+    # 8-row runs of (a) below; cuDNN's convolutions and K2''s split choose by
+    # the rows, fots_torch.profiling --path batch_rows)
     host_serve = dict(serve, device_letterbox=False, mixed_precision=False)
     host_bf16 = dict(host_serve, mixed_precision=True, time_batches=0)
     train = dict(snapshot=SNAPSHOT, device=device, lr=TRAIN_LR, batches=[train_batch])
@@ -2924,7 +2945,8 @@ def phase_mesh(images, targets, device="cuda", serve_hw=SERVE_HW, batch=BATCH,
         print(f"  (a) serving: corners within {a_serve['max_corner_px']:.4f} px, texts equal; "
               f"batch ms unmeshed {plain_serve['batch_ms']} meshed {mesh_serve['batch_ms']}")
         print(f"  (a) bf16, host letterbox, one process: the texts of images {rows_differ} "
-              f"differ between 16 rows and the first 8, corners within {rows_px:.4f} px")
+              f"differ between {batch} rows and the first {batch // 2}, corners within "
+              f"{rows_px:.4f} px")
         print(f"  (a) training: {a_train}; step ms in turns: unmeshed "
               f"{step_ms['unmeshed']}, meshed {step_ms['meshed']}")
         del mesh_serve, mesh_train

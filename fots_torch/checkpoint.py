@@ -181,6 +181,16 @@ def load_serving_params(path: str) -> Tuple[Dict[str, np.ndarray], Any, Dict[str
     return flat, step, config
 
 
+def load_serving_config(path: str) -> Dict[str, Any]:
+    """The serving config embedded in a snapshot written by
+    :func:`save_serving_params` ({} for a snapshot without one), as
+    ``fots.checkpoint.load_serving_config`` reads it."""
+    with np.load(path) as z:
+        if "__config__" not in z.files:
+            return {}
+        return json.loads(str(z["__config__"]))
+
+
 def load_detector(path: str, device=None) -> Tuple[FOTSDetector, Any, Dict[str, Any]]:
     """(eval-mode FOTSDetector with the snapshot's weights on ``device`` in
     channels_last memory, step, config).  ``nclass`` comes from the

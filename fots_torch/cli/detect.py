@@ -43,12 +43,12 @@ def load_engine(model_path=None, h5_path=None, nclass=87, segm_thresh=0.5,
     torch weights carry none (unmasked unless given).  The engine letterboxes
     on the host, as ``fots``'s CLIs do.  ``device`` None is the card (raises
     without CUDA); ``"cpu"`` runs the kernels' plain versions.  ``n_data``
-    or ``n_model`` above 1 serves on an ``n_data`` x ``n_model`` mesh (as
-    ``fots`` does for ``n_data``; None: the world over ``n_model``): one
-    process a card, started by torchrun (each rank then loads the weights
-    onto its own card)."""
+    above 1 serves on an ``n_data`` x ``n_model`` mesh, as ``fots`` does:
+    one process a card, started by torchrun (each rank then loads the
+    weights onto its own card).  Without ``n_data`` (or at 1) the engine is
+    unmeshed on one device whatever ``n_model`` is, as in ``fots``."""
     mesh = None
-    if (n_data or 1) > 1 or n_model > 1:
+    if n_data is not None and n_data > 1:
         from fots_torch.parallel import init_from_env, make_mesh
 
         if init_from_env(device) == 1:

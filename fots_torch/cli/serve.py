@@ -48,7 +48,8 @@ def main(argv=None):
     parser.add_argument("-n_data", type=int, default=None,
                         help="data-parallel serving mesh size (cards; under torchrun)")
     parser.add_argument("-n_model", type=int, default=1,
-                        help="cards the vocabulary head's classes split over")
+                        help="cards the vocabulary head's classes split over (with -n_data; "
+                             "without it the engine serves on one device, as fots's)")
     parser.add_argument("-split_words", action="store_true")
     parser.add_argument("-device", default=None,
                         help="default: the card (fails without CUDA); 'cpu' runs the "
@@ -61,9 +62,9 @@ def main(argv=None):
     from fots_torch.imageio import imread
     from fots_torch.parallel import mesh as pmesh
 
-    if ((args.n_data or 1) > 1 or args.n_model > 1) and pmesh.init_from_env(args.device) == 1:
-        parser.error(f"-n_data / -n_model above 1 need one process a card: run under "
-                     f"torchrun --nproc-per-node {(args.n_data or 1) * args.n_model}")
+    if (args.n_data or 1) > 1 and pmesh.init_from_env(args.device) == 1:
+        parser.error(f"-n_data above 1 needs one process a card: run under "
+                     f"torchrun --nproc-per-node {args.n_data * args.n_model}")
     engine = load_engine(args.model, args.h5, segm_thresh=args.segm_thresh,
                          mixed_precision=args.mixed_precision, device=args.device,
                          n_data=args.n_data, n_model=args.n_model)

@@ -44,6 +44,7 @@ crops are the same, since both packs' edges are weight-masked.
 from __future__ import annotations
 
 import copy
+import math
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -54,8 +55,8 @@ import torch.nn.functional as F
 
 from fots_torch.codec import LabelCodec
 from fots_torch.device import HostCopy, resolve_device, to_device_async
-from fots_torch.geometry import (TARGET_H, resize_to_multiple_of_32, rroi_from_box,
-                                 strip_width_for_box)
+from fots_torch.geometry import TARGET_H, resize_to_multiple_of_32, rroi_from_box
+from fots_torch.geometry import strip_width_for_box as _strip_width_for_box
 from fots_torch.models.detector import FOTSDetector
 from fots_torch.ops.ctc_decode import prefix_beam_search_topk
 from fots_torch.ops.nms import (extract_candidates, get_boxes_from_candidates_batch,
@@ -72,6 +73,22 @@ from fots_torch.wordsplit import split_detection
 # features are then bucket-width-invariant).
 STRIP_BUCKETS = (256, 512)
 FINE_STRIP_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
+
+
+def strip_width_for_box(w: float, h: float, target_h: int = TARGET_H,
+                        buckets=FINE_STRIP_BUCKETS) -> int:
+    """:func:`fots_torch.geometry.strip_width_for_box` with the serving
+    default grid, the fine one, as ``fots.pipeline`` re-exports it."""
+    return _strip_width_for_box(w, h, target_h, buckets)
+
+
+def valid_frames(roi: np.ndarray, width: int, target_h: int = TARGET_H) -> int:
+    """Number of recognition frames an rroi ``[bid, cx, cy, h, w, angle]``
+    covers: rroi_align leaves the pooled columns past ``target_h * w / h``
+    zero and the head keeps widths, so frames past ``ceil(target_h *
+    aspect)`` carry no trained signal."""
+    aspect = roi[4] / max(float(roi[3]), 1e-6)
+    return int(min(width, math.ceil(target_h * aspect)))
 
 # parameter subtrees kept in f32 under mixed precision: geometry/score
 # heads need sub-pixel precision and the attention gate stays with them

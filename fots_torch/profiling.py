@@ -12,6 +12,7 @@ append-only JSONL log).
     python3 -m fots_torch.profiling --path instance_norm
     python3 -m fots_torch.profiling --path pack
     python3 -m fots_torch.profiling --path decode
+    python3 -m fots_torch.profiling --path batch_rows [--batch N]
 
 ``serve`` (default batch 16): the smoke images at 704x1280, bf16, the
 shipped snapshot, through ``FOTSInference.stream``.  ``train`` (default
@@ -37,9 +38,12 @@ K4'-bwd at the 3-channel images (narrow rows) and the 64-channel maps
 (16-byte rows), device-busy and event-bracketed ms beside the bound and
 ``index_add_``, one JSON line per shape.  ``decode``: the host reader
 ``imageio.imread`` (``csrc/image_decode.cpp``) on the 640x960 scene
-``img_112`` sequential and progressive and on the first smoke scene, colour
-and grey, median, min and max ms of 15 in turns, one JSON line per file; a
-file the decoder refuses is reported with its reason.  To compare two
+``img_112`` sequential, progressive, block-smoothed, CMYK and
+arithmetic-coded and on the first smoke scene, colour
+and grey, median, min and max ms of 15 in turns, one JSON line per file (a
+file the decoder refuses would be reported with its reason).  ``batch_rows``:
+where bf16 serving's results depend on the batch's row count (see
+:func:`profile_batch_rows`).  To compare two
 versions of the decoder, run it from two copies of the repository that
 differ in ``imageio.py`` and ``csrc/image_decode.cpp``, in turns in one
 call.  Every other path needs a CUDA card.
@@ -684,7 +688,10 @@ def profile_fused_block(shape=FUSED_BLOCK_SHAPE, iters: int = 10, device="cuda")
 
 #: ``--path decode``'s files, relative to the repository
 DECODE_FILES = ("fots_torch/assets/heldout_eval_jpg/img_112.jpg",
-                "fots_torch/assets/decode_ref/prog/img_112.jpg", "data/synth/img_000.jpg")
+                "fots_torch/assets/decode_ref/prog/img_112.jpg",
+                "fots_torch/assets/decode_ref/scene_smoothed.jpg",
+                "fots_torch/assets/decode_ref/scene_cmyk.jpg",
+                "fots_torch/assets/decode_ref/scene_arith.jpg", "data/synth/img_000.jpg")
 
 
 def profile_decode(reps: int = 15) -> list:
@@ -715,10 +722,165 @@ def profile_decode(reps: int = 15) -> list:
     return rows
 
 
+def _row_prints(model, x, rows: int):
+    """One forward of ``model`` over ``x``: [(module name, bit checksums of
+    its output's first ``rows`` rows)] in call order, for every module whose
+    output is a tensor with the batch's rows first."""
+    calls, hooks = [], []
+
+    def hook(name):
+        def fn(_mod, _inp, out):
+            if torch.is_tensor(out) and out.dim() and out.shape[0] == x.shape[0]:
+                v = out[:rows].contiguous()
+                bits = v.view({torch.bfloat16: torch.int16, torch.float16: torch.int16,
+                               torch.float32: torch.int32}.get(v.dtype, v.dtype))
+                bits = bits.reshape(-1).to(torch.int64)
+                w = torch.arange(bits.numel(), device=bits.device) % 1009 + 1
+                calls.append((name, (int(bits.sum()), int((bits * w).sum()))))
+        return fn
+    for name, mod in model.named_modules():
+        hooks.append(mod.register_forward_hook(hook(name or "model")))
+    try:
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _module_output(model, x, name: str, rows: int):
+    """The first call's output of module ``name`` (its first ``rows``
+    rows, f32) in one forward over ``x``."""
+    got = []
+    mod = dict(model.named_modules())[name] if name != "model" else model
+    h = mod.register_forward_hook(lambda _m, _i, out: got.append(out[:rows].float().clone())
+                                  if not got else None)
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        h.remove()
+    return got[0]
+
+
+def profile_batch_rows(batch: int = 16, serve_hw=(704, 1280), reps: int = 5,
+                       rounds: int = 4) -> dict:
+    """Where bf16 serving's results move with the batch's row count.  The
+    smoke scenes repeated to ``batch`` rows, letterboxed on the host as
+    ``cli.serve`` does, bf16 (the snapshot's masked norm), TF32 off: the
+    first ``batch // 2`` rows of a ``batch``-row forward against a forward
+    of those rows alone.  Two splits of each sample's pixels in the
+    reduction passes (K2', the two-pass routes of K1' and K1'-bwd): by the
+    forward's own row count, as ``ops.instance_norm._chunks`` splits them,
+    and pinned to the split of ``batch`` rows whatever the rows (``_chunks``
+    patched for the run); under each, and under PyTorch's cuDNN
+    defaults and ``deterministic`` with ``benchmark`` off (the kernels take
+    no other layout than cuDNN's channels-last output): the first module in
+    call order whose output's bits differ between the two forwards (with
+    its largest difference), how many modules differ, the texts of
+    ``batch_call`` that differ and the largest corner difference.  Then the
+    cost of each remedy: the detector forward at ``batch`` rows, at half,
+    and at ``batch`` rows as two forwards of half (the fixed per-rank shape
+    that would make one process agree with two ranks), and K2' alone on the
+    stem's [half, H, W, 16] input, each event-timed (median of ``reps``),
+    the two splits in turns over ``rounds``."""
+    from fots_torch.ops import instance_norm as tin
+    from fots_torch.serving import host_letterbox
+
+    with np.load(os.path.join(_REPO, "fots_torch", "assets", "smoke_images_u8.npz")) as z:
+        images = z["images"]
+    scenes = [images[i % len(images)] for i in range(batch)]
+    half = batch // 2
+    chunks = tin._chunks
+    model, _, config = load_detector(os.path.join(_REPO, "artifacts", "serving_params.npz"),
+                                     "cuda")
+    u8, _ = host_letterbox(scenes, serve_hw)
+    x = torch.from_numpy(u8).cuda().float() / 128.0 - 1.0
+    cudnn = {"pytorch_default": dict(enabled=True, benchmark=False, deterministic=False),
+             "cudnn_deterministic": dict(enabled=True, benchmark=False, deterministic=True)}
+    out = {"batch": batch, "serve_hw": list(serve_hw), "dtype": "bf16", "settings": {},
+           "cost": {}}
+
+    @contextlib.contextmanager
+    def split(pin):
+        """Each sample split as ``_chunks`` splits it, or (``pin``) as a
+        batch of ``batch`` rows is split."""
+        if pin:
+            tin._chunks = lambda dev, b, npix, rows: chunks(dev, batch, npix, rows)
+        try:
+            yield
+        finally:
+            tin._chunks = chunks
+
+    allow = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                           mixed_precision=True, device="cuda", device_letterbox=False) as eng:
+            xb = x.to(eng.compute_dtype)
+            for mode in ("follows_batch", "pinned"):
+                for key, flags in cudnn.items():
+                    with torch.backends.cudnn.flags(**flags), split(mode == "pinned"):
+                        full = _row_prints(eng.model, xb, half)
+                        res_full = eng.batch_call(list(scenes), serve_hw=serve_hw)
+                        part = _row_prints(eng.model, xb[:half], half)
+                        res_part = eng.batch_call(list(scenes[:half]), serve_hw=serve_hw)
+                        differ = [i for i, (a, b) in enumerate(zip(full, part)) if a != b]
+                        row = {"modules": len(full), "modules_differ": len(differ),
+                               "same_call_order": [n for n, _ in full] == [n for n, _ in part]}
+                        if differ:
+                            name = full[differ[0]][0]
+                            a = _module_output(eng.model, xb, name, half)
+                            b = _module_output(eng.model, xb[:half], name, half)
+                            row["first_differing_module"] = name
+                            row["its_type"] = type(dict(eng.model.named_modules()).get(
+                                name, eng.model)).__name__
+                            row["its_output_shape"] = list(a.shape)
+                            row["max_abs_diff"] = float((a - b).abs().max())
+                            row["max_abs_output"] = float(a.abs().max())
+                    row["texts_differ"] = [i for i in range(half)
+                                           if [e["text"] for e in res_full[i]]
+                                           != [e["text"] for e in res_part[i]]]
+                    row["max_corner_px"] = max(
+                        (float(np.abs(np.asarray(e["box"][:8]) - np.asarray(f["box"][:8])).max())
+                         for i in range(half) for e, f in zip(res_full[i], res_part[i])),
+                        default=0.0)
+                    out["settings"][f"{mode}/{key}"] = row
+                    print(json.dumps({f"{mode}/{key}": row}), flush=True)
+            # the pin's cost, the two splits in turns (the batch's own split,
+            # pinned, pinned, the batch's own, ...)
+            stem = torch.empty((half, *serve_hw, 16), dtype=eng.compute_dtype,
+                               device="cuda").normal_()
+            jobs = {f"forward_{batch}": lambda: eng.model(xb),
+                    f"forward_{half}": lambda: eng.model(xb[:half]),
+                    f"forward_{batch}_as_2x{half}": lambda: (eng.model(xb[:half]),
+                                                            eng.model(xb[half:])),
+                    f"k2_{half}x{serve_hw[0]}x{serve_hw[1]}x16":
+                        lambda: torch.ops.fots_torch.spatial_stats(stem)}
+            ms = {(j, m): [] for j in jobs for m in ("follows_batch", "pinned")}
+            with torch.inference_mode():
+                for r in range(rounds):
+                    order = ("follows_batch", "pinned") if r % 2 == 0 else ("pinned",
+                                                                           "follows_batch")
+                    for m in order:
+                        for j, fn in jobs.items():
+                            with split(m == "pinned"):
+                                ms[(j, m)].append(cuda_median_ms(fn, reps))
+            for (j, m), v in ms.items():
+                out["cost"].setdefault(j, {})[m] = {"ms_median": statistics.median(v),
+                                                    "ms_min": min(v), "ms_max": max(v)}
+            print(json.dumps({"cost": out["cost"]}), flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = allow
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("serve", "train", "export", "fused_block",
-                                       "instance_norm", "pack", "decode"),
+                                       "instance_norm", "pack", "decode", "batch_rows"),
                     default="serve")
     ap.add_argument("--scratch", action="store_true",
                     help="train: from scratch on an augmented 512x512 batch")
@@ -735,6 +897,11 @@ def main(argv=None) -> int:
         for row in profile_decode():
             print(json.dumps(row), flush=True)
         print(card_name_and_power_limit())
+        return 0
+    if args.path == "batch_rows":
+        out = profile_batch_rows(args.batch or 16)
+        out["card_and_power_limit"] = card_name_and_power_limit()
+        print(json.dumps(out))
         return 0
     if args.path == "fused_block":
         shape = tuple(int(v) for v in args.shape.split(","))

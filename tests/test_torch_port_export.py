@@ -368,6 +368,12 @@ def test_serve_cli_writes_what_stream_returns(archive, tmp_path, monkeypatch):
         with open(out / f"{name}.json") as f:
             assert json.load(f) == [{"box": e["box"].tolist(), "text": e["text"]} for e in r]
     assert sum(len(r) for r in res) > 0
-    for bad in (["-n_data", "2"], ["-n_model", "2"]):
-        with pytest.raises(SystemExit):
-            serve_cli.main(args + bad)
+    with pytest.raises(SystemExit):  # a mesh needs one process a card (torchrun)
+        serve_cli.main(args + ["-n_data", "2"])
+    # -n_model without -n_data serves unmeshed on one device, as fots's serve does
+    out2 = tmp_path / "json_n_model"
+    args2 = [a if a != str(out) else str(out2) for a in args]
+    assert serve_cli.main(args2 + ["-n_model", "2"]) == 2
+    for name in ("img_000", "img_001"):
+        with open(out / f"{name}.json") as f, open(out2 / f"{name}.json") as g:
+            assert json.load(f) == json.load(g)
