@@ -138,11 +138,14 @@ result line):
    ``fots_torch/assets/decode_ref`` (progressive, hand-scripted progressive,
    truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG, block-smoothed
    progressive, CMYK, YCCK, RGB-coded, arithmetic-coded and lossless JPEG,
-   gamma-tagged PNG) to the SHA-256 of ``cv2.imread``'s colour and grey
-   bytes in its manifest, or to nothing where its entry is null (the
-   decode ms of the 640x960 scene ``img_112`` printed in five forms,
-   sequential, progressive, block-smoothed, CMYK and arithmetic-coded, timed
-   in turns); a BMP must raise ``ValueError`` naming the format; reader 0's
+   gamma-tagged PNG, and a file for each route of the BMP, GIF and TIFF
+   decoders) to the SHA-256 of ``cv2.imread``'s colour and grey bytes in
+   its manifest, or to nothing where its entry is null (the decode ms of
+   the 640x960 scene ``img_112`` printed in ten forms, timed in turns:
+   sequential, progressive, block-smoothed, CMYK and arithmetic-coded JPEG,
+   a 24-bit BMP and an uncompressed TIFF written here, ``cv2``'s GIF, and
+   256x384 windows as ``cv2``'s TIFF-LZW and TIFF-Deflate); a WebP must
+   raise ``ValueError`` naming the format, a 62-byte BMP read as None; reader 0's
    first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
    this process and timed by stage (decode, augment, targets, the rest), and
@@ -158,7 +161,11 @@ result line):
    (``decode_ref/prog``), ``eval_e2e -images_list`` must give ``fots``'s
    committed counts (``decode_ref/eval_fots_cpu.json``) within one match,
    and ``detect`` and ``serve -test_folder`` at their defaults the engines'
-   results on the decoded pixels, with K1'-K4' launched;
+   results on the decoded pixels, with K1'-K4' launched; the same four
+   scenes' decoded pixels, written here as BMP and as TIFF under their .jpg
+   names, must give ``eval_e2e -images_list`` the jpgs' boxes (within 1e-3
+   px) and texts, and ``img_112`` as ``cv2``'s GIF (``decode_ref/gif``)
+   ``fots``'s committed counts within one match, with K1'-K4' launched;
    ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
@@ -254,6 +261,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2095,6 +2103,74 @@ def _dump_counts(dump) -> dict:
             "detections": m.detections_all, "gt": m.gt_all}
 
 
+def _bmp_bytes(im) -> bytes:
+    """A 24-bit BI_RGB BMP (bottom-up rows padded to 4 bytes) of a BGR u8
+    image: the smoke test's own writer (the port writes JPEG only)."""
+    h, w = im.shape[:2]
+    rows = np.zeros((h, (3 * w + 3) & ~3), np.uint8)
+    rows[:, :3 * w] = im[::-1].reshape(h, -1)
+    head = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + head + rows.tobytes()
+
+
+def _tiff_bytes(im, rows_per_strip=16) -> bytes:
+    """An uncompressed little-endian RGB TIFF in strips of a BGR u8 image:
+    the smoke test's own writer."""
+    h, w = im.shape[:2]
+    data = np.ascontiguousarray(im[..., ::-1]).tobytes()
+    step = 3 * w * rows_per_strip
+    strips = [data[i:i + step] for i in range(0, len(data), step)]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [1]), (262, 3, [2]),
+            (273, 4, None), (277, 3, [3]), (278, 4, [rows_per_strip]),
+            (279, 4, [len(b) for b in strips])]
+    ifd_size = 2 + 12 * len(tags) + 4
+    extra_at = 8 + ifd_size
+    values = {258: struct.pack("<3H", 8, 8, 8), 279: struct.pack(f"<{len(strips)}I",
+                                                                   *tags[-1][2])}
+    data_at = extra_at + sum(len(v) for v in values.values()) + 4 * len(strips)
+    offsets = [data_at + i * step for i in range(len(strips))]
+    values[273] = struct.pack(f"<{len(strips)}I", *offsets)
+    ifd, extra, at = struct.pack("<H", len(tags)), b"", extra_at
+    for tag, typ, vals in tags:
+        n = len(strips) if tag == 273 else len(vals)
+        raw = values.get(tag) or struct.pack("<" + ("H" if typ == 3 else "I") * n, *vals)
+        if len(raw) > 4:
+            ifd += struct.pack("<HHII", tag, typ, n, at + len(extra))
+            extra += raw
+        else:
+            ifd += struct.pack("<HHI", tag, typ, n) + raw.ljust(4, b"\0")
+    body = ifd + b"\0\0\0\0" + extra
+    assert 8 + len(body) == data_at
+    return b"II*\0" + struct.pack("<I", 8) + body + data
+
+
+def _write_scene_copies(folder, images, names, writer, gt_dir) -> str:
+    """Each image through ``writer`` under its .jpg name, with its gt file
+    and an eval.txt: the list's path."""
+    os.makedirs(folder)
+    for im, name in zip(images, names):
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(writer(im))
+        gt = f"gt_{os.path.splitext(name)[0]}.txt"
+        shutil.copy(os.path.join(gt_dir, gt), folder)
+    with open(os.path.join(folder, "eval.txt"), "w") as f:
+        f.writelines(n + "\n" for n in names)
+    return os.path.join(folder, "eval.txt")
+
+
+def _dumps_equal(got, want, what):
+    """Per-image detections of two eval_e2e dumps: texts equal, boxes within
+    1e-3 px."""
+    check(len(got) == len(want), f"{what}: {len(got)} images vs {len(want)}")
+    for g, w in zip(got, want):
+        gd, wd = g["detections"], w["detections"]
+        check(os.path.basename(g["image"]) == os.path.basename(w["image"])
+              and [d["text"] for d in gd] == [d["text"] for d in wd]
+              and all(np.allclose(a["box"], b["box"], rtol=0.0, atol=1e-3)
+                      for a, b in zip(gd, wd)),
+              f"{what}: {os.path.basename(g['image'])}'s boxes or texts differ from the jpg's")
+
+
 def phase_files(images, eval_result=None, joint_result=None):
     """The CLIs over image files and the reference's weights (``-h5``), with
     the port's own decoder: a main path for the counts."""
@@ -2147,22 +2223,40 @@ def phase_files(images, eval_result=None, joint_result=None):
             check(got is not None and list(got.shape) == entry[key]["shape"]
                   and hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"],
                   f"files: {rel} ({key}) decodes differently from cv2.imread's bytes")
-    bmp = os.path.join(tmp, "not_a_jpeg.jpg")
+    webp = os.path.join(tmp, "not_a_jpeg.jpg")
+    with open(webp, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22))
+    try:
+        imread(webp)
+        check(False, "files: a WebP read as something")
+    except ValueError as e:
+        check("WebP" in str(e) and webp in str(e), f"files: the WebP refusal says {e}")
+    bmp = os.path.join(tmp, "short_bmp.jpg")
     with open(bmp, "wb") as f:
         f.write(b"BM" + bytes(60))
-    try:
-        imread(bmp)
-        check(False, "files: a BMP read as something")
-    except ValueError as e:
-        check("BMP" in str(e) and bmp in str(e), f"files: the BMP refusal says {e}")
-    # the same 640x960 scene in five forms, timed in turns: sequential and
+    check(imread(bmp) is None, "files: a 62-byte BMP reads as something (cv2 gives None)")
+    # the same 640x960 scene in nine forms, timed in turns: sequential and
     # progressive (quality 95, 4:2:0), block-smoothed (the progressive file
-    # cut in its second scan), CMYK (quality 50) and arithmetic-coded
+    # cut in its second scan), CMYK (quality 50), arithmetic-coded, a 24-bit
+    # BMP and an uncompressed TIFF (written here), cv2's GIF (256 colours);
+    # TIFF-LZW and TIFF-Deflate of cv2.imwrite on a 256x384 window
+    scene_112 = imread(os.path.join(FILES_JPG, "img_112.jpg"))
+    for name, writer in (("img_112.bmp", _bmp_bytes), ("img_112.tif", _tiff_bytes)):
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(writer(scene_112))
+        check(np.array_equal(imread(os.path.join(tmp, name)), scene_112),
+              f"files: {name} (written here) does not decode to img_112's pixels")
     decode_forms = {"sequential": os.path.join(FILES_JPG, "img_112.jpg"),
                     "progressive": os.path.join(PROG_JPG, "img_112.jpg"),
                     "block_smoothed": os.path.join(DECODE_REF, "scene_smoothed.jpg"),
                     "cmyk": os.path.join(DECODE_REF, "scene_cmyk.jpg"),
-                    "arithmetic": os.path.join(DECODE_REF, "scene_arith.jpg")}
+                    "arithmetic": os.path.join(DECODE_REF, "scene_arith.jpg"),
+                    "bmp": os.path.join(tmp, "img_112.bmp"),
+                    "tiff_raw": os.path.join(tmp, "img_112.tif"),
+                    "gif": os.path.join(DECODE_REF, "gif", "img_112.gif"),
+                    "tiff_lzw_256x384": os.path.join(DECODE_REF, "tiff", "img_112_lzw.tif"),
+                    "tiff_deflate_256x384": os.path.join(DECODE_REF, "tiff",
+                                                         "img_112_deflate.tif")}
     forms = list(decode_forms)
     pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
@@ -2172,9 +2266,10 @@ def phase_files(images, eval_result=None, joint_result=None):
             pair_times[k].append(1e3 * (time.perf_counter() - t0))
     pair_ms = {k: statistics.median(v) for k, v in pair_times.items()}
     smi = card_name_and_power_limit()
-    print(f"  {len(manifest)} files of decode_ref decode to cv2.imread's hashes, colour and "
-          f"grey; a BMP is refused by name; img_112 640x960 decode ms on {cpu} (card {smi}), "
-          f"medians of {DECODE_REPEATS} in turns: " + ", ".join(
+    print(f"  {len(manifest)} files of decode_ref (JPEG, PNG, BMP, GIF, TIFF) decode to "
+          f"cv2.imread's hashes, colour and grey; a WebP is refused by name, a 62-byte BMP is "
+          f"None; img_112 640x960 decode ms on {cpu} (card {smi}), medians of "
+          f"{DECODE_REPEATS} in turns: " + ", ".join(
               f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f})"
               for k, v in pair_times.items()))
     folder = os.path.join(tmp, "scenes")
@@ -2280,6 +2375,25 @@ def phase_files(images, eval_result=None, joint_result=None):
                               prog_serve_dir])
     torch.cuda.synchronize()
     prog_launches = {k: build.launch_counts[k] - before[k] for k in before}
+    # (d'') the same four scenes' decoded pixels as BMP and as TIFF under
+    # .jpg names, and img_112 as cv2's GIF, through eval_e2e -images_list
+    before = dict(build.launch_counts)
+    format_dumps = {}
+    for fmt, writer in (("bmp", _bmp_bytes), ("tiff", _tiff_bytes)):
+        lst = _write_scene_copies(os.path.join(tmp, f"{fmt}_scenes"), prog_images, prog_names,
+                                  writer, PROG_JPG)
+        dump = os.path.join(tmp, f"{fmt}_dump.json")
+        with no_tf32():
+            eval_e2e.main(["-model", SNAPSHOT, "-images_list", lst, "-dump_json", dump])
+        with open(dump) as f:
+            format_dumps[fmt] = json.load(f)
+    gif_dump = os.path.join(tmp, "gif_dump.json")
+    with no_tf32():
+        gif_summary = eval_e2e.main(["-model", SNAPSHOT, "-images_list",
+                                     os.path.join(DECODE_REF, "gif", "eval.txt"),
+                                     "-dump_json", gif_dump])
+    torch.cuda.synchronize()
+    format_launches = {k: build.launch_counts[k] - before[k] for k in before}
     t_prog = time.perf_counter()
     # (e) the exported bundle's selftest on the folder
     _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
@@ -2347,6 +2461,24 @@ def phase_files(images, eval_result=None, joint_result=None):
               and all(np.allclose(g["box"], r["box"], rtol=0.0, atol=1e-3)
                       for g, r in zip(got, res)),
               f"serve progressive {name}: differs from batch_call on the decoded pixels")
+    with open(prog_dump) as f:
+        prog_dump_records = json.load(f)
+    for fmt, dump in format_dumps.items():
+        _dumps_equal(dump, prog_dump_records, f"eval_e2e over the {fmt.upper()} copies")
+    with open(gif_dump) as f:
+        gif_counts = _dump_counts(json.load(f))
+    with open(os.path.join(DECODE_REF, "gif", "eval_fots_cpu.json")) as f:
+        gif_ref = json.load(f)["run"]["counts"]
+    check(gif_counts["gt"] == gif_ref["gt"]
+          and all(abs(gif_counts[k] - gif_ref[k]) <= 1 for k in ("tp", "tp_e2e", "detections")),
+          f"files: eval_e2e over the GIF scene {gif_counts} vs fots's {gif_ref}")
+    for kname in build.PATH_KERNELS["serving"]:
+        check(format_launches[kname] > 0,
+              f"kernel {kname} was not launched over the BMP, TIFF and GIF files")
+    print(f"  the four progressive scenes as BMP and as TIFF under .jpg names: eval_e2e's "
+          f"boxes and texts equal the jpgs'; img_112 as cv2's GIF: {gif_counts} (fots "
+          f"{gif_ref}; det hmean {gif_summary['detection_hmean']:.4f}); launches "
+          f"{format_launches}")
     print(f"  progressive jpgs: eval_e2e {prog_counts} (fots {ref_counts}; det hmean "
           f"{prog_summary['detection_hmean']:.4f} e2e hmean {prog_summary['e2e_hmean']:.4f}); "
           f"detect and serve equal the engines on the decoded pixels; launches {prog_launches}")
@@ -2380,6 +2512,8 @@ def phase_files(images, eval_result=None, joint_result=None):
            "decode_ref_files": len(manifest),
            "progressive": {"eval_counts": prog_counts, "fots_eval_counts": ref_counts,
                            "eval_summary": prog_summary, "launches": prog_launches},
+           "bmp_tiff_gif": {"gif_eval_counts": gif_counts, "fots_gif_eval_counts": gif_ref,
+                            "launches": format_launches},
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,

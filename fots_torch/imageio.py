@@ -3,9 +3,9 @@
 ``cv2.imencode(".jpg")`` of JPEG.
 
 The card's machine has no OpenCV and no image decoder, so the port reads
-its own files: JPEG and PNG, decoded by ``fots_torch/csrc/image_decode.cpp``
-(g++, built at first use by :mod:`fots_torch.kernels.build` and loaded with
-ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
+its own files: JPEG and PNG, decoded by ``fots_torch/csrc/image_decode.cpp``,
+and BMP, GIF and TIFF (below) (g++, built at first use by
+:mod:`fots_torch.kernels.build` and loaded with ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
 default decompression as OpenCV asks for it (islow IDCT as its SIMD code
 computes it, fancy upsampling, its colour tables, block smoothing), so the
 pixels equal ``cv2.imread``'s byte for byte, colour and grayscale; the EXIF
@@ -43,14 +43,41 @@ a component the output needs, a lossless frame that is arithmetic-coded,
 whose colour space the output would convert or whose restart interval is
 not whole MCU rows), and a truncated or corrupt PNG (libpng's).
 
+BMP, GIF and TIFF, read as ``cv2.imread`` reads them by
+``fots_torch/csrc/decode_bmp.cpp``, ``decode_gif.cpp`` and
+``decode_tiff.cpp`` with the TIFF directory parsed here (see each file):
+- BMP as OpenCV's own BmpDecoder: the 12-byte OS/2 header and the 40-byte
+  one with its V4 / V5 forms, 1/4/8-bit palettes, 16-bit 5-5-5 and 5-6-5,
+  24 and 32 bits (a V3+ header's bit fields applied), RLE8 and RLE4, rows
+  bottom-up or top-down;
+- GIF as OpenCV's own GifDecoder: the first frame on the logical screen
+  filled with the background colour, its transparent index, local and
+  global tables, interlaced rows, LZW at minimum code sizes 2-11;
+- TIFF as libtiff 4.7's RGBA reader under OpenCV: the first directory of a
+  classic or BigTIFF file in either byte order, uncompressed, PackBits, LZW
+  and Deflate strips or tiles with the horizontal predictor, planar or
+  not, grey (1, 8, 16 bits, MinIsBlack or MinIsWhite), palette (1, 4, 8
+  bits; 8- or 16-bit colour maps), RGB and RGBA (8, 16 bits; alpha dropped,
+  unassociated alpha premultiplied), FillOrder 2, orientations 1-4.
+A format is found by its signature, as ``cv2`` finds it (by content, not by
+name): a BMP named ``.jpg`` is read as a BMP.
+
+``None`` also where ``cv2.imread`` gives None for those: a BMP, GIF or TIFF
+cut short or with a header its decoder rejects, a GIF frame whose LZW data
+is damaged, a TIFF of a depth OpenCV refuses (2 and 4-bit grey, 2-bit
+palette, samples of 32 or more bits, float), of a coding libtiff's build
+lacks, or with an orientation of 5-8 (imread's own ExifTransform asserts).
+
 ``ValueError`` naming the file and the format, for a file of one of the
-other formats OpenCV 5.0's ``imread`` decodes, found by its signature as
-``cv2`` finds it (by content, not by name): BMP, PBM/PGM/PPM and PAM, PFM,
-Sun raster, TIFF, WebP, JPEG 2000 (codestream or JP2), AVIF, GIF and
-Radiance HDR.  The port decodes none of them (a reader would otherwise drop
-such a sample in silence where ``fots`` trains on it).  A PFM is refused in
-both modes, though ``cv2`` 5.0 reads a 3-channel one only in colour and a
-1-channel one only in grey.
+other formats OpenCV 5.0's ``imread`` decodes, found by its signature:
+PBM/PGM/PPM and PAM, PFM, Sun raster, WebP, JPEG 2000 (codestream or JP2),
+AVIF and Radiance HDR; and naming the coding or photometric, for a TIFF
+``cv2`` reads that the port does not decode: JPEG and old-style JPEG, CCITT
+RLE / Group 3 / Group 4, PixarLog, SGILog, old-style LZW, YCbCr, Separated
+(CMYK) and the Lab spaces.  The port decodes none of them (a reader would
+otherwise drop such a sample in silence where ``fots`` trains on it).  A
+PFM is refused in both modes, though ``cv2`` 5.0 reads a 3-channel one only
+in colour and a 1-channel one only in grey.
 
 The writer is ``fots_torch/csrc/image_encode.cpp`` (g++ as well): baseline
 JPEG as libjpeg-turbo writes it under ``cv2.imwrite``'s defaults (quality
@@ -73,6 +100,8 @@ from fots_torch.kernels import build
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+BMP_SIGNATURE = b"BM"
+GIF_SIGNATURE = b"GIF"
 _ERR_LEN = 256
 #: PNG colour type -> the bit depths the format allows
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -86,8 +115,6 @@ def _other_format(data: bytes) -> Optional[str]:
     """The name of the format of ``data`` when its signature is one of the
     other decoders of OpenCV 5.0.0's ``imread`` (which finds a file's format
     by its content, not its name), else None."""
-    if data.startswith(b"BM"):
-        return "BMP"
     if len(data) >= 3 and data[:1] == b"P" and data[2:3] in _SPACE:
         if data[1:2] in b"123456":
             return "PBM/PGM/PPM (Netpbm)"
@@ -97,8 +124,6 @@ def _other_format(data: bytes) -> Optional[str]:
             return "PFM"
     if data.startswith(b"\x59\xa6\x6a\x95"):
         return "Sun raster"
-    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
-        return "TIFF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     if data.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or data.startswith(b"\xff\x4f\xff\x51"):
@@ -109,8 +134,6 @@ def _other_format(data: bytes) -> Optional[str]:
         brands = [box[i:i + 4] for i in range(0, len(box) - 3, 4) if i != 4]  # minor version at 4
         if b"avif" in brands or b"avis" in brands:
             return "AVIF"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
     if data.startswith((b"#?RADIANCE", b"#?RGBE")):
         return "Radiance HDR"
     return None
@@ -137,6 +160,35 @@ def _lib() -> ctypes.CDLL:
         lib.fots_exif_orientation.argtypes = [u8p, ctypes.c_int64]
         lib._fots_typed = True
     return lib
+
+
+def _format_lib(name: str, prefix: str) -> ctypes.CDLL:
+    """The library of one of the other formats: ``<prefix>_header`` (height
+    and width) and ``<prefix>_decode`` (the pixels), typed as the JPEG pair."""
+    lib = build.load(name)
+    if not getattr(lib, "_fots_typed", False):
+        u8p, buf, i32 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int
+        header, decode = getattr(lib, f"{prefix}_header"), getattr(lib, f"{prefix}_decode")
+        header.restype = decode.restype = i32
+        header.argtypes = [u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), buf, i32]
+        decode.argtypes = [u8p, ctypes.c_int64, i32, u8p, buf, i32]
+        lib._fots_typed = True
+    return lib
+
+
+def _decode_whole(name: str, prefix: str, data: bytes, grayscale: bool, path: str):
+    """Decode a BMP or GIF file with its library: (image, orientation 1).
+    An image past OpenCV's size limits raises (imread raises for it)."""
+    lib = _format_lib(name, prefix)
+    src = np.frombuffer(data, np.uint8)
+    info = (ctypes.c_int32 * 2)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _checked(getattr(lib, f"{prefix}_header")(_u8(src), src.size, info, err, _ERR_LEN), err, path)
+    h, w = info
+    out = np.empty((h, w) if grayscale else (h, w, 3), np.uint8)
+    _checked(getattr(lib, f"{prefix}_decode")(_u8(src), src.size, int(grayscale), _u8(out), err,
+                                               _ERR_LEN), err, path)
+    return out, 1
 
 
 def _u8(a: np.ndarray):
@@ -333,15 +385,380 @@ def _decode_png(data: bytes, grayscale: bool, path: str):
     return out, orientation
 
 
+# ---------------------------------------------------------------- TIFF
+# The first directory of a classic or BigTIFF file, read as cv2.imread reads
+# it: OpenCV's TiffDecoder over libtiff 4.7, whose 8-bit output comes from
+# TIFFReadRGBAStrip / TIFFReadRGBATile (tif_getimage.c), one strip or tile
+# at a time, then OpenCV's RGBA -> BGR or grey.
+
+TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
+               10: "ii", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+#: codings cv2.imread reads that the port does not decode (refused by name)
+_TIFF_REFUSED_CODINGS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
+                         32771: "CCITT RLE-word", 6: "old-style JPEG", 7: "JPEG",
+                         32909: "PixarLog", 34676: "SGILog", 34677: "SGILog24"}
+#: codings libtiff knows but OpenCV's build does not decode, or decodes only
+#: at depths cv2.imread refuses (ThunderScan 4-bit, NeXT 2-bit): None
+_TIFF_UNREAD_CODINGS = {32809, 32766, 34661, 34925, 50000, 50001, 50002, 34887}
+_TIFF_DECODED = ("the port decodes TIFF uncompressed, PackBits, LZW and Deflate, of grey, "
+                 "palette and RGB(A) samples only)")
+_TIFF_REFUSED_PHOTOMETRICS = {5: "Separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
+                              10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+#: tags libtiff reads as one unsigned number, failing the directory otherwise
+_TIFF_SCALAR_TAGS = (256, 257, 259, 262, 277, 278, 284)
+_BIT_REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+class _OldStyleLzw(Exception):
+    """A strip of old-style (pre-TIFF 6.0) LZW codes, which the port refuses."""
+
+
+def _tiff_lib() -> ctypes.CDLL:
+    lib = build.load("decode_tiff")
+    if not getattr(lib, "_fots_typed", False):
+        u8p, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
+        for fn in (lib.fots_tiff_lzw, lib.fots_tiff_packbits):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [u8p, i64, u8p, i64]
+        lib._fots_typed = True
+    return lib
+
+
+def _tiff_directory(data: bytes):
+    """(tags, big-endian) of the first directory: tag -> tuple of numbers."""
+    order = data[:2]
+    e = ">" if order == b"MM" else "<"
+    magic = struct.unpack(e + "H", data[2:4])[0]
+    n = len(data)
+    try:
+        if magic == 43:  # BigTIFF
+            bytesize, reserved, at = struct.unpack(e + "HHQ", data[4:16])
+            if bytesize != 8 or reserved != 0:
+                raise _Unreadable("bad BigTIFF header")
+            count_fmt, entry, inline, off_fmt = "Q", 20, 8, "Q"
+        else:
+            at = struct.unpack(e + "I", data[4:8])[0]
+            count_fmt, entry, inline, off_fmt = "H", 12, 4, "I"
+        count = struct.unpack_from(e + count_fmt, data, at)[0]
+        if count == 0 or at + struct.calcsize(count_fmt) + count * entry > n:
+            raise _Unreadable("the TIFF directory lies past the end of the file")
+    except struct.error:
+        raise _Unreadable("the TIFF ends inside its header or directory (truncated)") from None
+    tags = {}
+    pos = at + struct.calcsize(count_fmt)
+    for _ in range(count):
+        if magic == 43:
+            tag, typ, cnt = struct.unpack_from(e + "HHQ", data, pos)
+        else:
+            tag, typ, cnt = struct.unpack_from(e + "HHI", data, pos)
+        value_at = pos + entry - inline
+        pos += entry
+        fmt = _TIFF_TYPES.get(typ)
+        if tag in tags:
+            continue
+        if tag in _TIFF_SCALAR_TAGS + (258,) and (
+                typ not in (1, 3, 4, 16) or cnt != 1 and tag != 258):
+            raise _Unreadable(f"TIFF tag {tag} of type {typ} and count {cnt}")
+        if tag in (273, 279, 322, 323, 324, 325) and typ not in (1, 3, 4, 16):
+            raise _Unreadable(f"TIFF tag {tag} of type {typ}")
+        if fmt is None:
+            continue
+        size = struct.calcsize(e + fmt) * cnt
+        if size > inline:
+            value_at = struct.unpack_from(e + off_fmt, data, value_at)[0]
+            if value_at + size > n:
+                if tag == 258:
+                    raise _Unreadable("TIFF BitsPerSample past the end of the file")
+                continue  # libtiff drops a tag whose values lie past the end
+        tags[tag] = struct.unpack_from(e + fmt * cnt, data, value_at)
+    return tags, e == ">"
+
+
+def _tiff_inflate(raw: bytes, occ: int):
+    """ZIPDecode: (bytes, ok) where the bytes are what inflate gave before
+    it failed or the data ended."""
+    d = zlib.decompressobj()
+    try:
+        out = d.decompress(raw, occ)
+        return out, len(out) == occ
+    except zlib.error:
+        pass
+    # what inflate wrote before the error: whole blocks of input, then the
+    # failing block a byte at a time
+    d, out, i = zlib.decompressobj(), bytearray(), 0
+    for step in (4096, 1):
+        try:
+            while i < len(raw) and len(out) < occ:
+                probe = d.copy()
+                out += d.decompress(raw[i:i + step], occ - len(out))
+                i += step
+        except zlib.error:
+            d = probe
+            continue
+        break
+    return bytes(out[:occ]), False
+
+
+def _tiff_chunk(raw: bytes, compression: int, occ: int):
+    """One strip or tile, decompressed into a zeroed buffer of ``occ`` bytes:
+    (buffer, ok).  A failed decoder leaves what it wrote (libtiff goes on
+    with the strip buffer as it is)."""
+    buf = np.zeros(occ, np.uint8)
+    if compression == 1:
+        if len(raw) < occ:  # DumpModeDecode copies nothing
+            return buf, False
+        buf[:] = np.frombuffer(raw, np.uint8, occ)
+        return buf, True
+    if compression in (8, 32946):
+        out, ok = _tiff_inflate(raw, occ)
+        buf[:len(out)] = np.frombuffer(out, np.uint8)
+        return buf, ok
+    if compression == 5 and raw[:1] == b"\x00" and raw[1:2] and raw[1] & 1:
+        raise _OldStyleLzw()  # LZWPreDecode's test: libtiff reads it with its compat decoder
+    if compression in (5, 32773):
+        src = np.frombuffer(raw, np.uint8)
+        lib = _tiff_lib()
+        fn = lib.fots_tiff_lzw if compression == 5 else lib.fots_tiff_packbits
+        return buf, bool(fn(_u8(src), src.size, _u8(buf), occ))
+    return buf, False  # a coding libtiff does not know: "not implemented"
+
+
+def _tiff_processed(chunk: np.ndarray, ok: bool, rows: int, rowbytes: int, spp: int, bps: int,
+                    big_endian: bool, predictor: int) -> np.ndarray:
+    """A decoded strip or tile as libtiff leaves it for the put routines:
+    [rows, rowbytes] bytes, 16-bit samples in host (little-endian) order.
+    The byte swap and the predictor run only where the decoder succeeded."""
+    a = chunk[:rows * rowbytes].reshape(rows, rowbytes)
+    if not ok or (predictor != 2 and not (bps == 16 and big_endian)):
+        return a
+    if bps == 16:
+        v = a[:, :rowbytes // 2 * 2].view(">u2" if big_endian else "<u2").astype(np.uint16)
+        if predictor == 2:
+            v = v.reshape(rows, -1, spp).cumsum(1, dtype=np.uint16).reshape(rows, -1)
+        out = a.copy()
+        out[:, :rowbytes // 2 * 2] = v.astype("<u2").view(np.uint8)
+        return out
+    return a.reshape(rows, -1, spp).cumsum(1, dtype=np.uint8).reshape(rows, rowbytes)
+
+
+def _tiff_samples(a: np.ndarray, cols: int, spp: int, bps: int) -> np.ndarray:
+    """[rows, cols, spp] samples of processed rows."""
+    rows = a.shape[0]
+    if bps == 16:
+        v = a[:, :cols * spp * 2].view("<u2")
+    elif bps == 8:
+        v = a[:, :cols * spp]
+    else:
+        v = np.unpackbits(a, axis=1).reshape(rows, -1, bps)[:, :cols * spp]
+        v = (v * (1 << np.arange(bps - 1, -1, -1, dtype=np.uint8))).sum(2, dtype=np.uint8)
+    return v.reshape(rows, cols, spp)
+
+
+def _tiff_skewed_grey(a: np.ndarray, npix: int, spp: int, bps: int) -> np.ndarray:
+    """The grey samples put16bitbwtile, putgreytile and putagreytile read
+    from a tile clipped at the image's right edge: they step to the next row
+    by the clipped width in samples, not in bytes, so each row r starts at
+    r * (npix * step + (tile width - npix)) bytes (step: the bytes of a
+    pixel).  16-bit: the high byte of the sample there."""
+    rows, rowbytes = a.shape
+    flat = a.ravel()
+    step = spp * (2 if bps == 16 else 1)
+    stride = npix * step + rowbytes // step - npix
+    offs = np.arange(rows)[:, None] * stride + np.arange(npix)[None, :] * step
+    return flat[offs + 1] if bps == 16 else flat[offs]
+
+
+def _tiff_tag(tags, tag, default=None):
+    return tags[tag] if tag in tags else default
+
+
+def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
+    tags, big_endian = _tiff_directory(data)
+    if 256 not in tags or 257 not in tags:
+        raise _Unreadable("TIFF without its image width or length")
+    w, h = tags[256][0], tags[257][0]
+    compression = _tiff_tag(tags, 259, (1,))[0]
+    spp = _tiff_tag(tags, 277, (1,))[0]
+    bps_all = _tiff_tag(tags, 258, (1,))
+    if len(bps_all) != 1:
+        bps_all = bps_all[:spp] if len(bps_all) >= spp else ()
+    if len(set(bps_all)) != 1:
+        raise _Unreadable("TIFF with different bits per sample")
+    bps = bps_all[0]
+    extras = _tiff_tag(tags, 338, ())
+    if len(extras) > spp or any(v > 2 for v in extras):
+        raise _Unreadable("bad TIFF ExtraSamples")
+    if 262 in tags:
+        photometric = tags[262][0]
+    else:  # libtiff's guess
+        photometric = 2 if spp - len(extras) >= 3 else (0 if bps == 1 else 1)
+    if photometric == 3 and 320 not in tags:  # TIFFReadDirectory's repair
+        if bps < 8:
+            raise _Unreadable("palette TIFF without its colour map")
+        photometric = 2 if spp == 3 else 1
+    planar = _tiff_tag(tags, 284, (1,))[0]
+    fmt = _tiff_tag(tags, 339, (1,))[0]
+    predictor = _tiff_tag(tags, 317, (1,))[0]
+    orientation = _tiff_tag(tags, 274, (1,))[0]
+    tiled = 322 in tags or 324 in tags
+    if not 0 < w or not 0 < h or spp < 1:
+        raise _Unreadable("TIFF of zero size")
+    # OpenCV's readHeader / readData and TIFFRGBAImageOK / Begin
+    depths = {3: (1, 4, 8)}.get(photometric, (1, 8, 16) if photometric in (0, 1) else (8, 16))
+    if (bps not in depths or spp > 4 or fmt not in (1, 2, 4)
+            or planar not in (1, 2) or compression in _TIFF_UNREAD_CODINGS):
+        raise _Unreadable(f"TIFF of {bps}-bit samples, photometric {photometric}, "
+                          f"sample format {fmt}, compression {compression}")
+    if compression in _TIFF_REFUSED_CODINGS or photometric in _TIFF_REFUSED_PHOTOMETRICS:
+        what = (_TIFF_REFUSED_CODINGS.get(compression) if compression in _TIFF_REFUSED_CODINGS
+                else f"photometric {_TIFF_REFUSED_PHOTOMETRICS[photometric]}")
+        raise ValueError(f"{path}: a TIFF in {what} (cv2.imread reads it; {_TIFF_DECODED}")
+    if photometric not in (0, 1, 2, 3):
+        raise _Unreadable(f"TIFF of photometric {photometric}")
+    colour = photometric == 2
+    if colour and spp - len(extras) < 3:
+        raise _Unreadable("RGB TIFF of fewer than 3 colour channels")
+    if photometric == 3 and (spp != 1 or planar == 2 and bps < 8):
+        raise _Unreadable("palette TIFF of more than one sample")
+    if photometric in (0, 1, 3) and planar == 1 and spp != 1 and bps < 8:
+        raise _Unreadable("TIFF of packed samples with extra samples")
+    if planar == 2 and (bps < 8 or photometric == 3):
+        raise _Unreadable("planar TIFF libtiff's RGBA reader does not read")
+    if predictor not in (1, 2) and compression in (5, 8, 32946):
+        raise _Unreadable(f"TIFF predictor {predictor}")
+    if predictor == 2 and compression in (5, 8, 32946) and bps not in (8, 16):
+        raise _Unreadable(f"TIFF horizontal predictor of {bps}-bit samples")
+    if orientation in (5, 6, 7, 8):
+        raise _Unreadable("TIFF orientation that transposes (imread's ExifTransform asserts)")
+    if w > 1 << 20 or h > 1 << 20 or w * h > _MAX_PIXELS:
+        raise ValueError(f"{path}: TIFF larger than OpenCV's limits (cv2.imread raises)")
+    if compression not in (5, 8, 32946):  # libtiff runs it inside LZW and Deflate only
+        predictor = 1
+    alpha = 0  # 0 none, 1 associated, 2 unassociated (EXTRASAMPLE_*)
+    if extras:
+        alpha = {0: 1 if spp > 3 else 0, 1: 1, 2: 2}.get(extras[0], 0)
+    elif spp == 4 and photometric == 2:
+        alpha = 1
+    # the chunks: strips, or tiles
+    if tiled:
+        tw, th = _tiff_tag(tags, 322, (0,))[0], _tiff_tag(tags, 323, (0,))[0]
+        if tw <= 0 or th <= 0:
+            raise _Unreadable("TIFF tiles of a size libtiff refuses")
+        offsets, counts = _tiff_tag(tags, 324), _tiff_tag(tags, 325)
+    else:
+        tw, th = w, _tiff_tag(tags, 278, (h,))[0]
+        th = h if th == 0 or th > h else th
+        offsets, counts = _tiff_tag(tags, 273), _tiff_tag(tags, 279)
+    if tw * th * spp * max(1, bps // 8) >= 1 << 30:  # OpenCV's limit on a strip or tile
+        raise _Unreadable("TIFF strip or tile of 1 GiB or more")
+    if (tiled and compression == 1 and _tiff_tag(tags, 266, (1,))[0] == 2
+            and th * ((tw * (1 if planar == 2 else spp) * bps + 7) // 8) % 1024):
+        raise _Unreadable("uncompressed TIFF tiles in fill order 2 of a size libtiff fails "
+                          "on (not a multiple of 1024 bytes)")
+    across, down = -(-w // tw), -(-h // th)
+    planes = spp if planar == 2 else 1
+    plane_spp = 1 if planar == 2 else spp
+    if offsets is None or counts is None:
+        raise _Unreadable("TIFF without the offsets or byte counts of its strips or tiles")
+    n = across * down * planes  # TIFFFetchStripThing: short arrays padded with 0
+    offsets, counts = (tuple(a[:n]) + (0,) * (n - len(a)) for a in (offsets, counts))
+    samples = np.zeros((h, w, spp), np.uint16 if bps == 16 else np.uint8)
+    skewed = []  # (y0, x0, grey samples) of clipped tiles read with the wrong stride
+    for p in range(planes):
+        for j in range(down):
+            for i in range(across):
+                k = (p * down + j) * across + i
+                off, cnt = offsets[k], counts[k]
+                if cnt == 0 or off + cnt > len(data):
+                    if p == 0:  # the read that allocates the buffer fails
+                        raise _Unreadable("a TIFF strip or tile past the end of the file")
+                    continue  # a later plane's read fails: its samples stay 0
+                raw = data[off:off + cnt]
+                if _tiff_tag(tags, 266, (1,))[0] == 2:
+                    raw = raw.translate(_BIT_REVERSE)
+                rows = th if tiled else min(th, h - j * th)
+                rowbytes = (tw * plane_spp * bps + 7) // 8
+                try:
+                    chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes)
+                except _OldStyleLzw:
+                    raise ValueError(f"{path}: a TIFF in old-style LZW (cv2.imread reads it; "
+                                     f"{_TIFF_DECODED}") from None
+                a = _tiff_processed(chunk, ok, rows, rowbytes, plane_spp, bps, big_endian,
+                                    predictor)
+                y0, x0 = j * th, i * tw
+                v = _tiff_samples(a, tw, plane_spp, bps)[:h - y0, :w - x0]
+                samples[y0:y0 + v.shape[0], x0:x0 + v.shape[1], p:p + plane_spp] = v
+                npix = v.shape[1]
+                if (tiled and npix < tw and planar == 1 and photometric in (0, 1)
+                        and (bps == 16 or (bps == 8 and spp > 1))):
+                    skewed.append((y0, x0, _tiff_skewed_grey(a, npix, spp, bps)[:v.shape[0]]))
+    for y0, x0, g in skewed:
+        samples[y0:y0 + g.shape[0], x0:x0 + g.shape[1], 0] = g if bps == 8 else g.astype(
+            np.uint16) << 8
+    rgb = _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha)
+    # orientation: libtiff flips each strip or tile toward its bottom-left
+    # request and OpenCV places the rows back; a horizontal flip of a tiled
+    # file mirrors each tile in place
+    if orientation in (2, 3):
+        if tiled:
+            for x0 in range(0, w, tw):
+                rgb[:, x0:x0 + tw] = rgb[:, x0:x0 + tw][:, ::-1]
+        else:
+            rgb = rgb[:, ::-1]
+    if orientation in (3, 4):
+        rgb = rgb[::-1]
+    if grayscale:  # icvCvt_BGRA2Gray_8u_C4C1R
+        r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
+        return ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14).astype(np.uint8)
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha) -> np.ndarray:
+    """The R, G, B that libtiff's put routines write for each pixel."""
+    s = samples
+    if photometric in (0, 1) and planar == 1:
+        v = s[..., 0] >> 8 if bps == 16 else s[..., 0].astype(np.int32)  # high byte
+        rng = 255 if bps == 16 else (1 << bps) - 1
+        lut = np.arange(rng + 1) * 255 // rng
+        if photometric == 0:
+            lut = (rng - np.arange(rng + 1)) * 255 // rng
+        g = lut[v].astype(np.uint8)
+        return np.stack([g, g, g], -1)
+    if photometric == 3:
+        cmap = np.asarray(tags.get(320, ()), np.int64)
+        n = 1 << bps
+        if cmap.size < 3 * n:
+            raise _Unreadable("palette TIFF without a colour map")
+        cmap = cmap[:3 * n].reshape(3, n)
+        if (cmap >= 256).any():  # libtiff's checkcmap: a 16-bit colour map
+            cmap = cmap >> 8
+        return cmap[:, s[..., 0]].transpose(1, 2, 0).astype(np.uint8)
+    # RGB, and grey in planes (gtStripSeparate reads the one plane as R, G, B)
+    colours = [0, 0, 0] if photometric in (0, 1) else [0, 1, 2]
+    if bps == 8 and alpha != 2 and photometric == 2:
+        return s[..., :3]
+    if bps == 16:
+        c = ((s.astype(np.int32) + 128) // 257)  # Bitdepth16To8
+    else:
+        c = s.astype(np.int32)
+    rgb = c[..., colours]
+    if alpha == 2 and spp > len(set(colours)):  # UaToAa: alpha after the colour channels
+        a = c[..., len(set(colours)):len(set(colours)) + 1]
+        rgb = (a * rgb + 127) // 255
+    return rgb.astype(np.uint8)
+
+
 def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
     """``cv2.imread(path)`` (u8 [H, W, 3] BGR) or, with ``grayscale``,
-    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (u8 [H, W]) of a JPEG or PNG.
-    None where ``cv2.imread`` gives None: a file that cannot be opened, whose
-    signature is no format ``cv2`` reads, or that libjpeg or libpng fails on
-    (a JPEG cut before its first scan's data, a corrupt or truncated PNG).
-    ``ValueError``, naming the file and the format, for a file of another
-    format ``cv2`` reads (BMP, Netpbm, PFM, Sun raster, TIFF, WebP, JPEG
-    2000, AVIF, GIF, Radiance HDR)."""
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (u8 [H, W]) of a JPEG, PNG,
+    BMP, GIF or TIFF.  None where ``cv2.imread`` gives None: a file that
+    cannot be opened, whose signature is no format ``cv2`` reads, or that
+    its decoder fails on (a JPEG cut before its first scan's data, a corrupt
+    or truncated PNG, BMP, GIF or TIFF).  ``ValueError``, naming the file and
+    the format, for a file of another format ``cv2`` reads (Netpbm, PFM, Sun
+    raster, WebP, JPEG 2000, AVIF, Radiance HDR) or a TIFF coding the port
+    does not decode (JPEG, CCITT, YCbCr, CMYK, ...)."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -352,11 +769,20 @@ def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
             im, orientation = _decode_jpeg(data, grayscale, str(path))
         elif data.startswith(PNG_SIGNATURE):
             im, orientation = _decode_png(data, grayscale, str(path))
+        elif data.startswith(BMP_SIGNATURE):
+            im, orientation = _decode_whole("decode_bmp", "fots_bmp", data, grayscale, str(path))
+        elif data.startswith(GIF_SIGNATURE):
+            im, orientation = _decode_whole("decode_gif", "fots_gif", data, grayscale, str(path))
+        elif data[:4] in TIFF_SIGNATURES:
+            try:
+                im, orientation = _decode_tiff(data, grayscale, str(path)), 1
+            except (struct.error, IndexError, OverflowError) as e:  # a damaged directory
+                raise _Unreadable(str(e)) from None
         else:
             other = _other_format(data)
             if other:
                 raise ValueError(f"{path}: the {other} format (cv2.imread reads it; the port "
-                                 "decodes JPEG and PNG only)")
+                                 "decodes JPEG, PNG, BMP, GIF and TIFF only)")
             return None
     except _Unreadable:
         return None

@@ -42,6 +42,9 @@ SOURCES = {
     "nms_core": "nms_core.cpp",
     "image_decode": "image_decode.cpp",
     "image_encode": "image_encode.cpp",
+    "decode_bmp": "decode_bmp.cpp",
+    "decode_gif": "decode_gif.cpp",
+    "decode_tiff": "decode_tiff.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")

@@ -16,9 +16,9 @@ byte for byte in colour (BGR) and grayscale:
 - lossless JPEG (SOF3, Huffman) of an encoder of this module: predictors 1-7,
   point transforms, restart intervals of whole MCU rows, grey, RGB and CMYK;
 
-and, for the other formats ``cv2.imread`` reads (BMP, Netpbm, PAM, PFM, Sun
-raster, TIFF, WebP, JPEG 2000, AVIF, GIF, Radiance HDR), a ``ValueError``
-naming the file and the format where ``cv2`` reads the file.
+and, for the other formats ``cv2.imread`` reads (Netpbm, PAM, PFM, Sun
+raster, WebP, JPEG 2000, AVIF, Radiance HDR), a ``ValueError`` naming the
+file and the format where ``cv2`` reads the file.
 """
 
 import os
@@ -748,37 +748,34 @@ def _written(tmp_path, ext, im, params=()):
 
 def _format_files(tmp_path):
     """(name the ValueError gives, path) of a file of each of the other
-    formats, written by cv2 (or, where cv2 writes none, derived from one)."""
+    formats, written by cv2 (or, where cv2 writes none, derived from one).
+    BMP, GIF and TIFF are decoded by the port: their files
+    are held to cv2 in tests/test_torch_port_imageio_bmp_gif.py and
+    tests/test_torch_port_imageio_tiff.py."""
     im = scene(40, 60, seed=9)
     grey = im[..., 1]
     f32 = im.astype(np.float32) / 255
-    files = [("BMP", _written(tmp_path, "bmp", im)),
-             ("PBM/PGM/PPM", _written(tmp_path, "ppm", im)),
+    files = [("PBM/PGM/PPM", _written(tmp_path, "ppm", im)),
              ("PBM/PGM/PPM", _written(tmp_path, "pgm", grey)),
              ("PBM/PGM/PPM", _written(tmp_path, "pbm", (grey > 128).astype(np.uint8))),
              ("PBM/PGM/PPM", _written(tmp_path, "pnm", im, (cv2.IMWRITE_PXM_BINARY, 0))),
              ("PAM", _written(tmp_path, "pam", im)),
              ("PFM", _written(tmp_path, "pfm", f32)),
              ("Sun raster", _written(tmp_path, "ras", im)),
-             ("TIFF", _written(tmp_path, "tiff", im)),
              ("WebP", _written(tmp_path, "webp", im)),
              ("JPEG 2000", _written(tmp_path, "jp2", im)),
              ("AVIF", _written(tmp_path, "avif", im)),
-             ("GIF", _written(tmp_path, "gif", im)),
              ("Radiance HDR", _written(tmp_path, "hdr", f32))]
-    jp2 = files[10][1].read_bytes()
+    jp2 = files[8][1].read_bytes()
     box = jp2.index(b"jp2c")
     codestream = tmp_path / "x.j2k"
     codestream.write_bytes(jp2[box + 4:box - 4 + struct.unpack(">I", jp2[box - 4:box])[0]])
-    gif87 = tmp_path / "x87.gif"
-    gif87.write_bytes(b"GIF87a" + files[12][1].read_bytes()[6:])
     rgbe = tmp_path / "rgbe.hdr"
-    rgbe.write_bytes(files[13][1].read_bytes().replace(b"#?RADIANCE", b"#?RGBE", 1))
-    # a format is found by content: a BMP named .jpg is still a BMP
-    named = tmp_path / "bmp_named.jpg"
-    named.write_bytes(files[0][1].read_bytes())
-    return files + [("JPEG 2000", codestream), ("GIF", gif87), ("Radiance HDR", rgbe),
-                    ("BMP", named)]
+    rgbe.write_bytes(files[10][1].read_bytes().replace(b"#?RADIANCE", b"#?RGBE", 1))
+    # a format is found by content: a WebP named .jpg is still a WebP
+    named = tmp_path / "webp_named.jpg"
+    named.write_bytes(files[7][1].read_bytes())
+    return files + [("JPEG 2000", codestream), ("Radiance HDR", rgbe), ("WebP", named)]
 
 
 def test_other_formats_refused_by_name(tmp_path):
@@ -786,7 +783,7 @@ def test_other_formats_refused_by_name(tmp_path):
     3-channel PFM only in colour and a 1-channel one only in grey) raises
     ValueError naming the file and the format, in both modes."""
     files = _format_files(tmp_path)
-    assert len({name for name, _ in files}) == 11
+    assert len({name for name, _ in files}) == 8
     for name, path in files:
         assert (cv2.imread(str(path)) is not None
                 or cv2.imread(str(path), cv2.IMREAD_GRAYSCALE) is not None), path

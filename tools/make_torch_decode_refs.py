@@ -34,11 +34,24 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   ``lossless_rgb.jpg`` (predictor 7); gamma-tagged PNGs (``gAMA`` 45455
   RGB, ``sRGB`` 16-bit RGBA, ``gAMA`` 220000 palette) that grey output reads
   through libpng's gamma tables;
+- ``bmp/``, ``gif/``, ``tiff/``: a file for each route of the BMP, GIF and
+  TIFF decoders (written by ``cv2.imencode``, Pillow, or the writers of
+  ``tests/test_torch_port_imageio_bmp_gif.py`` and ``_tiff.py``) on a 64x96
+  window of ``img_112``: 24-bit and V5 BGRA BMP, OS/2 4-bit, 5-6-5 bit
+  fields, RLE8, RLE4; an interlaced transparent GIF, a frame offset on its
+  screen with a local table; planar tiled 16-bit RGBA LZW, 4-bit palette
+  with a 16-bit map, BigTIFF big-endian 16-bit grey with the predictor,
+  MinIsWhite 1-bit PackBits in fill order 2, orientation 3 in tiles, grey +
+  alpha in clipped tiles.  ``gif/img_112.gif`` is the whole scene through
+  ``cv2.imwrite`` (with its gt and ``eval.txt``), and
+  ``tiff/img_112_lzw.tif`` / ``_deflate.tif`` 256x384 windows of it through
+  ``cv2.imwrite``: the forms phase 12 of ``chip_smoke.py`` times;
 - ``manifest.json``: for each file its SHA-256 and the shape and SHA-256 of
   ``cv2.imread``'s colour and grey bytes (null where ``cv2`` reads nothing:
   a lossless frame's output in another colour space);
 - ``eval_fots_cpu.json``: ``fots.cli.eval_e2e -images_list prog/eval.txt``
-  with the shipped snapshot (f32, CPU): summary and match counts.
+  with the shipped snapshot (f32, CPU): summary and match counts; and
+  ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``.
 """
 
 from __future__ import annotations
@@ -147,6 +160,71 @@ def format_files(images, names, prog) -> dict:
     return out
 
 
+def _bmp_gif_tiff_modules():
+    sys.path.insert(0, REPO)
+    return (importlib.import_module("tests.test_torch_port_imageio_bmp_gif"),
+            importlib.import_module("tests.test_torch_port_imageio_tiff"))
+
+
+def bmp_gif_tiff_files(images) -> dict:
+    """{relative path: bytes} of the BMP, GIF and TIFF files: one for each of
+    the decoders' routes, on windows of ``img_112`` (``img_112`` whole as a
+    GIF, and 256x384 windows as TIFF-LZW and TIFF-Deflate for the timing)."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    b, t = _bmp_gif_tiff_modules()
+    scene = images[0]
+    win = np.ascontiguousarray(scene[200:264, 300:396])
+    grey = cv2.cvtColor(win, cv2.COLOR_BGR2GRAY)
+    pal16 = [tuple(int(c) for c in v) for v in np.random.default_rng(1).integers(0, 256, (16, 3))]
+    out = {}
+    for rel, im, params in (("bmp/bgr_24bit.bmp", win, ()),
+                            ("bmp/bgra_v5_masks.bmp", np.dstack([win, grey]), ()),
+                            ("gif/img_112.gif", scene, ()),
+                            ("tiff/img_112_lzw.tif", scene[160:416, 288:672],
+                             (cv2.IMWRITE_TIFF_COMPRESSION, 5)),
+                            ("tiff/img_112_deflate.tif", scene[160:416, 288:672],
+                             (cv2.IMWRITE_TIFF_COMPRESSION, 8))):
+        ok, enc = cv2.imencode(os.path.splitext(rel)[1], im, list(params))
+        out[rel] = enc.tobytes()
+    out["bmp/os2_4bit.bmp"] = b.bmp_bytes(96, 64, 4, 0, b._rows(grey >> 4, 4), pal16, header=12)
+    px = ((win[..., 2].astype(np.uint16) >> 3 << 11) | (win[..., 1].astype(np.uint16) >> 2 << 5)
+          | (win[..., 0] >> 3)).astype("<u2")
+    out["bmp/bitfields_565.bmp"] = b.bmp_bytes(96, 64, 16, 3, b._rows(
+        px.view(np.uint8).reshape(64, -1), 8), masks=(0xf800, 0x7e0, 0x1f))
+    out["bmp/rle8.bmp"] = b.bmp_bytes(96, 64, 8, 1, b.rle_bytes(grey >> 2),
+                                      [(v * 4, v * 4, v * 4) for v in range(64)], clr_used=64)
+    out["bmp/rle4.bmp"] = b.bmp_bytes(96, 64, 4, 2, b.rle_bytes(grey >> 4, False), pal16,
+                                      header=124)
+    p = Image.fromarray(win[..., ::-1].copy()).convert("P")
+    buf = io.BytesIO()
+    p.save(buf, "GIF", interlace=True, transparency=5)
+    out["gif/interlaced_transparent.gif"] = buf.getvalue()
+    idx = (grey[:40, :60] >> 4).ravel()
+    out["gif/offset_local_table.gif"] = b.gif_bytes(
+        96, 64, [b.gce(3), b.gif_frame(20, 12, 60, 40, idx, min_size=4, table=pal16)],
+        b._colours(4, 2), bg=1)
+    rgba16 = np.dstack([win, grey]).astype(np.int64) * 257
+    out["tiff/rgba16_planar_tiles.tif"] = t.tiff_bytes(rgba16, bps=16, planar=2, tile=(32, 48),
+                                                       extrasamples=[2], compression=5)
+    out["tiff/palette_4bit_16bit_map.tif"] = t.tiff_bytes(
+        grey >> 4, bps=4, photometric=3, compression=32773,
+        colormap=[c * 257 for v in zip(*pal16) for c in v])
+    out["tiff/grey16_bigtiff_big_endian.tif"] = t.tiff_bytes(
+        grey.astype(np.int64) * 257 + 100, bps=16, bigtiff=True, big_endian=True,
+        compression=8, predictor=2, rows_per_strip=7)
+    out["tiff/miniswhite_1bit_fillorder2.tif"] = t.tiff_bytes(grey >> 7, bps=1, photometric=0,
+                                                              fillorder=2, compression=32773)
+    out["tiff/orientation3_tiles.tif"] = t.tiff_bytes(win, orientation=3, tile=(64, 48),
+                                                      compression=8)
+    out["tiff/grey_alpha_clipped_tiles.tif"] = t.tiff_bytes(np.dstack([grey, grey[::-1]]),
+                                                            extrasamples=[1], tile=(80, 48))
+    return out
+
+
 def files(images, names) -> dict:
     """{relative path: bytes} of every file but the scenes' annotations."""
     import cv2
@@ -174,6 +252,7 @@ def files(images, names) -> dict:
     exif = t._chunk(b"eXIf", t._tiff_orientation(6, False))
     out["exif_palette.png"] = t.png_bytes(s2, 2, 3, pal2, filters=(1,), extra=exif)
     out.update(format_files(images, names, out[f"prog/{names[0]}"]))
+    out.update(bmp_gif_tiff_files(images))
     return out
 
 
@@ -191,7 +270,8 @@ def main() -> int:
         images = z["images"]
         names = [os.path.basename(str(n)) for n in z["names"]]
     shutil.rmtree(OUT, ignore_errors=True)
-    os.makedirs(os.path.join(OUT, "prog"))
+    for sub in ("prog", "bmp", "gif", "tiff"):
+        os.makedirs(os.path.join(OUT, sub))
     manifest = {}
     for rel, data in files(images, names).items():
         path = os.path.join(OUT, rel)
@@ -217,18 +297,26 @@ def main() -> int:
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")
-    paths = [os.path.join(OUT, "prog", n) for n in names[:SCENES]]
-    run = run_fots(paths, [])
-    result = {"snapshot": "artifacts/serving_params.npz", "images_list":
-              os.path.relpath(os.path.join(OUT, "prog", "eval.txt"), REPO),
-              "precision": "f32", "platform": jax.default_backend(), "jax": jax.__version__,
-              "opencv": cv2.__version__,
-              "run": {k: run[k] for k in ("summary", "counts")}}
-    with open(os.path.join(OUT, "eval_fots_cpu.json"), "w") as f:
-        json.dump(result, f, indent=1)
-        f.write("\n")
-    print(f"fots eval_e2e over {SCENES} progressive scenes: {run['counts']} "
-          f"{ {k: round(v, 4) for k, v in run['summary'].items() if k.endswith('hmean')} }")
+    shutil.copy(os.path.join(HELDOUT_JPG, f"gt_{os.path.splitext(names[0])[0]}.txt"),
+                os.path.join(OUT, "gif"))
+    gif_scene = os.path.splitext(names[0])[0] + ".gif"
+    with open(os.path.join(OUT, "gif", "eval.txt"), "w") as f:
+        f.write(gif_scene + "\n")
+    for sub, paths, what in (
+            ("", [os.path.join(OUT, "prog", n) for n in names[:SCENES]],
+             f"{SCENES} progressive scenes"),
+            ("gif", [os.path.join(OUT, "gif", gif_scene)], "the GIF scene")):
+        run = run_fots(paths, [])
+        result = {"snapshot": "artifacts/serving_params.npz", "images_list": os.path.relpath(
+                      os.path.join(OUT, sub or "prog", "eval.txt"), REPO),
+                  "precision": "f32", "platform": jax.default_backend(), "jax": jax.__version__,
+                  "opencv": cv2.__version__,
+                  "run": {k: run[k] for k in ("summary", "counts")}}
+        with open(os.path.join(OUT, sub, "eval_fots_cpu.json"), "w") as f:
+            json.dump(result, f, indent=1)
+            f.write("\n")
+        print(f"fots eval_e2e over {what}: {run['counts']} "
+              f"{ {k: round(v, 4) for k, v in run['summary'].items() if k.endswith('hmean')} }")
     size = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(OUT) for n in ns)
     print(f"wrote {OUT} ({size / 1e6:.3f} MB)")
     return 0
