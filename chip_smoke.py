@@ -141,11 +141,14 @@ result line):
    gamma-tagged PNG, and a file for each route of the BMP, GIF and TIFF
    decoders) to the SHA-256 of ``cv2.imread``'s colour and grey bytes in
    its manifest, or to nothing where its entry is null (the decode ms of
-   the 640x960 scene ``img_112`` printed in ten forms, timed in turns:
+   the 640x960 scene ``img_112`` printed in thirteen forms, timed in turns:
    sequential, progressive, block-smoothed, CMYK and arithmetic-coded JPEG,
-   a 24-bit BMP and an uncompressed TIFF written here, ``cv2``'s GIF, and
-   256x384 windows as ``cv2``'s TIFF-LZW and TIFF-Deflate); a WebP must
-   raise ``ValueError`` naming the format, a 62-byte BMP read as None; reader 0's
+   a 24-bit BMP and an uncompressed TIFF written here, ``cv2``'s GIF,
+   256x384 windows as ``cv2``'s TIFF-LZW and TIFF-Deflate, ``cv2``'s
+   lossless and quality-90 WebP (``decode_ref/webp``) and a PPM written
+   here); the lossless WebP under a .jpg name must decode to the
+   progressive ``img_112``'s pixels, a Sun raster raise ``ValueError``
+   naming the format, a 62-byte BMP read as None; reader 0's
    first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
    this process and timed by stage (decode, augment, targets, the rest), and
@@ -163,9 +166,12 @@ result line):
    and ``detect`` and ``serve -test_folder`` at their defaults the engines'
    results on the decoded pixels, with K1'-K4' launched; the same four
    scenes' decoded pixels, written here as BMP and as TIFF under their .jpg
-   names, must give ``eval_e2e -images_list`` the jpgs' boxes (within 1e-3
-   px) and texts, and ``img_112`` as ``cv2``'s GIF (``decode_ref/gif``)
-   ``fots``'s committed counts within one match, with K1'-K4' launched;
+   names, and as PPM written here, must give ``eval_e2e -images_list`` the
+   jpgs' boxes (within 1e-3 px) and texts, as must ``img_112``'s lossless
+   WebP (``decode_ref/webp/lossless``); ``img_112`` as ``cv2``'s GIF
+   (``decode_ref/gif``) ``fots``'s committed counts within one match, and
+   the four scenes as quality-90 WebP (``decode_ref/webp/lossy``)
+   ``fots``'s committed counts exactly, with K1'-K4' launched;
    ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
@@ -2144,6 +2150,22 @@ def _tiff_bytes(im, rows_per_strip=16) -> bytes:
     return b"II*\0" + struct.pack("<I", 8) + body + data
 
 
+def _ppm_bytes(im) -> bytes:
+    """A binary PPM (P6, maxval 255) of a BGR u8 image: the smoke test's own
+    writer."""
+    h, w = im.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(im[..., ::-1]).tobytes()
+
+
+def _sun_raster_bytes(im) -> bytes:
+    """A 24-bit standard Sun raster of a BGR u8 image (a format the port
+    refuses by name)."""
+    h, w = im.shape[:2]
+    rows = np.zeros((h, (3 * w + 1) & ~1), np.uint8)
+    rows[:, :3 * w] = im.reshape(h, -1)
+    return struct.pack(">8I", 0x59a66a95, w, h, 24, rows.size, 1, 0, 0) + rows.tobytes()
+
+
 def _write_scene_copies(folder, images, names, writer, gt_dir) -> str:
     """Each image through ``writer`` under its .jpg name, with its gt file
     and an eval.txt: the list's path."""
@@ -2162,9 +2184,10 @@ def _dumps_equal(got, want, what):
     """Per-image detections of two eval_e2e dumps: texts equal, boxes within
     1e-3 px."""
     check(len(got) == len(want), f"{what}: {len(got)} images vs {len(want)}")
+    stem = lambda rec: os.path.splitext(os.path.basename(rec["image"]))[0]  # noqa: E731
     for g, w in zip(got, want):
         gd, wd = g["detections"], w["detections"]
-        check(os.path.basename(g["image"]) == os.path.basename(w["image"])
+        check(stem(g) == stem(w)
               and [d["text"] for d in gd] == [d["text"] for d in wd]
               and all(np.allclose(a["box"], b["box"], rtol=0.0, atol=1e-3)
                       for a, b in zip(gd, wd)),
@@ -2223,25 +2246,33 @@ def phase_files(images, eval_result=None, joint_result=None):
             check(got is not None and list(got.shape) == entry[key]["shape"]
                   and hashlib.sha256(got.tobytes()).hexdigest() == entry[key]["sha256"],
                   f"files: {rel} ({key}) decodes differently from cv2.imread's bytes")
-    webp = os.path.join(tmp, "not_a_jpeg.jpg")
-    with open(webp, "wb") as f:
-        f.write(b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22))
+    scene_112_prog = imread(os.path.join(PROG_JPG, "img_112.jpg"))
+    webp = os.path.join(tmp, "webp_named.jpg")
+    shutil.copy(os.path.join(DECODE_REF, "webp", "lossless", "img_112.webp"), webp)
+    check(np.array_equal(imread(webp), scene_112_prog),
+          "files: the lossless WebP named .jpg does not decode to img_112's pixels")
+    sun = os.path.join(tmp, "sun_raster.jpg")
+    with open(sun, "wb") as f:
+        f.write(_sun_raster_bytes(scene_112_prog[:64, :96]))
     try:
-        imread(webp)
-        check(False, "files: a WebP read as something")
+        imread(sun)
+        check(False, "files: a Sun raster read as something")
     except ValueError as e:
-        check("WebP" in str(e) and webp in str(e), f"files: the WebP refusal says {e}")
+        check("Sun raster" in str(e) and sun in str(e), f"files: the Sun raster refusal says {e}")
     bmp = os.path.join(tmp, "short_bmp.jpg")
     with open(bmp, "wb") as f:
         f.write(b"BM" + bytes(60))
     check(imread(bmp) is None, "files: a 62-byte BMP reads as something (cv2 gives None)")
-    # the same 640x960 scene in nine forms, timed in turns: sequential and
+    # the same 640x960 scene in eleven forms, timed in turns: sequential and
     # progressive (quality 95, 4:2:0), block-smoothed (the progressive file
     # cut in its second scan), CMYK (quality 50), arithmetic-coded, a 24-bit
-    # BMP and an uncompressed TIFF (written here), cv2's GIF (256 colours);
-    # TIFF-LZW and TIFF-Deflate of cv2.imwrite on a 256x384 window
+    # BMP, an uncompressed TIFF and a PPM (written here), cv2's GIF (256
+    # colours), cv2's lossless and quality-90 WebP (of the progressive
+    # scene's pixels); TIFF-LZW and TIFF-Deflate of cv2.imwrite on a 256x384
+    # window
     scene_112 = imread(os.path.join(FILES_JPG, "img_112.jpg"))
-    for name, writer in (("img_112.bmp", _bmp_bytes), ("img_112.tif", _tiff_bytes)):
+    for name, writer in (("img_112.bmp", _bmp_bytes), ("img_112.tif", _tiff_bytes),
+                         ("img_112.ppm", _ppm_bytes)):
         with open(os.path.join(tmp, name), "wb") as f:
             f.write(writer(scene_112))
         check(np.array_equal(imread(os.path.join(tmp, name)), scene_112),
@@ -2256,7 +2287,10 @@ def phase_files(images, eval_result=None, joint_result=None):
                     "gif": os.path.join(DECODE_REF, "gif", "img_112.gif"),
                     "tiff_lzw_256x384": os.path.join(DECODE_REF, "tiff", "img_112_lzw.tif"),
                     "tiff_deflate_256x384": os.path.join(DECODE_REF, "tiff",
-                                                         "img_112_deflate.tif")}
+                                                         "img_112_deflate.tif"),
+                    "webp_lossless": os.path.join(DECODE_REF, "webp", "lossless", "img_112.webp"),
+                    "webp_lossy_q90": os.path.join(DECODE_REF, "webp", "lossy", "img_112.webp"),
+                    "ppm": os.path.join(tmp, "img_112.ppm")}
     forms = list(decode_forms)
     pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
@@ -2266,8 +2300,13 @@ def phase_files(images, eval_result=None, joint_result=None):
             pair_times[k].append(1e3 * (time.perf_counter() - t0))
     pair_ms = {k: statistics.median(v) for k, v in pair_times.items()}
     smi = card_name_and_power_limit()
-    print(f"  {len(manifest)} files of decode_ref (JPEG, PNG, BMP, GIF, TIFF) decode to "
-          f"cv2.imread's hashes, colour and grey; a WebP is refused by name, a 62-byte BMP is "
+    kinds = {}
+    for rel in manifest:
+        kind = rel.split("/")[0] if "/" in rel else os.path.splitext(rel)[1][1:]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    print(f"  {len(manifest)} files of decode_ref ({kinds}) decode to cv2.imread's hashes "
+          f"(or to None where cv2 gives None), colour and grey; the lossless WebP named .jpg "
+          f"decodes to img_112's pixels, a Sun raster is refused by name, a 62-byte BMP is "
           f"None; img_112 640x960 decode ms on {cpu} (card {smi}), medians of "
           f"{DECODE_REPEATS} in turns: " + ", ".join(
               f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f})"
@@ -2375,11 +2414,12 @@ def phase_files(images, eval_result=None, joint_result=None):
                               prog_serve_dir])
     torch.cuda.synchronize()
     prog_launches = {k: build.launch_counts[k] - before[k] for k in before}
-    # (d'') the same four scenes' decoded pixels as BMP and as TIFF under
-    # .jpg names, and img_112 as cv2's GIF, through eval_e2e -images_list
+    # (d'') the same four scenes' decoded pixels as BMP, TIFF and PPM under
+    # .jpg names, img_112 as cv2's GIF and lossless WebP, and the four as
+    # cv2's quality-90 WebP, through eval_e2e -images_list
     before = dict(build.launch_counts)
     format_dumps = {}
-    for fmt, writer in (("bmp", _bmp_bytes), ("tiff", _tiff_bytes)):
+    for fmt, writer in (("bmp", _bmp_bytes), ("tiff", _tiff_bytes), ("ppm", _ppm_bytes)):
         lst = _write_scene_copies(os.path.join(tmp, f"{fmt}_scenes"), prog_images, prog_names,
                                   writer, PROG_JPG)
         dump = os.path.join(tmp, f"{fmt}_dump.json")
@@ -2387,6 +2427,15 @@ def phase_files(images, eval_result=None, joint_result=None):
             eval_e2e.main(["-model", SNAPSHOT, "-images_list", lst, "-dump_json", dump])
         with open(dump) as f:
             format_dumps[fmt] = json.load(f)
+    webp_dumps, webp_summaries = {}, {}
+    for kind in ("lossless", "lossy"):
+        dump = os.path.join(tmp, f"webp_{kind}_dump.json")
+        with no_tf32():
+            webp_summaries[kind] = eval_e2e.main([
+                "-model", SNAPSHOT, "-images_list",
+                os.path.join(DECODE_REF, "webp", kind, "eval.txt"), "-dump_json", dump])
+        with open(dump) as f:
+            webp_dumps[kind] = json.load(f)
     gif_dump = os.path.join(tmp, "gif_dump.json")
     with no_tf32():
         gif_summary = eval_e2e.main(["-model", SNAPSHOT, "-images_list",
@@ -2465,6 +2514,13 @@ def phase_files(images, eval_result=None, joint_result=None):
         prog_dump_records = json.load(f)
     for fmt, dump in format_dumps.items():
         _dumps_equal(dump, prog_dump_records, f"eval_e2e over the {fmt.upper()} copies")
+    _dumps_equal(webp_dumps["lossless"], prog_dump_records[:1],
+                 "eval_e2e over img_112's lossless WebP")
+    webp_counts = _dump_counts(webp_dumps["lossy"])
+    with open(os.path.join(DECODE_REF, "webp", "lossy", "eval_fots_cpu.json")) as f:
+        webp_ref = json.load(f)["run"]["counts"]
+    check(webp_counts == webp_ref,
+          f"files: eval_e2e over the quality-90 WebP scenes {webp_counts} vs fots's {webp_ref}")
     with open(gif_dump) as f:
         gif_counts = _dump_counts(json.load(f))
     with open(os.path.join(DECODE_REF, "gif", "eval_fots_cpu.json")) as f:
@@ -2474,11 +2530,13 @@ def phase_files(images, eval_result=None, joint_result=None):
           f"files: eval_e2e over the GIF scene {gif_counts} vs fots's {gif_ref}")
     for kname in build.PATH_KERNELS["serving"]:
         check(format_launches[kname] > 0,
-              f"kernel {kname} was not launched over the BMP, TIFF and GIF files")
-    print(f"  the four progressive scenes as BMP and as TIFF under .jpg names: eval_e2e's "
-          f"boxes and texts equal the jpgs'; img_112 as cv2's GIF: {gif_counts} (fots "
-          f"{gif_ref}; det hmean {gif_summary['detection_hmean']:.4f}); launches "
-          f"{format_launches}")
+              f"kernel {kname} was not launched over the BMP, TIFF, PPM, GIF and WebP files")
+    print(f"  the four progressive scenes as BMP and as TIFF under .jpg names and as PPM, and "
+          f"img_112 as lossless WebP: eval_e2e's boxes and texts equal the jpgs'; img_112 as "
+          f"cv2's GIF: {gif_counts} (fots {gif_ref}; det hmean "
+          f"{gif_summary['detection_hmean']:.4f}); the four as quality-90 WebP: {webp_counts} "
+          f"(fots {webp_ref}, exactly; det hmean {webp_summaries['lossy']['detection_hmean']:.4f}"
+          f" e2e hmean {webp_summaries['lossy']['e2e_hmean']:.4f}); launches {format_launches}")
     print(f"  progressive jpgs: eval_e2e {prog_counts} (fots {ref_counts}; det hmean "
           f"{prog_summary['detection_hmean']:.4f} e2e hmean {prog_summary['e2e_hmean']:.4f}); "
           f"detect and serve equal the engines on the decoded pixels; launches {prog_launches}")
@@ -2514,6 +2572,9 @@ def phase_files(images, eval_result=None, joint_result=None):
                            "eval_summary": prog_summary, "launches": prog_launches},
            "bmp_tiff_gif": {"gif_eval_counts": gif_counts, "fots_gif_eval_counts": gif_ref,
                             "launches": format_launches},
+           "webp_ppm": {"webp_lossy_eval_counts": webp_counts,
+                        "fots_webp_lossy_eval_counts": webp_ref,
+                        "webp_lossy_eval_summary": webp_summaries["lossy"]},
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,

@@ -4,7 +4,7 @@
 
 The card's machine has no OpenCV and no image decoder, so the port reads
 its own files: JPEG and PNG, decoded by ``fots_torch/csrc/image_decode.cpp``,
-and BMP, GIF and TIFF (below) (g++, built at first use by
+and BMP, GIF, TIFF, WebP and Netpbm (below) (g++, built at first use by
 :mod:`fots_torch.kernels.build` and loaded with ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
 default decompression as OpenCV asks for it (islow IDCT as its SIMD code
 computes it, fancy upsampling, its colour tables, block smoothing), so the
@@ -68,10 +68,25 @@ is damaged, a TIFF of a depth OpenCV refuses (2 and 4-bit grey, 2-bit
 palette, samples of 32 or more bits, float), of a coding libtiff's build
 lacks, or with an orientation of 5-8 (imread's own ExifTransform asserts).
 
+WebP, read as ``cv2.imread`` reads it through libwebp 1.5 by
+``fots_torch/csrc/decode_webp.cpp`` (see that file): lossy (VP8) and
+lossless (VP8L) images, simple or in a VP8X file with ALPH / ICCP / EXIF /
+XMP chunks, raw VP8 and VP8L streams (cv2 reads them too), an animation's
+first frame on its canvas; colour is BGR with alpha dropped, grey
+``cvtColor(BGR2GRAY)`` of it, and the orientation of the first EXIF chunk
+of a VP8X file whose EXIF flag is set is applied, as cv2 applies it.  None
+where libwebp or OpenCV's use of it fails (a file cut short, a damaged
+frame or alpha plane, a file of fewer than 32 bytes).
+
+PBM, PGM, PPM (P1-P6) and PAM (P7), read here as OpenCV 5.0's PxMDecoder
+and PAMDecoder read them (quirks included: see the Netpbm section below);
+None where they fail (a bad header, samples cut short, a stray character
+among ASCII samples).
+
 ``ValueError`` naming the file and the format, for a file of one of the
-other formats OpenCV 5.0's ``imread`` decodes, found by its signature:
-PBM/PGM/PPM and PAM, PFM, Sun raster, WebP, JPEG 2000 (codestream or JP2),
-AVIF and Radiance HDR; and naming the coding or photometric, for a TIFF
+other formats OpenCV 5.0's ``imread`` decodes, found by its signature: PFM,
+Sun raster, JPEG 2000 (codestream or JP2), AVIF and Radiance HDR; and
+naming the coding or photometric, for a TIFF
 ``cv2`` reads that the port does not decode: JPEG and old-style JPEG, CCITT
 RLE / Group 3 / Group 4, PixarLog, SGILog, old-style LZW, YCbCr, Separated
 (CMYK) and the Lab spaces.  The port decodes none of them (a reader would
@@ -90,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 import struct
 import zlib
 from typing import Optional
@@ -114,18 +130,11 @@ _SPACE = b" \t\n\v\f\r"      # isspace(): what follows a Netpbm / PFM magic numb
 def _other_format(data: bytes) -> Optional[str]:
     """The name of the format of ``data`` when its signature is one of the
     other decoders of OpenCV 5.0.0's ``imread`` (which finds a file's format
-    by its content, not its name), else None."""
-    if len(data) >= 3 and data[:1] == b"P" and data[2:3] in _SPACE:
-        if data[1:2] in b"123456":
-            return "PBM/PGM/PPM (Netpbm)"
-        if data[1:2] == b"7":
-            return "PAM (Netpbm)"
-        if data[1:2] in b"Ff":
-            return "PFM"
+    by its content, not its name) that the port does not decode, else None."""
+    if len(data) >= 3 and data[:1] == b"P" and data[2:3] in _SPACE and data[1:2] in b"Ff":
+        return "PFM"
     if data.startswith(b"\x59\xa6\x6a\x95"):
         return "Sun raster"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
     if data.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or data.startswith(b"\xff\x4f\xff\x51"):
         return "JPEG 2000"
     if data[4:8] == b"ftyp" and len(data) >= 12:
@@ -749,16 +758,338 @@ def _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha) -> np.ndarray
     return rgb.astype(np.uint8)
 
 
+# ---------------------------------------------------------------- WebP
+# fots_torch/csrc/decode_webp.cpp: the container, VP8L, VP8, ALPH and an
+# animation's first frame, as OpenCV 5.0's WebPDecoder reads them through
+# libwebp 1.5; the orientation of the EXIF chunk OpenCV reads (through
+# WebPDemux) is applied here.
+
+_DECODED = "JPEG, PNG, BMP, GIF, TIFF, WebP and Netpbm only"
+
+
+def _webp_lib() -> ctypes.CDLL:
+    lib = _format_lib("decode_webp", "fots_webp")
+    if not getattr(lib, "_fots_webp_typed", False):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.fots_webp_signature.restype = ctypes.c_int
+        lib.fots_webp_signature.argtypes = [u8p, ctypes.c_int64]
+        lib.fots_webp_decode_bgra.restype = ctypes.c_int
+        lib.fots_webp_decode_bgra.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_char_p,
+                                              ctypes.c_int]
+        lib._fots_webp_typed = True
+    return lib
+
+
+def _is_webp(data: bytes) -> bool:
+    """OpenCV's WebP signature check (WebPGetFeatures on the first 32 bytes,
+    so a raw VP8 or VP8L stream counts); a RIFF ... WEBP file always goes to
+    the WebP decoder, which gives None where cv2 finds no decoder for it."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return True
+    if len(data) < 32 or not (data[:1] == b"\x2f" or data[3:6] == b"\x9d\x01\x2a"):
+        return False
+    head = np.frombuffer(data[:32], np.uint8)
+    return bool(_webp_lib().fots_webp_signature(_u8(head), 32))
+
+
+def _decode_webp(data: bytes, grayscale: bool, path: str, bgra: bool = False):
+    """(image, EXIF orientation) of a WebP file; ``bgra``: [H, W, 4] with the
+    decoded alpha plane (``cv2.IMREAD_UNCHANGED``'s for an image with alpha)."""
+    lib = _webp_lib()
+    src = np.frombuffer(data, np.uint8)
+    info = (ctypes.c_int32 * 4)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _checked(lib.fots_webp_header(_u8(src), src.size, info, err, _ERR_LEN), err, path)
+    h, w, exif_at, exif_size = info
+    if bgra:
+        out = np.empty((h, w, 4), np.uint8)
+        _checked(lib.fots_webp_decode_bgra(_u8(src), src.size, _u8(out), err, _ERR_LEN), err, path)
+    else:
+        out = np.empty((h, w) if grayscale else (h, w, 3), np.uint8)
+        _checked(lib.fots_webp_decode(_u8(src), src.size, int(grayscale), _u8(out), err,
+                                      _ERR_LEN), err, path)
+    orientation = 1
+    if exif_size:
+        exif = src[exif_at:exif_at + exif_size]
+        orientation = _lib().fots_exif_orientation(_u8(exif), exif.size)
+    return out, orientation
+
+
+# ---------------------------------------------------------------- Netpbm
+# PBM / PGM / PPM (P1-P6) as OpenCV 5.0's PxMDecoder reads them and PAM (P7)
+# as its PAMDecoder does (grfmt_pxm.cpp, grfmt_pam.cpp), quirks included:
+#   - binary samples of a maxval below 256 are the bytes as stored (maxval
+#     100 does not scale); ASCII ones are clipped to maxval and scaled by
+#     v * 255 // maxval; 16-bit samples (maxval 256-65535, ASCII or
+#     big-endian binary) keep their high byte (v >> 8, no scaling);
+#   - P1 reads one digit at a time (no separator needed), P1 / P4 bit 1 is
+#     black; a number ends at the first non-digit, which is consumed
+#     unread ("1x 2" reads 1 and 2; "12#34" reads 12 and 34); an ASCII
+#     file must go on for a byte past its last number (P1 excepted);
+#   - PAM: header lines of an 8-character identifier and a value (decimal,
+#     an optional minus sign, nothing else but trailing blanks), TUPLTYPE
+#     checked against DEPTH, MAXVAL 1 read as packed bits (one bit a pixel
+#     from the first bytes of each row's samples), an RGB PAM read in colour
+#     as stored (no swap to BGR), GRAYSCALE_ALPHA and RGB_ALPHA converted
+#     for only the first ceil(width / depth) pixels of a row, three bytes a
+#     pixel in grey too (OpenCV leaves the rest of the row as the memory it
+#     was given: zeros here);
+#   - grey of colour samples by imgcodecs' fixed point (4899, 9617, 1868
+#     over 2^14, rounded).
+# None where cv2 gives None: a bad header, data that ends early, a
+# character other than a digit, blank or comment among ASCII samples.
+
+_PXM_COEFFS = (4899, 9617, 1868)  # R, G, B over 2^14 (icvCvt_BGR2Gray_8u_C3C1R)
+_INT_MAX = 2**31 - 1
+_PAM_FIELDS = ("ENDHDR", "HEIGHT", "WIDTH", "DEPTH", "MAXVAL", "TUPLTYPE")
+#: TUPLTYPE -> channels
+_PAM_TUPLTYPES = {"": 0, "BLACKANDWHITE": 1, "GRAYSCALE": 1, "GRAYSCALE_ALPHA": 2, "RGB": 3,
+                  "RGB_ALPHA": 4}
+
+
+class _Oversize(ValueError):
+    """An image past OpenCV's limits on a side or its pixels (imread raises)."""
+
+
+def _check_size(w: int, h: int) -> None:  # validateInputImageSize
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20) or w * h > _MAX_PIXELS:
+        raise _Oversize(f"a Netpbm image of {w}x{h}, past OpenCV's limits (cv2.imread raises)")
+
+
+class _ByteReader:
+    """RLByteStream over the file: reading past the end fails (IndexError)."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        b = self.data[self.pos]
+        self.pos += 1
+        return b
+
+    def bytes(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise IndexError("the Netpbm file ends early")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def number(self, maxdigits: int = 0) -> int:  # ReadNumber
+        code = self.byte()
+        while not 48 <= code <= 57:
+            if code == 35:  # '#': a comment to the end of its line
+                while code not in (10, 13):
+                    code = self.byte()
+                code = self.byte()
+            elif code in _SPACE:
+                while code in _SPACE:
+                    code = self.byte()
+            else:
+                raise ValueError(f"unexpected byte 0x{code:02x} in a Netpbm number")
+        val = digits = 0
+        while True:
+            val = val * 10 + code - 48
+            if val > _INT_MAX:
+                raise ValueError("a Netpbm number past INT_MAX")
+            digits += 1
+            if maxdigits and digits >= maxdigits:
+                break
+            code = self.byte()
+            if not 48 <= code <= 57:
+                break
+        return val
+
+
+_CLEAN = re.compile(rb"[0-9 \t\n\v\f\r]*")
+
+
+def _ascii_samples(r: _ByteReader, count: int, single_digits: bool) -> np.ndarray:
+    """``count`` ASCII numbers from the reader's position, as ReadNumber reads
+    them: split on blanks where the rest of the file is only digits and
+    blanks, else one number at a time."""
+    rest = r.data[r.pos:]
+    if _CLEAN.fullmatch(rest):
+        if single_digits:
+            digits = np.frombuffer(rest.translate(None, _SPACE), np.uint8)
+            if digits.size < count:
+                raise IndexError("the Netpbm file ends early")
+            return (digits[:count] - 48).astype(np.int64)
+        tokens = rest.split(None, count)
+        if len(tokens) < count or (len(tokens) == count and not rest[-1:] in _SPACE):
+            raise IndexError("the Netpbm file ends early")  # no byte after the last number
+        if any(len(t) > 9 and int(t) > _INT_MAX for t in tokens[:count]):
+            raise ValueError("a Netpbm number past INT_MAX")
+        return np.array(tokens[:count], np.int64)
+    return np.array([r.number(1 if single_digits else 0) for _ in range(count)], np.int64)
+
+
+def _grey14(rgb: np.ndarray) -> np.ndarray:
+    """imgcodecs' grey of [..., 3] R, G, B samples."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    c_r, c_g, c_b = _PXM_COEFFS
+    return ((r * c_r + g * c_g + b * c_b + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def _bits_rows(raw: np.ndarray, w: int) -> np.ndarray:
+    """[rows, w] bits (most significant first) of [rows, bytes] data."""
+    return np.unpackbits(raw, axis=1)[:, :w]
+
+
+def _decode_pxm(data: bytes, grayscale: bool) -> np.ndarray:
+    r = _ByteReader(data, 2)
+    kind = data[1] - 48
+    bpp = {1: 1, 4: 1, 2: 8, 5: 8, 3: 24, 6: 24}[kind]
+    binary = kind >= 4
+    w, h = r.number(), r.number()
+    maxval = r.number() if bpp > 1 else 1
+    if maxval > 65535:
+        raise ValueError("a Netpbm maxval past 65535")
+    if not (w > 0 and h > 0 and maxval > 0):
+        raise ValueError(f"a Netpbm header of {w}x{h}, maxval {maxval}")
+    _check_size(w, h)
+    nch = 3 if bpp == 24 else 1
+    if bpp == 1:
+        if binary:
+            pitch = (w + 7) // 8
+            bits = _bits_rows(np.frombuffer(r.bytes(pitch * h), np.uint8).reshape(h, pitch), w)
+        else:
+            bits = (_ascii_samples(r, w * h, True) != 0).reshape(h, w).astype(np.uint8)
+        v = np.where(bits != 0, 0, 255).astype(np.uint8)  # bit 1 is black
+    else:
+        wide = maxval > 255
+        n = w * h * nch
+        if binary:
+            raw = np.frombuffer(r.bytes(n * (2 if wide else 1)), np.uint8)
+            v = raw[0::2] if wide else raw  # big-endian: the high byte
+        else:
+            codes = np.minimum(_ascii_samples(r, n, False), maxval)
+            v = (codes >> 8) if wide else codes * 255 // maxval
+        v = v.astype(np.uint8).reshape(h, w, nch)
+        if nch == 3:
+            return _grey14(v) if grayscale else np.ascontiguousarray(v[..., ::-1])
+        v = v[..., 0]
+    return v if grayscale else np.repeat(v[..., None], 3, axis=2)
+
+
+def _pam_line(r: _ByteReader):
+    """ReadPAMHeaderLine: (field or None for a comment, value), or False."""
+    code = r.byte()
+    while code in _SPACE:
+        code = r.byte()
+    if code == 35:
+        while code not in (10, 13):
+            code = r.byte()
+        return None, ""
+    ident = bytearray()
+    while len(ident) < 8 and code not in _SPACE:
+        ident.append(code)
+        code = r.byte()
+    if code not in _SPACE or ident.decode("latin-1") not in _PAM_FIELDS:
+        return False
+    if code in (10, 13):
+        return ident.decode(), ""
+    while code in _SPACE and code not in (10, 13):
+        code = r.byte()
+    if code in (10, 13):
+        return False  # an identifier and blanks, then no value
+    value = bytearray()
+    while len(value) < 255 and code not in (10, 13):
+        value.append(code)
+        code = r.byte()
+    return ident.decode(), value.rstrip(_SPACE).decode("latin-1")
+
+
+def _pam_number(value: str) -> int:
+    if value == "":
+        return 0
+    if not re.fullmatch(r"-?[0-9]+", value) or not -_INT_MAX - 1 <= int(value) <= _INT_MAX:
+        raise ValueError(f"a bad PAM number {value!r}")
+    return int(value)
+
+
+def _decode_pam(data: bytes, grayscale: bool) -> np.ndarray:
+    if data[2] not in (10, 13):
+        raise ValueError("a PAM magic number not followed by a line break")
+    r = _ByteReader(data, 3)
+    fields = {}
+    tupltype = None
+    while True:
+        line = _pam_line(r)
+        if line is False:
+            raise ValueError("a bad PAM header line")
+        field, value = line
+        if field == "ENDHDR":
+            break
+        if field == "TUPLTYPE":
+            if value not in _PAM_TUPLTYPES:
+                raise ValueError(f"an unknown PAM TUPLTYPE {value!r}")
+            tupltype = value
+        elif field is not None:
+            if field in fields:
+                raise ValueError(f"PAM {field} given twice")
+            fields[field] = _pam_number(value)
+    if len(fields) != 4:
+        raise ValueError("a PAM header without its WIDTH, HEIGHT, DEPTH and MAXVAL")
+    w, h, depth, maxval = fields["WIDTH"], fields["HEIGHT"], fields["DEPTH"], fields["MAXVAL"]
+    if maxval > 65535:
+        raise ValueError("a PAM maxval past 65535")
+    if not tupltype:
+        if depth == 1 and maxval < 256:
+            tupltype = "BLACKANDWHITE" if maxval == 1 else "GRAYSCALE"
+        elif depth == 3 and maxval < 256:
+            tupltype = "RGB"
+        else:
+            raise ValueError("a PAM whose tuple type cv2 cannot tell")
+    elif _PAM_TUPLTYPES[tupltype] != depth:
+        raise ValueError(f"a PAM {tupltype} of depth {depth}")
+    if not 1 <= depth <= 4:
+        raise ValueError(f"a PAM of depth {depth}")
+    _check_size(w, h)
+    wide = maxval > 255
+    rowbytes = w * depth * (2 if wide else 1)
+    raw = np.frombuffer(r.bytes(rowbytes * h), np.uint8).reshape(h, rowbytes)
+    target = 1 if grayscale else 3
+    if maxval == 1:  # packed bits from the first bytes of each row
+        v = np.where(_bits_rows(raw, w) != 0, 255, 0).astype(np.uint8)
+        return v if grayscale else np.repeat(v[..., None], 3, axis=2)
+    s = raw[:, 0::2] if wide else raw  # [h, w * depth] samples' (high) bytes
+    if target == depth:
+        return np.ascontiguousarray(s.reshape((h, w) if grayscale else (h, w, 3)))
+    if tupltype == "RGB":  # rgb_convert: grey only, as target != depth
+        return _grey14(s.reshape(h, w, 3))
+    # basic_conversion: pixels i < ceil(w / depth) of the row, each from
+    # sample i * depth (B, G, R from channels 2, 1, 0 of RGB_ALPHA); in grey
+    # each writes three bytes of the row, so byte j is pixel j // 3's
+    n = -(-w // depth)
+    idx = np.arange(n) * depth
+    if grayscale:
+        j = np.arange(min(w, 3 * n))
+        out = np.zeros((h, w), np.uint8)
+        out[:, :j.size] = s[:, (j // 3) * depth]
+        return out
+    out = np.zeros((h, w, 3), np.uint8)
+    if tupltype == "RGB_ALPHA":
+        out[:, :n] = np.stack([s[:, idx + c] for c in (2, 1, 0)], -1)
+    else:
+        out[:, :n] = s[:, idx, None]
+    return out
+
+
+def _decode_netpbm(data: bytes, grayscale: bool) -> np.ndarray:
+    return _decode_pam(data, grayscale) if data[1:2] == b"7" else _decode_pxm(data, grayscale)
+
+
 def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
     """``cv2.imread(path)`` (u8 [H, W, 3] BGR) or, with ``grayscale``,
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (u8 [H, W]) of a JPEG, PNG,
-    BMP, GIF or TIFF.  None where ``cv2.imread`` gives None: a file that
-    cannot be opened, whose signature is no format ``cv2`` reads, or that
-    its decoder fails on (a JPEG cut before its first scan's data, a corrupt
-    or truncated PNG, BMP, GIF or TIFF).  ``ValueError``, naming the file and
-    the format, for a file of another format ``cv2`` reads (Netpbm, PFM, Sun
-    raster, WebP, JPEG 2000, AVIF, Radiance HDR) or a TIFF coding the port
-    does not decode (JPEG, CCITT, YCbCr, CMYK, ...)."""
+    BMP, GIF, TIFF, WebP or Netpbm file.  None where ``cv2.imread`` gives
+    None: a file that cannot be opened, whose signature is no format ``cv2``
+    reads, or that its decoder fails on (a JPEG cut before its first scan's
+    data, a corrupt or truncated PNG, BMP, GIF, TIFF, WebP or Netpbm file).
+    ``ValueError``, naming the file and the format, for a file of another
+    format ``cv2`` reads (PFM, Sun raster, JPEG 2000, AVIF, Radiance HDR), a
+    TIFF coding the port does not decode (JPEG, CCITT, YCbCr, CMYK, ...), or
+    an image past OpenCV's size limits (``cv2.imread`` raises for it)."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -779,11 +1110,22 @@ def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
             except (struct.error, IndexError, OverflowError) as e:  # a damaged directory
                 raise _Unreadable(str(e)) from None
         else:
-            other = _other_format(data)
-            if other:
-                raise ValueError(f"{path}: the {other} format (cv2.imread reads it; the port "
-                                 "decodes JPEG, PNG, BMP, GIF and TIFF only)")
-            return None
+            if _is_webp(data):
+                im, orientation = _decode_webp(data, grayscale, str(path))
+            elif len(data) >= 3 and data[:1] == b"P" and data[2:3] in _SPACE and (
+                    data[1:2] in b"1234567"):
+                try:
+                    im, orientation = _decode_netpbm(data, grayscale), 1
+                except (IndexError, ValueError) as e:  # the stream ends, or a bad number
+                    if isinstance(e, _Oversize):
+                        raise ValueError(f"{path}: {e}") from None
+                    raise _Unreadable(str(e)) from None
+            else:
+                other = _other_format(data)
+                if other:
+                    raise ValueError(f"{path}: the {other} format (cv2.imread reads it; the "
+                                     f"port decodes {_DECODED})")
+                return None
     except _Unreadable:
         return None
     return _orient(im, orientation)

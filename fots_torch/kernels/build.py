@@ -45,6 +45,7 @@ SOURCES = {
     "decode_bmp": "decode_bmp.cpp",
     "decode_gif": "decode_gif.cpp",
     "decode_tiff": "decode_tiff.cpp",
+    "decode_webp": "decode_webp.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")

@@ -16,9 +16,10 @@ byte for byte in colour (BGR) and grayscale:
 - lossless JPEG (SOF3, Huffman) of an encoder of this module: predictors 1-7,
   point transforms, restart intervals of whole MCU rows, grey, RGB and CMYK;
 
-and, for the other formats ``cv2.imread`` reads (Netpbm, PAM, PFM, Sun
-raster, WebP, JPEG 2000, AVIF, Radiance HDR), a ``ValueError`` naming the
-file and the format where ``cv2`` reads the file.
+and, for the other formats ``cv2.imread`` reads that the port does not
+decode (PFM, Sun raster, JPEG 2000, AVIF, Radiance HDR), a ``ValueError``
+naming the file and the format where ``cv2`` reads the file; ``cv2``'s own
+Netpbm, PAM and WebP files (one named ``.jpg``) read as ``cv2`` reads them.
 """
 
 import os
@@ -749,9 +750,11 @@ def _written(tmp_path, ext, im, params=()):
 def _format_files(tmp_path):
     """(name the ValueError gives, path) of a file of each of the other
     formats, written by cv2 (or, where cv2 writes none, derived from one).
-    BMP, GIF and TIFF are decoded by the port: their files
-    are held to cv2 in tests/test_torch_port_imageio_bmp_gif.py and
-    tests/test_torch_port_imageio_tiff.py."""
+    BMP, GIF, TIFF, WebP and Netpbm are decoded by the port: their files
+    are held to cv2 in tests/test_torch_port_imageio_bmp_gif.py,
+    tests/test_torch_port_imageio_tiff.py, tests/test_torch_port_imageio_webp.py
+    and tests/test_torch_port_imageio_pnm.py; the WebP and Netpbm entries
+    here (``DECODED``) are decode cases."""
     im = scene(40, 60, seed=9)
     grey = im[..., 1]
     f32 = im.astype(np.float32) / 255
@@ -778,12 +781,17 @@ def _format_files(tmp_path):
     return files + [("JPEG 2000", codestream), ("Radiance HDR", rgbe), ("WebP", named)]
 
 
+#: the formats of _format_files the port decodes
+DECODED = ("PBM/PGM/PPM", "PAM", "WebP")
+
+
 def test_other_formats_refused_by_name(tmp_path):
     """Each file cv2.imread reads (in colour or grey: cv2 5.0 reads a
-    3-channel PFM only in colour and a 1-channel one only in grey) raises
+    3-channel PFM only in colour and a 1-channel one only in grey) of the
+    formats left (PFM, Sun raster, JPEG 2000, AVIF, Radiance HDR) raises
     ValueError naming the file and the format, in both modes."""
-    files = _format_files(tmp_path)
-    assert len({name for name, _ in files}) == 8
+    files = [(name, path) for name, path in _format_files(tmp_path) if name not in DECODED]
+    assert len({name for name, _ in files}) == 5
     for name, path in files:
         assert (cv2.imread(str(path)) is not None
                 or cv2.imread(str(path), cv2.IMREAD_GRAYSCALE) is not None), path
@@ -791,6 +799,20 @@ def test_other_formats_refused_by_name(tmp_path):
             with pytest.raises(ValueError) as e:
                 imread(str(path), grayscale=gray)
             assert str(path) in str(e.value) and name in str(e.value), (name, str(e.value))
+
+
+@pytest.mark.parametrize("k", range(7))
+def test_webp_and_netpbm_format_files_decode_as_cv2(tmp_path, k):
+    """The WebP and Netpbm entries of _format_files (cv2's PPM, PGM, PBM,
+    ASCII PNM and PAM, its WebP, and that WebP named .jpg) read as cv2 reads
+    them, in both modes."""
+    files = [(name, path) for name, path in _format_files(tmp_path) if name in DECODED]
+    assert len(files) == 7
+    name, path = files[k]
+    for gray in (False, True):
+        want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+        got = imread(str(path), grayscale=gray)
+        assert want is not None and got is not None and np.array_equal(got, want), (name, gray)
 
 
 def test_nothing_read_stays_none(tmp_path):

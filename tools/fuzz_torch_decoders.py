@@ -1,0 +1,309 @@
+"""Fuzz the port's WebP and Netpbm readers against ``cv2.imread``.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/fuzz_torch_decoders.py [--seed S] [--scale K]
+
+Needs OpenCV and Pillow on the CPU (the port's GPU machine has
+neither).  Every file is written to a temporary directory and read by
+``cv2.imread`` and ``fots_torch.imageio.imread`` in colour and grey; the
+two must agree byte for byte, on None, and on raising.  Kinds (``--scale``
+multiplies the counts):
+
+- ``encoders`` (300): Pillow's libwebp at random options (lossy, lossless,
+  ``exact``, alpha qualities, methods), palettes of 2-256 colours and
+  ``cv2.imencode`` at random qualities, on random windows and sizes;
+- ``damaged`` (1000): those files cut at a random byte or with 1-3 bits
+  flipped past the RIFF header;
+- ``vp8_writer`` (300): frames of ``tests/test_torch_port_imageio_webp.py``'s
+  ``vp8_frame`` at random filters, sharpness, segments, deltas, partitions,
+  skips, quantisers and coefficient sizes (up to 2,000);
+- ``animations`` (300): random canvases and frames (offsets, blends,
+  disposals, lossy / lossless / alpha frames, EXIF, shuffled chunks), a
+  quarter cut and a quarter bit-flipped;
+- ``containers`` (300): a still image's chunks with EXIF / ICCP / XMP /
+  unknown / extra ALPH / VP8X / ANIM chunks, reordered, random VP8X flags
+  and canvases, RIFF sizes off by up to 12, trailing bytes, cuts;
+- ``netpbm`` (1000): P1-P7 with random separators and comments, maxvals,
+  tuple types and depths, cut or with a byte replaced; OpenCV's PAM reader
+  leaves part of a GRAYSCALE_ALPHA / RGB_ALPHA row unwritten, so those
+  bytes are compared only on the port's side (zeros).
+
+Prints the counts of each kind (files, None, mismatches) and writes each
+mismatching file beside the temporary directory's path it prints.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+KINDS = {"encoders": 300, "damaged": 1000, "vp8_writer": 300, "animations": 300,
+         "containers": 300, "netpbm": 1000}
+
+
+def _read(path, gray):
+    import cv2
+
+    from fots_torch.imageio import imread
+
+    out = []
+    for reader in (lambda: cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR),
+                   lambda: imread(path, grayscale=gray)):
+        try:
+            out.append(reader())
+        except (cv2.error, ValueError):
+            out.append("raise")
+    return out
+
+
+def same(path, data, depth=None) -> tuple:
+    """(cv2 read something in colour, both agree in both modes)."""
+    with open(path, "wb") as f:
+        f.write(data)
+    read = None
+    for gray in (False, True):
+        want, got = _read(path, gray)
+        if not gray:
+            read = isinstance(want, np.ndarray)
+        if isinstance(want, np.ndarray) and isinstance(got, np.ndarray):
+            if want.shape != got.shape:
+                return read, False
+            if depth in (2, 4):  # the PAM reader's unwritten bytes
+                n = -(-want.shape[1] // depth) * (3 if gray else 1)
+                if not np.array_equal(want[:, :n], got[:, :n]) or got[:, n:].any():
+                    return read, False
+            elif not np.array_equal(want, got):
+                return read, False
+        elif not ((want is None and got is None) or (isinstance(want, str)
+                                                     and isinstance(got, str))):
+            return read, False
+    return read, True
+
+
+def _webp_module():
+    import importlib
+
+    return importlib.import_module("tests.test_torch_port_imageio_webp")
+
+
+def _encoded(w, rng):
+    """A random file of the encoders here."""
+    import cv2
+    h, wd = int(rng.integers(1, 90)), int(rng.integers(1, 90))
+    im = w.window(h, wd, y=int(rng.integers(0, 500)), x=int(rng.integers(0, 800)),
+                  k=int(rng.integers(0, 4)))
+    alpha = rng.integers(0, 256, (h, wd), np.uint8)
+    if rng.random() < 0.3:
+        alpha = (alpha > 128).astype(np.uint8) * 255
+    bgra = np.dstack([im, alpha])
+    kind = int(rng.integers(0, 6))
+    if kind == 0:
+        return w.pil_webp(im, quality=int(rng.integers(0, 101)), method=int(rng.integers(0, 7)))
+    if kind == 1:
+        return w.pil_webp(bgra, lossless=True, method=int(rng.integers(0, 7)),
+                          quality=int(rng.integers(0, 101)), exact=bool(rng.random() < 0.5))
+    if kind == 2:
+        return w.pil_webp(bgra, quality=int(rng.integers(0, 101)),
+                          alpha_quality=int(rng.integers(0, 101)), method=int(rng.integers(0, 7)))
+    if kind == 3:
+        n = int(rng.choice([2, 3, 4, 11, 16, 17, 256]))
+        pal = rng.integers(0, 256, (n, 3), np.uint8)
+        return w.pil_webp(pal[rng.integers(0, n, (h, wd))], lossless=True)
+    if kind == 4:
+        n = int(rng.choice([300, 1000]))
+        pal = rng.integers(0, 256, (n, 3), np.uint8)
+        return w.pil_webp(pal[rng.integers(0, n, (h, wd))], lossless=True, method=6)
+    return cv2.imencode(".webp", im, [cv2.IMWRITE_WEBP_QUALITY, int(rng.integers(1, 102))])[
+        1].tobytes()
+
+
+def _damaged(data, rng):
+    d = bytearray(data)
+    if rng.random() < 0.4:
+        return bytes(d[:int(rng.integers(12, len(d)))])
+    for _ in range(int(rng.integers(1, 4))):
+        i = int(rng.integers(12, len(d)))
+        d[i] ^= 1 << int(rng.integers(0, 8))
+    return bytes(d)
+
+
+def _vp8_written(w, rng):
+    ints = lambda lo, hi, n: tuple(int(x) for x in rng.integers(lo, hi, n))  # noqa: E731
+    kw = dict(simple=int(rng.integers(0, 2)), level=int(rng.integers(0, 64)),
+              sharpness=int(rng.integers(0, 8)), parts_log2=int(rng.integers(0, 4)),
+              q=int(rng.integers(0, 128)), dq=ints(-15, 16, 5),
+              i4x4_share=float(rng.choice([0, 0.3, 0.8])),
+              amplitude=int(rng.choice([3, 24, 200, 2000])))
+    if rng.random() < 0.5:
+        kw["skip_prob"] = int(rng.integers(1, 256))
+    if rng.random() < 0.5:
+        kw["segments"] = dict(update_map=int(rng.integers(0, 2)), absolute=int(rng.integers(0, 2)),
+                              quant=ints(-127, 128, 4), strength=ints(-63, 64, 4),
+                              probs=ints(0, 256, 3))
+    if rng.random() < 0.5:
+        kw["lf_delta"] = dict(ref=ints(-63, 64, 4), mode=ints(-63, 64, 4))
+    frame = w.vp8_frame(int(rng.integers(1, 70)), int(rng.integers(1, 70)),
+                        int(rng.integers(0, 1 << 30)), **kw)
+    return w.riff([w.chunk(b"VP8 ", frame)])
+
+
+def _animation(w, rng):
+    cw, ch = int(rng.integers(2, 60)), int(rng.integers(2, 60))
+    chunks = [w.vp8x(int(rng.choice([0x02, 0x12, 0x1a, 0x22])), cw, ch)]
+    if rng.random() < 0.9:
+        chunks.append(w.anim(tuple(int(x) for x in rng.integers(0, 256, 4)),
+                             int(rng.integers(0, 3))))
+    for _ in range(int(rng.integers(1, 4))):
+        fw, fh = int(rng.integers(1, cw + 1)), int(rng.integers(1, ch + 1))
+        x = int(rng.integers(0, cw - fw + 1)) & ~1
+        y = int(rng.integers(0, ch - fh + 1)) & ~1
+        if rng.random() < 0.1:
+            x += 2 * int(rng.integers(1, 5))  # past the canvas
+        bgra = rng.integers(0, 256, (fh, fw, 4), np.uint8)
+        kind = int(rng.integers(0, 3))
+        data = (w.pil_webp(bgra, lossless=True) if kind == 0 else
+                w.pil_webp(bgra[..., :3].copy(), quality=int(rng.integers(0, 100))) if kind == 1
+                else w.pil_webp(bgra, quality=int(rng.integers(0, 100))))
+        payload = b"".join(w.chunk(t, b) for t, b in w.chunks_of(data)
+                           if t in (b"ALPH", b"VP8 ", b"VP8L"))
+        if rng.random() < 0.1:
+            payload += w.chunk(b"ABCD", b"xy")
+        chunks.append(w.anmf(x, y, fw, fh, payload, int(rng.integers(0, 200)),
+                             int(rng.integers(0, 4))))
+    if rng.random() < 0.2:
+        chunks.append(w.chunk(b"EXIF", w.exif_orientation(int(rng.integers(1, 9)))))
+    if rng.random() < 0.1:
+        rest = chunks[1:]
+        rng.shuffle(rest)
+        chunks = chunks[:1] + rest
+    data = w.riff(chunks)
+    r = rng.random()
+    return _damaged(data, rng) if r < 0.5 else data
+
+
+def _container(w, rng):
+    import struct
+
+    h, wd = int(rng.integers(1, 40)), int(rng.integers(1, 60))
+    im = w.window(h, wd)
+    bgra = np.dstack([im, rng.integers(0, 256, (h, wd), np.uint8)])
+    kind = int(rng.integers(0, 3))
+    src = (w.pil_webp(bgra, lossless=True) if kind == 0 else
+           w.pil_webp(bgra, quality=int(rng.integers(0, 100))) if kind == 1 else
+           w.cv2_webp(im, int(rng.integers(1, 101))))
+    parts = [(t, b) for t, b in w.chunks_of(src) if t != b"VP8X"]
+    for _ in range(int(rng.integers(0, 4))):
+        t = [b"EXIF", b"ICCP", b"XMP ", b"ABCD", b"ALPH", b"VP8X", b"ANIM"][int(rng.integers(0, 7))]
+        body = (w.exif_orientation(int(rng.integers(1, 9))) if t == b"EXIF" else
+                bytes(rng.integers(0, 256, int(rng.integers(0, 9)), np.uint8)))
+        parts.append((t, body))
+    order = rng.permutation(len(parts)) if rng.random() < 0.3 else range(len(parts))
+    chunks = [w.chunk(*parts[i]) for i in order]
+    flags = (int(rng.integers(0, 256)) if rng.random() < 0.2 else
+             int(rng.choice([0, 0x08, 0x10, 0x18, 0x28, 0x0c])))
+    if rng.random() < 0.8:
+        cw = wd if rng.random() < 0.9 else wd + 1
+        chunks = [w.vp8x(flags & ~0x02 if rng.random() < 0.9 else flags, cw, h)] + chunks
+    d = bytearray(w.riff(chunks))
+    r = rng.random()
+    if r < 0.15:
+        d[4:8] = struct.pack("<I", max(0, len(d) - 8 + int(rng.integers(-12, 12))))
+    elif r < 0.3:
+        d += bytes(int(rng.integers(1, 9)))
+    elif r < 0.4:
+        d = d[:int(rng.integers(12, len(d)))]
+    return bytes(d)
+
+
+def _netpbm(rng):
+    """(file, PAM depth or None)."""
+    def sep():
+        return [b" ", b"\n", b"\t", b"\r\n", b"  ", b" #c\n", b"\n# x y\n"][int(rng.integers(0, 7))]
+
+    magic = int(rng.integers(1, 8))
+    w, h = int(rng.integers(1, 12)), int(rng.integers(1, 9))
+    maxval = int(rng.choice([1, 2, 7, 100, 255, 256, 1000, 65535]))
+    depth = None
+    if magic == 7:
+        depth = int(rng.integers(1, 5))
+        tupltypes = [None, b"GRAYSCALE", b"RGB", b"BLACKANDWHITE", b"GRAYSCALE_ALPHA", b"RGB_ALPHA"]
+        tt = tupltypes[int(rng.integers(0, 6))]
+        lines = [b"WIDTH %d\n" % w, b"HEIGHT %d\n" % h, b"DEPTH %d\n" % depth,
+                 b"MAXVAL %d\n" % maxval] + ([b"TUPLTYPE " + tt + b"\n"] if tt else []) + (
+                     [b"# comment\n"] if rng.random() < 0.3 else [])
+        head = b"P7\n" + b"".join(lines[i] for i in rng.permutation(len(lines))) + b"ENDHDR\n"
+        body = rng.integers(0, 256, w * h * depth * (2 if maxval > 255 else 1),
+                            np.uint8).tobytes()
+        if maxval == 1:
+            depth = None
+    else:
+        ch = 3 if magic in (3, 6) else 1
+        head = b"P%d" % magic + sep() + b"%d" % w + sep() + b"%d" % h + sep()
+        if magic not in (1, 4):
+            head += b"%d" % maxval + [b" ", b"\n", b"\t"][int(rng.integers(0, 3))]
+        if magic in (1, 2, 3):
+            top = 2 if magic == 1 else min(maxval + 3, 70000)
+            body = b"".join(b"%d" % v + sep() for v in rng.integers(0, top, w * h * ch))
+        elif magic == 4:
+            body = rng.integers(0, 256, (w + 7) // 8 * h, np.uint8).tobytes()
+        else:
+            body = rng.integers(0, 256, w * h * ch * (2 if maxval > 255 else 1),
+                                np.uint8).tobytes()
+    d = bytearray(head + body)
+    r = rng.random()
+    if r < 0.2:
+        d = d[:int(rng.integers(3, len(d) + 1))]
+    elif r < 0.35:
+        for _ in range(int(rng.integers(1, 3))):
+            d[int(rng.integers(3, len(d)))] = int(rng.integers(0, 256))
+    return bytes(d), depth
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--kinds", default=",".join(KINDS))
+    args = ap.parse_args()
+    w = _webp_module()
+    tmp = tempfile.mkdtemp(prefix="fots_fuzz_")
+    path = os.path.join(tmp, "x.bin")
+    total_bad = 0
+    for kind in args.kinds.split(","):
+        rng = np.random.default_rng([args.seed, list(KINDS).index(kind)])
+        n, none, bad = int(KINDS[kind] * args.scale), 0, 0
+        for i in range(n):
+            depth = None
+            if kind == "encoders":
+                data = _encoded(w, rng)
+            elif kind == "damaged":
+                data = _damaged(_encoded(w, rng), rng)
+            elif kind == "vp8_writer":
+                data = _vp8_written(w, rng)
+            elif kind == "animations":
+                data = _animation(w, rng)
+            elif kind == "containers":
+                data = _container(w, rng)
+            else:
+                data, depth = _netpbm(rng)
+            read, ok = same(path, data, depth)
+            none += not read
+            if not ok:
+                bad += 1
+                with open(os.path.join(tmp, f"bad_{kind}_{i}.bin"), "wb") as f:
+                    f.write(data)
+        total_bad += bad
+        print(f"{kind}: {n} files, {none} read as nothing (or raising) by cv2, {bad} mismatches",
+              flush=True)
+    print(f"mismatching files (if any) under {tmp}")
+    return 1 if total_bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

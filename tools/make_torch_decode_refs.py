@@ -46,12 +46,29 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   ``cv2.imwrite`` (with its gt and ``eval.txt``), and
   ``tiff/img_112_lzw.tif`` / ``_deflate.tif`` 256x384 windows of it through
   ``cv2.imwrite``: the forms phase 12 of ``chip_smoke.py`` times;
+- ``webp/`` and ``pnm/``: a file for each route of the WebP decoder (on
+  windows of ``img_112``: lossy at an odd size, lossless through every
+  predictor, a colour cache, palettes bundled 8, 4 and 2 to a byte, lossy
+  with lossless-coded alpha, a raw gradient-filtered alpha plane, the simple
+  loop filter with segments, deltas and four partitions from
+  ``tests/test_torch_port_imageio_webp.py``'s ``vp8_frame``, an animation's
+  first frame at an offset, an EXIF orientation 6, a lossy file cut short)
+  and of the Netpbm readers (P1 ASCII without separators, P2 at maxval 7, P3
+  ASCII and P5 16-bit, P4, P5 at maxval 100, P6, PAM RGB, 16-bit RGB and
+  black-and-white bits, a P6 cut short); ``webp/lossless/img_112.webp`` (the
+  progressive ``img_112``'s pixels through ``cv2.imencode`` at quality 101,
+  with its gt and ``eval.txt``) and ``webp/lossy/img_112.webp`` ...
+  ``img_115.webp`` (the four progressive scenes' pixels at quality 90, with
+  their gt, ``eval.txt`` and ``eval_fots_cpu.json``): the forms phase 12 of
+  ``chip_smoke.py`` times and runs ``eval_e2e`` over;
 - ``manifest.json``: for each file its SHA-256 and the shape and SHA-256 of
   ``cv2.imread``'s colour and grey bytes (null where ``cv2`` reads nothing:
-  a lossless frame's output in another colour space);
+  a lossless frame's output in another colour space, a WebP or Netpbm file
+  cut short);
 - ``eval_fots_cpu.json``: ``fots.cli.eval_e2e -images_list prog/eval.txt``
-  with the shipped snapshot (f32, CPU): summary and match counts; and
-  ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``.
+  with the shipped snapshot (f32, CPU): summary and match counts;
+  ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``, and
+  ``webp/lossy/eval_fots_cpu.json`` over ``webp/lossy/eval.txt``.
 """
 
 from __future__ import annotations
@@ -225,6 +242,84 @@ def bmp_gif_tiff_files(images) -> dict:
     return out
 
 
+WEBP_LOSSY_QUALITY = 90
+
+
+def webp_pnm_files(images, prog_images, prog_names) -> dict:
+    """{relative path: bytes} of ``webp/`` and ``pnm/``."""
+    import cv2
+
+    sys.path.insert(0, REPO)
+    w = importlib.import_module("tests.test_torch_port_imageio_webp")
+    rng = np.random.default_rng(18)
+    scene = images[0]
+    win = np.ascontiguousarray(scene[200:264, 300:396])
+    small = np.ascontiguousarray(scene[200:224, 300:332])
+    out = {"webp/lossy_37x53.webp": w.cv2_webp(np.ascontiguousarray(scene[210:247, 320:373]),
+                                                 75),
+           "webp/lossless_predictors.webp": w.pil_webp(win, lossless=True, method=6,
+                                                       quality=100)}
+    pal = rng.integers(0, 256, (300, 3), np.uint8)
+    out["webp/lossless_colour_cache.webp"] = w.pil_webp(pal[rng.integers(0, 300, (48, 64))],
+                                                        lossless=True, method=6, quality=100)
+    for n in (2, 4, 16):
+        pal = rng.integers(0, 256, (n, 3), np.uint8)
+        out[f"webp/palette_{n}.webp"] = w.pil_webp(pal[rng.integers(0, n, (29, 43))],
+                                                   lossless=True)
+    alpha = np.add.outer(np.arange(64) * 3, np.arange(96) * 2).astype(np.uint8)
+    out["webp/lossy_alpha.webp"] = w.pil_webp(np.dstack([win, alpha]), quality=70)
+    out["webp/raw_alpha_gradient.webp"] = w._alpha_file(win, 3 << 2,
+                                                        w._filtered(alpha, 3).tobytes())
+    out["webp/simple_filter_segments.webp"] = w.riff([w.chunk(b"VP8 ", w.vp8_frame(
+        53, 37, 18, simple=1, level=30, sharpness=2, parts_log2=2, skip_prob=150,
+        segments=dict(update_map=1, absolute=0, quant=(-10, 0, 12, 30), strength=(-8, 0, 6, 20),
+                      probs=(100, 150, 60)),
+        lf_delta=dict(ref=(6, 0, 0, 0), mode=(-4, 0, 0, 0)), i4x4_share=0.3))])
+    frame = w.chunk(b"VP8L", dict(w.chunks_of(w.pil_webp(small, lossless=True)))[b"VP8L"])
+    out["webp/animation_offset.webp"] = w.riff([w.vp8x(0x02, 48, 40), w.anim((10, 20, 30, 255)),
+                                                w.anmf(6, 8, 32, 24, frame),
+                                                w.anmf(0, 0, 32, 24, frame)])
+    vp8 = w.chunk(b"VP8 ", dict(w.chunks_of(w.cv2_webp(win, 80)))[b"VP8 "])
+    out["webp/exif_orientation_6.webp"] = w.riff([w.vp8x(0x08, 96, 64), vp8,
+                                                  w.chunk(b"EXIF", w.exif_orientation(6))])
+    lossy = w.cv2_webp(win, 60)
+    out["webp/lossy_cut.webp"] = lossy[:len(lossy) * 2 // 3]
+    out["webp/lossless/img_112.webp"] = w.cv2_webp(prog_images[0], 101)
+    for im, name in zip(prog_images, prog_names):
+        out[f"webp/lossy/{os.path.splitext(name)[0]}.webp"] = w.cv2_webp(im, WEBP_LOSSY_QUALITY)
+    # Netpbm
+    grey = cv2.cvtColor(win, cv2.COLOR_BGR2GRAY)
+    sgrey = grey[:24, :32]
+
+    def head(magic, wd, ht, maxval=None):
+        return b"P%d\n# fots_torch decode_ref\n%d %d\n" % (magic, wd, ht) + (
+            b"" if maxval is None else b"%d\n" % maxval)
+
+    out["pnm/p1_no_separators.pbm"] = head(1, 32, 24) + b"".join(
+        b"".join(b"1" if v > 128 else b"0" for v in row) + b"\n" for row in sgrey)
+    out["pnm/p2_maxval_7.pgm"] = head(2, 32, 24, 7) + b"\n".join(
+        b" ".join(b"%d" % (v >> 5) for v in row) for row in sgrey) + b"\n"
+    rgb16 = small[..., ::-1].astype(np.int64) * 200
+    out["pnm/p3_16bit.ppm"] = head(3, 32, 24, 51000) + b"\n".join(
+        b" ".join(b"%d" % v for v in row.ravel()) for row in rgb16) + b"\n"
+    out["pnm/p4.pbm"] = head(4, 96, 64) + np.packbits(grey < 100, axis=1).tobytes()
+    out["pnm/p5_maxval_100.pgm"] = head(5, 96, 64, 100) + (grey * 100 // 255).tobytes()
+    out["pnm/p5_16bit.pgm"] = head(5, 96, 64, 65535) + (grey.astype(">u2") * 257).tobytes()
+    out["pnm/p6.ppm"] = head(6, 96, 64, 255) + np.ascontiguousarray(win[..., ::-1]).tobytes()
+    out["pnm/p6_cut.ppm"] = out["pnm/p6.ppm"][:9000]
+
+    def pam(wd, ht, depth, maxval, tupltype, body):
+        return (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\nTUPLTYPE %s\nENDHDR\n"
+                % (wd, ht, depth, maxval, tupltype) + body)
+
+    out["pnm/pam_rgb.pam"] = pam(96, 64, 3, 255, b"RGB", win[..., ::-1].tobytes())
+    out["pnm/pam_rgb_16bit.pam"] = pam(32, 24, 3, 4000, b"RGB",
+                                       (small[..., ::-1].astype(">u2") * 15).tobytes())
+    out["pnm/pam_blackandwhite.pam"] = pam(96, 64, 1, 1, b"BLACKANDWHITE",
+                                           (grey > 128).astype(np.uint8).tobytes())
+    return out
+
+
 def files(images, names) -> dict:
     """{relative path: bytes} of every file but the scenes' annotations."""
     import cv2
@@ -253,6 +348,9 @@ def files(images, names) -> dict:
     out["exif_palette.png"] = t.png_bytes(s2, 2, 3, pal2, filters=(1,), extra=exif)
     out.update(format_files(images, names, out[f"prog/{names[0]}"]))
     out.update(bmp_gif_tiff_files(images))
+    prog = [cv2.imdecode(np.frombuffer(out[f"prog/{n}"], np.uint8), cv2.IMREAD_COLOR)
+            for n in names[:SCENES]]
+    out.update(webp_pnm_files(images, prog, names[:SCENES]))
     return out
 
 
@@ -270,7 +368,7 @@ def main() -> int:
         images = z["images"]
         names = [os.path.basename(str(n)) for n in z["names"]]
     shutil.rmtree(OUT, ignore_errors=True)
-    for sub in ("prog", "bmp", "gif", "tiff"):
+    for sub in ("prog", "bmp", "gif", "tiff", "webp/lossless", "webp/lossy", "pnm"):
         os.makedirs(os.path.join(OUT, sub))
     manifest = {}
     for rel, data in files(images, names).items():
@@ -281,14 +379,16 @@ def main() -> int:
         for key, flag in (("colour", cv2.IMREAD_COLOR), ("grey", cv2.IMREAD_GRAYSCALE)):
             want = cv2.imread(path, flag)
             got = imread(path, grayscale=key == "grey")
-            if want is None and got is None and rel.startswith("lossless_"):
-                entry[key] = None  # no colour conversion in a lossless frame
+            if want is None and got is None and (rel.startswith("lossless_")
+                                                 or rel.endswith(("_cut.webp", "_cut.ppm"))):
+                entry[key] = None  # a lossless frame's other colour space; a file cut short
                 continue
             if want is None or got is None or not np.array_equal(got, want):
                 raise RuntimeError(f"{rel}: the port does not read it as cv2 does ({key})")
             entry[key] = {"shape": list(want.shape), "sha256": _digest(want)}
         manifest[rel] = entry
-        print(f"{rel}: {len(data)} bytes, {(entry['colour'] or entry['grey'])['shape']}")
+        read = entry["colour"] or entry["grey"]
+        print(f"{rel}: {len(data)} bytes, {read['shape'] if read else 'None (as cv2)'}")
     for name in names[:SCENES]:
         shutil.copy(os.path.join(HELDOUT_JPG, f"gt_{os.path.splitext(name)[0]}.txt"),
                     os.path.join(OUT, "prog"))
@@ -302,10 +402,18 @@ def main() -> int:
     gif_scene = os.path.splitext(names[0])[0] + ".gif"
     with open(os.path.join(OUT, "gif", "eval.txt"), "w") as f:
         f.write(gif_scene + "\n")
+    stems = [os.path.splitext(n)[0] for n in names[:SCENES]]
+    for sub, listed in (("webp/lossless", stems[:1]), ("webp/lossy", stems)):
+        for stem in listed:
+            shutil.copy(os.path.join(HELDOUT_JPG, f"gt_{stem}.txt"), os.path.join(OUT, sub))
+        with open(os.path.join(OUT, sub, "eval.txt"), "w") as f:
+            f.writelines(f"{stem}.webp\n" for stem in listed)
     for sub, paths, what in (
             ("", [os.path.join(OUT, "prog", n) for n in names[:SCENES]],
              f"{SCENES} progressive scenes"),
-            ("gif", [os.path.join(OUT, "gif", gif_scene)], "the GIF scene")):
+            ("gif", [os.path.join(OUT, "gif", gif_scene)], "the GIF scene"),
+            ("webp/lossy", [os.path.join(OUT, "webp", "lossy", f"{s}.webp") for s in stems],
+             f"the {SCENES} lossy WebP scenes")):
         run = run_fots(paths, [])
         result = {"snapshot": "artifacts/serving_params.npz", "images_list": os.path.relpath(
                       os.path.join(OUT, sub or "prog", "eval.txt"), REPO),
