@@ -138,17 +138,22 @@ result line):
    ``fots_torch/assets/decode_ref`` (progressive, hand-scripted progressive,
    truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG, block-smoothed
    progressive, CMYK, YCCK, RGB-coded, arithmetic-coded and lossless JPEG,
-   gamma-tagged PNG, and a file for each route of the BMP, GIF and TIFF
-   decoders) to the SHA-256 of ``cv2.imread``'s colour and grey bytes in
-   its manifest, or to nothing where its entry is null (the decode ms of
-   the 640x960 scene ``img_112`` printed in thirteen forms, timed in turns:
-   sequential, progressive, block-smoothed, CMYK and arithmetic-coded JPEG,
-   a 24-bit BMP and an uncompressed TIFF written here, ``cv2``'s GIF,
-   256x384 windows as ``cv2``'s TIFF-LZW and TIFF-Deflate, ``cv2``'s
-   lossless and quality-90 WebP (``decode_ref/webp``) and a PPM written
-   here); the lossless WebP under a .jpg name must decode to the
-   progressive ``img_112``'s pixels, a Sun raster raise ``ValueError``
-   naming the format, a 62-byte BMP read as None; reader 0's
+   gamma-tagged PNG, a file for each route of the BMP, GIF, TIFF (JPEG,
+   CCITT, YCbCr and CMYK codings included), WebP, Netpbm, Sun raster, PFM
+   and HDR decoders) to the SHA-256 of ``cv2.imread``'s colour and grey
+   bytes in its manifest, or to nothing where its entry is null (the decode
+   ms of the 640x960 scene ``img_112`` printed in eighteen forms, timed in
+   turns: sequential, progressive, block-smoothed, CMYK and
+   arithmetic-coded JPEG, a 24-bit BMP and an uncompressed TIFF written
+   here, ``cv2``'s GIF, 256x384 windows as ``cv2``'s TIFF-LZW and
+   TIFF-Deflate, ``cv2``'s lossless and quality-90 WebP
+   (``decode_ref/webp``), a PPM, a 24-bit Sun raster, a PFM and a
+   run-length HDR written here, ``cv2``'s TIFF-JPEG
+   (``decode_ref/tiff_jpeg``) and Group 4 of its binarised pixels
+   (``decode_ref/ccitt``), each also as a ratio to the sequential jpg); the
+   lossless WebP and a Sun raster under .jpg names must decode to the
+   progressive ``img_112``'s pixels, a JPEG 2000 codestream raise
+   ``ValueError`` naming the format, a 62-byte BMP read as None; reader 0's
    first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
    this process and timed by stage (decode, augment, targets, the rest), and
@@ -165,13 +170,17 @@ result line):
    committed counts (``decode_ref/eval_fots_cpu.json``) within one match,
    and ``detect`` and ``serve -test_folder`` at their defaults the engines'
    results on the decoded pixels, with K1'-K4' launched; the same four
-   scenes' decoded pixels, written here as BMP and as TIFF under their .jpg
-   names, and as PPM written here, must give ``eval_e2e -images_list`` the
-   jpgs' boxes (within 1e-3 px) and texts, as must ``img_112``'s lossless
-   WebP (``decode_ref/webp/lossless``); ``img_112`` as ``cv2``'s GIF
+   scenes' decoded pixels, written here as BMP, as TIFF and as 24-bit Sun
+   raster under their .jpg names, and as PPM and PFM (the pixel values as
+   floats: ``cv2`` reads a PFM's floats without scaling them by 255) written
+   here, must give ``eval_e2e -images_list`` the jpgs' boxes (within 1e-3
+   px) and texts, as must ``img_112``'s lossless WebP
+   (``decode_ref/webp/lossless``); ``img_112`` as ``cv2``'s GIF
    (``decode_ref/gif``) ``fots``'s committed counts within one match, and
-   the four scenes as quality-90 WebP (``decode_ref/webp/lossy``)
-   ``fots``'s committed counts exactly, with K1'-K4' launched;
+   the four scenes as quality-90 WebP (``decode_ref/webp/lossy``), as
+   ``cv2``'s TIFF-JPEG (``decode_ref/tiff_jpeg``) and binarised as Group 4
+   (``decode_ref/ccitt``) ``fots``'s committed counts exactly, with K1'-K4'
+   launched;
    ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
@@ -2158,12 +2167,38 @@ def _ppm_bytes(im) -> bytes:
 
 
 def _sun_raster_bytes(im) -> bytes:
-    """A 24-bit standard Sun raster of a BGR u8 image (a format the port
-    refuses by name)."""
+    """A 24-bit standard Sun raster (B, G, R rows padded to 16 bits) of a
+    BGR u8 image: the smoke test's own writer."""
     h, w = im.shape[:2]
     rows = np.zeros((h, (3 * w + 1) & ~1), np.uint8)
     rows[:, :3 * w] = im.reshape(h, -1)
     return struct.pack(">8I", 0x59a66a95, w, h, 24, rows.size, 1, 0, 0) + rows.tobytes()
+
+
+def _pfm_bytes(im) -> bytes:
+    """A colour PFM of a BGR u8 image: the pixel values themselves as
+    little-endian floats (scale -1), R, G, B, rows bottom to top (cv2 reads
+    a PFM's floats times 1 / |scale|, not times 255: this round-trips)."""
+    h, w = im.shape[:2]
+    return b"PF\n%d %d\n-1\n" % (w, h) + np.ascontiguousarray(
+        im[::-1, :, ::-1]).astype("<f4").tobytes()
+
+
+def _hdr_bytes(im) -> bytes:
+    """A Radiance HDR of a BGR u8 image in new-style run-length scanlines of
+    literal spans (each channel in spans of up to 128 bytes): R, G, B the
+    pixel values and E 128, so each reads back as v * 255 / 256, within 1
+    of v."""
+    h, w = im.shape[:2]
+    rgbe = np.concatenate([im[..., ::-1], np.full((h, w, 1), 128, np.uint8)], -1)
+    spans = [(x, min(128, w - x)) for x in range(0, w, 128)]
+    out = [b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w)]
+    for row in rgbe:
+        out.append(bytes([2, 2, w >> 8, w & 255]))
+        for c in range(4):
+            plane = row[:, c]
+            out.extend(bytes([n]) + plane[x:x + n].tobytes() for x, n in spans)
+    return b"".join(out)
 
 
 def _write_scene_copies(folder, images, names, writer, gt_dir) -> str:
@@ -2253,12 +2288,17 @@ def phase_files(images, eval_result=None, joint_result=None):
           "files: the lossless WebP named .jpg does not decode to img_112's pixels")
     sun = os.path.join(tmp, "sun_raster.jpg")
     with open(sun, "wb") as f:
-        f.write(_sun_raster_bytes(scene_112_prog[:64, :96]))
+        f.write(_sun_raster_bytes(scene_112_prog))
+    check(np.array_equal(imread(sun), scene_112_prog),
+          "files: a Sun raster named .jpg does not decode to img_112's pixels")
+    j2k = os.path.join(tmp, "codestream.jpg")
+    with open(j2k, "wb") as f:
+        f.write(b"\xff\x4f\xff\x51" + bytes(60))
     try:
-        imread(sun)
-        check(False, "files: a Sun raster read as something")
+        imread(j2k)
+        check(False, "files: a JPEG 2000 codestream read as something")
     except ValueError as e:
-        check("Sun raster" in str(e) and sun in str(e), f"files: the Sun raster refusal says {e}")
+        check("JPEG 2000" in str(e) and j2k in str(e), f"files: the JPEG 2000 refusal says {e}")
     bmp = os.path.join(tmp, "short_bmp.jpg")
     with open(bmp, "wb") as f:
         f.write(b"BM" + bytes(60))
@@ -2272,10 +2312,14 @@ def phase_files(images, eval_result=None, joint_result=None):
     # window
     scene_112 = imread(os.path.join(FILES_JPG, "img_112.jpg"))
     for name, writer in (("img_112.bmp", _bmp_bytes), ("img_112.tif", _tiff_bytes),
-                         ("img_112.ppm", _ppm_bytes)):
+                         ("img_112.ppm", _ppm_bytes), ("img_112.ras", _sun_raster_bytes),
+                         ("img_112.pfm", _pfm_bytes), ("img_112.hdr", _hdr_bytes)):
         with open(os.path.join(tmp, name), "wb") as f:
             f.write(writer(scene_112))
-        check(np.array_equal(imread(os.path.join(tmp, name)), scene_112),
+        got = imread(os.path.join(tmp, name))
+        check(got is not None and got.shape == scene_112.shape and (
+            np.abs(got.astype(np.int16) - scene_112).max() <= 1 if name.endswith(".hdr")
+            else np.array_equal(got, scene_112)),
               f"files: {name} (written here) does not decode to img_112's pixels")
     decode_forms = {"sequential": os.path.join(FILES_JPG, "img_112.jpg"),
                     "progressive": os.path.join(PROG_JPG, "img_112.jpg"),
@@ -2290,7 +2334,12 @@ def phase_files(images, eval_result=None, joint_result=None):
                                                          "img_112_deflate.tif"),
                     "webp_lossless": os.path.join(DECODE_REF, "webp", "lossless", "img_112.webp"),
                     "webp_lossy_q90": os.path.join(DECODE_REF, "webp", "lossy", "img_112.webp"),
-                    "ppm": os.path.join(tmp, "img_112.ppm")}
+                    "ppm": os.path.join(tmp, "img_112.ppm"),
+                    "sun_raster": os.path.join(tmp, "img_112.ras"),
+                    "pfm": os.path.join(tmp, "img_112.pfm"),
+                    "hdr_rle": os.path.join(tmp, "img_112.hdr"),
+                    "tiff_jpeg": os.path.join(DECODE_REF, "tiff_jpeg", "img_112.tif"),
+                    "g4_binarised": os.path.join(DECODE_REF, "ccitt", "img_112.tif")}
     forms = list(decode_forms)
     pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
@@ -2299,17 +2348,18 @@ def phase_files(images, eval_result=None, joint_result=None):
             imread(decode_forms[k])
             pair_times[k].append(1e3 * (time.perf_counter() - t0))
     pair_ms = {k: statistics.median(v) for k, v in pair_times.items()}
+    pair_ratio = {k: v / pair_ms["sequential"] for k, v in pair_ms.items()}
     smi = card_name_and_power_limit()
     kinds = {}
     for rel in manifest:
         kind = rel.split("/")[0] if "/" in rel else os.path.splitext(rel)[1][1:]
         kinds[kind] = kinds.get(kind, 0) + 1
     print(f"  {len(manifest)} files of decode_ref ({kinds}) decode to cv2.imread's hashes "
-          f"(or to None where cv2 gives None), colour and grey; the lossless WebP named .jpg "
-          f"decodes to img_112's pixels, a Sun raster is refused by name, a 62-byte BMP is "
-          f"None; img_112 640x960 decode ms on {cpu} (card {smi}), medians of "
-          f"{DECODE_REPEATS} in turns: " + ", ".join(
-              f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f})"
+          f"(or to None where cv2 gives None), colour and grey; the lossless WebP and a Sun "
+          f"raster named .jpg decode to img_112's pixels, a JPEG 2000 codestream is refused "
+          f"by name, a 62-byte BMP is None; img_112 640x960 decode ms on {cpu} (card {smi}), "
+          f"medians of {DECODE_REPEATS} in turns (x the sequential jpg's): " + ", ".join(
+              f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f}, x{pair_ratio[k]:.2f})"
               for k, v in pair_times.items()))
     folder = os.path.join(tmp, "scenes")
     os.makedirs(folder)
@@ -2419,7 +2469,8 @@ def phase_files(images, eval_result=None, joint_result=None):
     # cv2's quality-90 WebP, through eval_e2e -images_list
     before = dict(build.launch_counts)
     format_dumps = {}
-    for fmt, writer in (("bmp", _bmp_bytes), ("tiff", _tiff_bytes), ("ppm", _ppm_bytes)):
+    for fmt, writer in (("bmp", _bmp_bytes), ("tiff", _tiff_bytes), ("ppm", _ppm_bytes),
+                        ("sun_raster", _sun_raster_bytes), ("pfm", _pfm_bytes)):
         lst = _write_scene_copies(os.path.join(tmp, f"{fmt}_scenes"), prog_images, prog_names,
                                   writer, PROG_JPG)
         dump = os.path.join(tmp, f"{fmt}_dump.json")
@@ -2441,6 +2492,15 @@ def phase_files(images, eval_result=None, joint_result=None):
         gif_summary = eval_e2e.main(["-model", SNAPSHOT, "-images_list",
                                      os.path.join(DECODE_REF, "gif", "eval.txt"),
                                      "-dump_json", gif_dump])
+    coding_counts, coding_summaries = {}, {}
+    for sub in ("tiff_jpeg", "ccitt"):  # cv2's TIFF-JPEG; Group 4 of the binarised pixels
+        dump = os.path.join(tmp, f"{sub}_dump.json")
+        with no_tf32():
+            coding_summaries[sub] = eval_e2e.main([
+                "-model", SNAPSHOT, "-images_list", os.path.join(DECODE_REF, sub, "eval.txt"),
+                "-dump_json", dump])
+        with open(dump) as f:
+            coding_counts[sub] = _dump_counts(json.load(f))
     torch.cuda.synchronize()
     format_launches = {k: build.launch_counts[k] - before[k] for k in before}
     t_prog = time.perf_counter()
@@ -2528,11 +2588,24 @@ def phase_files(images, eval_result=None, joint_result=None):
     check(gif_counts["gt"] == gif_ref["gt"]
           and all(abs(gif_counts[k] - gif_ref[k]) <= 1 for k in ("tp", "tp_e2e", "detections")),
           f"files: eval_e2e over the GIF scene {gif_counts} vs fots's {gif_ref}")
+    coding_refs = {}
+    for sub in ("tiff_jpeg", "ccitt"):
+        with open(os.path.join(DECODE_REF, sub, "eval_fots_cpu.json")) as f:
+            coding_refs[sub] = json.load(f)["run"]["counts"]
+        check(coding_counts[sub] == coding_refs[sub],
+              f"files: eval_e2e over {sub} {coding_counts[sub]} vs fots's {coding_refs[sub]}")
     for kname in build.PATH_KERNELS["serving"]:
         check(format_launches[kname] > 0,
-              f"kernel {kname} was not launched over the BMP, TIFF, PPM, GIF and WebP files")
-    print(f"  the four progressive scenes as BMP and as TIFF under .jpg names and as PPM, and "
-          f"img_112 as lossless WebP: eval_e2e's boxes and texts equal the jpgs'; img_112 as "
+              f"kernel {kname} was not launched over the BMP, TIFF, PPM, Sun raster, PFM, GIF, "
+              f"WebP, TIFF-JPEG and Group 4 files")
+    print(f"  the four as cv2's TIFF-JPEG: {coding_counts['tiff_jpeg']} (fots "
+          f"{coding_refs['tiff_jpeg']}, exactly; det hmean "
+          f"{coding_summaries['tiff_jpeg']['detection_hmean']:.4f}); binarised as Group 4: "
+          f"{coding_counts['ccitt']} (fots {coding_refs['ccitt']}, exactly; det hmean "
+          f"{coding_summaries['ccitt']['detection_hmean']:.4f})")
+    print(f"  the four progressive scenes as BMP, TIFF and Sun raster under .jpg names and as "
+          f"PPM and PFM, and img_112 as lossless WebP: eval_e2e's boxes and texts equal the "
+          f"jpgs'; img_112 as "
           f"cv2's GIF: {gif_counts} (fots {gif_ref}; det hmean "
           f"{gif_summary['detection_hmean']:.4f}); the four as quality-90 WebP: {webp_counts} "
           f"(fots {webp_ref}, exactly; det hmean {webp_summaries['lossy']['detection_hmean']:.4f}"
@@ -2567,6 +2640,7 @@ def phase_files(images, eval_result=None, joint_result=None):
         "stage_ms_per_batch_all_fetched", "main_thread_wait_share")}
     out = {"decode_ms_640x960": decode_ms, "decode_ms_all": times, "host_cpu": cpu, "card": smi,
            "decode_ms_img_112": pair_ms, "decode_ms_img_112_all": pair_times,
+           "decode_ratio_img_112": pair_ratio,
            "decode_ref_files": len(manifest),
            "progressive": {"eval_counts": prog_counts, "fots_eval_counts": ref_counts,
                            "eval_summary": prog_summary, "launches": prog_launches},
@@ -2575,6 +2649,8 @@ def phase_files(images, eval_result=None, joint_result=None):
            "webp_ppm": {"webp_lossy_eval_counts": webp_counts,
                         "fots_webp_lossy_eval_counts": webp_ref,
                         "webp_lossy_eval_summary": webp_summaries["lossy"]},
+           "tiff_codings": {"eval_counts": coding_counts, "fots_eval_counts": coding_refs,
+                            "eval_summary": coding_summaries},
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,
@@ -3248,7 +3324,7 @@ def main(argv=None) -> int:
           f"{peaks[0]}: {peaks[1] / 1e12} TB/s, {peaks[2] / 1e12} TFLOP/s f32, "
           f"{peaks[3] / 1e12} TFLOP/s bf16 (tensor cores)")
 
-    t0 = time.perf_counter()
+    t0 = t_script = time.perf_counter()
     logs = build.build()
     print(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in logs.items():
@@ -3293,6 +3369,8 @@ def main(argv=None) -> int:
     if "mesh" in phases:
         results["mesh"] = phase_mesh(images, targets)
     smi = card_name_and_power_limit()
+    print(f"chip_smoke: phases {phases} in {time.perf_counter() - t_script:.1f} s (the build "
+          f"included, the card's set-up before it not)")
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
         print(smi)

@@ -1534,14 +1534,10 @@ inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v))
 // 14-bit fixed-point grey of it
 const int kGrayR = 4899, kGrayG = 9617, kGrayB = 16384 - kGrayR - kGrayG;
 
-void jpeg_decode(const uint8_t* data, size_t n, bool gray, uint8_t* out) {
-  Jpeg j(data, n);
-  j.gray = gray;
-  j.run(true);
-  j.check_output();
-  const int W = j.width, H = j.height;
-  // a multi-scan file's IDCT, after its last scan, block-smoothed where
-  // libjpeg smooths; a component no scan coded is all zero coefficients: 128
+// A decoded file's planes, complete: a multi-scan file's IDCT, after its
+// last scan, block-smoothed where libjpeg smooths; a component no scan coded
+// is all zero coefficients: 128
+void finish_planes(Jpeg& j) {
   const bool smooth = j.would_smooth();
   for (int i = 0; i < j.ncomp && j.multi_scan && !j.lossless; i++) {
     Component& c = j.comp[i];
@@ -1556,6 +1552,15 @@ void jpeg_decode(const uint8_t* data, size_t n, bool gray, uint8_t* out) {
   for (int i = 0; i < j.ncomp && j.lossless; i++)
     if (j.comp[i].plane.empty())
       throw Unreadable("a lossless component that no scan wrote (the file ends before its scan)");
+}
+
+void jpeg_decode(const uint8_t* data, size_t n, bool gray, uint8_t* out) {
+  Jpeg j(data, n);
+  j.gray = gray;
+  j.run(true);
+  j.check_output();
+  const int W = j.width, H = j.height;
+  finish_planes(j);
   const bool fancy = !j.lossless;
   if (gray && (j.ncomp == 1 || j.space == kYCbCr)) {
     upsample(j.comp[0], j.hmax, j.vmax, W, H, fancy, out);
@@ -1614,6 +1619,98 @@ void jpeg_decode(const uint8_t* data, size_t n, bool gray, uint8_t* out) {
     out[3 * i + 1] = clamp255(y + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
     out[3 * i] = clamp255(y + kYcc.cb_b[cb]);
   }
+}
+
+// ---------------------------------------------------------------- JPEG in TIFF
+
+// The JPEGTables tag of a TIFF in compression 7 (an abbreviated table
+// specification: SOI, DQT / DHT segments, EOI), read as libtiff's
+// JPEGSetupDecode reads it with jpeg_read_header(FALSE): tables only; a scan
+// in it is "Bogus JPEGTables" (the strip read fails).  Its quantization and
+// Huffman tables are loaded into `j`, as they stay in libjpeg's
+// decompressor for every strip's abbreviated stream.
+void load_tables(const uint8_t* tables, size_t n, Jpeg& j) {
+  Jpeg t(tables, n);
+  if (t.st.at(0) != 0xFF || t.st.at(1) != 0xD8) throw Unreadable("JPEGTables without SOI");
+  t.pos = 2;
+  for (int m = t.next_marker(); m != 0xD9; m = t.next_marker()) {
+    if (m == 0xC4) {
+      t.read_dht();
+    } else if (m == 0xDB) {
+      t.read_dqt();
+    } else if (m == 0xCC) {
+      t.read_dac();
+    } else if (m == 0xDD) {
+      if (t.u16() != 4) throw Unreadable("bad restart interval segment length");
+      t.u16();
+    } else if (m >= 0xE0 && m <= 0xEF) {
+      t.read_app(m);
+    } else if ((m >= 0xC0 && m <= 0xC3) || (m >= 0xC9 && m <= 0xCB) || m == 0xFE || m == 0xDC) {
+      const int len = t.u16() - 2;  // a frame header before EOI is dropped with the tables
+      if (len > 0) t.pos += size_t(len);
+    } else if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) {
+    } else {
+      throw Unreadable("bogus JPEGTables (a scan, a second SOI or an unknown marker)");
+    }
+  }
+  std::memcpy(j.quant_tables, t.quant_tables, sizeof(j.quant_tables));
+  std::memcpy(j.quant_defined, t.quant_defined, sizeof(j.quant_defined));
+  for (int k = 0; k < 4; k++) {
+    j.dc[k] = t.dc[k];
+    j.ac[k] = t.ac[k];
+  }
+}
+
+// What libtiff asks of one strip or tile (tif_jpeg.c:JPEGPreDecode):
+// p[0], p[1] the segment's width and height, p[2] 1 where a taller stream
+// is allowed (the last strip, whose stream may keep the full strip height),
+// p[3] the components (samples a pixel), p[4], p[5] the sampling component 0
+// must have (YCbCrSubsampling for a YCbCr TIFF, else 1, 1), p[6] the bits
+// per sample, p[7] 1 to convert YCbCr to RGB (JPEGCOLORMODE_RGB, which
+// TIFFRGBAImageBegin sets for a contiguous YCbCr TIFF), else no colour
+// conversion (JCS_UNKNOWN: the components as decoded).
+// The decoded rows, R, G, B or the components interleaved, are written at
+// `rowbytes` apart: min(segment height, stream height) rows of the stream's
+// width (a narrower stream leaves the rest of each row as it was).  Returns
+// the rows written.
+int tiff_jpeg_decode(const uint8_t* tables, size_t ntables, const uint8_t* data, size_t n,
+                     const int32_t* p, uint8_t* out, int64_t rowbytes) {
+  Jpeg j(data, n);
+  if (ntables) load_tables(tables, ntables, j);
+  j.run(true);
+  const int seg_w = p[0], seg_h = p[1], ncomp = p[3], hs = p[4], vs = p[5];
+  const bool to_rgb = p[7] != 0;
+  const int W = j.width, H = j.height;
+  const bool taller_last = W == seg_w && H > seg_h && p[2];
+  if (!taller_last && (W > seg_w || H > seg_h))
+    throw Unreadable("JPEG strip/tile size exceeds expected dimensions");
+  if (j.ncomp != ncomp) throw Unreadable("improper JPEG component count");
+  if (j.precision != p[6]) throw Unreadable("improper JPEG data precision");
+  if (j.comp[0].h != hs || j.comp[0].v != vs) throw Unreadable("improper JPEG sampling factors");
+  for (int i = 1; i < j.ncomp; i++)
+    if (j.comp[i].h != 1 || j.comp[i].v != 1) throw Unreadable("improper JPEG sampling factors");
+  if (to_rgb && ncomp != 3) throw Unreadable("YCbCr to RGB of other than 3 components");
+  finish_planes(j);
+  const int rows = std::min(seg_h, H);
+  const size_t npix = size_t(W) * H;
+  std::vector<uint8_t> planes(npix * ncomp);
+  for (int c = 0; c < ncomp; c++)
+    upsample(j.comp[c], j.hmax, j.vmax, W, H, !j.lossless, planes.data() + c * npix);
+  for (int y = 0; y < rows; y++) {
+    uint8_t* o = out + y * rowbytes;
+    const size_t at = size_t(y) * W;
+    for (int x = 0; x < W; x++) {
+      if (to_rgb) {
+        const int luma = planes[at + x], cb = planes[npix + at + x], cr = planes[2 * npix + at + x];
+        o[3 * x] = clamp255(luma + kYcc.cr_r[cr]);
+        o[3 * x + 1] = clamp255(luma + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(luma + kYcc.cb_b[cb]);
+      } else {
+        for (int c = 0; c < ncomp; c++) o[ncomp * x + c] = planes[c * npix + at + x];
+      }
+    }
+  }
+  return rows;
 }
 
 // ---------------------------------------------------------------- PNG
@@ -1810,6 +1907,16 @@ int fots_png_unfilter(const uint8_t* raw, int64_t n, int width, int height, int 
   return guarded(err, errlen, [&] {
     png_unfilter(raw, size_t(n), width, height, depth, color_type, interlace, palette, npal,
                  gray != 0, PngGamma{gamma8, gamma16, gamma_shift}, out);
+  });
+}
+
+// One strip or tile of a JPEG-compressed TIFF (tiff_jpeg_decode): `info` gets
+// the rows written
+int fots_tiff_jpeg(const uint8_t* tables, int64_t ntables, const uint8_t* data, int64_t n,
+                   const int32_t* params, uint8_t* out, int64_t rowbytes, int32_t* info,
+                   char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    info[0] = tiff_jpeg_decode(tables, size_t(ntables), data, size_t(n), params, out, rowbytes);
   });
 }
 

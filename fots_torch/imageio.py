@@ -4,8 +4,9 @@
 
 The card's machine has no OpenCV and no image decoder, so the port reads
 its own files: JPEG and PNG, decoded by ``fots_torch/csrc/image_decode.cpp``,
-and BMP, GIF, TIFF, WebP and Netpbm (below) (g++, built at first use by
-:mod:`fots_torch.kernels.build` and loaded with ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
+and BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM and Radiance HDR (below)
+(g++, built at first use by :mod:`fots_torch.kernels.build` and loaded with
+ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
 default decompression as OpenCV asks for it (islow IDCT as its SIMD code
 computes it, fancy upsampling, its colour tables, block smoothing), so the
 pixels equal ``cv2.imread``'s byte for byte, colour and grayscale; the EXIF
@@ -58,7 +59,13 @@ BMP, GIF and TIFF, read as ``cv2.imread`` reads them by
   and Deflate strips or tiles with the horizontal predictor, planar or
   not, grey (1, 8, 16 bits, MinIsBlack or MinIsWhite), palette (1, 4, 8
   bits; 8- or 16-bit colour maps), RGB and RGBA (8, 16 bits; alpha dropped,
-  unassociated alpha premultiplied), FillOrder 2, orientations 1-4.
+  unassociated alpha premultiplied), FillOrder 2, orientations 1-4; JPEG
+  (compression 7: each strip or tile an abbreviated stream after the
+  JPEGTables tag, decoded by ``image_decode.cpp``, YCbCr to RGB there),
+  CCITT RLE, RLE-word, Group 3 (1-D and 2-D) and Group 4
+  (``csrc/decode_fax.cpp``, libtiff's tif_fax3.c, damaged data included),
+  YCbCr (every YCbCrSubsampling with a put routine, through
+  TIFFYCbCrToRGBInit's tables) and 8-bit CMYK (InkSet 1).
 A format is found by its signature, as ``cv2`` finds it (by content, not by
 name): a BMP named ``.jpg`` is read as a BMP.
 
@@ -66,7 +73,10 @@ name): a BMP named ``.jpg`` is read as a BMP.
 cut short or with a header its decoder rejects, a GIF frame whose LZW data
 is damaged, a TIFF of a depth OpenCV refuses (2 and 4-bit grey, 2-bit
 palette, samples of 32 or more bits, float), of a coding libtiff's build
-lacks, or with an orientation of 5-8 (imread's own ExifTransform asserts).
+lacks (PixarLog, LZMA, ZSTD, ...), a JPEG strip JPEGPreDecode rejects (a
+size, component count or sampling the directory does not give), CMYK of
+other than 8 bits, 4 samples and InkSet 1, YCbCr without a put routine, or
+with an orientation of 5-8 (imread's own ExifTransform asserts).
 
 WebP, read as ``cv2.imread`` reads it through libwebp 1.5 by
 ``fots_torch/csrc/decode_webp.cpp`` (see that file): lossy (VP8) and
@@ -83,16 +93,17 @@ and PAMDecoder read them (quirks included: see the Netpbm section below);
 None where they fail (a bad header, samples cut short, a stray character
 among ASCII samples).
 
+Sun raster (``csrc/decode_sunras.cpp``), PFM and Radiance HDR
+(``csrc/decode_hdr.cpp`` for the run-length pixels) as OpenCV 5.0's own
+decoders read them: see the section below.
+
 ``ValueError`` naming the file and the format, for a file of one of the
-other formats OpenCV 5.0's ``imread`` decodes, found by its signature: PFM,
-Sun raster, JPEG 2000 (codestream or JP2), AVIF and Radiance HDR; and
-naming the coding or photometric, for a TIFF
-``cv2`` reads that the port does not decode: JPEG and old-style JPEG, CCITT
-RLE / Group 3 / Group 4, PixarLog, SGILog, old-style LZW, YCbCr, Separated
-(CMYK) and the Lab spaces.  The port decodes none of them (a reader would
-otherwise drop such a sample in silence where ``fots`` trains on it).  A
-PFM is refused in both modes, though ``cv2`` 5.0 reads a 3-channel one only
-in colour and a 1-channel one only in grey.
+other formats OpenCV 5.0's ``imread`` decodes, found by its signature: JPEG
+2000 (codestream or JP2) and AVIF; and naming the coding or photometric,
+for a TIFF ``cv2`` reads that the port does not decode: old-style JPEG,
+SGILog, old-style LZW and the Lab spaces.  The port decodes none of them
+(a reader would otherwise drop such a sample in silence where ``fots``
+trains on it).  A PixarLog TIFF is None: OpenCV's libtiff lacks its codec.
 
 The writer is ``fots_torch/csrc/image_encode.cpp`` (g++ as well): baseline
 JPEG as libjpeg-turbo writes it under ``cv2.imwrite``'s defaults (quality
@@ -131,10 +142,6 @@ def _other_format(data: bytes) -> Optional[str]:
     """The name of the format of ``data`` when its signature is one of the
     other decoders of OpenCV 5.0.0's ``imread`` (which finds a file's format
     by its content, not its name) that the port does not decode, else None."""
-    if len(data) >= 3 and data[:1] == b"P" and data[2:3] in _SPACE and data[1:2] in b"Ff":
-        return "PFM"
-    if data.startswith(b"\x59\xa6\x6a\x95"):
-        return "Sun raster"
     if data.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or data.startswith(b"\xff\x4f\xff\x51"):
         return "JPEG 2000"
     if data[4:8] == b"ftyp" and len(data) >= 12:
@@ -143,8 +150,6 @@ def _other_format(data: bytes) -> Optional[str]:
         brands = [box[i:i + 4] for i in range(0, len(box) - 3, 4) if i != 4]  # minor version at 4
         if b"avif" in brands or b"avis" in brands:
             return "AVIF"
-    if data.startswith((b"#?RADIANCE", b"#?RGBE")):
-        return "Radiance HDR"
     return None
 
 
@@ -167,6 +172,10 @@ def _lib() -> ctypes.CDLL:
                                           u8p, buf, i32]
         lib.fots_exif_orientation.restype = i32
         lib.fots_exif_orientation.argtypes = [u8p, ctypes.c_int64]
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.fots_tiff_jpeg.restype = i32
+        lib.fots_tiff_jpeg.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64, i32p, u8p,
+                                       ctypes.c_int64, i32p, buf, i32]
         lib._fots_typed = True
     return lib
 
@@ -404,16 +413,18 @@ TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
                10: "ii", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
 #: codings cv2.imread reads that the port does not decode (refused by name)
-_TIFF_REFUSED_CODINGS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                         32771: "CCITT RLE-word", 6: "old-style JPEG", 7: "JPEG",
-                         32909: "PixarLog", 34676: "SGILog", 34677: "SGILog24"}
-#: codings libtiff knows but OpenCV's build does not decode, or decodes only
-#: at depths cv2.imread refuses (ThunderScan 4-bit, NeXT 2-bit): None
-_TIFF_UNREAD_CODINGS = {32809, 32766, 34661, 34925, 50000, 50001, 50002, 34887}
-_TIFF_DECODED = ("the port decodes TIFF uncompressed, PackBits, LZW and Deflate, of grey, "
-                 "palette and RGB(A) samples only)")
-_TIFF_REFUSED_PHOTOMETRICS = {5: "Separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
-                              10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_TIFF_REFUSED_CODINGS = {6: "old-style JPEG", 34676: "SGILog", 34677: "SGILog24"}
+#: codings libtiff knows but OpenCV's build does not decode (PixarLog, LZMA,
+#: ZSTD, ...), or decodes only at depths cv2.imread refuses (ThunderScan
+#: 4-bit, NeXT 2-bit): None
+_TIFF_UNREAD_CODINGS = {32809, 32766, 34661, 34925, 50000, 50001, 50002, 34887, 32909}
+_TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, Group 3, Group 4, RLE-word
+_TIFF_DECODED = ("the port decodes TIFF uncompressed, PackBits, LZW, Deflate, JPEG and CCITT, "
+                 "of grey, palette, RGB(A), YCbCr and CMYK samples only)")
+_TIFF_REFUSED_PHOTOMETRICS = {8: "CIELab", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
+                              32845: "LogLuv"}
+#: YCbCrSubsampling values with a put routine in libtiff's RGBA reader
+_YCBCR_SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 #: tags libtiff reads as one unsigned number, failing the directory otherwise
 _TIFF_SCALAR_TAGS = (256, 257, 259, 262, 277, 278, 284)
 _BIT_REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
@@ -432,6 +443,39 @@ def _tiff_lib() -> ctypes.CDLL:
             fn.argtypes = [u8p, i64, u8p, i64]
         lib._fots_typed = True
     return lib
+
+
+def _fax_lib() -> ctypes.CDLL:
+    lib = build.load("decode_fax")
+    if not getattr(lib, "_fots_typed", False):
+        u8p, i64, i32 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int
+        lib.fots_tiff_fax.restype = i32
+        lib.fots_tiff_fax.argtypes = [u8p, i64, i32, i32, i32, i64, i64, i32,
+                                      ctypes.POINTER(ctypes.c_int),
+                                      ctypes.POINTER(ctypes.c_uint32), u8p]
+        lib._fots_typed = True
+    return lib
+
+
+def _tiff_jpeg(tables: np.ndarray, raw: bytes, params, occ: int, rowbytes: int):
+    """One strip or tile of compression 7 through the JPEG decoder
+    (``fots_tiff_jpeg``): (buffer, ok); the stream failing JPEGPreDecode's
+    reading or checks is _Unreadable (the strip read that allocates the
+    buffer fails, and cv2.imread with it)."""
+    lib = _lib()
+    buf = np.zeros(occ + rowbytes, np.uint8)  # room for a row of a stream narrower than it says
+    src = np.frombuffer(raw, np.uint8)
+    p = (ctypes.c_int32 * 8)(*params)
+    info = (ctypes.c_int32 * 1)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    code = lib.fots_tiff_jpeg(_u8(tables), tables.size, _u8(src), src.size, p, _u8(buf), rowbytes,
+                              info, err, _ERR_LEN)
+    if code == 1:
+        raise _Unreadable(f"a JPEG strip or tile libtiff's JPEGPreDecode fails on "
+                          f"({err.value.decode(errors='replace')})")
+    if code != 0:
+        raise MemoryError(err.value.decode(errors="replace"))
+    return buf[:occ], True
 
 
 def _tiff_directory(data: bytes):
@@ -509,10 +553,11 @@ def _tiff_inflate(raw: bytes, occ: int):
     return bytes(out[:occ]), False
 
 
-def _tiff_chunk(raw: bytes, compression: int, occ: int):
+def _tiff_chunk(raw: bytes, compression: int, occ: int, ctx=None):
     """One strip or tile, decompressed into a zeroed buffer of ``occ`` bytes:
     (buffer, ok).  A failed decoder leaves what it wrote (libtiff goes on
-    with the strip buffer as it is)."""
+    with the strip buffer as it is).  ``ctx``: what JPEG and CCITT need (the
+    chunk's geometry, JPEGTables, T4Options, where the data lies)."""
     buf = np.zeros(occ, np.uint8)
     if compression == 1:
         if len(raw) < occ:  # DumpModeDecode copies nothing
@@ -530,6 +575,16 @@ def _tiff_chunk(raw: bytes, compression: int, occ: int):
         lib = _tiff_lib()
         fn = lib.fots_tiff_lzw if compression == 5 else lib.fots_tiff_packbits
         return buf, bool(fn(_u8(src), src.size, _u8(buf), occ))
+    if compression == 7:
+        return _tiff_jpeg(ctx["tables"], raw, ctx["jpeg"], occ, ctx["rowbytes"])
+    if compression in _TIFF_FAX:
+        src = np.frombuffer(raw, np.uint8)
+        rowbytes = ctx["rowbytes"]
+        ok = _fax_lib().fots_tiff_fax(_u8(src), src.size, compression, ctx["two_d"],
+                                      ctx["width"], rowbytes, occ // rowbytes, ctx["odd"],
+                                      ctx["noeol"], ctx["runs"].ctypes.data_as(
+                                          ctypes.POINTER(ctypes.c_uint32)), _u8(buf))
+        return buf, bool(ok)
     return buf, False  # a coding libtiff does not know: "not implemented"
 
 
@@ -610,6 +665,7 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     fmt = _tiff_tag(tags, 339, (1,))[0]
     predictor = _tiff_tag(tags, 317, (1,))[0]
     orientation = _tiff_tag(tags, 274, (1,))[0]
+    fillorder = _tiff_tag(tags, 266, (1,))[0]
     tiled = 322 in tags or 324 in tags
     if not 0 < w or not 0 < h or spp < 1:
         raise _Unreadable("TIFF of zero size")
@@ -623,8 +679,25 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
         what = (_TIFF_REFUSED_CODINGS.get(compression) if compression in _TIFF_REFUSED_CODINGS
                 else f"photometric {_TIFF_REFUSED_PHOTOMETRICS[photometric]}")
         raise ValueError(f"{path}: a TIFF in {what} (cv2.imread reads it; {_TIFF_DECODED}")
-    if photometric not in (0, 1, 2, 3):
+    if photometric not in (0, 1, 2, 3, 5, 6):
         raise _Unreadable(f"TIFF of photometric {photometric}")
+    hs, vs = _tiff_tag(tags, 530, (2, 2))[:2] if len(_tiff_tag(tags, 530, ())) >= 2 else (2, 2)
+    jpeg_rgb = compression == 7 and photometric == 6 and planar == 1
+    if jpeg_rgb and 530 not in tags:  # JPEGFixupTagsSubsampling: the first stream's sampling
+        hs, vs = _jpeg_sampling(data, _tiff_tag(tags, 273, ()) or _tiff_tag(tags, 324, ()),
+                                _tiff_tag(tags, 279, ()) or _tiff_tag(tags, 325, ()), (hs, vs))
+    if jpeg_rgb:  # TIFFRGBAImageBegin: libjpeg converts YCbCr to RGB (JPEGCOLORMODE_RGB)
+        photometric = 2
+    if photometric == 5 and (bps != 8 or _tiff_tag(tags, 332, (1,))[0] != 1 or spp < 4
+                             or planar == 2 and spp != 4):
+        raise _Unreadable("a separated TIFF libtiff's RGBA reader has no routine for "
+                          "(8-bit CMYK only, InkSet 1, 4 samples in planes)")
+    if photometric == 6 and (bps != 8 or spp != 3 or (hs, vs) not in _YCBCR_SAMPLINGS
+                             or planar == 2 and (hs, vs) != (1, 1)):
+        raise _Unreadable(f"a YCbCr TIFF libtiff's RGBA reader has no routine for ({bps}-bit, "
+                          f"{spp} samples, subsampling {hs}x{vs}, planar {planar})")
+    if compression in _TIFF_FAX and bps != 1:
+        raise _Unreadable("CCITT coding of samples of more than one bit")
     colour = photometric == 2
     if colour and spp - len(extras) < 3:
         raise _Unreadable("RGB TIFF of fewer than 3 colour channels")
@@ -661,18 +734,37 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
         offsets, counts = _tiff_tag(tags, 273), _tiff_tag(tags, 279)
     if tw * th * spp * max(1, bps // 8) >= 1 << 30:  # OpenCV's limit on a strip or tile
         raise _Unreadable("TIFF strip or tile of 1 GiB or more")
-    if (tiled and compression == 1 and _tiff_tag(tags, 266, (1,))[0] == 2
+    if (tiled and compression == 1 and fillorder == 2
             and th * ((tw * (1 if planar == 2 else spp) * bps + 7) // 8) % 1024):
         raise _Unreadable("uncompressed TIFF tiles in fill order 2 of a size libtiff fails "
                           "on (not a multiple of 1024 bytes)")
     across, down = -(-w // tw), -(-h // th)
     planes = spp if planar == 2 else 1
     plane_spp = 1 if planar == 2 else spp
+    if photometric == 6 and planar == 1:  # TIFFScanlineSize of subsampled YCbCr
+        scanline = -(-w // hs) * (hs * vs + 2) // vs
+    else:
+        scanline = (w * plane_spp * bps + 7) // 8
     if offsets is None or counts is None:
         raise _Unreadable("TIFF without the offsets or byte counts of its strips or tiles")
     n = across * down * planes  # TIFFFetchStripThing: short arrays padded with 0
     offsets, counts = (tuple(a[:n]) + (0,) * (n - len(a)) for a in (offsets, counts))
-    samples = np.zeros((h, w, spp), np.uint16 if bps == 16 else np.uint8)
+    subsampled = photometric == 6 and planar == 1
+    if n == 1 and not tiled and compression == 1 and offsets[0] and (
+            not 0 < counts[0] <= len(data) - offsets[0] or counts[0] < h * scanline):
+        # ByteCountLooksBad: one uncompressed strip whose byte count is 0, past
+        # the end of the file or short of the image gets EstimateStripByteCounts'
+        counts = (h * scanline,)
+    if photometric == 6:
+        ycc = _ycbcr_tables(tags)
+    if subsampled:  # the RGB of libtiff's putcontig8bitYCbCr*tile, chunk by chunk
+        samples = np.zeros((h, w, 3), np.uint8)
+    else:
+        samples = np.zeros((h, w, spp), np.uint16 if bps == 16 else np.uint8)
+    ctx = {"tables": np.frombuffer(bytes(_tiff_tag(tags, 347, ())), np.uint8),
+           "two_d": _tiff_tag(tags, 292, (0,))[0] & 1, "width": tw, "noeol": ctypes.c_int(0)}
+    if compression in _TIFF_FAX:  # libtiff's run arrays, kept from strip to strip
+        ctx["runs"] = np.zeros(2 * (-(-(tw + 1) // 32) * 32) + 1, np.uint32)
     skewed = []  # (y0, x0, grey samples) of clipped tiles read with the wrong stride
     for p in range(planes):
         for j in range(down):
@@ -684,18 +776,26 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
                         raise _Unreadable("a TIFF strip or tile past the end of the file")
                     continue  # a later plane's read fails: its samples stay 0
                 raw = data[off:off + cnt]
-                if _tiff_tag(tags, 266, (1,))[0] == 2:
+                if fillorder == 2 and compression != 7:  # JPEG asks for no bit reversal
                     raw = raw.translate(_BIT_REVERSE)
                 rows = th if tiled else min(th, h - j * th)
+                y0, x0 = j * th, i * tw
+                if subsampled:
+                    _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, samples, y0, x0)
+                    continue
                 rowbytes = (tw * plane_spp * bps + 7) // 8
+                ctx["rowbytes"], ctx["odd"] = rowbytes, off & 1
+                if compression == 7:  # JPEGPreDecode's expectations of the stream
+                    last = not tiled and j == down - 1
+                    ctx["jpeg"] = (tw, rows, int(last), plane_spp,
+                                   *((hs, vs) if jpeg_rgb else (1, 1)), bps, int(jpeg_rgb))
                 try:
-                    chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes)
+                    chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes, ctx)
                 except _OldStyleLzw:
                     raise ValueError(f"{path}: a TIFF in old-style LZW (cv2.imread reads it; "
                                      f"{_TIFF_DECODED}") from None
                 a = _tiff_processed(chunk, ok, rows, rowbytes, plane_spp, bps, big_endian,
                                     predictor)
-                y0, x0 = j * th, i * tw
                 v = _tiff_samples(a, tw, plane_spp, bps)[:h - y0, :w - x0]
                 samples[y0:y0 + v.shape[0], x0:x0 + v.shape[1], p:p + plane_spp] = v
                 npix = v.shape[1]
@@ -705,7 +805,15 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     for y0, x0, g in skewed:
         samples[y0:y0 + g.shape[0], x0:x0 + g.shape[1], 0] = g if bps == 8 else g.astype(
             np.uint16) << 8
-    rgb = _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha)
+    if subsampled:
+        rgb = samples
+    elif photometric == 6:  # putseparate8bitYCbCr11tile
+        rgb = _ycbcr_rgb(ycc, samples[..., 0], samples[..., 1], samples[..., 2])
+    elif photometric == 5:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
+        k = 255 - samples[..., 3].astype(np.int32)
+        rgb = (k[..., None] * (255 - samples[..., :3].astype(np.int32)) // 255).astype(np.uint8)
+    else:
+        rgb = _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha)
     # orientation: libtiff flips each strip or tile toward its bottom-left
     # request and OpenCV places the rows back; a horizontal flip of a tiled
     # file mirrors each tile in place
@@ -721,6 +829,107 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
         r, g, b = (rgb[..., c].astype(np.int32) for c in range(3))
         return ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14).astype(np.uint8)
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def _jpeg_sampling(data: bytes, offsets, counts, default):
+    """The sampling of component 0 in the frame header of the first strip or
+    tile's JPEG stream, as JPEGFixupTagsSubsampling reads it for a YCbCr
+    TIFF without YCbCrSubsampling; ``default`` where it finds none."""
+    if not offsets or not counts:
+        return default
+    s = data[offsets[0]:offsets[0] + counts[0]]
+    i = 2 if s[:2] == b"\xff\xd8" else len(s)
+    while i + 4 <= len(s) and s[i] == 0xFF:
+        m, n = s[i + 1], int.from_bytes(s[i + 2:i + 4], "big")
+        if m in (0xC0, 0xC1, 0xC2) and i + 12 <= len(s):
+            hv = s[i + 11]
+            if hv >> 4 in (1, 2, 4) and hv & 15 in (1, 2, 4):
+                return hv >> 4, hv & 15
+            return default
+        if m == 0xDA:
+            return default
+        i += 2 + n
+    return default
+
+
+def _tiff_floats(tags, tag, default):
+    """A RATIONAL tag as libtiff reads it into floats ((float) n / (float) d,
+    0 where d is 0), or ``default``."""
+    v = tags.get(tag)
+    if v is None or len(v) < 2 * len(default):
+        return np.array(default, np.float32)
+    num = np.array(v[0::2][:len(default)], np.float32)
+    den = np.array(v[1::2][:len(default)], np.float32)
+    return np.where(den == 0, np.float32(0), num / np.where(den == 0, np.float32(1), den))
+
+
+def _ycbcr_tables(tags):
+    """TIFFYCbCrToRGBInit's tables (tif_color.c), built in float as libtiff
+    builds them from YCbCrCoefficients and ReferenceBlackWhite: (Y, Cr->R,
+    Cb->B, Cr->G, Cb->G), each indexed by the 8-bit sample."""
+    f32 = np.float32
+    luma = _tiff_floats(tags, 529, (0.299, 0.587, 0.114))
+    rbw = _tiff_floats(tags, 532, (0, 255, 128, 255, 128, 255))
+    if np.isnan(luma).any() or luma[1] == 0 or np.isnan(rbw).any():
+        raise _Unreadable("invalid YCbCrCoefficients or ReferenceBlackWhite")
+    lr, lg, lb = luma
+
+    def fix(x):  # FIX(CLAMP(x, 0, 2)): the float product, + 0.5 in double, truncated
+        x = f32(2) if x > 2 else x if x >= 0 else f32(0)
+        return int(float(f32(x) * f32(65536)) + 0.5)
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(f1)
+    d2 = -fix(lr * f1 / lg)
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(f3)
+    d4 = -fix(lb * f3 / lg)
+
+    def code2v(c, rb, rw, cr):  # Code2V, then CLAMPw to +-4096 and (int32_t)
+        rb, rw = f32(rb), f32(rw)
+        span = rw - rb
+        v = (c - np.int32(np.trunc(rb))).astype(f32) * f32(cr) / (span if span != 0 else f32(1))
+        return np.trunc(np.clip(v, f32(-4096), f32(4096))).astype(np.int64)
+    x = np.arange(-128, 128)
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    half = 1 << 15
+    y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    return (y_tab, (d1 * cr + half) >> 16, (d3 * cb + half) >> 16, d2 * cr, d4 * cb + half)
+
+
+def _ycbcr_rgb(ycc, y, cb, cr) -> np.ndarray:
+    """TIFFYCbCrtoRGB of 8-bit samples: [..., 3] R, G, B."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = ycc
+    yv = y_tab[y]
+    g = yv + ((cb_g[cb] + cr_g[cr]) >> 16)
+    return np.stack([np.clip(yv + cr_r[cr], 0, 255), np.clip(g, 0, 255),
+                     np.clip(yv + cb_b[cb], 0, 255)], -1).astype(np.uint8)
+
+
+def _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, rgb, y0, x0):
+    """One strip or tile of subsampled YCbCr into ``rgb`` as gtStripContig /
+    gtTileContig and the putcontig8bitYCbCr*tile routines put it: blocks of
+    hs * vs Y samples then Cb and Cr; a strip is read as the routine asks,
+    rows rounded up to whole blocks times TIFFScanlineSize, which is the
+    block row's bytes / vs rounded down (short by 2 bytes a block row when
+    the blocks of 4x4 are odd in number); a clipped tile skips
+    (skipped pixels / hs) blocks after each block row, counted at 10 bytes a
+    block by the 4x4 routine."""
+    h, w = rgb.shape[:2]
+    bs = hs * vs + 2
+    blocks = -(-tw // hs)
+    size = -(-rows // vs) * blocks * bs  # TIFFVStripSize / TIFFVTileSize
+    occ = size if tiled else min(size, -(-rows // vs) * vs * (blocks * bs // vs))
+    buf, _ = _tiff_chunk(raw, compression, occ)
+    buf = np.concatenate([buf, np.zeros(size - occ + bs * blocks + bs, np.uint8)])
+    nrow, npix = min(rows, h - y0), min(tw, w - x0)
+    skip = tw - npix
+    stride = -(-npix // hs) * bs + (skip // hs) * (10 if (hs, vs) == (4, 4) else bs)
+    yy, xx = np.arange(nrow)[:, None], np.arange(npix)[None, :]
+    base = (yy // vs) * stride + (xx // hs) * bs
+    y = buf[base + (yy % vs) * hs + xx % hs]
+    rgb[y0:y0 + nrow, x0:x0 + npix] = _ycbcr_rgb(ycc, y, buf[base + hs * vs],
+                                                  buf[base + hs * vs + 1])
 
 
 def _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha) -> np.ndarray:
@@ -764,7 +973,7 @@ def _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha) -> np.ndarray
 # libwebp 1.5; the orientation of the EXIF chunk OpenCV reads (through
 # WebPDemux) is applied here.
 
-_DECODED = "JPEG, PNG, BMP, GIF, TIFF, WebP and Netpbm only"
+_DECODED = "JPEG, PNG, BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM and Radiance HDR only"
 
 
 def _webp_lib() -> ctypes.CDLL:
@@ -1079,17 +1288,180 @@ def _decode_netpbm(data: bytes, grayscale: bool) -> np.ndarray:
     return _decode_pam(data, grayscale) if data[1:2] == b"7" else _decode_pxm(data, grayscale)
 
 
+# ---------------------------------------------------------------- PFM, Sun raster, HDR
+# PFM as OpenCV 5.0's PFMDecoder reads it (grfmt_pfm.cpp), Sun raster as its
+# SunRasterDecoder (fots_torch/csrc/decode_sunras.cpp) and Radiance HDR as
+# its HdrDecoder (rgbe.cpp: the header here, the pixels in
+# fots_torch/csrc/decode_hdr.cpp).  PFM and HDR hold floats, which imread
+# turns into 8 bits as ``Mat.convertTo`` does: the float product (PFM: the
+# sample times 1 / |scale|; HDR: the value times 255) rounded half to even,
+# saturated to 0..255, and 0 where it is NaN or rounds outside int32
+# (cvRound gives INT_MIN there).
+
+SUNRAS_SIGNATURE = b"\x59\xa6\x6a\x95"
+HDR_SIGNATURES = (b"#?RADIANCE", b"#?RGBE")
+_HDR_FORMAT = b"FORMAT=32-bit_rle_rgbe\n"
+_HDR_SIZE = re.compile(rb"-Y\s*([+-]?[0-9]+)\s*\+X\s*([+-]?[0-9]+)")
+_C_INT = re.compile(rb"\s*([+-]?[0-9]+)")
+_C_FLOAT = re.compile(rb"\s*([+-]?(0[xX]([0-9a-fA-F]+\.?[0-9a-fA-F]*|\.[0-9a-fA-F]+)"
+                      rb"([pP][+-]?[0-9]+)?|([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?"
+                      rb"|inf(inity)?|nan))", re.I)
+
+
+def _c_int(text: bytes) -> int:
+    """``atoi`` / ``sscanf("%d")`` as glibc computes them: strtol, clamped to
+    a long, then cut to 32 bits."""
+    m = _C_INT.match(text)
+    if not m:
+        return 0
+    v = min(max(int(m.group(1)), -2**63), 2**63 - 1)
+    return (v + 2**31) % 2**32 - 2**31
+
+
+def _c_float(text: bytes) -> float:
+    """``atof``: the longest number at the start of ``text``, else 0."""
+    m = _C_FLOAT.match(text)
+    if not m:
+        return 0.0
+    t = m.group(1).decode()
+    if "x" in t.lower():
+        t = t if "p" in t.lower() else t + "p0"
+        return float.fromhex(t)
+    return float(t)
+
+
+def _u8_of_float(v: np.ndarray) -> np.ndarray:
+    """``saturate_cast<uchar>`` of float32 values (cvRound, then saturate)."""
+    r = np.rint(v, dtype=np.float32)
+    with np.errstate(invalid="ignore"):
+        r[~(np.abs(r) < 2.0**31)] = 0  # NaN, infinities, past int32: INT_MIN, then 0
+    return np.clip(r, 0, 255, out=r).astype(np.uint8)
+
+
+def _pfm_field(data: bytes, pos: int):
+    """read_number's text: bytes up to one whitespace byte (consumed), at
+    most 2048; a byte past 127 or the end of the file fails."""
+    end = pos
+    while end < len(data) and end - pos < 2048:
+        c = data[end]
+        if c >= 128:
+            raise _Unreadable("a PFM header byte past 127")
+        if c in _SPACE:
+            return data[pos:end], end + 1
+        end += 1
+    if end - pos < 2048:
+        raise _Unreadable("the PFM ends inside its header (truncated)")
+    return data[pos:end], end
+
+
+def _decode_pfm(data: bytes, grayscale: bool, path: str) -> np.ndarray:
+    """PFMDecoder: ``PF`` (RGB) or ``Pf`` (grey) and a line break, then width,
+    height and scale, each ended by one whitespace byte (atoi, atoi, atof);
+    rows bottom to top, little-endian where the scale is negative.  A
+    3-channel file reads only in colour and a 1-channel one only in grey
+    (OpenCV 5.0 fails the other mode); a scale of 0 or NaN fails."""
+    if data[2:3] != b"\n":
+        raise _Unreadable("a PFM magic number not followed by a line break")
+    nch = 3 if data[1:2] == b"F" else 1
+    text, pos = _pfm_field(data, 3)
+    w = _c_int(text)
+    text, pos = _pfm_field(data, pos)
+    h = _c_int(text)
+    text, pos = _pfm_field(data, pos)
+    scale = _c_float(text)
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20) or w * h > _MAX_PIXELS:
+        raise ValueError(f"{path}: a PFM of {w}x{h}, past OpenCV's limits (cv2.imread raises)")
+    if scale == 0 or math.isnan(scale):
+        raise _Unreadable(f"a PFM scale of {scale}")
+    if (nch == 3) == grayscale:
+        raise _Unreadable("a PFM read in the other mode than its channels (OpenCV 5.0 fails)")
+    n = w * h * nch * 4
+    if pos + n > len(data):
+        raise _Unreadable("the PFM ends early (truncated)")
+    v = np.frombuffer(data, "<f4" if scale < 0 else ">f4", w * h * nch, pos)
+    with np.errstate(invalid="ignore", over="ignore"):  # inf * 0, NaN: 0 as cvRound gives
+        out = _u8_of_float(v * np.float32(1.0 / abs(scale))).reshape(h, w, nch)[::-1]
+    return np.ascontiguousarray(out[..., ::-1] if nch == 3 else out[..., 0])
+
+
+def _fgets(data: bytes, pos: int):
+    """``fgets`` into a 128-byte buffer: (the C string, the next position),
+    or (None, pos) at the end of the file."""
+    if pos >= len(data):
+        return None, pos
+    end = data.find(b"\n", pos, pos + 127)
+    chunk = data[pos:end + 1] if end >= 0 else data[pos:pos + 127]
+    return chunk.split(b"\0")[0], pos + len(chunk)
+
+
+def _hdr_lib() -> ctypes.CDLL:
+    lib = build.load("decode_hdr")
+    if not getattr(lib, "_fots_typed", False):
+        i64 = ctypes.c_int64
+        lib.fots_hdr_pixels.restype = ctypes.c_int
+        lib.fots_hdr_pixels.argtypes = [ctypes.POINTER(ctypes.c_uint8), i64, i64, i64, i64,
+                                        ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
+                                        ctypes.c_int]
+        lib._fots_typed = True
+    return lib
+
+
+def _decode_hdr(data: bytes, grayscale: bool, path: str) -> np.ndarray:
+    """RGBE_ReadHeader (without its header-info argument: the first line is
+    one of the lines searched), then the pixels: lines up to exactly
+    ``FORMAT=32-bit_rle_rgbe`` (an empty line or ``xyze`` fails), an empty
+    line, and ``-Y h +X w`` (the only orientation read; sscanf's whitespace
+    rules).  Each RGBE pixel is R, G, B times 2^(E - 136) in float (0 where
+    E is 0), stored B, G, R and converted times 255; grey is
+    ``cvtColor(BGR2GRAY)`` of the 8-bit colour image."""
+    line, pos = _fgets(data, 0)
+    while True:
+        if line is None:
+            raise _Unreadable("the HDR ends inside its header (truncated)")
+        if line[:1] in (b"", b"\n"):
+            raise _Unreadable("no FORMAT=32-bit_rle_rgbe line in the HDR header")
+        if line == _HDR_FORMAT:
+            break
+        line, pos = _fgets(data, pos)
+    line, pos = _fgets(data, pos)
+    if line != b"\n":
+        raise _Unreadable("no empty line after the HDR's FORMAT line")
+    line, pos = _fgets(data, pos)
+    m = _HDR_SIZE.match(line or b"")
+    if not m:
+        raise _Unreadable("no '-Y h +X w' resolution line in the HDR header")
+    h, w = _c_int(m.group(1)), _c_int(m.group(2))
+    if w <= 0 or h <= 0:
+        raise _Unreadable(f"an HDR of {w}x{h}")
+    if w > 1 << 20 or h > 1 << 20 or w * h > _MAX_PIXELS:
+        raise ValueError(f"{path}: an HDR of {w}x{h}, past OpenCV's limits (cv2.imread raises)")
+    src = np.frombuffer(data, np.uint8)
+    rgbe = np.empty((h, w, 4), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _checked(_hdr_lib().fots_hdr_pixels(_u8(src), src.size, pos, w, h, _u8(rgbe), err, _ERR_LEN),
+             err, path)
+    e = rgbe[..., 3].astype(np.int32)
+    f = np.where(e > 0, np.ldexp(np.float32(1), e - 136), np.float32(0)).astype(np.float32)
+    with np.errstate(over="ignore"):  # past float: 0 as cvRound gives
+        bgr = _u8_of_float(rgbe[..., 2::-1].astype(np.float32) * f[..., None] * np.float32(255))
+    if grayscale:  # cvtColor(BGR2GRAY) of 8-bit pixels: 15-bit fixed point, rounded
+        b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+        return ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(np.uint8)
+    return bgr
+
+
 def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
     """``cv2.imread(path)`` (u8 [H, W, 3] BGR) or, with ``grayscale``,
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (u8 [H, W]) of a JPEG, PNG,
-    BMP, GIF, TIFF, WebP or Netpbm file.  None where ``cv2.imread`` gives
-    None: a file that cannot be opened, whose signature is no format ``cv2``
-    reads, or that its decoder fails on (a JPEG cut before its first scan's
-    data, a corrupt or truncated PNG, BMP, GIF, TIFF, WebP or Netpbm file).
+    BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM or Radiance HDR file.
+    None where ``cv2.imread`` gives None: a file that cannot be opened,
+    whose signature is no format ``cv2`` reads, or that its decoder fails on
+    (a JPEG cut before its first scan's data, a corrupt or truncated file of
+    the other formats, a PFM read in the other mode than its channels).
     ``ValueError``, naming the file and the format, for a file of another
-    format ``cv2`` reads (PFM, Sun raster, JPEG 2000, AVIF, Radiance HDR), a
-    TIFF coding the port does not decode (JPEG, CCITT, YCbCr, CMYK, ...), or
-    an image past OpenCV's size limits (``cv2.imread`` raises for it)."""
+    format ``cv2`` reads (JPEG 2000, AVIF), a TIFF coding the port does not
+    decode (old-style JPEG and LZW, SGILog, the Lab spaces), or an image
+    past OpenCV's size limits (``cv2.imread`` raises for it)."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -1109,6 +1481,13 @@ def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
                 im, orientation = _decode_tiff(data, grayscale, str(path)), 1
             except (struct.error, IndexError, OverflowError) as e:  # a damaged directory
                 raise _Unreadable(str(e)) from None
+        elif data.startswith(SUNRAS_SIGNATURE):
+            im, orientation = _decode_whole("decode_sunras", "fots_sunras", data, grayscale,
+                                            str(path))
+        elif data.startswith(HDR_SIGNATURES):
+            im, orientation = _decode_hdr(data, grayscale, str(path)), 1
+        elif len(data) >= 3 and data[:1] == b"P" and data[1:2] in b"Ff" and data[2:3] in _SPACE:
+            im, orientation = _decode_pfm(data, grayscale, str(path)), 1
         else:
             if _is_webp(data):
                 im, orientation = _decode_webp(data, grayscale, str(path))

@@ -46,6 +46,9 @@ SOURCES = {
     "decode_gif": "decode_gif.cpp",
     "decode_tiff": "decode_tiff.cpp",
     "decode_webp": "decode_webp.cpp",
+    "decode_fax": "decode_fax.cpp",
+    "decode_sunras": "decode_sunras.cpp",
+    "decode_hdr": "decode_hdr.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")

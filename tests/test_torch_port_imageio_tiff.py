@@ -18,9 +18,11 @@ through libtiff 4.7's RGBA reader:
 - None exactly where ``cv2`` gives None: orientations 5-8, depths OpenCV
   refuses (2 and 4-bit grey, 2-bit palette, 32-bit and float samples), files
   cut short, strips past the end of the file, damaged directories;
+- Pillow's JPEG (RGB and YCbCr), CCITT RLE, Group 3 and Group 4, YCbCr and
+  Separated (CMYK) files read as cv2 reads them (the rest of those codings
+  is in tests/test_torch_port_imageio_tiff_codings.py);
 - ``ValueError`` naming the coding or photometric for each TIFF ``cv2``
-  reads that the port does not decode: JPEG (RGB and YCbCr), CCITT RLE,
-  Group 3 and Group 4, YCbCr, Separated (CMYK), CIELab, old-style LZW.
+  reads that the port does not decode: CIELab, old-style LZW.
 """
 
 import struct
@@ -381,9 +383,11 @@ def test_tiff_damaged_data_as_cv2(tmp_path, compression):
         assert_same(path)
 
 
-def _refused():
-    """(what the ValueError names, file bytes) of each TIFF cv2 reads that
-    the port does not decode."""
+def _codings():
+    """(coding, file bytes) of the TIFF codings Pillow writes that the port
+    once refused by name: JPEG (RGB and YCbCr), CCITT RLE, Group 3 and
+    Group 4, YCbCr and Separated (CMYK), all decoded now; then those it
+    still refuses: CIELab and old-style LZW."""
     import io
 
     im = scene(24, 32, seed=3)
@@ -405,9 +409,23 @@ def _refused():
     return out
 
 
-@pytest.mark.parametrize("k", range(9))
+@pytest.mark.parametrize("k", range(7))
+def test_tiff_codings_decoded_as_cv2(tmp_path, k):
+    """Pillow's JPEG (from RGB and from YCbCr), CCITT RLE, Group 3, Group 4,
+    YCbCr and CMYK TIFFs read as cv2 reads them, in both modes."""
+    what, data = _codings()[k]
+    path = tmp_path / "x.tif"
+    path.write_bytes(data)
+    assert cv2.imread(str(path)) is not None and cv2.imread(str(path), 0) is not None, what
+    assert_same(path)
+
+
+@pytest.mark.parametrize("k", range(2))
 def test_tiff_codings_refused_by_name(tmp_path, k):
-    what, data = _refused()[k]
+    """The TIFF codings cv2 reads that the port still does not decode
+    (CIELab and old-style LZW) raise ValueError naming the file and what it
+    is, in both modes."""
+    what, data = _codings()[7 + k]
     path = tmp_path / "x.tif"
     path.write_bytes(data)
     assert cv2.imread(str(path)) is not None and cv2.imread(str(path), 0) is not None

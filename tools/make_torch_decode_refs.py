@@ -61,14 +61,32 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   ``img_115.webp`` (the four progressive scenes' pixels at quality 90, with
   their gt, ``eval.txt`` and ``eval_fots_cpu.json``): the forms phase 12 of
   ``chip_smoke.py`` times and runs ``eval_e2e`` over;
+- ``tiff_jpeg/``, ``ccitt/``, ``tiff/`` (YCbCr, CMYK, PixarLog),
+  ``sunras/``, ``pfm/`` and ``hdr/``: ``tiff_jpeg/img_112.tif`` ...
+  ``img_115.tif`` (the four progressive scenes' pixels through
+  ``cv2.imwrite`` in TIFF-JPEG, 16 rows a strip) and ``ccitt/img_112.tif``
+  ... (their grey binarised by ``cv2.adaptiveThreshold`` (mean of 31x31,
+  C 10), through Pillow's Group 4), each set with its gt, ``eval.txt`` and
+  ``eval_fots_cpu.json``; on windows of ``img_112``, a file for each route:
+  JPEG YCbCr 2x2 in tiles, grey, untagged 2x1 whose last strip's stream
+  keeps the strip height; CCITT RLE, RLE-word at an odd offset, Group 3 1-D
+  with fill bits, 2-D, a damaged Group 3 2-D strip, Group 4 in tiles in
+  fill order 2 (``tests/test_torch_port_imageio_tiff_codings.py``'s
+  encoder); YCbCr 4x2 at an odd size, YCbCr with YCbCrCoefficients, planar
+  and LZW CMYK, a PixarLog file (None); Sun raster 1-bit and 8-bit with
+  maps, 32-bit, ``cv2``'s 24-bit, a byte-encoded one (None); ``cv2``'s
+  colour PFM (None in grey) and a grey big-endian one with NaN and
+  infinities; ``cv2``'s HDR, flat, old-style run-length and ``#?RGBE``
+  files;
 - ``manifest.json``: for each file its SHA-256 and the shape and SHA-256 of
   ``cv2.imread``'s colour and grey bytes (null where ``cv2`` reads nothing:
   a lossless frame's output in another colour space, a WebP or Netpbm file
-  cut short);
+  cut short, the files named ``*_none.*``, a PFM in its other mode);
 - ``eval_fots_cpu.json``: ``fots.cli.eval_e2e -images_list prog/eval.txt``
   with the shipped snapshot (f32, CPU): summary and match counts;
-  ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``, and
-  ``webp/lossy/eval_fots_cpu.json`` over ``webp/lossy/eval.txt``.
+  ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``,
+  ``webp/lossy/eval_fots_cpu.json`` over ``webp/lossy/eval.txt``, and
+  ``tiff_jpeg/`` and ``ccitt/eval_fots_cpu.json`` over theirs.
 """
 
 from __future__ import annotations
@@ -78,6 +96,7 @@ import importlib.util
 import json
 import os
 import shutil
+import struct
 import sys
 
 import numpy as np
@@ -320,6 +339,89 @@ def webp_pnm_files(images, prog_images, prog_names) -> dict:
     return out
 
 
+BINARISE = (31, 10)  # cv2.adaptiveThreshold's block size and C for the Group 4 scenes
+
+
+def binarised(im):
+    """A scene's grey through cv2.adaptiveThreshold (mean): 0 or 255."""
+    import cv2
+
+    grey = cv2.cvtColor(im, cv2.COLOR_BGR2GRAY)
+    return cv2.adaptiveThreshold(grey, 255, cv2.ADAPTIVE_THRESH_MEAN_C, cv2.THRESH_BINARY,
+                                 *BINARISE)
+
+
+def codings_files(prog_images, prog_names) -> dict:
+    """{relative path: bytes} of ``tiff_jpeg/``, ``ccitt/``, the new files
+    of ``tiff/``, ``sunras/``, ``pfm/`` and ``hdr/``."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, REPO)
+    c = importlib.import_module("tests.test_torch_port_imageio_tiff_codings")
+    f = importlib.import_module("tests.test_torch_port_imageio_sunras_pfm_hdr")
+    out = {}
+    for im, name in zip(prog_images, prog_names):
+        stem = os.path.splitext(name)[0]
+        ok, enc = cv2.imencode(".tif", im, [cv2.IMWRITE_TIFF_COMPRESSION, 7,
+                                            cv2.IMWRITE_TIFF_ROWSPERSTRIP, 16])
+        out[f"tiff_jpeg/{stem}.tif"] = enc.tobytes()
+        buf = io.BytesIO()
+        Image.fromarray(binarised(im)).convert("1").save(buf, "TIFF", compression="group4")
+        out[f"ccitt/{stem}.tif"] = buf.getvalue()
+    win = np.ascontiguousarray(prog_images[0][200:264, 300:396])
+    rgb = np.ascontiguousarray(win[..., ::-1])
+    out["tiff_jpeg/ycbcr_2x2_tiles.tif"] = c.jpeg_tiff(rgb, tile=(32, 16), subsampling=2)
+    out["tiff_jpeg/grey_strips.tif"] = c.jpeg_tiff(rgb[..., 1], 16)
+    out["tiff_jpeg/ycbcr_2x1_untagged_full_last_strip.tif"] = c.jpeg_tiff(
+        rgb[:56], 16, 1, ycbcr_tag=False, strip_height=16)
+    bits = (binarised(win) == 0).astype(np.uint8)
+    out["ccitt/rle.tif"] = c.fax_tiff(bits, 2, rows_per_strip=16)
+    out["ccitt/rle_word_odd_offset.tif"] = c.fax_tiff(bits, 32771, rows_per_strip=16, lead=1)
+    out["ccitt/g3_1d_fill_bits.tif"] = c.fax_tiff(bits, 3, fill_bits=True, photometric=1)
+    out["ccitt/g3_2d.tif"] = c.fax_tiff(bits, 3, two_d=True, rtc=True)
+    damaged = bytearray(out["ccitt/g3_2d.tif"])
+    coded = struct.unpack("<I", damaged[4:8])[0] - 8  # the rows' bytes, before the directory
+    for k in (1, 4, 5, 8):
+        damaged[8 + coded * k // 10] ^= 0x24
+    out["ccitt/g3_2d_damaged.tif"] = bytes(damaged)
+    out["ccitt/g4_tiles_fill_order_2.tif"] = c.fax_tiff(bits, 4, tile=(32, 32), fillorder=2)
+    out["tiff/ycbcr_4x2_odd_size.tif"] = c.ycbcr_tiff(45, 29, 4, 2, seed=1, rows_per_strip=6)
+    out["tiff/ycbcr_1x1_coefficients.tif"] = c.ycbcr_tiff(33, 21, 1, 1, seed=2, coefficients=(
+        2126, 10000, 7152, 10000, 722, 10000), refbw=(16, 1, 235, 1, 128, 1, 240, 1, 128, 1,
+                                                       240, 1))
+    k = 255 - rgb.max(-1, keepdims=True)
+    cmyk = np.concatenate([255 - rgb - k, k], -1)
+    out["tiff/cmyk_planar.tif"] = c.cmyk_tiff(cmyk, planar=2)
+    out["tiff/cmyk_lzw_tiles.tif"] = c.cmyk_tiff(cmyk, compression=5, tile=(32, 32))
+    ok, enc = cv2.imencode(".tif", win[:12, :17], [cv2.IMWRITE_TIFF_COMPRESSION, 1])
+    raw = enc.tobytes()
+    at = raw.index(struct.pack("<HHIH", 259, 3, 1, 1))
+    out["tiff/pixarlog_none.tif"] = raw[:at] + struct.pack("<HHIH", 259, 3, 1, 32909) + raw[
+        at + 10:]
+    grey = cv2.cvtColor(win, cv2.COLOR_BGR2GRAY)
+    pal = np.random.default_rng(3).integers(0, 256, 768, np.uint8).tobytes()
+    out["sunras/1bit_map.ras"] = f.sunras_bytes(96, 64, 1, f.sunras_rows(grey < 100, 1), 1, 1,
+                                                pal[:6])
+    out["sunras/8bit_map_old.ras"] = f.sunras_bytes(96, 64, 8, f.sunras_rows(grey, 8), 0, 1, pal)
+    out["sunras/32bit.ras"] = f.sunras_bytes(96, 64, 32, f.sunras_rows(
+        np.concatenate([grey[..., None], win], -1), 32))
+    out["sunras/24bit_cv2.ras"] = cv2.imencode(".ras", win)[1].tobytes()
+    out["sunras/byte_encoded_none.ras"] = f.sunras_bytes(96, 64, 8, f.sunras_rows(grey, 8), 2)
+    out["pfm/colour_cv2.pfm"] = cv2.imencode(".pfm", win.astype(np.float32) / 100)[1].tobytes()
+    special = (grey[:16, :24].astype(np.float32) * 1.5 - 20)
+    special[0, :4] = [np.nan, np.inf, -np.inf, 3e9]
+    out["pfm/grey_big_endian.pfm"] = f.pfm_bytes(special, 1.5)
+    out["hdr/rle_cv2.hdr"] = cv2.imencode(".hdr", win.astype(np.float32) / 200)[1].tobytes()
+    px = f.rgbe(win[:16, :24, ::-1].astype(np.float64) / 90)
+    out["hdr/flat.hdr"] = f.hdr_bytes(px, "flat")
+    out["hdr/old_rle_padded.hdr"] = f.hdr_bytes(px, "old_rle") + bytes(px.size)
+    out["hdr/rgbe_magic.hdr"] = f.hdr_bytes(px, magic=b"#?RGBE")
+    return out
+
+
 def files(images, names) -> dict:
     """{relative path: bytes} of every file but the scenes' annotations."""
     import cv2
@@ -351,6 +453,7 @@ def files(images, names) -> dict:
     prog = [cv2.imdecode(np.frombuffer(out[f"prog/{n}"], np.uint8), cv2.IMREAD_COLOR)
             for n in names[:SCENES]]
     out.update(webp_pnm_files(images, prog, names[:SCENES]))
+    out.update(codings_files(prog, names[:SCENES]))
     return out
 
 
@@ -368,7 +471,8 @@ def main() -> int:
         images = z["images"]
         names = [os.path.basename(str(n)) for n in z["names"]]
     shutil.rmtree(OUT, ignore_errors=True)
-    for sub in ("prog", "bmp", "gif", "tiff", "webp/lossless", "webp/lossy", "pnm"):
+    for sub in ("prog", "bmp", "gif", "tiff", "webp/lossless", "webp/lossy", "pnm", "tiff_jpeg",
+                "ccitt", "sunras", "pfm", "hdr"):
         os.makedirs(os.path.join(OUT, sub))
     manifest = {}
     for rel, data in files(images, names).items():
@@ -379,9 +483,12 @@ def main() -> int:
         for key, flag in (("colour", cv2.IMREAD_COLOR), ("grey", cv2.IMREAD_GRAYSCALE)):
             want = cv2.imread(path, flag)
             got = imread(path, grayscale=key == "grey")
-            if want is None and got is None and (rel.startswith("lossless_")
-                                                 or rel.endswith(("_cut.webp", "_cut.ppm"))):
-                entry[key] = None  # a lossless frame's other colour space; a file cut short
+            if want is None and got is None and (
+                    rel.startswith(("lossless_", "pfm/")) or "_none." in rel
+                    or rel.endswith(("_cut.webp", "_cut.ppm"))):
+                # a lossless frame's other colour space; a file cut short; a
+                # coding OpenCV's build lacks; a PFM read in its other mode
+                entry[key] = None
                 continue
             if want is None or got is None or not np.array_equal(got, want):
                 raise RuntimeError(f"{rel}: the port does not read it as cv2 does ({key})")
@@ -403,17 +510,22 @@ def main() -> int:
     with open(os.path.join(OUT, "gif", "eval.txt"), "w") as f:
         f.write(gif_scene + "\n")
     stems = [os.path.splitext(n)[0] for n in names[:SCENES]]
-    for sub, listed in (("webp/lossless", stems[:1]), ("webp/lossy", stems)):
+    for sub, listed, ext in (("webp/lossless", stems[:1], "webp"), ("webp/lossy", stems, "webp"),
+                             ("tiff_jpeg", stems, "tif"), ("ccitt", stems, "tif")):
         for stem in listed:
             shutil.copy(os.path.join(HELDOUT_JPG, f"gt_{stem}.txt"), os.path.join(OUT, sub))
         with open(os.path.join(OUT, sub, "eval.txt"), "w") as f:
-            f.writelines(f"{stem}.webp\n" for stem in listed)
+            f.writelines(f"{stem}.{ext}\n" for stem in listed)
     for sub, paths, what in (
             ("", [os.path.join(OUT, "prog", n) for n in names[:SCENES]],
              f"{SCENES} progressive scenes"),
             ("gif", [os.path.join(OUT, "gif", gif_scene)], "the GIF scene"),
             ("webp/lossy", [os.path.join(OUT, "webp", "lossy", f"{s}.webp") for s in stems],
-             f"the {SCENES} lossy WebP scenes")):
+             f"the {SCENES} lossy WebP scenes"),
+            ("tiff_jpeg", [os.path.join(OUT, "tiff_jpeg", f"{s}.tif") for s in stems],
+             f"the {SCENES} TIFF-JPEG scenes"),
+            ("ccitt", [os.path.join(OUT, "ccitt", f"{s}.tif") for s in stems],
+             f"the {SCENES} binarised Group 4 scenes")):
         run = run_fots(paths, [])
         result = {"snapshot": "artifacts/serving_params.npz", "images_list": os.path.relpath(
                       os.path.join(OUT, sub or "prog", "eval.txt"), REPO),
