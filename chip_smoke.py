@@ -139,10 +139,12 @@ result line):
    truncated sequential, Adam7 / 1-2-4-16-bit / eXIf PNG, block-smoothed
    progressive, CMYK, YCCK, RGB-coded, arithmetic-coded and lossless JPEG,
    gamma-tagged PNG, a file for each route of the BMP, GIF, TIFF (JPEG,
-   CCITT, YCbCr and CMYK codings included), WebP, Netpbm, Sun raster, PFM
-   and HDR decoders) to the SHA-256 of ``cv2.imread``'s colour and grey
-   bytes in its manifest, or to nothing where its entry is null (the decode
-   ms of the 640x960 scene ``img_112`` printed in eighteen forms, timed in
+   CCITT, YCbCr, CMYK, old-style LZW, CIELab and SGILog codings included),
+   WebP, Netpbm, Sun raster, PFM, HDR and JPEG 2000 decoders) to the
+   SHA-256 of ``cv2.imread``'s colour and grey bytes in its manifest, or to
+   nothing where its entry is null (old-style JPEG, ICCLab and ITULab TIFFs
+   among them) (the decode
+   ms of the 640x960 scene ``img_112`` printed in twenty forms, timed in
    turns: sequential, progressive, block-smoothed, CMYK and
    arithmetic-coded JPEG, a 24-bit BMP and an uncompressed TIFF written
    here, ``cv2``'s GIF, 256x384 windows as ``cv2``'s TIFF-LZW and
@@ -150,9 +152,10 @@ result line):
    (``decode_ref/webp``), a PPM, a 24-bit Sun raster, a PFM and a
    run-length HDR written here, ``cv2``'s TIFF-JPEG
    (``decode_ref/tiff_jpeg``) and Group 4 of its binarised pixels
-   (``decode_ref/ccitt``), each also as a ratio to the sequential jpg); the
-   lossless WebP and a Sun raster under .jpg names must decode to the
-   progressive ``img_112``'s pixels, a JPEG 2000 codestream raise
+   (``decode_ref/ccitt``), Pillow's lossless 5/3 and ratio-12 9/7 JP2
+   (``decode_ref/jp2``), each also as a ratio to the sequential jpg); the
+   lossless WebP, the lossless JP2 and a Sun raster under .jpg names must
+   decode to the progressive ``img_112``'s pixels, an AVIF file raise
    ``ValueError`` naming the format, a 62-byte BMP read as None; reader 0's
    first 4 batches from the
    jpg files must be byte-equal to those from the archive, made in turn in
@@ -180,7 +183,11 @@ result line):
    the four scenes as quality-90 WebP (``decode_ref/webp/lossy``), as
    ``cv2``'s TIFF-JPEG (``decode_ref/tiff_jpeg``) and binarised as Group 4
    (``decode_ref/ccitt``) ``fots``'s committed counts exactly, with K1'-K4'
-   launched;
+   launched; then (their launches counted apart) the four scenes as lossless
+   and as irreversible JP2 (``decode_ref/jp2/lossless``, ``/lossy``),
+   greedy and with prefix beam search 8, ``fots``'s committed counts of
+   each exactly (the lossless ones greedy also the jpgs' boxes and texts),
+   with K1'-K4' launched;
    ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
@@ -327,6 +334,7 @@ DEBUG_EVERY = 2
 DEBUG_READERS = 2
 FILES_JPG = os.path.join(REPO, "fots_torch", "assets", "heldout_eval_jpg")
 DECODE_REF = os.path.join(REPO, "fots_torch", "assets", "decode_ref")
+JP2_BEAM = 8  # the beam of the JP2 scenes' second evaluation (as their eval_fots_cpu.json)
 PROG_JPG = os.path.join(DECODE_REF, "prog")  # progressive copies of 4 held-out scenes
 OCR_PNG_LIST = os.path.join(REPO, "fots_torch", "assets", "ocr_eval_png", "gt.txt")
 FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8's run
@@ -2291,14 +2299,18 @@ def phase_files(images, eval_result=None, joint_result=None):
         f.write(_sun_raster_bytes(scene_112_prog))
     check(np.array_equal(imread(sun), scene_112_prog),
           "files: a Sun raster named .jpg does not decode to img_112's pixels")
-    j2k = os.path.join(tmp, "codestream.jpg")
-    with open(j2k, "wb") as f:
-        f.write(b"\xff\x4f\xff\x51" + bytes(60))
+    jp2 = os.path.join(tmp, "jp2_named.jpg")
+    shutil.copy(os.path.join(DECODE_REF, "jp2", "lossless", "img_112.jp2"), jp2)
+    check(np.array_equal(imread(jp2), scene_112_prog),
+          "files: the lossless JP2 named .jpg does not decode to img_112's pixels")
+    avif = os.path.join(tmp, "avif.jpg")
+    with open(avif, "wb") as f:
+        f.write(b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00avifmif1miaf" + bytes(40))
     try:
-        imread(j2k)
-        check(False, "files: a JPEG 2000 codestream read as something")
+        imread(avif)
+        check(False, "files: an AVIF file read as something")
     except ValueError as e:
-        check("JPEG 2000" in str(e) and j2k in str(e), f"files: the JPEG 2000 refusal says {e}")
+        check("AVIF" in str(e) and avif in str(e), f"files: the AVIF refusal says {e}")
     bmp = os.path.join(tmp, "short_bmp.jpg")
     with open(bmp, "wb") as f:
         f.write(b"BM" + bytes(60))
@@ -2339,7 +2351,10 @@ def phase_files(images, eval_result=None, joint_result=None):
                     "pfm": os.path.join(tmp, "img_112.pfm"),
                     "hdr_rle": os.path.join(tmp, "img_112.hdr"),
                     "tiff_jpeg": os.path.join(DECODE_REF, "tiff_jpeg", "img_112.tif"),
-                    "g4_binarised": os.path.join(DECODE_REF, "ccitt", "img_112.tif")}
+                    "g4_binarised": os.path.join(DECODE_REF, "ccitt", "img_112.tif"),
+                    "jp2_lossless": os.path.join(DECODE_REF, "jp2", "lossless", "img_112.jp2"),
+                    "jp2_lossy_ratio_12": os.path.join(DECODE_REF, "jp2", "lossy",
+                                                       "img_112.jp2")}
     forms = list(decode_forms)
     pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
@@ -2355,9 +2370,10 @@ def phase_files(images, eval_result=None, joint_result=None):
         kind = rel.split("/")[0] if "/" in rel else os.path.splitext(rel)[1][1:]
         kinds[kind] = kinds.get(kind, 0) + 1
     print(f"  {len(manifest)} files of decode_ref ({kinds}) decode to cv2.imread's hashes "
-          f"(or to None where cv2 gives None), colour and grey; the lossless WebP and a Sun "
-          f"raster named .jpg decode to img_112's pixels, a JPEG 2000 codestream is refused "
-          f"by name, a 62-byte BMP is None; img_112 640x960 decode ms on {cpu} (card {smi}), "
+          f"(or to None where cv2 gives None), colour and grey; the lossless WebP, the "
+          f"lossless JP2 and a Sun raster named .jpg decode to img_112's pixels, an AVIF file "
+          f"is refused by name, a 62-byte BMP is None; img_112 640x960 decode ms on {cpu} "
+          f"(card {smi}), "
           f"medians of {DECODE_REPEATS} in turns (x the sequential jpg's): " + ", ".join(
               f"{k} {pair_ms[k]:.3f} ({min(v):.3f}-{max(v):.3f}, x{pair_ratio[k]:.2f})"
               for k, v in pair_times.items()))
@@ -2503,6 +2519,21 @@ def phase_files(images, eval_result=None, joint_result=None):
             coding_counts[sub] = _dump_counts(json.load(f))
     torch.cuda.synchronize()
     format_launches = {k: build.launch_counts[k] - before[k] for k in before}
+    # (d4) the four scenes as lossless and as irreversible JP2, greedy and beam 8
+    before = dict(build.launch_counts)
+    jp2_runs = {}
+    for kind in ("lossless", "lossy"):
+        for run, extra in (("greedy", []), ("beam", ["-beam", str(JP2_BEAM)])):
+            dump = os.path.join(tmp, f"jp2_{kind}_{run}_dump.json")
+            with no_tf32():
+                summary_jp2 = eval_e2e.main([
+                    "-model", SNAPSHOT, "-images_list",
+                    os.path.join(DECODE_REF, "jp2", kind, "eval.txt"), "-dump_json", dump,
+                    *extra])
+            with open(dump) as f:
+                jp2_runs[(kind, run)] = (summary_jp2, json.load(f))
+    torch.cuda.synchronize()
+    jp2_launches = {k: build.launch_counts[k] - before[k] for k in before}
     t_prog = time.perf_counter()
     # (e) the exported bundle's selftest on the folder
     _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
@@ -2598,6 +2629,25 @@ def phase_files(images, eval_result=None, joint_result=None):
         check(format_launches[kname] > 0,
               f"kernel {kname} was not launched over the BMP, TIFF, PPM, Sun raster, PFM, GIF, "
               f"WebP, TIFF-JPEG and Group 4 files")
+    _dumps_equal(jp2_runs[("lossless", "greedy")][1], prog_dump_records,
+                 "eval_e2e over the lossless JP2 scenes")
+    jp2_out = {}
+    for (kind, run), (summary_jp2, records) in jp2_runs.items():
+        counts = _dump_counts(records)
+        with open(os.path.join(DECODE_REF, "jp2", kind, "eval_fots_cpu.json")) as f:
+            ref_jp2 = json.load(f)["run" if run == "greedy" else "run_beam"]["counts"]
+        check(counts == ref_jp2, f"files: eval_e2e over the {kind} JP2 scenes ({run}) {counts} "
+                                 f"vs fots's {ref_jp2}")
+        jp2_out[f"{kind}_{run}"] = {"eval_counts": counts, "fots_eval_counts": ref_jp2,
+                                    "det_hmean": summary_jp2["detection_hmean"],
+                                    "e2e_hmean": summary_jp2["e2e_hmean"]}
+    for kname in build.PATH_KERNELS["serving"]:
+        check(jp2_launches[kname] > 0, f"kernel {kname} was not launched over the JP2 scenes")
+    print(f"  the four as lossless and ratio-12 JP2, greedy and beam {JP2_BEAM}: " + "; ".join(
+        f"{k} {v['eval_counts']} (fots {v['fots_eval_counts']}, exactly; det hmean "
+        f"{v['det_hmean']:.4f} e2e hmean {v['e2e_hmean']:.4f})" for k, v in jp2_out.items())
+        + f"; the lossless greedy boxes and texts equal the jpgs'; launches {jp2_launches}")
+    jp2_out["launches"] = jp2_launches
     print(f"  the four as cv2's TIFF-JPEG: {coding_counts['tiff_jpeg']} (fots "
           f"{coding_refs['tiff_jpeg']}, exactly; det hmean "
           f"{coding_summaries['tiff_jpeg']['detection_hmean']:.4f}); binarised as Group 4: "
@@ -2651,6 +2701,7 @@ def phase_files(images, eval_result=None, joint_result=None):
                         "webp_lossy_eval_summary": webp_summaries["lossy"]},
            "tiff_codings": {"eval_counts": coding_counts, "fots_eval_counts": coding_refs,
                             "eval_summary": coding_summaries},
+           "jp2": jp2_out,
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,

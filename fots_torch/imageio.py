@@ -4,7 +4,8 @@
 
 The card's machine has no OpenCV and no image decoder, so the port reads
 its own files: JPEG and PNG, decoded by ``fots_torch/csrc/image_decode.cpp``,
-and BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM and Radiance HDR (below)
+and BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM, Radiance HDR and JPEG
+2000 (below)
 (g++, built at first use by :mod:`fots_torch.kernels.build` and loaded with
 ctypes, like the host NMS).  The JPEG decoder reproduces libjpeg-turbo's
 default decompression as OpenCV asks for it (islow IDCT as its SIMD code
@@ -65,7 +66,12 @@ BMP, GIF and TIFF, read as ``cv2.imread`` reads them by
   CCITT RLE, RLE-word, Group 3 (1-D and 2-D) and Group 4
   (``csrc/decode_fax.cpp``, libtiff's tif_fax3.c, damaged data included),
   YCbCr (every YCbCrSubsampling with a put routine, through
-  TIFFYCbCrToRGBInit's tables) and 8-bit CMYK (InkSet 1).
+  TIFFYCbCrToRGBInit's tables), 8-bit CMYK (InkSet 1), old-style LZW
+  (LZWDecodeCompat; the file's first LZW strip picks the decoder for all),
+  8- and 16-bit CIELab (through TIFFCIELabToRGBInit over display_sRGB and
+  the WhitePoint tag, D50 by default), and SGILog (compression 34676: LogL
+  grey and LogLuv colour, into libtiff's 8-bit samples) and SGILog24
+  (34677, LogLuv: its uv index through uvcode.h's table).
 A format is found by its signature, as ``cv2`` finds it (by content, not by
 name): a BMP named ``.jpg`` is read as a BMP.
 
@@ -73,10 +79,13 @@ name): a BMP named ``.jpg`` is read as a BMP.
 cut short or with a header its decoder rejects, a GIF frame whose LZW data
 is damaged, a TIFF of a depth OpenCV refuses (2 and 4-bit grey, 2-bit
 palette, samples of 32 or more bits, float), of a coding libtiff's build
-lacks (PixarLog, LZMA, ZSTD, ...), a JPEG strip JPEGPreDecode rejects (a
-size, component count or sampling the directory does not give), CMYK of
-other than 8 bits, 4 samples and InkSet 1, YCbCr without a put routine, or
-with an orientation of 5-8 (imread's own ExifTransform asserts).
+lacks (old-style JPEG, PixarLog, LZMA, ZSTD, ...), a JPEG strip
+JPEGPreDecode rejects (a size, component count or sampling the directory
+does not give), CMYK of other than 8 bits, 4 samples and InkSet 1, YCbCr
+without a put routine, ICCLab and ITULab, CIELab of other than 3 contiguous
+samples or with a WhitePoint of y = 0, LogL or LogLuv without SGILog or at
+another sample count, SGILog of another photometric, or an orientation of
+5-8 (imread's own ExifTransform asserts).
 
 WebP, read as ``cv2.imread`` reads it through libwebp 1.5 by
 ``fots_torch/csrc/decode_webp.cpp`` (see that file): lossy (VP8) and
@@ -97,13 +106,22 @@ Sun raster (``csrc/decode_sunras.cpp``), PFM and Radiance HDR
 (``csrc/decode_hdr.cpp`` for the run-length pixels) as OpenCV 5.0's own
 decoders read them: see the section below.
 
-``ValueError`` naming the file and the format, for a file of one of the
-other formats OpenCV 5.0's ``imread`` decodes, found by its signature: JPEG
-2000 (codestream or JP2) and AVIF; and naming the coding or photometric,
-for a TIFF ``cv2`` reads that the port does not decode: old-style JPEG,
-SGILog, old-style LZW and the Lab spaces.  The port decodes none of them
+JPEG 2000, read as ``cv2.imread`` reads it through OpenJPEG 2.5 by
+``fots_torch/csrc/decode_jp2.cpp`` (see that file): the JP2 file and the raw
+codestream, every progression order, code-block style, tiling, precinct and
+layer layout, the 5/3 and 9/7 wavelets with RCT and ICT, ROI, PPM / PPT,
+palettes and channel definitions, then OpenCV's shift of precisions above 8
+and its conversions (sRGB, grey, sYCC); None where OpenJPEG (in its strict
+mode) or OpenCV's use of it fails (a cut or damaged file, signed or
+sub-sampled components, an image offset, precisions under 8, one or two
+components of a codestream read in colour).
+
+``ValueError`` naming the file and the format, for a file of the one other
+format OpenCV 5.0's ``imread`` decodes, found by its signature: AVIF; and
+naming the coding, for a JPEG 2000 file of HT (high-throughput) code-blocks
+or of Part 2's multi-component transforms.  The port decodes none of them
 (a reader would otherwise drop such a sample in silence where ``fots``
-trains on it).  A PixarLog TIFF is None: OpenCV's libtiff lacks its codec.
+trains on it).
 
 The writer is ``fots_torch/csrc/image_encode.cpp`` (g++ as well): baseline
 JPEG as libjpeg-turbo writes it under ``cv2.imwrite``'s defaults (quality
@@ -129,6 +147,8 @@ JPEG_SIGNATURE = b"\xff\xd8\xff"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 BMP_SIGNATURE = b"BM"
 GIF_SIGNATURE = b"GIF"
+#: a JP2 file, a raw JPEG 2000 codestream
+JP2_SIGNATURES = (b"\x00\x00\x00\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51")
 _ERR_LEN = 256
 #: PNG colour type -> the bit depths the format allows
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -139,11 +159,9 @@ _SPACE = b" \t\n\v\f\r"      # isspace(): what follows a Netpbm / PFM magic numb
 
 
 def _other_format(data: bytes) -> Optional[str]:
-    """The name of the format of ``data`` when its signature is one of the
-    other decoders of OpenCV 5.0.0's ``imread`` (which finds a file's format
-    by its content, not its name) that the port does not decode, else None."""
-    if data.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n") or data.startswith(b"\xff\x4f\xff\x51"):
-        return "JPEG 2000"
+    """The name of the format of ``data`` when its signature is that of the
+    one decoder of OpenCV 5.0.0's ``imread`` (which finds a file's format by
+    its content, not its name) the port does not decode (AVIF), else None."""
     if data[4:8] == b"ftyp" and len(data) >= 12:
         size = int.from_bytes(data[:4], "big")
         box = data[8:min(max(size, 16), 4096)]
@@ -195,7 +213,8 @@ def _format_lib(name: str, prefix: str) -> ctypes.CDLL:
 
 
 def _decode_whole(name: str, prefix: str, data: bytes, grayscale: bool, path: str):
-    """Decode a BMP or GIF file with its library: (image, orientation 1).
+    """Decode a BMP, GIF, Sun raster or JPEG 2000 file with its library:
+    (image, orientation 1).
     An image past OpenCV's size limits raises (imread raises for it)."""
     lib = _format_lib(name, prefix)
     src = np.frombuffer(data, np.uint8)
@@ -412,35 +431,42 @@ def _decode_png(data: bytes, grayscale: bool, path: str):
 TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i",
                10: "ii", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
-#: codings cv2.imread reads that the port does not decode (refused by name)
-_TIFF_REFUSED_CODINGS = {6: "old-style JPEG", 34676: "SGILog", 34677: "SGILog24"}
-#: codings libtiff knows but OpenCV's build does not decode (PixarLog, LZMA,
-#: ZSTD, ...), or decodes only at depths cv2.imread refuses (ThunderScan
-#: 4-bit, NeXT 2-bit): None
-_TIFF_UNREAD_CODINGS = {32809, 32766, 34661, 34925, 50000, 50001, 50002, 34887, 32909}
+#: codings libtiff knows but OpenCV's build does not decode (old-style JPEG,
+#: PixarLog, LZMA, ZSTD, ...), or decodes only at depths cv2.imread refuses
+#: (ThunderScan 4-bit, NeXT 2-bit): None
+_TIFF_UNREAD_CODINGS = {6, 32809, 32766, 34661, 34925, 50000, 50001, 50002, 34887, 32909}
 _TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, Group 3, Group 4, RLE-word
-_TIFF_DECODED = ("the port decodes TIFF uncompressed, PackBits, LZW, Deflate, JPEG and CCITT, "
-                 "of grey, palette, RGB(A), YCbCr and CMYK samples only)")
-_TIFF_REFUSED_PHOTOMETRICS = {8: "CIELab", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
-                              32845: "LogLuv"}
+_TIFF_SGILOG = (34676, 34677)
+_LOGL, _LOGLUV = 32844, 32845
+#: CIE D50, libtiff's default WhitePoint (float x, y chromaticity)
+_D50 = np.float32(96.4250) + np.float32(100.0) + np.float32(82.4680)
+_WHITE_POINT = (float(np.float32(96.4250) / _D50), float(np.float32(100.0) / _D50))
 #: YCbCrSubsampling values with a put routine in libtiff's RGBA reader
 _YCBCR_SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 #: tags libtiff reads as one unsigned number, failing the directory otherwise
 _TIFF_SCALAR_TAGS = (256, 257, 259, 262, 277, 278, 284)
+#: tags TIFFReadDirectory reads a value of for every sample, failing the
+#: directory where they cannot be read or differ: BitsPerSample,
+#: Min / MaxSampleValue, SampleFormat
+_TIFF_PERSAMPLE_TAGS = (258, 280, 281, 339)
+#: tags libtiff ignores (keeping its default) unless they hold one number:
+#: FillOrder, Orientation, Predictor
+_TIFF_SINGLE_TAGS = (266, 274, 317)
 _BIT_REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
-
-
-class _OldStyleLzw(Exception):
-    """A strip of old-style (pre-TIFF 6.0) LZW codes, which the port refuses."""
 
 
 def _tiff_lib() -> ctypes.CDLL:
     lib = build.load("decode_tiff")
     if not getattr(lib, "_fots_typed", False):
         u8p, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
-        for fn in (lib.fots_tiff_lzw, lib.fots_tiff_packbits):
+        for fn in (lib.fots_tiff_lzw, lib.fots_tiff_lzw_compat, lib.fots_tiff_packbits):
             fn.restype = ctypes.c_int
             fn.argtypes = [u8p, i64, u8p, i64]
+        lib.fots_tiff_sgilog.restype = ctypes.c_int
+        lib.fots_tiff_sgilog.argtypes = [u8p, i64, u8p, i64, i64, ctypes.c_int]
+        lib.fots_tiff_cielab.restype = None
+        lib.fots_tiff_cielab.argtypes = [ctypes.c_void_p, i64, ctypes.c_int, ctypes.c_float,
+                                         ctypes.c_float, u8p]
         lib._fots_typed = True
     return lib
 
@@ -510,9 +536,11 @@ def _tiff_directory(data: bytes):
         fmt = _TIFF_TYPES.get(typ)
         if tag in tags:
             continue
-        if tag in _TIFF_SCALAR_TAGS + (258,) and (
-                typ not in (1, 3, 4, 16) or cnt != 1 and tag != 258):
+        if tag in _TIFF_SCALAR_TAGS + _TIFF_PERSAMPLE_TAGS and (
+                typ not in (1, 3, 4, 16) or cnt != 1 and tag in _TIFF_SCALAR_TAGS):
             raise _Unreadable(f"TIFF tag {tag} of type {typ} and count {cnt}")
+        if tag in _TIFF_SINGLE_TAGS and cnt != 1:
+            continue
         if tag in (273, 279, 322, 323, 324, 325) and typ not in (1, 3, 4, 16):
             raise _Unreadable(f"TIFF tag {tag} of type {typ}")
         if fmt is None:
@@ -521,8 +549,8 @@ def _tiff_directory(data: bytes):
         if size > inline:
             value_at = struct.unpack_from(e + off_fmt, data, value_at)[0]
             if value_at + size > n:
-                if tag == 258:
-                    raise _Unreadable("TIFF BitsPerSample past the end of the file")
+                if tag in _TIFF_PERSAMPLE_TAGS:
+                    raise _Unreadable(f"TIFF tag {tag}'s values past the end of the file")
                 continue  # libtiff drops a tag whose values lie past the end
         tags[tag] = struct.unpack_from(e + fmt * cnt, data, value_at)
     return tags, e == ">"
@@ -553,11 +581,12 @@ def _tiff_inflate(raw: bytes, occ: int):
     return bytes(out[:occ]), False
 
 
-def _tiff_chunk(raw: bytes, compression: int, occ: int, ctx=None):
+def _tiff_chunk(raw: bytes, compression: int, occ: int, ctx: dict):
     """One strip or tile, decompressed into a zeroed buffer of ``occ`` bytes:
     (buffer, ok).  A failed decoder leaves what it wrote (libtiff goes on
-    with the strip buffer as it is).  ``ctx``: what JPEG and CCITT need (the
-    chunk's geometry, JPEGTables, T4Options, where the data lies)."""
+    with the strip buffer as it is).  ``ctx``: what JPEG, CCITT, SGILog and
+    LZW need (the chunk's geometry, JPEGTables, T4Options, where the data
+    lies, the LZW decoder the file's first LZW chunk picked)."""
     buf = np.zeros(occ, np.uint8)
     if compression == 1:
         if len(raw) < occ:  # DumpModeDecode copies nothing
@@ -568,13 +597,24 @@ def _tiff_chunk(raw: bytes, compression: int, occ: int, ctx=None):
         out, ok = _tiff_inflate(raw, occ)
         buf[:len(out)] = np.frombuffer(out, np.uint8)
         return buf, ok
-    if compression == 5 and raw[:1] == b"\x00" and raw[1:2] and raw[1] & 1:
-        raise _OldStyleLzw()  # LZWPreDecode's test: libtiff reads it with its compat decoder
     if compression in (5, 32773):
         src = np.frombuffer(raw, np.uint8)
         lib = _tiff_lib()
-        fn = lib.fots_tiff_lzw if compression == 5 else lib.fots_tiff_packbits
+        fn = lib.fots_tiff_packbits
+        if compression == 5:
+            # LZWPreDecode's test for old-style codes: the first LZW chunk
+            # decoded picks the decoder (LZWDecodeCompat or LZWDecode) for
+            # every chunk of the file after it
+            if ctx.get("lzw_old") is None:
+                ctx["lzw_old"] = bool(raw[:1] == b"\x00" and raw[1:2] and raw[1] & 1)
+            fn = lib.fots_tiff_lzw_compat if ctx["lzw_old"] else lib.fots_tiff_lzw
         return buf, bool(fn(_u8(src), src.size, _u8(buf), occ))
+    if compression in _TIFF_SGILOG:  # rows into 8-bit grey (LogL) or RGB (LogLuv)
+        src = np.frombuffer(raw, np.uint8)
+        rows, width, luv = ctx["sgilog"]
+        mode = 2 if compression == 34677 else int(luv)
+        return buf, bool(_tiff_lib().fots_tiff_sgilog(_u8(src), src.size, _u8(buf), rows, width,
+                                                       mode))
     if compression == 7:
         return _tiff_jpeg(ctx["tables"], raw, ctx["jpeg"], occ, ctx["rowbytes"])
     if compression in _TIFF_FAX:
@@ -644,12 +684,13 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     w, h = tags[256][0], tags[257][0]
     compression = _tiff_tag(tags, 259, (1,))[0]
     spp = _tiff_tag(tags, 277, (1,))[0]
-    bps_all = _tiff_tag(tags, 258, (1,))
-    if len(bps_all) != 1:
-        bps_all = bps_all[:spp] if len(bps_all) >= spp else ()
-    if len(set(bps_all)) != 1:
-        raise _Unreadable("TIFF with different bits per sample")
-    bps = bps_all[0]
+    for tag in _TIFF_PERSAMPLE_TAGS:  # TIFFReadDirEntryPersampleShort
+        values = _tiff_tag(tags, tag, (1,))
+        if len(values) != 1:
+            values = values[:spp] if len(values) >= spp else ()
+        if len(set(values)) != 1:
+            raise _Unreadable(f"TIFF tag {tag} with different values for its samples")
+    bps = _tiff_tag(tags, 258, (1,))[0]
     extras = _tiff_tag(tags, 338, ())
     if len(extras) > spp or any(v > 2 for v in extras):
         raise _Unreadable("bad TIFF ExtraSamples")
@@ -675,12 +716,27 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
             or planar not in (1, 2) or compression in _TIFF_UNREAD_CODINGS):
         raise _Unreadable(f"TIFF of {bps}-bit samples, photometric {photometric}, "
                           f"sample format {fmt}, compression {compression}")
-    if compression in _TIFF_REFUSED_CODINGS or photometric in _TIFF_REFUSED_PHOTOMETRICS:
-        what = (_TIFF_REFUSED_CODINGS.get(compression) if compression in _TIFF_REFUSED_CODINGS
-                else f"photometric {_TIFF_REFUSED_PHOTOMETRICS[photometric]}")
-        raise ValueError(f"{path}: a TIFF in {what} (cv2.imread reads it; {_TIFF_DECODED}")
-    if photometric not in (0, 1, 2, 3, 5, 6):
-        raise _Unreadable(f"TIFF of photometric {photometric}")
+    log = photometric in (_LOGL, _LOGLUV)
+    if log or compression in _TIFF_SGILOG:  # LogLuvSetupDecode, TIFFRGBAImageOK
+        luv = photometric == _LOGLUV
+        codings = _TIFF_SGILOG if luv else (34676,)
+        if not log or compression not in codings or planar != 1 or extras or spp != (
+                3 if luv else 1):
+            raise _Unreadable(f"a TIFF of photometric {photometric} and compression {compression} "
+                              f"libtiff's RGBA reader does not read (LogL needs SGILog, LogLuv "
+                              f"SGILog or SGILog24, contiguous, 1 or 3 samples)")
+    if photometric == 8 and (spp != 3 or extras or planar != 1):
+        raise _Unreadable("a CIELab TIFF libtiff's RGBA reader has no routine for (3 samples "
+                          "of 8 or 16 bits, contiguous)")
+    if photometric not in (0, 1, 2, 3, 5, 6, 8) and not log:
+        raise _Unreadable(f"TIFF of photometric {photometric} (ICCLab and ITULab included: "
+                          f"libtiff's RGBA reader has no routine for them)")
+    if photometric == 8:
+        white = _tiff_floats(tags, 318, _WHITE_POINT)
+        if white[1] == 0:
+            raise _Unreadable("invalid WhitePoint")
+    if log:  # SGILOGDATAFMT_8BIT: 8-bit grey or RGB
+        photometric, bps = (2, 8) if photometric == _LOGLUV else (1, 8)
     hs, vs = _tiff_tag(tags, 530, (2, 2))[:2] if len(_tiff_tag(tags, 530, ())) >= 2 else (2, 2)
     jpeg_rgb = compression == 7 and photometric == 6 and planar == 1
     if jpeg_rgb and 530 not in tags:  # JPEGFixupTagsSubsampling: the first stream's sampling
@@ -781,7 +837,8 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
                 rows = th if tiled else min(th, h - j * th)
                 y0, x0 = j * th, i * tw
                 if subsampled:
-                    _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, samples, y0, x0)
+                    _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, samples, y0, x0,
+                                 ctx)
                     continue
                 rowbytes = (tw * plane_spp * bps + 7) // 8
                 ctx["rowbytes"], ctx["odd"] = rowbytes, off & 1
@@ -789,11 +846,9 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
                     last = not tiled and j == down - 1
                     ctx["jpeg"] = (tw, rows, int(last), plane_spp,
                                    *((hs, vs) if jpeg_rgb else (1, 1)), bps, int(jpeg_rgb))
-                try:
-                    chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes, ctx)
-                except _OldStyleLzw:
-                    raise ValueError(f"{path}: a TIFF in old-style LZW (cv2.imread reads it; "
-                                     f"{_TIFF_DECODED}") from None
+                if compression in _TIFF_SGILOG:
+                    ctx["sgilog"] = (rows, tw, photometric == 2)
+                chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes, ctx)
                 a = _tiff_processed(chunk, ok, rows, rowbytes, plane_spp, bps, big_endian,
                                     predictor)
                 v = _tiff_samples(a, tw, plane_spp, bps)[:h - y0, :w - x0]
@@ -809,6 +864,11 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
         rgb = samples
     elif photometric == 6:  # putseparate8bitYCbCr11tile
         rgb = _ycbcr_rgb(ycc, samples[..., 0], samples[..., 1], samples[..., 2])
+    elif photometric == 8:  # putcontig8bitCIELab8 / 16 through TIFFCIELabToRGBInit
+        rgb = np.empty((h, w, 3), np.uint8)
+        lab = np.ascontiguousarray(samples)
+        _tiff_lib().fots_tiff_cielab(lab.ctypes.data, h * w, bps, float(white[0]),
+                                     float(white[1]), _u8(rgb))
     elif photometric == 5:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
         k = 255 - samples[..., 3].astype(np.int32)
         rgb = (k[..., None] * (255 - samples[..., :3].astype(np.int32)) // 255).astype(np.uint8)
@@ -906,7 +966,7 @@ def _ycbcr_rgb(ycc, y, cb, cr) -> np.ndarray:
                      np.clip(yv + cb_b[cb], 0, 255)], -1).astype(np.uint8)
 
 
-def _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, rgb, y0, x0):
+def _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, rgb, y0, x0, ctx):
     """One strip or tile of subsampled YCbCr into ``rgb`` as gtStripContig /
     gtTileContig and the putcontig8bitYCbCr*tile routines put it: blocks of
     hs * vs Y samples then Cb and Cr; a strip is read as the routine asks,
@@ -920,7 +980,7 @@ def _ycbcr_chunk(raw, compression, ycc, hs, vs, tw, rows, tiled, rgb, y0, x0):
     blocks = -(-tw // hs)
     size = -(-rows // vs) * blocks * bs  # TIFFVStripSize / TIFFVTileSize
     occ = size if tiled else min(size, -(-rows // vs) * vs * (blocks * bs // vs))
-    buf, _ = _tiff_chunk(raw, compression, occ)
+    buf, _ = _tiff_chunk(raw, compression, occ, ctx)
     buf = np.concatenate([buf, np.zeros(size - occ + bs * blocks + bs, np.uint8)])
     nrow, npix = min(rows, h - y0), min(tw, w - x0)
     skip = tw - npix
@@ -973,7 +1033,8 @@ def _tiff_rgb(samples, tags, photometric, bps, spp, planar, alpha) -> np.ndarray
 # libwebp 1.5; the orientation of the EXIF chunk OpenCV reads (through
 # WebPDemux) is applied here.
 
-_DECODED = "JPEG, PNG, BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM and Radiance HDR only"
+_DECODED = ("JPEG, PNG, BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM, Radiance HDR and "
+            "JPEG 2000 only")
 
 
 def _webp_lib() -> ctypes.CDLL:
@@ -1453,15 +1514,16 @@ def _decode_hdr(data: bytes, grayscale: bool, path: str) -> np.ndarray:
 def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
     """``cv2.imread(path)`` (u8 [H, W, 3] BGR) or, with ``grayscale``,
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (u8 [H, W]) of a JPEG, PNG,
-    BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM or Radiance HDR file.
+    BMP, GIF, TIFF, WebP, Netpbm, Sun raster, PFM, Radiance HDR or JPEG 2000
+    file.
     None where ``cv2.imread`` gives None: a file that cannot be opened,
     whose signature is no format ``cv2`` reads, or that its decoder fails on
     (a JPEG cut before its first scan's data, a corrupt or truncated file of
     the other formats, a PFM read in the other mode than its channels).
-    ``ValueError``, naming the file and the format, for a file of another
-    format ``cv2`` reads (JPEG 2000, AVIF), a TIFF coding the port does not
-    decode (old-style JPEG and LZW, SGILog, the Lab spaces), or an image
-    past OpenCV's size limits (``cv2.imread`` raises for it)."""
+    ``ValueError``, naming the file and the format, for a file of the other
+    format ``cv2`` reads (AVIF), a coding the port does not decode (JPEG
+    2000's HT code-blocks and Part 2 transforms), or an image past OpenCV's
+    size limits (``cv2.imread`` raises for it)."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -1472,6 +1534,8 @@ def imread(path: str, grayscale: bool = False) -> Optional[np.ndarray]:
             im, orientation = _decode_jpeg(data, grayscale, str(path))
         elif data.startswith(PNG_SIGNATURE):
             im, orientation = _decode_png(data, grayscale, str(path))
+        elif data.startswith(JP2_SIGNATURES):
+            im, orientation = _decode_whole("decode_jp2", "fots_jp2", data, grayscale, str(path))
         elif data.startswith(BMP_SIGNATURE):
             im, orientation = _decode_whole("decode_bmp", "fots_bmp", data, grayscale, str(path))
         elif data.startswith(GIF_SIGNATURE):

@@ -49,6 +49,7 @@ SOURCES = {
     "decode_fax": "decode_fax.cpp",
     "decode_sunras": "decode_sunras.cpp",
     "decode_hdr": "decode_hdr.cpp",
+    "decode_jp2": "decode_jp2.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")

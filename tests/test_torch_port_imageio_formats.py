@@ -16,10 +16,11 @@ byte for byte in colour (BGR) and grayscale:
 - lossless JPEG (SOF3, Huffman) of an encoder of this module: predictors 1-7,
   point transforms, restart intervals of whole MCU rows, grey, RGB and CMYK;
 
-and, for the other formats ``cv2.imread`` reads that the port does not
-decode (JPEG 2000, AVIF), a ``ValueError`` naming the file and the format
-where ``cv2`` reads the file; ``cv2``'s own Netpbm, PAM, PFM, Sun raster,
-Radiance HDR and WebP files (one named ``.jpg``) read as ``cv2`` reads them.
+and, for the other format ``cv2.imread`` reads that the port does not
+decode (AVIF), a ``ValueError`` naming the file and the format where ``cv2``
+reads the file; ``cv2``'s own Netpbm, PAM, PFM, Sun raster, Radiance HDR,
+JPEG 2000 (JP2 and its raw codestream) and WebP files (one named ``.jpg``)
+read as ``cv2`` reads them.
 """
 
 import os
@@ -750,11 +751,12 @@ def _written(tmp_path, ext, im, params=()):
 def _format_files(tmp_path):
     """(name the ValueError gives, path) of a file of each of the other
     formats, written by cv2 (or, where cv2 writes none, derived from one).
-    BMP, GIF, TIFF, WebP, Netpbm, PFM, Sun raster and HDR are decoded by the
-    port: their files are held to cv2 in tests/test_torch_port_imageio_bmp_gif.py,
-    tests/test_torch_port_imageio_tiff.py, tests/test_torch_port_imageio_webp.py,
-    tests/test_torch_port_imageio_pnm.py and
-    tests/test_torch_port_imageio_sunras_pfm_hdr.py; the entries here of the
+    BMP, GIF, TIFF, WebP, Netpbm, PFM, Sun raster, HDR and JPEG 2000 are
+    decoded by the port: their files are held to cv2 in
+    tests/test_torch_port_imageio_bmp_gif.py, tests/test_torch_port_imageio_tiff.py,
+    tests/test_torch_port_imageio_webp.py, tests/test_torch_port_imageio_pnm.py,
+    tests/test_torch_port_imageio_sunras_pfm_hdr.py and
+    tests/test_torch_port_imageio_jp2.py; the entries here of the
     formats in ``DECODED`` are decode cases."""
     im = scene(40, 60, seed=9)
     grey = im[..., 1]
@@ -783,14 +785,14 @@ def _format_files(tmp_path):
 
 
 #: the formats of _format_files the port decodes
-DECODED = ("PBM/PGM/PPM", "PAM", "WebP", "PFM", "Sun raster", "Radiance HDR")
+DECODED = ("PBM/PGM/PPM", "PAM", "WebP", "PFM", "Sun raster", "Radiance HDR", "JPEG 2000")
 
 
 def test_other_formats_refused_by_name(tmp_path):
-    """Each file cv2.imread reads of the formats left (JPEG 2000, AVIF)
-    raises ValueError naming the file and the format, in both modes."""
+    """Each file cv2.imread reads of the format left (AVIF) raises
+    ValueError naming the file and the format, in both modes."""
     files = [(name, path) for name, path in _format_files(tmp_path) if name not in DECODED]
-    assert len({name for name, _ in files}) == 2
+    assert {name for name, _ in files} == {"AVIF"}
     for name, path in files:
         assert (cv2.imread(str(path)) is not None
                 or cv2.imread(str(path), cv2.IMREAD_GRAYSCALE) is not None), path
@@ -800,15 +802,15 @@ def test_other_formats_refused_by_name(tmp_path):
             assert str(path) in str(e.value) and name in str(e.value), (name, str(e.value))
 
 
-@pytest.mark.parametrize("k", range(11))
+@pytest.mark.parametrize("k", range(13))
 def test_webp_and_netpbm_format_files_decode_as_cv2(tmp_path, k):
     """The entries of _format_files of the formats the port decodes (cv2's
-    PPM, PGM, PBM, ASCII PNM and PAM, its PFM, Sun raster, WebP and HDR, the
-    HDR under the #?RGBE signature, and the WebP named .jpg) read as cv2
-    reads them, in both modes (cv2 5.0 reads a 3-channel PFM only in
-    colour: None in grey)."""
+    PPM, PGM, PBM, ASCII PNM and PAM, its PFM, Sun raster, WebP, JPEG 2000
+    and HDR, the JP2's raw codestream, the HDR under the #?RGBE signature,
+    and the WebP named .jpg) read as cv2 reads them, in both modes (cv2 5.0
+    reads a 3-channel PFM only in colour: None in grey)."""
     files = [(name, path) for name, path in _format_files(tmp_path) if name in DECODED]
-    assert len(files) == 11
+    assert len(files) == 13
     name, path = files[k]
     for gray in (False, True):
         want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)

@@ -386,8 +386,8 @@ def test_tiff_damaged_data_as_cv2(tmp_path, compression):
 def _codings():
     """(coding, file bytes) of the TIFF codings Pillow writes that the port
     once refused by name: JPEG (RGB and YCbCr), CCITT RLE, Group 3 and
-    Group 4, YCbCr and Separated (CMYK), all decoded now; then those it
-    still refuses: CIELab and old-style LZW."""
+    Group 4, YCbCr, Separated (CMYK), CIELab and old-style LZW, all decoded
+    now."""
     import io
 
     im = scene(24, 32, seed=3)
@@ -409,10 +409,11 @@ def _codings():
     return out
 
 
-@pytest.mark.parametrize("k", range(7))
+@pytest.mark.parametrize("k", range(9))
 def test_tiff_codings_decoded_as_cv2(tmp_path, k):
     """Pillow's JPEG (from RGB and from YCbCr), CCITT RLE, Group 3, Group 4,
-    YCbCr and CMYK TIFFs read as cv2 reads them, in both modes."""
+    YCbCr, CMYK and CIELab TIFFs and old-style LZW strips read as cv2 reads
+    them, in both modes."""
     what, data = _codings()[k]
     path = tmp_path / "x.tif"
     path.write_bytes(data)
@@ -420,16 +421,21 @@ def test_tiff_codings_decoded_as_cv2(tmp_path, k):
     assert_same(path)
 
 
+def _sgilog24(k):
+    """Float colour for cv2.imwrite's SGILog24 TIFF (IMWRITE_TIFF_COMPRESSION
+    34677): a scene, or random luminances."""
+    im = scene(24, 32, seed=3).astype(np.float32) / 200
+    if k:
+        im = np.exp(np.random.default_rng(k).normal(-1, 1.5, im.shape)).astype(np.float32)
+    return im
+
+
 @pytest.mark.parametrize("k", range(2))
 def test_tiff_codings_refused_by_name(tmp_path, k):
-    """The TIFF codings cv2 reads that the port still does not decode
-    (CIELab and old-style LZW) raise ValueError naming the file and what it
-    is, in both modes."""
-    what, data = _codings()[7 + k]
+    """No TIFF coding cv2 reads is refused by name any more: the last one,
+    cv2's SGILog24 (its uv index through libtiff's uvcode.h table), reads as
+    cv2 reads it in both modes, without raising."""
     path = tmp_path / "x.tif"
-    path.write_bytes(data)
+    assert cv2.imwrite(str(path), _sgilog24(k), [cv2.IMWRITE_TIFF_COMPRESSION, 34677])
     assert cv2.imread(str(path)) is not None and cv2.imread(str(path), 0) is not None
-    for gray in (False, True):
-        with pytest.raises(ValueError) as e:
-            imread(str(path), grayscale=gray)
-        assert str(path) in str(e.value) and "TIFF" in str(e.value) and what in str(e.value)
+    assert_same(path)

@@ -1,5 +1,5 @@
-"""Fuzz the port's WebP, Netpbm, TIFF-coding, Sun raster, PFM and HDR
-readers against ``cv2.imread``.
+"""Fuzz the port's WebP, Netpbm, TIFF-coding, Sun raster, PFM, HDR and JPEG
+2000 readers against ``cv2.imread``.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tools/fuzz_torch_decoders.py [--seed S] [--scale K]
 
@@ -48,7 +48,26 @@ multiplies the counts):
   scales (0 and NaN included), both channel counts and byte orders, a fifth
   cut;
 - ``hdr`` (300): ``cv2.imencode``'s HDRs of random floats, a quarter cut, a
-  third with 1-3 bits flipped, some under ``#?RGBE``.
+  third with 1-3 bits flipped, some under ``#?RGBE``;
+- ``jp2`` (600): ``cv2.imwrite``'s JP2 at random rates, Pillow's files and
+  codestreams at random options (orders, layers, tiles, resolutions, 9/7,
+  MCT), ``tests/test_torch_port_imageio_jp2.py``'s ``opj_encode`` at random
+  code-block styles, SOP / EPH, ROI, tile-parts, precisions and component
+  counts, and its ``jp2_file`` with palettes, channel definitions and colour
+  spaces; 85% then cut at a random byte or with 1-3 bytes replaced;
+- ``tiff_lzw_old`` (300): old-style LZW of ``tiff_bytes`` (grey, RGB, 16 bits,
+  the predictor, strips, tiles, planes, fill orders), a third with 1-3
+  bytes replaced in the strips, a fifth cut.  The TIFF kinds replace bytes
+  between the header and the directory only: directory damage can make an
+  uncompressed strip or tile's byte count differ from its size, the known
+  divergence of ``ycbcr_cmyk`` above;
+- ``cielab`` (300): 8- and 16-bit CIELab (random samples, WhitePoint tags,
+  strips, tiles, LZW, flips), a tenth of them cut and a tenth with bytes
+  replaced in the data, and Pillow's LAB scenes;
+- ``sgilog`` (300): ``cv2.imwrite``'s SGILog and SGILog24 of random floats
+  (LogLuv, LogL) and ``tests/test_torch_port_imageio_tiff_lab_log.py``'s
+  ``sgilog_tiff`` / ``sgilog24_tiff`` in strips and tiles, a third with
+  bytes replaced in the data, a fifth cut.
 
 Prints the counts of each kind (files, None, mismatches) and writes each
 mismatching file beside the temporary directory's path it prints.
@@ -68,7 +87,8 @@ sys.path.insert(0, REPO)
 
 KINDS = {"encoders": 300, "damaged": 1000, "vp8_writer": 300, "animations": 300,
          "containers": 300, "netpbm": 1000, "tiff_jpeg": 300, "ccitt": 1000, "ycbcr_cmyk": 300,
-         "sunras": 300, "pfm": 300, "hdr": 300}
+         "sunras": 300, "pfm": 300, "hdr": 300, "jp2": 600, "tiff_lzw_old": 300, "cielab": 300,
+         "sgilog": 300}
 
 
 def _read(path, gray):
@@ -446,6 +466,228 @@ def _hdr(rng):
     return data
 
 
+def _module(name):
+    import importlib
+
+    return importlib.import_module(f"tests.{name}")
+
+
+def _damage(data, rng, lo=0):
+    """Cut at a random byte (40%) or 1-3 bytes replaced or bit-flipped."""
+    if rng.random() < 0.4:
+        return data[:int(rng.integers(1, len(data)))]
+    d = bytearray(data)
+    for _ in range(int(rng.integers(1, 4))):
+        at = int(rng.integers(lo, len(d)))
+        d[at] = int(rng.integers(256)) if rng.random() < 0.5 else d[at] ^ 1 << int(
+            rng.integers(8))
+    return bytes(d)
+
+
+def _jp2(rng):
+    import tempfile as tf
+
+    import cv2
+
+    j = _module("test_torch_port_imageio_jp2")
+    h, w = int(rng.integers(2, 70)), int(rng.integers(2, 90))
+    im = _scene(rng, h, w)
+    kind = rng.random()
+    if kind < 0.2:
+        with tf.TemporaryDirectory() as d:
+            path = os.path.join(d, "w.jp2")
+            cv2.imwrite(path, im if min(h, w) >= 32 else cv2.resize(im, (w + 32, h + 32)),
+                        [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, int(rng.integers(1, 1001))])
+            with open(path, "rb") as f:
+                data = f.read()
+    elif kind < 0.5:
+        kw = {}
+        if rng.random() < 0.5:
+            kw["irreversible"] = True
+        if rng.random() < 0.3:
+            kw["progression"] = ["LRCP", "RLCP", "RPCL", "PCRL", "CPRL"][int(rng.integers(5))]
+        if rng.random() < 0.3:
+            kw["quality_layers"] = sorted([float(x) for x in rng.integers(2, 60, int(
+                rng.integers(1, 4)))], reverse=True)
+        if rng.random() < 0.3 and not kw.get("irreversible"):
+            kw["tile_size"] = (int(rng.integers(8, 64)), int(rng.integers(8, 64)))
+        if rng.random() < 0.3:
+            kw["mct"] = 1
+        if rng.random() < 0.3:
+            kw["no_jp2"] = True
+        src = im if rng.random() < 0.8 else im[..., 0]
+        try:
+            data = j.pil_jp2(src, **kw)
+        except (OSError, ValueError):
+            data = j.pil_jp2(src, num_resolutions=1)
+    else:
+        planes = j.planes_of(im)[:int(rng.choice([1, 3, 3]))]
+        if rng.random() < 0.1:
+            planes = planes + [planes[0] // 2]
+        numres = int(rng.integers(1, min(7, int(np.log2(min(h, w))) + 2)))
+        kw = dict(mode=int(rng.integers(0, 64)) if rng.random() < 0.6 else 0,
+                  irreversible=bool(rng.random() < 0.4), csty=int(rng.choice([0, 2, 4, 6])),
+                  prog=int(rng.integers(0, 5)), numres=numres,
+                  mct=int(len(planes) >= 3 and rng.random() < 0.5))
+        if rng.random() < 0.5:
+            kw["rates"] = tuple(sorted([float(x) for x in rng.integers(2, 50, int(
+                rng.integers(1, 4)))], reverse=True))
+        if rng.random() < 0.3:
+            cw, ch = int(2 ** rng.integers(2, 7)), int(2 ** rng.integers(2, 7))
+            kw["cblk"] = (cw, ch) if cw * ch <= 4096 else (64, 64)
+        if rng.random() < 0.2:
+            kw["roi"] = (0, int(rng.integers(1, 12)))
+        if rng.random() < 0.2 and not kw["irreversible"]:
+            kw["tiles"] = (int(rng.integers(8, 64)), int(rng.integers(8, 64)), 0, 0)
+            kw["numres"] = 1
+        if rng.random() < 0.2:
+            kw["tile_parts"] = str(rng.choice(list("RLC")))
+        prec = 8
+        if rng.random() < 0.15:
+            prec = int(rng.choice([9, 10, 12, 16, 5]))
+            planes = [(p.astype(np.int64) << max(prec - 8, 0)) >> max(8 - prec, 0) for p in planes]
+        try:
+            data = j.opj_encode(planes, prec=prec, **kw)
+        except AssertionError:
+            data = j.opj_encode(planes, numres=1)
+        if rng.random() < 0.3:  # in a JP2 file of random boxes
+            box = {}
+            r = rng.random()
+            if r < 0.3 and len(planes) == 1:
+                n = int(rng.integers(1, 300))
+                cols = int(rng.integers(1, 4))
+                box = dict(pclr=(rng.integers(0, 256, (n, cols)).tolist(), [8] * cols),
+                           cmap=[(0, 1, i) for i in range(cols)])
+            elif r < 0.6:
+                box = dict(colr=int(rng.choice([16, 17, 18, 12, 24, 99])))
+            elif len(planes) >= 3:
+                box = dict(cdef=[(i, 0, int(c)) for i, c in enumerate(rng.permutation(3) + 1)])
+            data = j.jp2_file(data, h, w, len(planes), **box)
+    return _damage(data, rng) if rng.random() < 0.85 else data
+
+
+def _in_data(data, rng):
+    """1-3 bytes replaced in a little-endian TIFF's data, the bytes between
+    its header and its directory (directory damage can make an uncompressed
+    strip or tile's byte count differ from its size: the known divergence)."""
+    import struct
+
+    ifd = struct.unpack("<I", data[4:8])[0]
+    d = bytearray(data)
+    for _ in range(int(rng.integers(1, 4))):
+        d[int(rng.integers(8, max(9, ifd)))] = int(rng.integers(256))
+    return bytes(d)
+
+
+def _tiff_lzw_old(rng):
+    t = _module("test_torch_port_imageio_tiff")
+    h, w = int(rng.integers(1, 50)), int(rng.integers(1, 60))
+    im = _scene(rng, h, w)
+    kw = {}
+    if rng.random() < 0.3:
+        im = im[..., int(rng.integers(3))]
+    if rng.random() < 0.2:
+        kw["bps"] = 16
+        im = im.astype(np.int64) * 257
+    if rng.random() < 0.3:
+        kw["predictor"] = 2
+    r = rng.random()
+    if r < 0.3:
+        kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+    elif r < 0.45:
+        kw["tile"] = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+    if rng.random() < 0.15 and im.ndim == 3:
+        kw["planar"] = 2
+    if rng.random() < 0.15:
+        kw["fillorder"] = 2
+    data = t.tiff_bytes(im, compression=5, old_lzw=True, ifd_first=False, **kw)
+    r = rng.random()
+    if r < 0.33:
+        return _in_data(data, rng)
+    if r < 0.53:
+        return data[:int(rng.integers(8, len(data)))]
+    return data
+
+
+def _cielab(rng):
+    import io
+
+    from PIL import Image
+
+    lab = _module("test_torch_port_imageio_tiff_lab_log")
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 50))
+    if rng.random() < 0.2:
+        buf = io.BytesIO()
+        Image.fromarray(_scene(rng, h, w)).convert("LAB").save(buf, "TIFF")
+        return buf.getvalue()  # its directory comes first: left whole
+    else:
+        bps = int(rng.choice([8, 16]))
+        px = rng.integers(0, 1 << bps, (h, w, 3))
+        kw = {}
+        if rng.random() < 0.3:
+            kw["white"] = [int(x) for x in rng.integers(0, 20000, 4)] if rng.random() < 0.2 else [
+                int(rng.integers(2000, 4000)), 10000, int(rng.integers(2000, 4000)), 10000]
+        else:
+            r = rng.random()
+            if r < 0.3:
+                kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+            elif r < 0.5:
+                kw["tile"] = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+            if rng.random() < 0.3:
+                kw["compression"] = int(rng.choice([5, 8, 32773]))
+            if rng.random() < 0.2:
+                kw["orientation"] = int(rng.integers(1, 5))
+        if "white" not in kw:
+            kw["ifd_first"] = False
+        data = lab._lab_tiff(px, bps, **kw)
+    r = rng.random()
+    if r < 0.1:
+        return data[:int(rng.integers(8, len(data)))]
+    if r < 0.2:
+        return _in_data(data, rng)
+    return data
+
+
+def _sgilog(rng):
+    import tempfile as tf
+
+    import cv2
+
+    lab = _module("test_torch_port_imageio_tiff_lab_log")
+    h, w = int(rng.integers(1, 40)), int(rng.integers(1, 50))
+    luv = rng.random() < 0.6
+    coding = 34677 if luv and rng.random() < 0.4 else 34676
+    if rng.random() < 0.4:
+        shape = (h, w, 3) if luv else (h, w)
+        f = (np.exp(rng.normal(float(rng.normal(0, 2)), float(rng.random() * 3), shape))
+             * rng.choice([1, -1, 1, 1])).astype(np.float32)
+        with tf.TemporaryDirectory() as d:
+            path = os.path.join(d, "s.tif")
+            cv2.imwrite(path, f, [cv2.IMWRITE_TIFF_COMPRESSION, coding])
+            with open(path, "rb") as fh:
+                data = fh.read()
+    else:
+        kw = {}
+        r = rng.random()
+        if r < 0.4:
+            kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+        elif r < 0.6:
+            kw["tile"] = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+        if rng.random() < 0.2:
+            kw["orientation"] = int(rng.integers(1, 5))
+        if coding == 34677:
+            kw.pop("orientation", None)
+            data = lab.sgilog24_tiff(rng.integers(0, 1 << 24, (h, w)).astype(np.uint32), **kw)
+        else:
+            data = lab.sgilog_tiff(lab._log_values(rng, (h, w), luv), luv, **kw)
+    r = rng.random()
+    if r < 0.33:
+        return _in_data(data, rng)
+    if r < 0.53:
+        return data[:int(rng.integers(8, len(data)))]
+    return data
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -475,7 +717,9 @@ def main() -> int:
                 data, depth = _netpbm(rng)
             else:
                 data = {"tiff_jpeg": _tiff_jpeg, "ccitt": _ccitt, "ycbcr_cmyk": _ycbcr_cmyk,
-                        "sunras": _sunras, "pfm": _pfm, "hdr": _hdr}[kind](rng)
+                        "sunras": _sunras, "pfm": _pfm, "hdr": _hdr, "jp2": _jp2,
+                        "tiff_lzw_old": _tiff_lzw_old, "cielab": _cielab,
+                        "sgilog": _sgilog}[kind](rng)
             read, ok = same(path, data, depth)
             none += not read
             if not ok:

@@ -78,6 +78,20 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   colour PFM (None in grey) and a grey big-endian one with NaN and
   infinities; ``cv2``'s HDR, flat, old-style run-length and ``#?RGBE``
   files;
+- ``jp2/`` and ``tiff/`` (old-style LZW, CIELab, SGILog(24) and the None
+  files): ``jp2/lossless/img_112.jp2`` ... (the four progressive scenes'
+  pixels through Pillow's lossless 5/3 with RCT) and ``jp2/lossy/`` (9/7
+  with ICT at a compression ratio of 12), each set with its gt, ``eval.txt``
+  and ``eval_fots_cpu.json`` (greedy and beam 8); on windows of ``img_112``,
+  a file for each route of the JPEG 2000 decoder (``cv2``'s lossy JP2, a
+  raw RPCL codestream with precincts and layers, every code-block style
+  with SOP / EPH in CPRL, ROI and POC over 9/7, tiles in tile-parts, 12-bit
+  grey (None in colour, as a one-component codestream), packet headers in
+  PPT and in PPM, a palette, sYCC with channel
+  definitions, signed components (None), a cut file (None)) and of the
+  TIFF codings (old-style LZW with the predictor, Pillow's CIELab, 16-bit
+  CIELab tiles, ``cv2``'s SGILog LogLuv and SGILog24, LogL tiles; old-style
+  JPEG, ICCLab and ITULab files read as None);
 - ``manifest.json``: for each file its SHA-256 and the shape and SHA-256 of
   ``cv2.imread``'s colour and grey bytes (null where ``cv2`` reads nothing:
   a lossless frame's output in another colour space, a WebP or Netpbm file
@@ -86,7 +100,8 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   with the shipped snapshot (f32, CPU): summary and match counts;
   ``gif/eval_fots_cpu.json``, the same over ``gif/eval.txt``,
   ``webp/lossy/eval_fots_cpu.json`` over ``webp/lossy/eval.txt``, and
-  ``tiff_jpeg/`` and ``ccitt/eval_fots_cpu.json`` over theirs.
+  ``tiff_jpeg/``, ``ccitt/``, ``jp2/lossless/`` and ``jp2/lossy/`` over
+  theirs.
 """
 
 from __future__ import annotations
@@ -422,6 +437,87 @@ def codings_files(prog_images, prog_names) -> dict:
     return out
 
 
+JP2_LOSSY_RATE = 12  # compression ratio of the irreversible JP2 scenes (Pillow's "rates")
+JP2_BEAM = 8  # the recognition beam of the JP2 scenes' second evaluation
+
+
+def jp2_lab_log_files(prog_images, prog_names) -> dict:
+    """{relative path: bytes} of ``jp2/`` and the old-style LZW, CIELab,
+    SGILog, old-style JPEG, ICCLab and ITULab files of ``tiff/``."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    sys.path.insert(0, REPO)
+    j = importlib.import_module("tests.test_torch_port_imageio_jp2")
+    t = importlib.import_module("tests.test_torch_port_imageio_tiff")
+    c = importlib.import_module("tests.test_torch_port_imageio_tiff_codings")
+    lab = importlib.import_module("tests.test_torch_port_imageio_tiff_lab_log")
+    out = {}
+    for im, name in zip(prog_images, prog_names):
+        stem = os.path.splitext(name)[0]
+        out[f"jp2/lossless/{stem}.jp2"] = j.pil_jp2(im, mct=1)
+        out[f"jp2/lossy/{stem}.jp2"] = j.pil_jp2(im, irreversible=True, mct=1,
+                                                 quality_mode="rates",
+                                                 quality_layers=[JP2_LOSSY_RATE])
+    win = np.ascontiguousarray(prog_images[0][200:264, 300:396])
+    planes = j.planes_of(win)
+    out["jp2/cv2_lossy.jp2"] = cv2.imencode(".jp2", win, [
+        cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 200])[1].tobytes()
+    out["jp2/codestream_rpcl_precincts_layers.j2k"] = j.pil_jp2(
+        win, no_jp2=True, progression="RPCL", precinct_size=(32, 32), codeblock_size=(8, 8),
+        quality_layers=[40, 10, 2], irreversible=True)
+    out["jp2/styles_sop_eph_cprl.j2k"] = j.opj_encode(planes, mode=63, csty=6, prog=4,
+                                                      rates=(20, 5), mct=1)
+    out["jp2/roi_poc_9_7.j2k"] = j.opj_encode(planes, roi=(0, 6), irreversible=True, mct=1,
+                                              pocs=[(0, 0, 1, 3, 3, 1), (3, 0, 1, 6, 3, 2)])
+    out["jp2/tiles_tile_parts_pcrl.j2k"] = j.opj_encode(planes, tiles=(40, 24, 0, 0), numres=3,
+                                                        tile_parts="R", prog=3)
+    out["jp2/grey_12bit_colour_none.j2k"] = j.opj_encode([planes[1].astype(np.int64) * 16 + 7],
+                                                         prec=12)
+    out["jp2/ppt_headers.j2k"] = j.moved_headers(j.opj_encode(planes, csty=6, rates=(30, 8)),
+                                                 "ppt")
+    out["jp2/ppm_headers.j2k"] = j.moved_headers(j.opj_encode(planes, csty=6, mode=1), "ppm")
+    grey = cv2.cvtColor(win, cv2.COLOR_BGR2GRAY)
+    index = grey // 2
+    entries = [[v * 2, 255 - v * 2, (v * 7) % 256] for v in range(128)]
+    out["jp2/palette.jp2"] = j.jp2_file(j.opj_encode([index]), 64, 96, 1,
+                                        pclr=(entries, [8, 8, 8]),
+                                        cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    out["jp2/sycc_cdef.jp2"] = j.jp2_file(j.opj_encode(planes), 64, 96, 3, colr=18,
+                                          cdef=[(0, 0, 1), (1, 0, 3), (2, 0, 2)])
+    out["jp2/signed_none.j2k"] = j.opj_encode([p.astype(np.int64) - 128 for p in planes],
+                                              sgnd=True)
+    lossless = out[f"jp2/lossless/{os.path.splitext(prog_names[0])[0]}.jp2"]
+    out["jp2/cut_none.jp2"] = lossless[:len(lossless) // 3]
+    out["tiff/old_style_lzw_predictor.tif"] = t.tiff_bytes(win, compression=5, old_lzw=True,
+                                                           predictor=2, rows_per_strip=16)
+    buf = io.BytesIO()
+    Image.fromarray(win[..., ::-1].copy()).convert("LAB").save(buf, "TIFF")
+    out["tiff/cielab8_pillow.tif"] = buf.getvalue()
+    rng = np.random.default_rng(20)
+    out["tiff/cielab16_tiles.tif"] = lab._lab_tiff(rng.integers(0, 65536, (45, 70, 3)), 16,
+                                                   tile=(32, 16))
+    ok, enc = cv2.imencode(".tif", win.astype(np.float32) / 150,
+                           [cv2.IMWRITE_TIFF_COMPRESSION, 34676])
+    out["tiff/sgilog_luv_cv2.tif"] = enc.tobytes()
+    ok, enc = cv2.imencode(".tif", win.astype(np.float32) / 150,
+                           [cv2.IMWRITE_TIFF_COMPRESSION, 34677])
+    out["tiff/sgilog24_cv2.tif"] = enc.tobytes()
+    out["tiff/sgilog_logl_tiles.tif"] = lab.sgilog_tiff(lab._log_values(rng, (45, 70), False),
+                                                        False, tile=(32, 16))
+    stream = io.BytesIO()
+    Image.fromarray(win[:16, :24, ::-1].copy()).save(stream, "JPEG")
+    out["tiff/old_jpeg_none.tif"] = c.raw_tiff(24, 16, [stream.getvalue()], {
+        258: (3, [8, 8, 8]), 259: (3, [6]), 262: (3, [6]), 277: (3, [3]), 278: (4, [16])})
+    for photometric, what in ((9, "icclab"), (10, "itulab")):
+        out[f"tiff/{what}_none.tif"] = c.raw_tiff(24, 16, [win[:16, :24].tobytes()], {
+            258: (3, [8, 8, 8]), 259: (3, [1]), 262: (3, [photometric]), 277: (3, [3]),
+            278: (4, [16])})
+    return out
+
+
 def files(images, names) -> dict:
     """{relative path: bytes} of every file but the scenes' annotations."""
     import cv2
@@ -454,6 +550,7 @@ def files(images, names) -> dict:
             for n in names[:SCENES]]
     out.update(webp_pnm_files(images, prog, names[:SCENES]))
     out.update(codings_files(prog, names[:SCENES]))
+    out.update(jp2_lab_log_files(prog, names[:SCENES]))
     return out
 
 
@@ -472,7 +569,7 @@ def main() -> int:
         names = [os.path.basename(str(n)) for n in z["names"]]
     shutil.rmtree(OUT, ignore_errors=True)
     for sub in ("prog", "bmp", "gif", "tiff", "webp/lossless", "webp/lossy", "pnm", "tiff_jpeg",
-                "ccitt", "sunras", "pfm", "hdr"):
+                "ccitt", "sunras", "pfm", "hdr", "jp2/lossless", "jp2/lossy"):
         os.makedirs(os.path.join(OUT, sub))
     manifest = {}
     for rel, data in files(images, names).items():
@@ -511,7 +608,8 @@ def main() -> int:
         f.write(gif_scene + "\n")
     stems = [os.path.splitext(n)[0] for n in names[:SCENES]]
     for sub, listed, ext in (("webp/lossless", stems[:1], "webp"), ("webp/lossy", stems, "webp"),
-                             ("tiff_jpeg", stems, "tif"), ("ccitt", stems, "tif")):
+                             ("tiff_jpeg", stems, "tif"), ("ccitt", stems, "tif"),
+                             ("jp2/lossless", stems, "jp2"), ("jp2/lossy", stems, "jp2")):
         for stem in listed:
             shutil.copy(os.path.join(HELDOUT_JPG, f"gt_{stem}.txt"), os.path.join(OUT, sub))
         with open(os.path.join(OUT, sub, "eval.txt"), "w") as f:
@@ -525,13 +623,21 @@ def main() -> int:
             ("tiff_jpeg", [os.path.join(OUT, "tiff_jpeg", f"{s}.tif") for s in stems],
              f"the {SCENES} TIFF-JPEG scenes"),
             ("ccitt", [os.path.join(OUT, "ccitt", f"{s}.tif") for s in stems],
-             f"the {SCENES} binarised Group 4 scenes")):
+             f"the {SCENES} binarised Group 4 scenes"),
+            ("jp2/lossless", [os.path.join(OUT, "jp2", "lossless", f"{s}.jp2") for s in stems],
+             f"the {SCENES} lossless JP2 scenes"),
+            ("jp2/lossy", [os.path.join(OUT, "jp2", "lossy", f"{s}.jp2") for s in stems],
+             f"the {SCENES} irreversible JP2 scenes")):
         run = run_fots(paths, [])
         result = {"snapshot": "artifacts/serving_params.npz", "images_list": os.path.relpath(
                       os.path.join(OUT, sub or "prog", "eval.txt"), REPO),
                   "precision": "f32", "platform": jax.default_backend(), "jax": jax.__version__,
                   "opencv": cv2.__version__,
                   "run": {k: run[k] for k in ("summary", "counts")}}
+        if sub.startswith("jp2"):  # and with prefix beam search of width 8
+            beam = run_fots(paths, ["-beam", str(JP2_BEAM)])
+            result["run_beam"] = {"beam": JP2_BEAM,
+                                  **{k: beam[k] for k in ("summary", "counts")}}
         with open(os.path.join(OUT, sub, "eval_fots_cpu.json"), "w") as f:
             json.dump(result, f, indent=1)
             f.write("\n")
