@@ -143,8 +143,10 @@ result line):
    WebP, Netpbm, Sun raster, PFM, HDR and JPEG 2000 decoders) to the
    SHA-256 of ``cv2.imread``'s colour and grey bytes in its manifest, or to
    nothing where its entry is null (old-style JPEG, ICCLab and ITULab TIFFs
-   among them) (the decode
-   ms of the 640x960 scene ``img_112`` printed in twenty forms, timed in
+   among them; TIFFs whose strip or tile byte counts are missing, zero,
+   short, long or wrong, and a scene-size Deflate strip without them)
+   (the decode
+   ms of the 640x960 scene ``img_112`` printed in twenty-one forms, timed in
    turns: sequential, progressive, block-smoothed, CMYK and
    arithmetic-coded JPEG, a 24-bit BMP and an uncompressed TIFF written
    here, ``cv2``'s GIF, 256x384 windows as ``cv2``'s TIFF-LZW and
@@ -153,7 +155,8 @@ result line):
    run-length HDR written here, ``cv2``'s TIFF-JPEG
    (``decode_ref/tiff_jpeg``) and Group 4 of its binarised pixels
    (``decode_ref/ccitt``), Pillow's lossless 5/3 and ratio-12 9/7 JP2
-   (``decode_ref/jp2``), each also as a ratio to the sequential jpg); the
+   (``decode_ref/jp2``), and one Deflate strip without StripByteCounts
+   written here, each also as a ratio to the sequential jpg); the
    lossless WebP, the lossless JP2 and a Sun raster under .jpg names must
    decode to the progressive ``img_112``'s pixels, an AVIF file raise
    ``ValueError`` naming the format, a 62-byte BMP read as None; reader 0's
@@ -187,7 +190,11 @@ result line):
    and as irreversible JP2 (``decode_ref/jp2/lossless``, ``/lossy``),
    greedy and with prefix beam search 8, ``fots``'s committed counts of
    each exactly (the lossless ones greedy also the jpgs' boxes and texts),
-   with K1'-K4' launched;
+   with K1'-K4' launched; then (their launches counted apart) the four
+   scenes' decoded pixels as one-strip Deflate TIFFs without StripByteCounts
+   under their .jpg names (libtiff estimates the count from the file's
+   size), written here, must give ``eval_e2e -images_list`` the jpgs' boxes
+   and texts, with K1'-K4' launched;
    ``export -selftest <folder>`` must pass;
    ``train_joint`` from the jpg files (no archive, seed 0, 6 readers, 20
    steps at batch 8, 512x512, as phase 8): finite losses, no sample
@@ -268,7 +275,9 @@ Then it prints a ``{"kernels": [...]}`` JSON line (K4' and K4'-bwd at C = 3
 listed as rows of their own), the serving, export, training,
 training-from-scratch, fused-block, evaluation, ocr, files, writers, transports and
 mesh JSON lines,
-the card's name and power limit from nvidia-smi, and last the
+the card's name and power limit from nvidia-smi, a ``{"phase_s": {...}}``
+line of each phase's seconds (the build and the assets' loading among
+them; printed also after a subset of ``--phases``), and last the
 ``{"ok": true, "device": {...}}`` line.  Needs one CUDA card;
 exits non-zero without one.
 """
@@ -288,6 +297,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from collections import Counter
 
 import numpy as np
@@ -2167,6 +2177,27 @@ def _tiff_bytes(im, rows_per_strip=16) -> bytes:
     return b"II*\0" + struct.pack("<I", 8) + body + data
 
 
+def _tiff_no_counts_bytes(im) -> bytes:
+    """A little-endian RGB TIFF of a BGR u8 image as one Deflate strip with
+    no StripByteCounts tag, which libtiff estimates from the file's size:
+    the smoke test's own writer."""
+    h, w = im.shape[:2]
+    strip = zlib.compress(np.ascontiguousarray(im[..., ::-1]).tobytes(), 6)
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 8), (262, 3, 2), (273, 4, 0),
+            (277, 3, 3), (278, 4, h)]
+    values_at = 8 + 2 + 12 * len(tags) + 4
+    data_at = values_at + 6
+    ifd = struct.pack("<H", len(tags))
+    for tag, typ, value in tags:
+        if tag == 258:  # three shorts, after the directory
+            ifd += struct.pack("<HHII", tag, typ, 3, values_at)
+        else:
+            ifd += struct.pack("<HHI", tag, typ, 1) + struct.pack(
+                "<I" if typ == 4 else "<H2x", data_at if tag == 273 else value)
+    return (b"II*\0" + struct.pack("<I", 8) + ifd + b"\0\0\0\0" + struct.pack("<3H", 8, 8, 8)
+            + strip)
+
+
 def _ppm_bytes(im) -> bytes:
     """A binary PPM (P6, maxval 255) of a BGR u8 image: the smoke test's own
     writer."""
@@ -2325,7 +2356,8 @@ def phase_files(images, eval_result=None, joint_result=None):
     scene_112 = imread(os.path.join(FILES_JPG, "img_112.jpg"))
     for name, writer in (("img_112.bmp", _bmp_bytes), ("img_112.tif", _tiff_bytes),
                          ("img_112.ppm", _ppm_bytes), ("img_112.ras", _sun_raster_bytes),
-                         ("img_112.pfm", _pfm_bytes), ("img_112.hdr", _hdr_bytes)):
+                         ("img_112.pfm", _pfm_bytes), ("img_112.hdr", _hdr_bytes),
+                         ("img_112_no_counts.tif", _tiff_no_counts_bytes)):
         with open(os.path.join(tmp, name), "wb") as f:
             f.write(writer(scene_112))
         got = imread(os.path.join(tmp, name))
@@ -2354,7 +2386,8 @@ def phase_files(images, eval_result=None, joint_result=None):
                     "g4_binarised": os.path.join(DECODE_REF, "ccitt", "img_112.tif"),
                     "jp2_lossless": os.path.join(DECODE_REF, "jp2", "lossless", "img_112.jp2"),
                     "jp2_lossy_ratio_12": os.path.join(DECODE_REF, "jp2", "lossy",
-                                                       "img_112.jp2")}
+                                                       "img_112.jp2"),
+                    "tiff_deflate_no_counts": os.path.join(tmp, "img_112_no_counts.tif")}
     forms = list(decode_forms)
     pair_times = {k: [] for k in decode_forms}
     for i in range(DECODE_REPEATS):
@@ -2534,6 +2567,15 @@ def phase_files(images, eval_result=None, joint_result=None):
                 jp2_runs[(kind, run)] = (summary_jp2, json.load(f))
     torch.cuda.synchronize()
     jp2_launches = {k: build.launch_counts[k] - before[k] for k in before}
+    # (d5) the four scenes as one Deflate strip without StripByteCounts
+    before = dict(build.launch_counts)
+    lst = _write_scene_copies(os.path.join(tmp, "tiff_no_counts_scenes"), prog_images,
+                              prog_names, _tiff_no_counts_bytes, PROG_JPG)
+    no_counts_dump = os.path.join(tmp, "tiff_no_counts_dump.json")
+    with no_tf32():
+        eval_e2e.main(["-model", SNAPSHOT, "-images_list", lst, "-dump_json", no_counts_dump])
+    torch.cuda.synchronize()
+    no_counts_launches = {k: build.launch_counts[k] - before[k] for k in before}
     t_prog = time.perf_counter()
     # (e) the exported bundle's selftest on the folder
     _, printed = _captured(export_cli.main, ["-model", SNAPSHOT, "-out",
@@ -2643,6 +2685,14 @@ def phase_files(images, eval_result=None, joint_result=None):
                                     "e2e_hmean": summary_jp2["e2e_hmean"]}
     for kname in build.PATH_KERNELS["serving"]:
         check(jp2_launches[kname] > 0, f"kernel {kname} was not launched over the JP2 scenes")
+    with open(no_counts_dump) as f:
+        _dumps_equal(json.load(f), prog_dump_records,
+                     "eval_e2e over the one-strip Deflate TIFFs without StripByteCounts")
+    for kname in build.PATH_KERNELS["serving"]:
+        check(no_counts_launches[kname] > 0, f"kernel {kname} was not launched over the "
+                                             f"Deflate TIFFs without StripByteCounts")
+    print(f"  the four as one-strip Deflate TIFFs without StripByteCounts under .jpg names: "
+          f"eval_e2e's boxes and texts equal the jpgs'; launches {no_counts_launches}")
     print(f"  the four as lossless and ratio-12 JP2, greedy and beam {JP2_BEAM}: " + "; ".join(
         f"{k} {v['eval_counts']} (fots {v['fots_eval_counts']}, exactly; det hmean "
         f"{v['det_hmean']:.4f} e2e hmean {v['e2e_hmean']:.4f})" for k, v in jp2_out.items())
@@ -2702,6 +2752,7 @@ def phase_files(images, eval_result=None, joint_result=None):
            "tiff_codings": {"eval_counts": coding_counts, "fots_eval_counts": coding_refs,
                             "eval_summary": coding_summaries},
            "jp2": jp2_out,
+           "tiff_no_counts": {"launches": no_counts_launches},
            "eval_e2e_images_list": summary,
            "train_joint_from_files": {
                "steps": FILES_STEPS, "losses": [h["loss"] for h in hist], **readers,
@@ -3387,44 +3438,39 @@ def main(argv=None) -> int:
         for kname, info in kernels.items():
             print(f"  {lib}: {kname} {info}")
 
+    phase_s = {"build": round(time.perf_counter() - t0, 1)}
+    t0 = time.perf_counter()
     images, targets = load_assets()
+    phase_s["assets"] = round(time.perf_counter() - t0, 1)
     results = {}
-    if "kernels" in phases:
-        results["kernels"] = phase_kernels(dev, peaks)
-    if "serve_parity" in phases:
-        results["serve_parity"] = phase_serve_parity(list(images))
-    if "serve" in phases:
-        results["serve"] = phase_serve(list(images))
-    if "export" in phases:
-        results["export"] = phase_export(list(images))
-    if "train_parity" in phases:
-        results["train_parity"] = {name: phase_train_parity(images, targets, ohem)
-                                   for name, ohem in (("dice", False), ("ohem", True))}
-    if "train" in phases:
-        results["train"] = phase_train(images, targets)
-    if "train_joint" in phases:
-        results["train_joint"] = phase_train_joint(targets)
-    if "fused_block" in phases:
-        results["fused_block"] = phase_fused_block()
-    if "eval" in phases:
-        results["eval"] = phase_eval()
-    if "ocr" in phases:
-        results["ocr"] = phase_ocr(images, targets)
-    if "files" in phases:
-        results["files"] = phase_files(images, results.get("eval", (None, None))[1],
-                                       results.get("train_joint", (None, None))[1])
-    if "writers" in phases:
-        results["writers"] = phase_writers()
-    if "transports" in phases:
-        results["transports"] = phase_transports(list(images))
-    if "mesh" in phases:
-        results["mesh"] = phase_mesh(images, targets)
+    runs = (("kernels", lambda: phase_kernels(dev, peaks)),
+            ("serve_parity", lambda: phase_serve_parity(list(images))),
+            ("serve", lambda: phase_serve(list(images))),
+            ("export", lambda: phase_export(list(images))),
+            ("train_parity", lambda: {name: phase_train_parity(images, targets, ohem)
+                                      for name, ohem in (("dice", False), ("ohem", True))}),
+            ("train", lambda: phase_train(images, targets)),
+            ("train_joint", lambda: phase_train_joint(targets)),
+            ("fused_block", phase_fused_block),
+            ("eval", phase_eval),
+            ("ocr", lambda: phase_ocr(images, targets)),
+            ("files", lambda: phase_files(images, results.get("eval", (None, None))[1],
+                                          results.get("train_joint", (None, None))[1])),
+            ("writers", phase_writers),
+            ("transports", lambda: phase_transports(list(images))),
+            ("mesh", lambda: phase_mesh(images, targets)))
+    for pname, run in runs:
+        if pname in phases:
+            t0 = time.perf_counter()
+            results[pname] = run()
+            phase_s[pname] = round(time.perf_counter() - t0, 1)
     smi = card_name_and_power_limit()
     print(f"chip_smoke: phases {phases} in {time.perf_counter() - t_script:.1f} s (the build "
           f"included, the card's set-up before it not)")
     if set(phases) != set(PHASES):
         print(f"ran phases {phases} only; no result lines")
         print(smi)
+        print(json.dumps({"phase_s": phase_s}))
         return 0
 
     worst, rows, crelu = results["kernels"]
@@ -3508,6 +3554,7 @@ def main(argv=None) -> int:
     print(json.dumps({"transports": transports}))
     print(json.dumps({"mesh": mesh}))
     print(smi)
+    print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -72,6 +72,22 @@ BMP, GIF and TIFF, read as ``cv2.imread`` reads them by
   the WhitePoint tag, D50 by default), and SGILog (compression 34676: LogL
   grey and LogLuv colour, into libtiff's 8-bit samples) and SGILog24
   (34677, LogLuv: its uv index through uvcode.h's table).
+  Strip and tile byte counts are read as libtiff's TIFFReadDirectory leaves
+  them: a missing StripByteCounts is estimated for one strip (or one a
+  plane; more strips are None), and so is one strip's count of 0 in any
+  coding or, uncompressed, past the end of the file or short of the image,
+  and the counts of more than two uncompressed contiguous strips or tiles
+  whose first two differ (the counts equal to the offsets among them): a
+  tile's size, ``imagelength / strips`` rows of a strip, or, compressed,
+  the file's size less the directory's bytes, cut at the end of the file.
+  An uncompressed strip shorter than asked for reads as zeros; an
+  uncompressed tile whose data is not the tile's size makes the file None
+  (a later plane's tile reads as zeros); a count past 1 MiB is cut to ten
+  strips and 4 KiB; one uncompressed strip is never chopped.  A damaged
+  directory field reads as libtiff reads it: each tag through its own
+  reader (any integer type, values in range, one value or one a sample),
+  failing the file or ignored as libtiff does; only the first entry of a
+  tag counts; a colour map only after BitsPerSample; no Photometric is None.
 A format is found by its signature, as ``cv2`` finds it (by content, not by
 name): a BMP named ``.jpg`` is read as a BMP.
 
@@ -443,15 +459,27 @@ _D50 = np.float32(96.4250) + np.float32(100.0) + np.float32(82.4680)
 _WHITE_POINT = (float(np.float32(96.4250) / _D50), float(np.float32(100.0) / _D50))
 #: YCbCrSubsampling values with a put routine in libtiff's RGBA reader
 _YCBCR_SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
-#: tags libtiff reads as one unsigned number, failing the directory otherwise
-_TIFF_SCALAR_TAGS = (256, 257, 259, 262, 277, 278, 284)
-#: tags TIFFReadDirectory reads a value of for every sample, failing the
-#: directory where they cannot be read or differ: BitsPerSample,
-#: Min / MaxSampleValue, SampleFormat
-_TIFF_PERSAMPLE_TAGS = (258, 280, 281, 339)
-#: tags libtiff ignores (keeping its default) unless they hold one number:
-#: FillOrder, Orientation, Predictor
-_TIFF_SINGLE_TAGS = (266, 274, 317)
+#: TIFFDataWidth of each type (0 counts as a byte; a type without a width
+#: fails EstimateStripByteCounts)
+_TIFF_WIDTHS = {0: 1, 1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4, 5: 8, 10: 8,
+                12: 8, 16: 8, 17: 8, 18: 8}
+#: the types TIFFReadDirEntryShort / Long / Long8 and their arrays read (not
+#: IFD or IFD8), with their formats; a negative value or one too large for
+#: the field fails the read
+_TIFF_INTS = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 16: "Q", 17: "q"}
+#: how TIFFReadDirectory reads the tags the decoder uses as numbers: the
+#: read ("persample": one 16-bit value, or one a sample that must all agree;
+#: else one value of at most that many bits), whether a tag it cannot read
+#: fails the directory (else the tag is ignored and its default kept), and
+#: the range of values TIFFSetField takes (which fails or ignores the same)
+_TIFF_NUMBERS = {256: (32, True, 0, 2**32), 257: (32, True, 0, 2**32), 278: (32, True, 1, 2**32),
+                 322: (32, True, 0, 2**32), 323: (32, True, 0, 2**32), 277: (16, True, 1, 2**16),
+                 284: (16, True, 1, 3), 259: ("persample", True, 0, 2**16),
+                 258: ("persample", True, 0, 2**16), 280: ("persample", True, 0, 2**16),
+                 281: ("persample", True, 0, 2**16), 339: ("persample", True, 1, 7),
+                 262: (16, False, 0, 2**16), 266: (16, False, 1, 3), 274: (16, False, 1, 9),
+                 317: (16, False, 0, 2**16), 332: (16, False, 0, 2**16),
+                 292: (32, False, 0, 2**32)}
 _BIT_REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
@@ -504,8 +532,42 @@ def _tiff_jpeg(tables: np.ndarray, raw: bytes, params, occ: int, rowbytes: int):
     return buf[:occ], True
 
 
+def _tiff_ints(data: bytes, e: str, layout: dict, entry, limit=None, bits=64):
+    """The integers of a directory entry as TIFFReadDirEntry{Short,Long,
+    Long8}Array reads them (the first ``limit`` of them), or None where the
+    read fails: a type of another kind, values past the end of the file, a
+    value negative or of more than ``bits`` bits.  Whether the values lie
+    in the entry or at its offset follows from the whole count."""
+    typ, cnt, value_at = entry[1:4]
+    fmt = _TIFF_INTS.get(typ)
+    if fmt is None:
+        return None
+    k = cnt if limit is None else min(cnt, limit)
+    if k == 0:
+        return ()
+    width = struct.calcsize(e + fmt)
+    if width * cnt > layout["inline"]:
+        value_at = struct.unpack_from(e + layout["off_fmt"], data, value_at)[0]
+    if value_at + width * k > len(data):
+        return None
+    values = struct.unpack_from(e + fmt * k, data, value_at)
+    if min(values) < 0 or max(values) >> bits:
+        return None
+    return values
+
+
 def _tiff_directory(data: bytes):
-    """(tags, big-endian) of the first directory: tag -> tuple of numbers."""
+    """(tags, big-endian, layout) of the first directory as TIFFReadDirectory
+    reads it: tag -> tuple of numbers.  Only the first entry of a tag counts.
+    The tags of ``_TIFF_NUMBERS`` are read as libtiff reads them (failing the
+    directory, _Unreadable, or left out); a colour map counts only after
+    BitsPerSample and with 3 << BitsPerSample values, YCbCrSubsampling only
+    with 2; ExtraSamples of more values than samples or of a value over 2
+    (999 reads as 2) fails.  The strip and tile arrays are left unread:
+    ``layout["strile"]`` holds their entries for :func:`_tiff_strile` to read
+    once the number of strips is known; ``layout["space"]`` is what
+    EstimateStripByteCounts counts as the directory's bytes (None where an
+    entry's type has no size, which fails the estimate)."""
     order = data[:2]
     e = ">" if order == b"MM" else "<"
     magic = struct.unpack(e + "H", data[2:4])[0]
@@ -524,36 +586,150 @@ def _tiff_directory(data: bytes):
             raise _Unreadable("the TIFF directory lies past the end of the file")
     except struct.error:
         raise _Unreadable("the TIFF ends inside its header or directory (truncated)") from None
-    tags = {}
+    layout = {"strile": {}, "inline": inline, "off_fmt": off_fmt}
+    # sizeof(header) + the count + the entries + the next offset, then every
+    # entry's values that do not fit in it
+    space = (16 + 8 + count * 20 + 8) if magic == 43 else (8 + 2 + count * 12 + 4)
+    entries = {}  # tag -> (tag, type, count, where its value field lies, position)
     pos = at + struct.calcsize(count_fmt)
-    for _ in range(count):
-        if magic == 43:
-            tag, typ, cnt = struct.unpack_from(e + "HHQ", data, pos)
-        else:
-            tag, typ, cnt = struct.unpack_from(e + "HHI", data, pos)
-        value_at = pos + entry - inline
+    for k in range(count):
+        tag, typ, cnt = struct.unpack_from(e + ("HHQ" if magic == 43 else "HHI"), data, pos)
+        width = _TIFF_WIDTHS.get(typ)  # TIFFDataWidth
+        if space is not None:
+            space = None if width is None else space + (
+                width * cnt if width * cnt > inline else 0)
+        entries.setdefault(tag, (tag, typ, cnt, pos + entry - inline, k))
         pos += entry
+    layout["space"] = space
+    spp = 1
+    tags = {}
+    for tag, ent in sorted(entries.items(), key=lambda x: x[0] != 277):  # SamplesPerPixel first
+        _, typ, cnt, value_at, _ = ent
+        if tag in (273, 279, 324, 325):
+            layout["strile"][tag] = ent
+            continue
+        rule = _TIFF_NUMBERS.get(tag)
+        if rule is not None:
+            bits, fails, lo, hi = rule
+            if bits == "persample":  # TIFFReadDirEntryShort, else PersampleShort
+                values = _tiff_ints(data, e, layout, ent, bits=16)
+                if values is not None and cnt != 1:
+                    values = values[:spp] if cnt >= spp and len(set(values[:spp])) == 1 else None
+            else:
+                values = _tiff_ints(data, e, layout, ent, bits=bits) if cnt == 1 else None
+            if values is None or not lo <= values[0] < hi:
+                if fails:
+                    raise _Unreadable(f"TIFF tag {tag} of type {typ} and count {cnt} that "
+                                      f"libtiff cannot read")
+                continue
+            tags[tag] = values[:1]
+            if tag == 277:
+                spp = values[0]
+            continue
+        if tag == 338:  # setExtraSamples
+            values = _tiff_ints(data, e, layout, ent, bits=16)
+            if values is None or cnt > spp:
+                raise _Unreadable("bad TIFF ExtraSamples")
+            values = tuple(2 if v == 999 else v for v in values)
+            if any(v > 2 for v in values):
+                raise _Unreadable("bad TIFF ExtraSamples")
+            tags[338] = values
+            continue
+        if tag == 347:  # JPEGTables: bytes, or integers of 0-255; else (or empty) ignored
+            values = _tiff_ints(data, e, layout, (tag, 1 if typ in (2, 7) else typ) + ent[2:],
+                                bits=8)
+            if values:
+                tags[347] = values
+            continue
+        if tag == 530:  # TIFF_SETGET_UINT16_PAIR: two values, else ignored
+            values = _tiff_ints(data, e, layout, ent, bits=16) if cnt == 2 else None
+            if values is not None:
+                tags[530] = values
+            continue
         fmt = _TIFF_TYPES.get(typ)
-        if tag in tags:
-            continue
-        if tag in _TIFF_SCALAR_TAGS + _TIFF_PERSAMPLE_TAGS and (
-                typ not in (1, 3, 4, 16) or cnt != 1 and tag in _TIFF_SCALAR_TAGS):
-            raise _Unreadable(f"TIFF tag {tag} of type {typ} and count {cnt}")
-        if tag in _TIFF_SINGLE_TAGS and cnt != 1:
-            continue
-        if tag in (273, 279, 322, 323, 324, 325) and typ not in (1, 3, 4, 16):
-            raise _Unreadable(f"TIFF tag {tag} of type {typ}")
         if fmt is None:
             continue
         size = struct.calcsize(e + fmt) * cnt
         if size > inline:
             value_at = struct.unpack_from(e + off_fmt, data, value_at)[0]
             if value_at + size > n:
-                if tag in _TIFF_PERSAMPLE_TAGS:
-                    raise _Unreadable(f"TIFF tag {tag}'s values past the end of the file")
                 continue  # libtiff drops a tag whose values lie past the end
         tags[tag] = struct.unpack_from(e + fmt * cnt, data, value_at)
-    return tags, e == ">"
+    if 320 in tags:  # a colour map counts only after BitsPerSample, and whole
+        bps = tags.get(258, (1,))[0]
+        cmap = _tiff_ints(data, e, layout, entries[320], bits=16)
+        if (258 not in entries or entries[258][4] > entries[320][4] or bps > 24
+                or entries[320][2] != 3 << bps or cmap is None):
+            del tags[320]
+    return tags, e == ">", layout
+
+
+def _tiff_strile(data: bytes, e: str, layout: dict, tags: tuple, n: int):
+    """TIFFFetchStripThing: the first ``n`` values of the StripOffsets /
+    TileOffsets (or the byte counts) entry, 0 past its count, or None where
+    the directory has neither tag; the later entry of the two wins, as
+    libtiff's second pass copies each.  An entry libtiff cannot read fails
+    the directory (_Unreadable), and so does one short of more than a
+    million strips."""
+    entries = [layout["strile"][t] for t in tags if t in layout["strile"]]
+    if not entries:
+        return None
+    entry = max(entries, key=lambda x: x[4])
+    if entry[2] < n and n > 1_000_000:
+        raise _Unreadable("a TIFF strip or tile array short of more than a million strips")
+    values = _tiff_ints(data, e, layout, entry, limit=n)
+    if values is None:
+        raise _Unreadable("a TIFF strip or tile array libtiff cannot read")
+    return values + (0,) * (n - len(values))
+
+
+def _tiff_counts(data, big_endian, layout, n, planes, tiled, planar, compression, h,
+                 scanline, tile_bytes):
+    """The offsets and byte counts of the ``n`` strips or tiles as
+    TIFFReadDirectory leaves them: the arrays as read (:func:`_tiff_strile`),
+    then EstimateStripByteCounts' counts in their place
+    - where the tag is missing: one strip, or one a plane (more is
+      "MissingRequired", _Unreadable);
+    - of one strip whose count ByteCountLooksBad: 0 in any coding, past the
+      end of the file or short of the image uncompressed (offset 0 is never
+      bad);
+    - of more than two contiguous uncompressed strips or tiles whose first
+      two counts differ and are not 0 ("Wrong StripByteCounts").
+    The estimate: a tile's size, or ``imagelength / strips a plane`` rows;
+    compressed, the file's size less the directory's bytes (a plane's
+    share), the last strip's cut at the end of the file.  OpenCV's libtiff
+    chops no strip (its build leaves STRIPCHOP_DEFAULT unset): one
+    uncompressed strip stays one strip, however large."""
+    e = ">" if big_endian else "<"
+    offsets = _tiff_strile(data, e, layout, (273, 324), n)
+    counts = _tiff_strile(data, e, layout, (279, 325), n)
+    if offsets is None:
+        raise _Unreadable("TIFF without the offsets of its strips or tiles")
+    if counts is None:
+        if planar == 1 and n > 1 or planar == 2 and n != planes:
+            raise _Unreadable("TIFF without the byte counts of its strips or tiles")
+        estimate = True
+    elif n == 1 and not tiled:  # ByteCountLooksBad
+        off, cnt = offsets[0], counts[0]
+        estimate = off != 0 and (cnt == 0 or compression == 1 and (
+            off <= len(data) and cnt > len(data) - off or cnt < scanline * h))
+    else:
+        estimate = (planar == 1 and n > 2 and compression == 1 and counts[0] != counts[1]
+                    and counts[0] and counts[1])
+    if estimate:  # EstimateStripByteCounts
+        if compression != 1:
+            if layout["space"] is None:
+                raise _Unreadable("a TIFF directory entry of a type without a size")
+            space = len(data) - layout["space"] if len(data) >= layout["space"] else len(data)
+            counts = [space // planes] * n
+            last = offsets[-1]
+            if last + counts[-1] > len(data):
+                counts[-1] = len(data) - last if last < len(data) else 0
+        elif tiled:
+            counts = [tile_bytes] * n
+        else:
+            counts = [scanline * (h // (n // planes))] * n
+    return offsets, tuple(counts)
 
 
 def _tiff_inflate(raw: bytes, occ: int):
@@ -678,26 +854,21 @@ def _tiff_tag(tags, tag, default=None):
 
 
 def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
-    tags, big_endian = _tiff_directory(data)
+    tags, big_endian, layout = _tiff_directory(data)
     if 256 not in tags or 257 not in tags:
         raise _Unreadable("TIFF without its image width or length")
     w, h = tags[256][0], tags[257][0]
     compression = _tiff_tag(tags, 259, (1,))[0]
     spp = _tiff_tag(tags, 277, (1,))[0]
-    for tag in _TIFF_PERSAMPLE_TAGS:  # TIFFReadDirEntryPersampleShort
-        values = _tiff_tag(tags, tag, (1,))
-        if len(values) != 1:
-            values = values[:spp] if len(values) >= spp else ()
-        if len(set(values)) != 1:
-            raise _Unreadable(f"TIFF tag {tag} with different values for its samples")
     bps = _tiff_tag(tags, 258, (1,))[0]
     extras = _tiff_tag(tags, 338, ())
-    if len(extras) > spp or any(v > 2 for v in extras):
-        raise _Unreadable("bad TIFF ExtraSamples")
-    if 262 in tags:
-        photometric = tags[262][0]
-    else:  # libtiff's guess
-        photometric = 2 if spp - len(extras) >= 3 else (0 if bps == 1 else 1)
+    if 262 not in tags:  # OpenCV's readHeader needs the tag (libtiff guesses none)
+        raise _Unreadable("TIFF without a Photometric tag libtiff reads")
+    photometric = tags[262][0]
+    channels = {0: 1, 1: 1, 3: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, _LOGLUV: 3, 4: 4, 5: 4}.get(
+        photometric, 0)  # _TIFFGetMaxColorChannels
+    if channels and spp - len(extras) > channels:  # the rest become (unspecified) extra samples
+        extras += (0,) * (spp - len(extras) - channels)
     if photometric == 3 and 320 not in tags:  # TIFFReadDirectory's repair
         if bps < 8:
             raise _Unreadable("palette TIFF without its colour map")
@@ -707,11 +878,12 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     predictor = _tiff_tag(tags, 317, (1,))[0]
     orientation = _tiff_tag(tags, 274, (1,))[0]
     fillorder = _tiff_tag(tags, 266, (1,))[0]
-    tiled = 322 in tags or 324 in tags
+    tiled = 322 in tags or 323 in tags  # FIELD_TILEDIMENSIONS
     if not 0 < w or not 0 < h or spp < 1:
         raise _Unreadable("TIFF of zero size")
     # OpenCV's readHeader / readData and TIFFRGBAImageOK / Begin
-    depths = {3: (1, 4, 8)}.get(photometric, (1, 8, 16) if photometric in (0, 1) else (8, 16))
+    depths = {3: (1, 4, 8), _LOGL: (1, 8, 16), _LOGLUV: (1, 2, 4, 8, 16)}.get(
+        photometric, (1, 8, 16) if photometric in (0, 1) else (8, 16))
     if (bps not in depths or spp > 4 or fmt not in (1, 2, 4)
             or planar not in (1, 2) or compression in _TIFF_UNREAD_CODINGS):
         raise _Unreadable(f"TIFF of {bps}-bit samples, photometric {photometric}, "
@@ -738,10 +910,34 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     if log:  # SGILOGDATAFMT_8BIT: 8-bit grey or RGB
         photometric, bps = (2, 8) if photometric == _LOGLUV else (1, 8)
     hs, vs = _tiff_tag(tags, 530, (2, 2))[:2] if len(_tiff_tag(tags, 530, ())) >= 2 else (2, 2)
+    # the strips or tiles, with their offsets and byte counts as
+    # TIFFReadDirectory leaves them
+    if tiled:
+        tw, th = _tiff_tag(tags, 322, (0,))[0], _tiff_tag(tags, 323, (0,))[0]
+        if tw <= 0 or th <= 0:
+            raise _Unreadable("TIFF tiles of a size libtiff refuses")
+    else:
+        tw, th = w, min(_tiff_tag(tags, 278, (h,))[0], h)
+    planes = spp if planar == 2 else 1
+    plane_spp = 1 if planar == 2 else spp
+    if photometric == 6 and planar == 1 and spp == 3:  # TIFFScanlineSize of subsampled YCbCr
+        if bps != 8 or hs not in (1, 2, 4) or vs not in (1, 2, 4):
+            raise _Unreadable("a YCbCr TIFF of a depth or subsampling libtiff's sizes refuse")
+        scanline = -(-w // hs) * (hs * vs + 2) // vs
+        tile_bytes = -(-th // vs) * -(-tw // hs) * (hs * vs + 2)
+    else:
+        scanline = (w * plane_spp * bps + 7) // 8
+        tile_bytes = th * ((tw * plane_spp * bps + 7) // 8)
+    across, down = -(-w // tw), -(-h // th)
+    offsets, counts = _tiff_counts(data, big_endian, layout, across * down * planes, planes,
+                                   tiled, planar, compression, h, scanline, tile_bytes)
+    # OpenCV's strip: RowsPerStrip as libtiff gives it, not cut to the image
+    # (h where the tag is unset or 2^32 - 1)
+    tw0, th0 = (tw, th) if tiled else (w, _tiff_tag(tags, 278, (h,))[0])
+    th0 = h if th0 == 0xFFFFFFFF else th0
     jpeg_rgb = compression == 7 and photometric == 6 and planar == 1
     if jpeg_rgb and 530 not in tags:  # JPEGFixupTagsSubsampling: the first stream's sampling
-        hs, vs = _jpeg_sampling(data, _tiff_tag(tags, 273, ()) or _tiff_tag(tags, 324, ()),
-                                _tiff_tag(tags, 279, ()) or _tiff_tag(tags, 325, ()), (hs, vs))
+        hs, vs = _jpeg_sampling(data, offsets, counts, (hs, vs))
     if jpeg_rgb:  # TIFFRGBAImageBegin: libjpeg converts YCbCr to RGB (JPEGCOLORMODE_RGB)
         photometric = 2
     if photometric == 5 and (bps != 8 or _tiff_tag(tags, 332, (1,))[0] != 1 or spp < 4
@@ -778,39 +974,12 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
         alpha = {0: 1 if spp > 3 else 0, 1: 1, 2: 2}.get(extras[0], 0)
     elif spp == 4 and photometric == 2:
         alpha = 1
-    # the chunks: strips, or tiles
-    if tiled:
-        tw, th = _tiff_tag(tags, 322, (0,))[0], _tiff_tag(tags, 323, (0,))[0]
-        if tw <= 0 or th <= 0:
-            raise _Unreadable("TIFF tiles of a size libtiff refuses")
-        offsets, counts = _tiff_tag(tags, 324), _tiff_tag(tags, 325)
-    else:
-        tw, th = w, _tiff_tag(tags, 278, (h,))[0]
-        th = h if th == 0 or th > h else th
-        offsets, counts = _tiff_tag(tags, 273), _tiff_tag(tags, 279)
-    if tw * th * spp * max(1, bps // 8) >= 1 << 30:  # OpenCV's limit on a strip or tile
-        raise _Unreadable("TIFF strip or tile of 1 GiB or more")
-    if (tiled and compression == 1 and fillorder == 2
-            and th * ((tw * (1 if planar == 2 else spp) * bps + 7) // 8) % 1024):
-        raise _Unreadable("uncompressed TIFF tiles in fill order 2 of a size libtiff fails "
-                          "on (not a multiple of 1024 bytes)")
-    across, down = -(-w // tw), -(-h // th)
-    planes = spp if planar == 2 else 1
-    plane_spp = 1 if planar == 2 else spp
-    if photometric == 6 and planar == 1:  # TIFFScanlineSize of subsampled YCbCr
-        scanline = -(-w // hs) * (hs * vs + 2) // vs
-    else:
-        scanline = (w * plane_spp * bps + 7) // 8
-    if offsets is None or counts is None:
-        raise _Unreadable("TIFF without the offsets or byte counts of its strips or tiles")
-    n = across * down * planes  # TIFFFetchStripThing: short arrays padded with 0
-    offsets, counts = (tuple(a[:n]) + (0,) * (n - len(a)) for a in (offsets, counts))
+    # OpenCV's limits on a strip or tile: each side at most 2^24, under 1 GiB
+    # of samples and of its RGBA buffer
+    if (not 0 < tw0 <= 1 << 24 or not 0 < th0 <= 1 << 24
+            or tw0 * th0 * max(spp * max(1, bps // 8), 4) >= 1 << 30):
+        raise _Unreadable("TIFF strip or tile of a side over 2^24 or of 1 GiB or more")
     subsampled = photometric == 6 and planar == 1
-    if n == 1 and not tiled and compression == 1 and offsets[0] and (
-            not 0 < counts[0] <= len(data) - offsets[0] or counts[0] < h * scanline):
-        # ByteCountLooksBad: one uncompressed strip whose byte count is 0, past
-        # the end of the file or short of the image gets EstimateStripByteCounts'
-        counts = (h * scanline,)
     if photometric == 6:
         ycc = _ycbcr_tables(tags)
     if subsampled:  # the RGB of libtiff's putcontig8bitYCbCr*tile, chunk by chunk
@@ -822,14 +991,36 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
     if compression in _TIFF_FAX:  # libtiff's run arrays, kept from strip to strip
         ctx["runs"] = np.zeros(2 * (-(-(tw + 1) // 32) * 32) + 1, np.uint32)
     skewed = []  # (y0, x0, grey samples) of clipped tiles read with the wrong stride
+    # TIFFFillStrip / TIFFFillTile cut a count past 1 MiB to 10 chunks + 4 KiB
+    full = tile_bytes if tiled else (
+        -(-th // vs) * -(-tw // hs) * (hs * vs + 2) if subsampled else th * (
+            (tw * plane_spp * bps + 7) // 8))
+    # tif_rawdatasize: the count where libtiff reads the mapped file in place,
+    # else a buffer that grows by whole KiB (fill order 2 but for JPEG and CCITT)
+    mapped = fillorder != 2 or compression == 7 or compression in _TIFF_FAX
+    raw_size = 0
+    # the RGBA reader's buffer for a tile: one a plane to draw from
+    tile_buffer = tile_bytes * (1 if planes == 1 else 4 if alpha else 3)
     for p in range(planes):
         for j in range(down):
             for i in range(across):
                 k = (p * down + j) * across + i
                 off, cnt = offsets[k], counts[k]
-                if cnt == 0 or off + cnt > len(data):
+                if cnt > 1 << 20 and (cnt - 4096) // 10 > full:
+                    cnt = full * 10 + 4096
+                failed = cnt == 0 or off + cnt > len(data)
+                if not failed:
+                    raw_size = cnt if mapped else max(raw_size, -(-cnt // 1024) * 1024)
+                if failed or tiled and p == 0 and (
+                        raw_size != tile_bytes if compression == 1 else
+                        tile_buffer > 100_000_000 and raw_size < tile_bytes // 1000):
+                    # _TIFFReadEncodedTileAndAllocBuffer: an uncompressed tile
+                    # whose raw data is not the tile's size fails, and so does
+                    # one compressed more than 1000 times into a buffer of over
+                    # 10^8 bytes
                     if p == 0:  # the read that allocates the buffer fails
-                        raise _Unreadable("a TIFF strip or tile past the end of the file")
+                        raise _Unreadable("a TIFF strip or tile past the end of the file or "
+                                          "of a byte count libtiff refuses")
                     continue  # a later plane's read fails: its samples stay 0
                 raw = data[off:off + cnt]
                 if fillorder == 2 and compression != 7:  # JPEG asks for no bit reversal
@@ -851,9 +1042,19 @@ def _decode_tiff(data: bytes, grayscale: bool, path: str) -> np.ndarray:
                 chunk, ok = _tiff_chunk(raw, compression, rows * rowbytes, ctx)
                 a = _tiff_processed(chunk, ok, rows, rowbytes, plane_spp, bps, big_endian,
                                     predictor)
-                v = _tiff_samples(a, tw, plane_spp, bps)[:h - y0, :w - x0]
+                npix = min(tw, w - x0)
+                if tiled and bps < 8 and npix < tw:
+                    # the 1, 2 and 4-bit put routines step over a clipped
+                    # tile's right part in whole bytes (fromskew / 8, 4, 2),
+                    # a byte short a row where the tile's width is not whole
+                    # bytes
+                    used = (npix * bps + 7) // 8
+                    step = used + (tw - npix) * bps // 8
+                    at = np.arange(rows)[:, None] * step + np.arange(used)[None, :]
+                    v = _tiff_samples(a.ravel()[at], npix, 1, bps)[:h - y0]
+                else:
+                    v = _tiff_samples(a, tw, plane_spp, bps)[:h - y0, :npix]
                 samples[y0:y0 + v.shape[0], x0:x0 + v.shape[1], p:p + plane_spp] = v
-                npix = v.shape[1]
                 if (tiled and npix < tw and planar == 1 and photometric in (0, 1)
                         and (bps == 16 or (bps == 8 and spp > 1))):
                     skewed.append((y0, x0, _tiff_skewed_grey(a, npix, spp, bps)[:v.shape[0]]))

@@ -38,9 +38,7 @@ multiplies the counts):
 - ``ycbcr_cmyk`` (300): ``ycbcr_tiff`` at every subsampling (and three
   without a put routine), sizes, strips, tiles, LZW, coefficients and
   reference black and white, planar; ``cmyk_tiff`` at 4 and 5 samples,
-  planar, LZW, tiles, ink sets.  Chunks whose uncompressed byte count is not
-  the strip's size are left out: libtiff's handling of them is not modelled
-  (a known divergence of every photometric since the seventeenth slice);
+  planar, LZW, tiles, ink sets;
 - ``sunras`` (300): random headers (types 0-3, depths 1/4/8/16/24/32, map
   types and lengths) over random rows, a sixth cut, a sixth with a header
   bit flipped;
@@ -57,17 +55,24 @@ multiplies the counts):
   spaces; 85% then cut at a random byte or with 1-3 bytes replaced;
 - ``tiff_lzw_old`` (300): old-style LZW of ``tiff_bytes`` (grey, RGB, 16 bits,
   the predictor, strips, tiles, planes, fill orders), a third with 1-3
-  bytes replaced in the strips, a fifth cut.  The TIFF kinds replace bytes
-  between the header and the directory only: directory damage can make an
-  uncompressed strip or tile's byte count differ from its size, the known
-  divergence of ``ycbcr_cmyk`` above;
+  bytes replaced in the strips, a fifth cut.  These TIFF kinds replace bytes
+  between the header and the directory only; the directory is the last two
+  kinds' to damage;
 - ``cielab`` (300): 8- and 16-bit CIELab (random samples, WhitePoint tags,
   strips, tiles, LZW, flips), a tenth of them cut and a tenth with bytes
   replaced in the data, and Pillow's LAB scenes;
 - ``sgilog`` (300): ``cv2.imwrite``'s SGILog and SGILog24 of random floats
   (LogLuv, LogL) and ``tests/test_torch_port_imageio_tiff_lab_log.py``'s
   ``sgilog_tiff`` / ``sgilog24_tiff`` in strips and tiles, a third with
-  bytes replaced in the data, a fifth cut.
+  bytes replaced in the data, a fifth cut;
+- ``tiff_counts`` (300): a TIFF of any writer above (``_any_tiff``) with its
+  strip or tile byte counts removed, zero, short, long, past the end of the
+  file, over 1 MiB, equal to the offsets, or all one value
+  (``tests/test_torch_port_imageio_tiff_counts.py``'s ``patch_counts``);
+- ``tiff_directory`` (300): such a TIFF with one field of its first
+  directory damaged (that module's ``directory_damage``: one entry's type,
+  count, value or offset, or the entry duplicated, moved out of order or
+  removed); its mismatches are also counted by tag.
 
 Prints the counts of each kind (files, None, mismatches) and writes each
 mismatching file beside the temporary directory's path it prints.
@@ -88,7 +93,7 @@ sys.path.insert(0, REPO)
 KINDS = {"encoders": 300, "damaged": 1000, "vp8_writer": 300, "animations": 300,
          "containers": 300, "netpbm": 1000, "tiff_jpeg": 300, "ccitt": 1000, "ycbcr_cmyk": 300,
          "sunras": 300, "pfm": 300, "hdr": 300, "jp2": 600, "tiff_lzw_old": 300, "cielab": 300,
-         "sgilog": 300}
+         "sgilog": 300, "tiff_counts": 300, "tiff_directory": 300}
 
 
 def _read(path, gray):
@@ -568,8 +573,8 @@ def _jp2(rng):
 
 def _in_data(data, rng):
     """1-3 bytes replaced in a little-endian TIFF's data, the bytes between
-    its header and its directory (directory damage can make an uncompressed
-    strip or tile's byte count differ from its size: the known divergence)."""
+    its header and its directory (``tiff_counts`` and ``tiff_directory``
+    damage the directory)."""
     import struct
 
     ifd = struct.unpack("<I", data[4:8])[0]
@@ -688,6 +693,149 @@ def _sgilog(rng):
     return data
 
 
+def _any_tiff(rng):
+    """A small TIFF of any writer here: ``tiff_bytes`` (grey 1, 8 and 16
+    bits, RGB, RGBA, palettes of 1, 4 and 8 bits; uncompressed, LZW,
+    old-style LZW, Deflate, PackBits; strips, tiles, planes, the predictor,
+    fill order 2, both byte orders, BigTIFF, the directory first or last),
+    YCbCr, CMYK, JPEG, CCITT, SGILog, SGILog24 and CIELab."""
+    t = _module("test_torch_port_imageio_tiff")
+    c = _codings_module()
+    lab = _module("test_torch_port_imageio_tiff_lab_log")
+    h, w = int(rng.integers(1, 50)), int(rng.integers(1, 60))
+    r = rng.random()
+    if r < 0.55:
+        im, kw = _scene(rng, h, w), {}
+        k = rng.random()
+        if k < 0.2:
+            im = im[..., 0]
+        elif k < 0.3:
+            im, kw["bps"] = (im[..., 0] > 128).astype(int), 1
+        elif k < 0.4:
+            im, kw["bps"] = im.astype(np.int64) * 257, 16
+        elif k < 0.5:
+            im, kw["bps"] = im[..., 0].astype(np.int64) * 251, 16
+        elif k < 0.6:
+            bps = int(rng.choice([1, 4, 8]))
+            im = rng.integers(0, 1 << bps, (h, w))
+            kw.update(bps=bps, photometric=3,
+                      colormap=[int(x) for x in rng.integers(0, 65536, 3 << bps)])
+        elif k < 0.7:
+            im, kw["extrasamples"] = np.dstack([im, im[..., :1]]), [int(rng.integers(0, 3))]
+        kw["compression"] = int(rng.choice([1, 1, 1, 5, 8, 32773, 32946]))
+        kw["old_lzw"] = kw["compression"] == 5 and rng.random() < 0.1
+        k = rng.random()
+        if k < 0.5:
+            kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+        elif k < 0.75:
+            kw["tile"] = (16 * int(rng.integers(1, 3)), 16 * int(rng.integers(1, 3)))
+        if (im.ndim == 3 and kw.get("bps", 8) >= 8 and kw.get("photometric") != 3
+                and rng.random() < 0.2):
+            kw["planar"] = 2
+        if kw["compression"] in (5, 8, 32946) and kw.get("bps", 8) in (8, 16) and (
+                rng.random() < 0.2):
+            kw["predictor"] = 2
+        kw.update(fillorder=2 if rng.random() < 0.1 else 1, big_endian=rng.random() < 0.15,
+                  bigtiff=rng.random() < 0.1, ifd_first=rng.random() < 0.5)
+        return t.tiff_bytes(im, **kw)
+    if r < 0.65:
+        hs, vs = [(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2)][int(rng.integers(7))]
+        kw = {}
+        k = rng.random()
+        if k < 0.3:
+            kw["tile"] = (16, 16)
+        elif k < 0.7:
+            kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+        if rng.random() < 0.3:
+            kw["compression"] = 5
+        return c.ycbcr_tiff(w, h, hs, vs, seed=int(rng.integers(1 << 30)), **kw)
+    if r < 0.72:
+        kw = dict(planar=int(rng.integers(1, 3)), compression=int(rng.choice([1, 5])))
+        if rng.random() < 0.3:
+            kw["tile"] = (16, 16)
+        return c.cmyk_tiff(rng.integers(0, 256, (h, w, 4)), **kw)
+    if r < 0.8:
+        kw = dict(subsampling=int(rng.integers(0, 3)))
+        if rng.random() < 0.3:
+            kw["tile"] = (16, 16)
+        else:
+            kw["rows_per_strip"] = 16 * int(rng.integers(1, 4))
+        return c.jpeg_tiff(_scene(rng, h, w)[..., ::-1], **kw)
+    if r < 0.88:
+        comp = int(rng.choice([2, 3, 4, 32771]))
+        return c.fax_tiff(c.bilevel(h, max(w, 8), int(rng.integers(1 << 30))), comp,
+                          rows_per_strip=int(rng.integers(1, h + 1)) if rng.random() < 0.5
+                          else None)
+    kw = {}
+    if rng.random() < 0.3:
+        kw["tile"] = (16, 16)
+    elif rng.random() < 0.5:
+        kw["rows_per_strip"] = int(rng.integers(1, h + 1))
+    if r < 0.91:
+        return lab.sgilog24_tiff(rng.integers(0, 1 << 24, (h, w)).astype(np.uint32), **kw)
+    if r < 0.94:
+        luv = rng.random() < 0.5
+        return lab.sgilog_tiff(lab._log_values(rng, (h, w), luv), luv, **kw)
+    if rng.random() < 0.3:
+        kw["compression"] = int(rng.choice([5, 8]))
+    bps = int(rng.choice([8, 16]))
+    return lab._lab_tiff(rng.integers(0, 1 << bps, (h, w, 3)), bps, **kw)
+
+
+def _tiff_counts(rng):
+    """A TIFF of any writer with its strip or tile byte counts damaged: the
+    tag removed, every count 0, one count 0, short, long, past the end of
+    the file, 1 or over 1 MiB, the first, second or last off by up to 100,
+    the counts equal to the offsets, or all one random value."""
+    import struct
+
+    cnt = _module("test_torch_port_imageio_tiff_counts")
+    data = _any_tiff(rng)
+    if rng.random() < 0.12:
+        return cnt.patch_counts(data, drop=True)
+    size = len(data)
+    how = int(rng.integers(12))
+
+    def change(offsets, counts):
+        c, n = list(counts), len(counts)
+        k = int(rng.integers(n))
+        if how == 0:
+            c = [0] * n
+        elif how == 1:
+            c[k] = 0
+        elif how == 2:
+            c[k] = max(0, c[k] - int(rng.integers(1, 200)))
+        elif how == 3:
+            c[k] += int(rng.integers(1, 200))
+        elif how in (4, 5, 6):
+            j = (0, min(1, n - 1), n - 1)[how - 4]
+            c[j] = max(0, c[j] + int(rng.integers(-100, 101)))
+        elif how == 7:
+            c = list(offsets)
+        elif how == 8:
+            c[k] = size - offsets[k] + int(rng.integers(1, 50))
+        elif how == 9:
+            c = [int(rng.integers(1, 3 * max(c) + 2))] * n
+        elif how == 10:
+            c[k] = 1
+        else:
+            c[k] = int(rng.integers(1 << 20, 1 << 31))
+        return c
+    try:
+        return cnt.patch_counts(data, change)
+    except struct.error:  # a count the entry's type cannot hold: left whole
+        return data
+
+
+def _tiff_directory(rng):
+    """(file, tag): a TIFF of any writer with one field of its directory
+    damaged (``directory_damage``: an entry's type, count, value or offset,
+    or the entry duplicated, moved or removed), and the damaged entry's tag."""
+    cnt = _module("test_torch_port_imageio_tiff_counts")
+    _, tag, data = cnt.directory_damage(_any_tiff(rng), rng)
+    return data, tag
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -701,8 +849,9 @@ def main() -> int:
     for kind in args.kinds.split(","):
         rng = np.random.default_rng([args.seed, list(KINDS).index(kind)])
         n, none, bad = int(KINDS[kind] * args.scale), 0, 0
+        by_tag = {}  # tiff_directory: mismatches by the damaged entry's tag
         for i in range(n):
-            depth = None
+            depth = tag = None
             if kind == "encoders":
                 data = _encoded(w, rng)
             elif kind == "damaged":
@@ -715,20 +864,24 @@ def main() -> int:
                 data = _container(w, rng)
             elif kind == "netpbm":
                 data, depth = _netpbm(rng)
+            elif kind == "tiff_directory":
+                data, tag = _tiff_directory(rng)
             else:
                 data = {"tiff_jpeg": _tiff_jpeg, "ccitt": _ccitt, "ycbcr_cmyk": _ycbcr_cmyk,
                         "sunras": _sunras, "pfm": _pfm, "hdr": _hdr, "jp2": _jp2,
                         "tiff_lzw_old": _tiff_lzw_old, "cielab": _cielab,
-                        "sgilog": _sgilog}[kind](rng)
+                        "sgilog": _sgilog, "tiff_counts": _tiff_counts}[kind](rng)
             read, ok = same(path, data, depth)
             none += not read
             if not ok:
                 bad += 1
+                if tag is not None:
+                    by_tag[tag] = by_tag.get(tag, 0) + 1
                 with open(os.path.join(tmp, f"bad_{kind}_{i}.bin"), "wb") as f:
                     f.write(data)
         total_bad += bad
-        print(f"{kind}: {n} files, {none} read as nothing (or raising) by cv2, {bad} mismatches",
-              flush=True)
+        print(f"{kind}: {n} files, {none} read as nothing (or raising) by cv2, {bad} mismatches"
+              + (f" (by tag: {dict(sorted(by_tag.items()))})" if by_tag else ""), flush=True)
     print(f"mismatching files (if any) under {tmp}")
     return 1 if total_bad else 0
 

@@ -92,6 +92,14 @@ reader here first.  Writes ``fots_torch/assets/decode_ref/``:
   TIFF codings (old-style LZW with the predictor, Pillow's CIELab, 16-bit
   CIELab tiles, ``cv2``'s SGILog LogLuv and SGILog24, LogL tiles; old-style
   JPEG, ICCLab and ITULab files read as None);
+- ``tiff/counts_*`` and ``tiff/directory_*``: a file for each rule of
+  libtiff's handling of strip and tile byte counts (missing, zero, wrong,
+  equal to the offsets, short, in fill order 2) and of a damaged directory
+  field (a signed Photometric, a colour map before BitsPerSample, a tile
+  width of no whole bytes, ExtraSamples 999, no Photometric: None) on a
+  64x96 window of ``img_112``, and ``tiff/img_113_deflate_no_counts.tif``,
+  the progressive ``img_113``'s pixels as one Deflate strip (predictor 2)
+  without StripByteCounts;
 - ``manifest.json``: for each file its SHA-256 and the shape and SHA-256 of
   ``cv2.imread``'s colour and grey bytes (null where ``cv2`` reads nothing:
   a lossless frame's output in another colour space, a WebP or Netpbm file
@@ -518,6 +526,67 @@ def jp2_lab_log_files(prog_images, prog_names) -> dict:
     return out
 
 
+def counts_directory_files(prog_images, prog_names) -> dict:
+    """{relative path: bytes} of the byte-count and directory files of
+    ``tiff/``: a file for each rule of libtiff's handling of strip and tile
+    byte counts and of directory damage the port models, on a 64x96 window
+    of ``img_112``, and ``img_113`` whole as one Deflate strip without
+    StripByteCounts."""
+    import cv2
+
+    sys.path.insert(0, REPO)
+    t = importlib.import_module("tests.test_torch_port_imageio_tiff")
+    k = importlib.import_module("tests.test_torch_port_imageio_tiff_counts")
+    win = np.ascontiguousarray(prog_images[0][200:264, 300:396])
+    rgb = win[..., ::-1]
+    grey = cv2.cvtColor(win, cv2.COLOR_BGR2GRAY)
+
+    def first(delta):
+        return lambda offsets, counts: [counts[0] + delta] + counts[1:]
+    out = {}
+    # EstimateStripByteCounts: the tag missing, one strip's count 0, the
+    # first two of four uncompressed strips' counts differing (the counts
+    # equal to the offsets among them) or of four tiles
+    out["tiff/counts_missing_deflate.tif"] = k.patch_counts(t.tiff_bytes(rgb, compression=8),
+                                                            drop=True)
+    out["tiff/counts_missing_planes.tif"] = k.patch_counts(t.tiff_bytes(rgb, planar=2),
+                                                           drop=True)
+    out["tiff/counts_zero_packbits.tif"] = k.patch_counts(t.tiff_bytes(rgb, compression=32773),
+                                                          lambda offsets, counts: [0])
+    # (the estimate, 64 // 4 rows a strip, ends past the file's last strip)
+    strips = t.tiff_bytes(rgb, rows_per_strip=20, ifd_first=False) + bytes(4096)
+    out["tiff/counts_wrong_raw_strips.tif"] = k.patch_counts(strips, first(-5))
+    out["tiff/counts_are_offsets.tif"] = k.patch_counts(strips, lambda offsets, counts: offsets)
+    tiles = t.tiff_bytes(rgb, tile=(64, 32))
+    out["tiff/counts_first_tile_short.tif"] = k.patch_counts(tiles, first(-7))
+    # a short uncompressed strip reads as nothing; a short last tile fails
+    out["tiff/counts_raw_strip_short.tif"] = k.patch_counts(
+        t.tiff_bytes(grey, rows_per_strip=32), first(-1))
+    out["tiff/counts_last_tile_short_none.tif"] = k.patch_counts(
+        tiles, lambda offsets, counts: counts[:-1] + [counts[-1] - 7])
+    out["tiff/counts_fillorder2_tile_short.tif"] = k.patch_counts(
+        t.tiff_bytes(np.dstack([rgb[:16, :32], grey[:16, :32]]), tile=(16, 16), fillorder=2),
+        first(-24))
+    # one directory field: a signed Photometric, a colour map before
+    # BitsPerSample (ignored: the palette reads as grey), a tile width of no
+    # whole bytes (the 1-bit put routine's skew), ExtraSamples 999, no
+    # Photometric (None)
+    rgb8 = t.tiff_bytes(rgb, compression=8)
+    out["tiff/directory_photometric_sshort.tif"] = k._edit(rgb8, 262, typ=8)
+    rng = np.random.default_rng(21)
+    palette = t.tiff_bytes(grey, photometric=3, colormap=[int(v) for v in rng.integers(
+        0, 65536, 768)])
+    out["tiff/directory_colormap_first.tif"] = k._moved(palette, 320, 258)
+    out["tiff/directory_tile_width_250_1bit.tif"] = t.tiff_bytes(grey >> 7, bps=1,
+                                                                 tile=(250, 16))
+    out["tiff/directory_extrasamples_999.tif"] = k._edit(
+        t.tiff_bytes(np.dstack([rgb, grey]), extrasamples=[2]), 338, value=999)
+    out["tiff/directory_no_photometric_none.tif"] = k._edit(rgb8, 262)
+    out["tiff/img_113_deflate_no_counts.tif"] = k.patch_counts(
+        t.tiff_bytes(prog_images[1][..., ::-1], compression=8, predictor=2), drop=True)
+    return out
+
+
 def files(images, names) -> dict:
     """{relative path: bytes} of every file but the scenes' annotations."""
     import cv2
@@ -551,6 +620,7 @@ def files(images, names) -> dict:
     out.update(webp_pnm_files(images, prog, names[:SCENES]))
     out.update(codings_files(prog, names[:SCENES]))
     out.update(jp2_lab_log_files(prog, names[:SCENES]))
+    out.update(counts_directory_files(prog, names[:SCENES]))
     return out
 
 
