@@ -269,12 +269,30 @@ result line):
    snapshot's weights and a fresh ``conv11``, which splits 375 + 375): one
    step of the 4 asset scenes shrunk to 160x224 against one process within
    phase 6's limits, each model rank holding its rows of ``conv11``; the
-   phase's seconds.
+   phase's seconds;
+16. the detector without the attention gate and with the single-scale loss
+   (a main path, ``attention_off``): ``FOTSDetector(attention=False,
+   multi_scale=False)`` with the snapshot's weights but ``conv_attention``'s
+   two tensors.  (a) Serving bf16 with f32 heads, the 4 smoke scenes repeated
+   to 16 at 704x1280: 2 batches through ``stream`` with the launch counts
+   zeroed just before and read just after (K1', K2', K3' and K4' must have
+   launched); then the CUDA port against the CPU port on the 4 scenes,
+   each engine recognising at most 32 boxes an image: ``batch_call`` within
+   phase 3's limits, and ``recognize_boxes`` over the scenes' ground-truth
+   quads the same texts (the gateless snapshot's geometry heads read 0:
+   every box that passes the threshold is a point and reads as an empty
+   text); (b) one
+   ``Trainer`` step f32 (TF32 off) at batch 8, 640x960, CUDA against CPU
+   within phase 6's limits (losses, gradients, BatchNorm statistics), the
+   trainer taking ``multi_scale=False`` from the model, the step's detection
+   terms the 1/4 scale's alone (the 1/8 scale's would move each), the
+   launch counts zeroed just before the CUDA step and read just after
+   (K1'-bwd and K4'-bwd too).
 
 Then it prints a ``{"kernels": [...]}`` JSON line (K4' and K4'-bwd at C = 3
 listed as rows of their own), the serving, export, training,
-training-from-scratch, fused-block, evaluation, ocr, files, writers, transports and
-mesh JSON lines,
+training-from-scratch, fused-block, evaluation, ocr, files, writers, transports,
+mesh and attention_off JSON lines,
 the card's name and power limit from nvidia-smi, a ``{"phase_s": {...}}``
 line of each phase's seconds (the build and the assets' loading among
 them; printed also after a subset of ``--phases``), and last the
@@ -351,7 +369,8 @@ FILES_STEPS = JOINT_STEPS  # train_joint from the jpg files, as long as phase 8'
 DECODE_REPEATS = 15
 READER_BATCHES = 4       # reader 0's batches made from files and from the archive
 PHASES = ("build", "kernels", "serve_parity", "serve", "export", "train_parity", "train",
-          "train_joint", "fused_block", "eval", "ocr", "files", "writers", "transports", "mesh")
+          "train_joint", "fused_block", "eval", "ocr", "files", "writers", "transports", "mesh",
+          "attention_off")
 EXPORT_BATCHES = 6
 TRANSPORT_BATCHES = 3    # stream batches of the held-out scenes a transport (phase 14)
 #: kernel -> (route, fragment of a ``__global__`` name in csrc/*.cu) of the
@@ -3390,6 +3409,219 @@ def phase_mesh(images, targets, device="cuda", serve_hw=SERVE_HW, batch=BATCH,
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the detector without the attention gate, single-scale loss
+# --------------------------------------------------------------------------
+
+GATELESS_STREAM_BATCHES = 2   # phase 16's streamed serving batches (the counts)
+GATELESS_MAX_BOXES = 32       # boxes an image recognises in the CUDA-vs-CPU batch
+
+
+def _gateless_model(device):
+    """``FOTSDetector(attention=False, multi_scale=False)`` with the shipped
+    snapshot's weights but the gate's two tensors, eval mode, on ``device``;
+    and the snapshot's config."""
+    from fots_torch.checkpoint import load_flat, load_serving_params
+    from fots_torch.models.detector import FOTSDetector
+
+    flat, _, config = load_serving_params(SNAPSHOT)
+    model = FOTSDetector(nclass=int(flat["params/ocr/conv11/bias"].shape[0]),
+                         attention=False, multi_scale=False)
+    load_flat(model, {k: v for k, v in flat.items() if "/conv_attention/" not in k})
+    return model.eval().to(device=device, memory_format=torch.channels_last), config
+
+
+def _launch_counts(device):
+    from fots_torch.kernels import build
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {**build.launch_counts, **build.route_counts}
+
+
+def _reset_launch_counts(device):
+    from fots_torch.kernels import build
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    build.reset_launch_counts()
+
+
+def phase_attention_off(images, targets, device="cuda", serve_hw=SERVE_HW, batch=BATCH,
+                        train_order=tuple(i % 4 for i in range(TRAIN_BATCH))):
+    """The gateless, single-scale detector (the shipped snapshot without
+    ``conv_attention``): (a) serving bf16 with f32 heads, the 4 smoke scenes
+    repeated to ``batch`` at ``serve_hw`` through ``stream`` with the launch
+    counts zeroed just before, then ``device`` against the CPU port on the 4
+    scenes (``batch_call`` and ``recognize_boxes`` over their ground-truth
+    quads) within phase 3's limits; (b) one ``Trainer`` step, f32 (TF32
+    off), from the model's ``multi_scale``: ``device`` against the CPU port
+    within phase 6's limits, and its loss without the 1/8-scale terms."""
+    from fots_torch.kernels import build
+    from fots_torch.pipeline import FOTSInference, device_letterbox_batch
+    from fots_torch import train as ttrain
+
+    t_phase = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    scenes = [images[i % len(images)] for i in range(batch)]
+    out = {}
+    print(f"phase 16: FOTSDetector(attention=False, multi_scale=False) from the snapshot "
+          f"without conv_attention; (a) serving bf16 b{batch} at {serve_hw}, {device} vs cpu")
+    # (a) the main path's counts: stream, as phase 4 serves
+    model, config = _gateless_model(device)
+    with FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                       mixed_precision=True, cand_transport="u16", device=device) as eng:
+        eng.batch_call(scenes, serve_hw=serve_hw)  # warm-up, not counted
+        _reset_launch_counts(device)
+        t0 = time.perf_counter()
+        streamed = list(eng.stream(iter([scenes] * GATELESS_STREAM_BATCHES), serve_hw=serve_hw))
+        stream_s = time.perf_counter() - t0
+        serve_launches = _launch_counts(device)
+    del model, eng
+    check(len(streamed) == GATELESS_STREAM_BATCHES, "stream lost batches")
+    for name in build.PATH_KERNELS["serving"]:
+        check(device != "cuda" or serve_launches[name] > 0,
+              f"(a) kernel {name} was not launched on the gateless serving path")
+    # then each device's engine on the distinct scenes (the CPU port's bf16
+    # batch of 16 took 62 s), the boxes an image recognises capped
+    distinct = scenes[:len(images)]
+    h0, w0 = distinct[0].shape[:2]
+    scale = min(serve_hw[0] / h0, serve_hw[1] / w0)
+    gt = ttrain.asset_batch(images, targets, range(len(distinct)))
+    gt_boxes = [np.concatenate([np.stack(q).reshape(-1, 8) * scale,
+                                np.ones((len(q), 1))], axis=1).astype(np.float32)
+                for q in gt.gt_quads]
+    x = device_letterbox_batch(torch.from_numpy(np.stack(distinct)), serve_hw).numpy()
+    res = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        model, config = _gateless_model(dev)
+        with FOTSInference(model, masked_norm=config.get("masked_norm", False),
+                           mixed_precision=True, max_boxes=GATELESS_MAX_BOXES,
+                           device=dev) as eng:
+            served = eng.batch_call(distinct, serve_hw=serve_hw)
+            boxes, focr = eng.detect_boxes_batch(x)
+            texts = [eng.recognize_boxes(gt_boxes[i], focr, batch_index=i)
+                     for i in range(len(distinct))]
+        res[dev] = (served, boxes, texts)
+        widest = max((float(np.ptp(b[:, 0:8:2], axis=1).max()) for b in boxes if len(b)),
+                     default=0.0)
+        print(f"  {dev}: {time.perf_counter() - t0:.2f} s; batch_call results "
+              f"{[len(r) for r in served]}; boxes passing the threshold "
+              f"{[len(b) for b in boxes]} (capped at {GATELESS_MAX_BOXES}; widest "
+              f"{widest:.1f} px)")
+        del model, eng, focr
+    (sg, bg, tg), (sp, bp, tp) = res[device], res["cpu"]
+    check([len(r) for r in sg] == [len(r) for r in sp], "(a) batch_call counts differ")
+    worst = 0.0
+    for g_img, w_img in zip(sg, sp):
+        for g, w in zip(g_img, w_img):
+            worst = max(worst, float(np.abs(g["box"][:8] - w["box"][:8]).max()))
+            check(g["text"] == w["text"], f"(a) texts differ: {g['text']!r} vs {w['text']!r}")
+    check(worst <= 1.0, f"(a) batch_call corners differ by {worst} px")
+    box_counts_equal = [len(a) for a in bg] == [len(a) for a in bp]
+    box_px = (max((float(np.abs(a[:, :8] - b[:, :8]).max()) for a, b in zip(bg, bp) if len(a)),
+                  default=0.0) if box_counts_equal else None)
+    check(tg == tp, f"(a) ground-truth texts differ: {[(a, b) for a, b in zip(tg, tp) if a != b][:3]}")
+    read = sum(t == w for r, q in zip(tg, gt.labels) for t, w in zip(r, q))
+    check(sum(t != "" for r in tg for t in r) > 0, "(a) no ground-truth quad read as text")
+    out["serving"] = {
+        "batch": batch, "serve_hw": list(serve_hw), "dtype": "bf16, f32 heads",
+        "stream_batches": GATELESS_STREAM_BATCHES, "stream_s": stream_s,
+        "stream_texts": sum(len(r) for res_b in streamed for r in res_b),
+        "launches": {k: serve_launches[k] for k in build.PATH_KERNELS["serving"]},
+        "compared_batch": len(distinct),
+        "batch_call_results": [len(r) for r in sg], "batch_call_max_corner_px": worst,
+        "boxes_cuda": [len(b) for b in bg], "boxes_cpu": [len(b) for b in bp],
+        "boxes_max_corner_px": box_px, "gt_quads": sum(len(b) for b in gt_boxes),
+        "gt_texts_equal_label": read, "gt_texts": tg}
+    print(f"  stream: {GATELESS_STREAM_BATCHES} batches in {stream_s:.2f} s, "
+          f"{out['serving']['stream_texts']} texts; launches {out['serving']['launches']}")
+    print(f"  ground-truth quads: {device} and cpu read the same {sum(len(t) for t in tg)} "
+          f"texts, {read} equal to their labels; {tg}")
+    print(f"  detect_boxes_batch boxes {device} {[len(b) for b in bg]} cpu "
+          f"{[len(b) for b in bp]}, max corner diff {box_px} px (reported, not held)")
+
+    # (b) one training step from the model's multi_scale
+    train_batch = ttrain.asset_batch(images, targets, list(train_order))
+    hw = tuple(train_batch.images.shape[1:3])
+    print(f"  (b) one Trainer step, f32 (TF32 off), b{len(train_order)} at {hw}, "
+          f"{device} vs cpu")
+    steps = {}
+    real_loss = ttrain.detection_loss
+    try:
+        with no_tf32():
+            for dev in (device, "cpu"):
+                t0 = time.perf_counter()
+                calls, totals = [], {}
+
+                def recorded(det_out, *args, **kw):
+                    calls.append(kw["multi_scale"])
+                    with torch.no_grad():
+                        for ms in (False, True):
+                            terms = real_loss(det_out, *args, **{**kw, "multi_scale": ms})
+                            totals[ms] = {k: terms[k].item() for k in ("segm", "angle", "iou")}
+                    return real_loss(det_out, *args, **kw)
+
+                ttrain.detection_loss = recorded
+                model, _ = _gateless_model(dev)
+                trainer = ttrain.Trainer(model, learning_rate=TRAIN_LR, seed=0, device=dev)
+                check(trainer.multi_scale is False, "(b) Trainer did not take multi_scale=False")
+                _reset_launch_counts(dev)
+                metrics = trainer.step(train_batch)
+                launches = _launch_counts(dev)
+                ttrain.detection_loss = real_loss
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in trainer.model.named_parameters()}
+                stats = {n: t.detach().cpu().clone() for n, t in trainer.model.state_dict().items()
+                         if "running" in n}
+                steps[dev] = (metrics, grads, stats, launches, calls, totals)
+                print(f"  {dev}: {time.perf_counter() - t0:.2f} s, losses {metrics}")
+                del model, trainer
+    finally:
+        ttrain.detection_loss = real_loss
+    (lc, gc, sc_, train_launches, calls, totals), (lp, gp, sp_, _, calls_p, _) = \
+        steps[device], steps["cpu"]
+    check(calls == calls_p == [False], f"(b) the loss took multi_scale {calls}, {calls_p}")
+    # the step's detection terms are the 1/4 scale's alone; the 1/8 scale's
+    # would move each of them
+    for k, v in totals[False].items():
+        got = lc[f"{k}_loss"]
+        check(abs(got - v) <= 1e-5 * abs(v) + 1e-7,
+              f"(b) {k} term {got} is not the single-scale {v}")
+        check(abs(totals[True][k] - v) > 1e-3 * abs(v),
+              f"(b) the 1/8-scale {k} term adds nothing: {totals[True][k]} vs {v}")
+    for k in ttrain.METRIC_KEYS:
+        check(math.isfinite(lc[k]) and abs(lc[k] - lp[k]) <= 1e-4 * abs(lp[k]) + 1e-5,
+              f"(b) {k}: {device} {lc[k]} vs cpu {lp[k]}")
+    rel = {n: float((gc[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for n, g in gp.items()}
+    ranked = sorted(rel.items(), key=lambda kv: -kv[1])
+    for n, r in ranked:
+        check(r <= 3e-2, f"(b) gradient of {n}: max |diff| {r:.3e} of max |g|")
+    check(statistics.median(rel.values()) <= 2e-3, "(b) median gradient error above 2e-3")
+    for n, s in sp_.items():
+        check(bool(((sc_[n] - s).abs() <= 1e-4 * (1 + s.abs())).all()), f"(b) buffer {n} differs")
+    for name in build.PATH_KERNELS["training"]:
+        check(device != "cuda" or train_launches[name] > 0,
+              f"(b) kernel {name} was not launched on the gateless training step")
+    out["training"] = {
+        "batch": len(train_order), "hw": list(hw), "dtype": "f32", "losses": lc,
+        "losses_cpu": lp, "multi_scale": False,
+        "single_scale_terms": totals[False], "with_one_eighth_terms": totals[True],
+        "max_grad_rel_err": ranked[0][1], "median_grad_rel_err": statistics.median(rel.values()),
+        "launches": {k: train_launches[k] for k in build.PATH_KERNELS["training"]}}
+    print(f"  losses agree; detection terms {totals[False]} are the 1/4 scale's alone "
+          f"(with the 1/8 scale's: {totals[True]}); gradients "
+          f"within {ranked[0][1]:.2e} of each tensor's max |g| (median "
+          f"{statistics.median(rel.values()):.2e}, worst {ranked[:3]}); launches "
+          f"{out['training']['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {out['seconds']:.1f} s")
+    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0) for k in serve_launches}
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3458,7 +3690,8 @@ def main(argv=None) -> int:
                                           results.get("train_joint", (None, None))[1])),
             ("writers", phase_writers),
             ("transports", lambda: phase_transports(list(images))),
-            ("mesh", lambda: phase_mesh(images, targets)))
+            ("mesh", lambda: phase_mesh(images, targets)),
+            ("attention_off", lambda: phase_attention_off(images, targets)))
     for pname, run in runs:
         if pname in phases:
             t0 = time.perf_counter()
@@ -3485,6 +3718,7 @@ def main(argv=None) -> int:
     writers_launches, writers = results["writers"]
     transports_launches, transports = results["transports"]
     mesh_launches, mesh = results["mesh"]
+    gateless_launches, gateless = results["attention_off"]
     kernels = []
     for kname, (source, replaces) in KERNEL_META.items():
         r = rows[kname]
@@ -3494,7 +3728,8 @@ def main(argv=None) -> int:
                  "train_joint": joint_launches[kname], "fused_block": fused_launches[kname],
                  "evaluation": eval_launches[kname], "ocr": ocr_launches[kname],
                  "files": files_launches[kname], "writers": writers_launches[kname],
-                 "transports": transports_launches[kname], "mesh": mesh_launches[kname]}
+                 "transports": transports_launches[kname], "mesh": mesh_launches[kname],
+                 "attention_off": gateless_launches[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "max_abs_err": worst[kname],
@@ -3553,6 +3788,7 @@ def main(argv=None) -> int:
     print(json.dumps({"writers": writers}))
     print(json.dumps({"transports": transports}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"attention_off": gateless}))
     print(smi)
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,7 +12,7 @@ and the edit distance of the evaluation; the recognition-only stack's
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -87,15 +87,19 @@ class LabelCodec:
             prev = i
         return "".join(chars)
 
-    def decode_batch(self, ids: np.ndarray) -> List[str]:
+    def decode_batch(self, ids: np.ndarray, lengths: Optional[np.ndarray] = None
+                     ) -> List[str]:
         """CTC-collapse decode of a ``[N, T]`` greedy id matrix: drop repeats
-        of the previous id, then blanks and out-of-alphabet ids."""
+        of the previous id, then blanks and out-of-alphabet ids.  ``lengths``
+        [N]: a row's frames at or past its length are dropped too."""
         ids = np.asarray(ids)
         if ids.size == 0:
             return [""] * ids.shape[0] if ids.ndim == 2 else []
-        n = ids.shape[0]
+        n, t = ids.shape
         prev = np.concatenate([np.zeros((n, 1), ids.dtype), ids[:, :-1]], axis=1)
         keep = (ids != prev) & (ids > 0) & (ids <= len(self.alphabet))
+        if lengths is not None:
+            keep &= np.arange(t)[None, :] < np.asarray(lengths).reshape(n, 1)
         if not self.alphabet:
             return [""] * n
         # gather code points, decode one utf-32 buffer, slice per row

@@ -50,12 +50,12 @@ def _worker(factory: Callable[[int], Iterator], worker_id: int, q, stop_event,
 
 
 class PrefetchPool:
-    """N spawned worker processes feeding one queue of
-    :data:`QUEUE_BATCHES`."""
+    """N spawned worker processes feeding one queue of ``max_queue`` items."""
 
-    def __init__(self, generator_factory: Callable[[int], Iterator], num_workers: int = 4):
+    def __init__(self, generator_factory: Callable[[int], Iterator], num_workers: int = 4,
+                 max_queue: int = QUEUE_BATCHES):
         self._ctx = mp.get_context("spawn")
-        self._queue = self._ctx.Queue(maxsize=QUEUE_BATCHES)
+        self._queue = self._ctx.Queue(maxsize=max_queue)
         self._stop = self._ctx.Event()
         self._procs = []
         for wid in range(num_workers):

@@ -1,9 +1,10 @@
 """FOTS shared backbone + EAST detection heads + CTC recognition head.
 
 Port of ``fots/models/detector.py``: CReLU-IN stem, four instance-norm
-residual stages, attention-gated FPN top-down merge, 1/4 and 1/8 scale
-score/geometry/angle heads, and the fully-convolutional CTC recognition
-head over RoIRotated 1/4-scale features.
+residual stages, FPN top-down merge (attention-gated laterals by default,
+plain sums with ``attention=False``, the FOTS paper's merge), 1/4 and 1/8
+scale score/geometry/angle heads, and the fully-convolutional CTC
+recognition head over RoIRotated 1/4-scale features.
 
 The stem is the canonical formulation (``Stem`` with ``s2d=False`` in
 ``fots``); the JAX package's space-to-depth execution computes the same
@@ -99,11 +100,17 @@ class RecognitionHead(nn.Module):
 
 
 class FOTSDetector(nn.Module):
-    """Detection + shared features + recognition head."""
+    """Detection + shared features + recognition head.  ``attention``: gate
+    each FPN lateral by the sigmoid attention of the coarser merged map
+    (``conv_attention`` exists only then); ``multi_scale``: the model's
+    training loss also holds the 1/8-scale heads (it changes nothing in the
+    forward pass; :class:`fots_torch.train.Trainer` reads it)."""
 
-    def __init__(self, nclass: int = 87):
+    def __init__(self, nclass: int = 87, attention: bool = True, multi_scale: bool = True):
         super().__init__()
         self.nclass = nclass
+        self.attention = attention
+        self.multi_scale = multi_scale
         self.stem = Stem()
         self.layer1 = nn.ModuleList(BasicBlockIn(64, 64, 1) for _ in range(3))
         self.layer2 = nn.ModuleList(
@@ -121,7 +128,8 @@ class FOTSDetector(nn.Module):
         self.feature4 = Conv(512, 256, 1)
         self.upconv1 = ConvDWPlain(256)
         self.upconv2 = ConvDWPlain(256)
-        self.conv_attention = Conv(256, 1, 1, bias=True)
+        if attention:
+            self.conv_attention = Conv(256, 1, 1, bias=True)
         self.act = Conv(256, 1, 1, bias=True)
         self.rbox = Conv(256, 4, 1, bias=True)
         self.angle = Conv(256, 2, 1, bias=True)
@@ -143,8 +151,13 @@ class FOTSDetector(nn.Module):
         den = torch.sqrt(torch.sum(angle * angle, dim=-1, keepdim=True) + 1e-12)
         return segm, rbox, angle / den
 
-    def _att(self, t):
-        return torch.sigmoid(self.conv_attention(t))
+    def _lateral(self, f, coarser):
+        """The lateral ``f`` as the merge adds it: times the attention of the
+        ``coarser`` merged map resized to ``f``'s size, or as it is without
+        the gate."""
+        if not self.attention:
+            return f
+        return f * resize_bilinear(torch.sigmoid(self.conv_attention(coarser)), f.shape[2:])
 
     def forward(self, images, generator: Optional[torch.Generator] = None
                 ) -> Dict[str, object]:
@@ -170,14 +183,9 @@ class FOTSDetector(nn.Module):
         x = self.drop(x, generator)
         f4 = self.feature4(x)
 
-        att_up = resize_bilinear(self._att(f4), f3.shape[2:])
-        x = resize_bilinear(f4, f3.shape[2:]) + f3 * att_up
-        att_up = resize_bilinear(self._att(x), f2.shape[2:])
-        x = self.upconv1(resize_bilinear(x, f2.shape[2:]))
-        f2m = x + f2 * att_up
-        att_up = resize_bilinear(self._att(f2m), f1.shape[2:])
-        x = self.upconv2(resize_bilinear(f2m, f1.shape[2:]))
-        x = x + f1 * att_up
+        x = resize_bilinear(f4, f3.shape[2:]) + self._lateral(f3, f4)
+        f2m = self.upconv1(resize_bilinear(x, f2.shape[2:])) + self._lateral(f2, x)
+        x = self.upconv2(resize_bilinear(f2m, f1.shape[2:])) + self._lateral(f1, f2m)
 
         segm2, rbox2, angle2 = self._heads(f2m)
         x = self.drop(x, generator)

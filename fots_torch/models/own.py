@@ -17,9 +17,12 @@ from fots_torch.models.detector import FOTSDetector, init_detector
 
 
 class OwnModel(nn.Module):
-    def __init__(self, nclass: int = 87):
+    def __init__(self, nclass: int = 87, attention: bool = True, multi_scale: bool = True):
         super().__init__()
-        self.detector = FOTSDetector(nclass=nclass)
+        self.attention = attention
+        self.multi_scale = multi_scale
+        self.detector = FOTSDetector(nclass=nclass, attention=attention,
+                                     multi_scale=multi_scale)
         self.crnn = CRNN(nclass=nclass)
 
     def forward(self, images, generator=None):

@@ -272,13 +272,14 @@ class Trainer:
     device) trains data-parallel, each rank given the same global batches,
     whose size the data axis must divide; ``model`` is then this rank's
     (with its vocabulary-head rows under a model axis) and :attr:`ddp` the
-    DistributedDataParallel around it."""
+    DistributedDataParallel around it.  The loss holds the 1/8-scale heads
+    as the model's ``multi_scale`` says, unless ``multi_scale`` is given."""
 
     def __init__(self, model: Optional[FOTSDetector] = None,
                  codec: Optional[LabelCodec] = None, learning_rate: float = 1e-3,
                  seed: int = 0, use_predicted_rois: bool = True,
-                 ohem: bool = False, masked_norm: bool = True, multi_scale: bool = True,
-                 device=None, mesh=None):
+                 ohem: bool = False, masked_norm: bool = True,
+                 multi_scale: Optional[bool] = None, device=None, mesh=None):
         self.device = resolve_device(device)
         self.codec = codec or LabelCodec()
         if model is None:
@@ -303,7 +304,7 @@ class Trainer:
         self.use_predicted_rois = use_predicted_rois
         self.ohem = ohem
         self.masked_norm = masked_norm
-        self.multi_scale = multi_scale
+        self.multi_scale = model.multi_scale if multi_scale is None else multi_scale
         #: applied updates; a restored checkpoint sets it and a resumed
         #: :meth:`train` continues the numbering
         self.global_step = 0

@@ -135,3 +135,192 @@ def test_load_engine_n_model_without_n_data_is_unmeshed():
         assert port.mesh is None
     with load_engine(SNAPSHOT, device="cpu", n_data=1, n_model=2) as port:
         assert port.mesh is None
+
+
+# --------------------------------------------------------------------------
+# the argument surface
+# --------------------------------------------------------------------------
+
+#: fots arguments the port leaves out, by (module, function): each is a JAX
+#: or TPU concern, or an option fots never sets otherwise
+JAX_ONLY = {
+    ("checkpoint", "import_torch_state_dict"): {
+        "variables": "fots returns new flax variables; the port copies into a module"},
+    ("checkpoint", "load_serving_params"): {
+        "variables": "the port returns the flat arrays; load_flat fills a module",
+        "with_config": "the port always returns the config, {} when absent"},
+    ("checkpoint", "restore_checkpoint"): {
+        "state": "an orbax TrainState; the port restores into its trainer"},
+    ("checkpoint", "save_checkpoint"): {
+        "state": "an orbax TrainState; the port saves its trainer"},
+    ("checkpoint", "save_serving_params"): {
+        "variables": "flax variables; the port writes a module's state dict"},
+    ("data.ocr_crops", "ocr_crop_batches"): {
+        "train_list": "the port reads a decoded archive first; a list passes as "
+                      "train_list= through **kwargs"},
+    ("data.prefetch", "PrefetchPool.__init__"): {
+        "ctx": "a forked child of a process that holds a CUDA context cannot use "
+               "CUDA: the port always spawns"},
+    ("export", "ExportedEngine.recognize"): {
+        "focr": "the port's programs read the detection program's packed quads"},
+    ("models.crnn", "CRNN.<fields>"): {
+        "dtype": "flax's compute dtype; the port casts parameters and inputs"},
+    ("models.detector", "FOTSDetector.<fields>"): {
+        "stem_s2d": "the stem's space-to-depth layout for the TPU's lanes",
+        "stem_split_conv1a": "a TPU layout of conv1a, the same function",
+        "dtype": "flax's compute dtype; the port casts (cast_params_bf16)"},
+    ("models.detector", "FOTSDetector.recognize"): {
+        "train": "torch's module.train() / eval()"},
+    ("models.detector", "Stem.<fields>"): {
+        "s2d": "the space-to-depth layout for the TPU's lanes",
+        "split_conv1a": "a TPU layout of conv1a, the same function"},
+    ("models.detector", "init_detector"): {
+        "rng": "a JAX key; the port draws from a torch.Generator",
+        "image_shape": "flax traces the init at a shape; torch modules need none",
+        "strip_shape": "flax traces the init at a shape; torch modules need none"},
+    ("models.layers", "BasicBlockSepIn.<fields>"): {
+        "dilation": "fots builds every block with dilation 1"},
+    ("models.layers", "BatchNorm.<fields>"): {
+        "momentum": "fots builds every BatchNorm at 0.9, the port's class attribute"},
+    ("models.layers", "ConvDWIn.<fields>"): {
+        "dilation": "fots builds every block with dilation 1"},
+    ("models.layers", "InstanceNorm.<fields>"): {
+        "dtype": "flax's compute dtype; the port casts parameters and inputs"},
+    ("models.layers", "max_pool"): {"padding": "fots only ever pools VALID"},
+    ("models.own", "OwnModel.ocr_forward"): {"train": "torch's module.train() / eval()"},
+    ("models.own", "OwnModel.recognize"): {"train": "torch's module.train() / eval()"},
+    ("models.own", "init_own_model"): {
+        "rng": "a JAX key; the port draws from a torch.Generator",
+        "image_shape": "flax traces the init at a shape; torch modules need none",
+        "crop_shape": "flax traces the init at a shape; torch modules need none"},
+    ("ops.instance_norm", "instance_norm"): {
+        "use_pallas": "Pallas or XLA on the TPU; the port picks by the tensor's device"},
+    ("ops.rroi_align", "pack_neighbors"): {
+        "prefer_pallas": "Pallas or XLA on the TPU; the port picks by the tensor's device"},
+    ("parallel.mesh", "make_mesh"): {
+        "devices": "JAX devices; the port's mesh spans the process group's ranks"},
+    ("parallel.mesh", "param_shardings"): {
+        "params": "a flax tree; the port takes the module"},
+    ("parallel.mesh", "shard_init"): {
+        "variables": "flax variables; the port shards the module in place"},
+    ("pipeline", "FOTSInference.__init__"): {
+        "variables": "flax variables; the port's model holds its weights"},
+    ("pipeline", "cast_params_bf16"): {
+        "variables": "flax variables; the port casts the module in place"},
+    ("train", "Trainer.__init__"): {
+        "input_size": "flax initialises at that size; the port needs no shape"},
+    ("train", "extract_roi_candidates"): {
+        "rng": "a JAX key; the port draws the priorities from a torch.Generator"},
+    ("train_ocr", "CRNNTrainer.__init__"): {
+        "input_width": "flax initialises at that width; the port needs no shape"},
+}
+
+
+def _arg_names(fn) -> list:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n != "self"]
+
+
+def _surface(package: str) -> dict:
+    """{(module, name): argument names} of a package's public functions, its
+    public classes' public methods, ``__init__`` and ``__call__``, and (as
+    ``Class.<fields>``) a flax module's dataclass fields, read with ``ast``."""
+    import ast
+
+    root = os.path.join(REPO, package)
+    out = {}
+    for folder, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            module = os.path.relpath(path, root)[:-3].replace(os.sep, ".")
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in tree.body:
+                if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+                    out[(module, node.name)] = _arg_names(node)
+                elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+                    for item in node.body:
+                        if isinstance(item, ast.FunctionDef) and (
+                                not item.name.startswith("_")
+                                or item.name in ("__init__", "__call__")):
+                            out[(module, f"{node.name}.{item.name}")] = _arg_names(item)
+                    fields = [item.target.id for item in node.body
+                              if isinstance(item, ast.AnnAssign)
+                              and isinstance(item.target, ast.Name)]
+                    if fields:
+                        out[(module, f"{node.name}.<fields>")] = fields
+    return out
+
+
+def test_every_fots_argument_has_a_port_counterpart():
+    """For every public function and method of fots with a port counterpart
+    (the same module and name; a flax module's fields against the port
+    class's ``__init__``), fots's argument names are a subset of the
+    port's, but for :data:`JAX_ONLY`; and every entry there is still a gap."""
+    ref, port = _surface("fots"), _surface("fots_torch")
+    gaps, compared = {}, 0
+    for key, names in ref.items():
+        module, name = key
+        if name.endswith(".<fields>"):
+            theirs = port.get((module, name.replace("<fields>", "__init__")))
+        else:
+            theirs = port.get(key)
+        if theirs is None:
+            continue
+        compared += 1
+        missing = [n for n in names if n not in theirs]
+        if missing:
+            gaps[key] = missing
+    assert compared >= 170
+    for key, missing in gaps.items():
+        assert key in JAX_ONLY and set(missing) <= set(JAX_ONLY[key]), \
+            f"{key}: fots's {missing} have no port counterpart"
+    for key, reasons in JAX_ONLY.items():
+        assert set(reasons) <= set(gaps.get(key, ())), \
+            f"{key}: {sorted(set(reasons) - set(gaps.get(key, ())))} are ported now"
+
+
+def test_decode_batch_lengths_as_fots():
+    """Frames at or past a row's length are dropped: lengths 0, T and in
+    between, over seeded ids with blanks, repeats and out-of-alphabet ids."""
+    from fots.codec import LabelCodec as JaxCodec
+    from fots_torch.codec import LabelCodec
+
+    rng = np.random.default_rng(22)
+    ids = rng.integers(0, 90, (64, 40)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.3] = 0
+    lengths = np.concatenate([[0, 40, 1, 39], rng.integers(0, 41, 60)])
+    port, ref = LabelCodec(), JaxCodec()
+    for lens in (lengths, lengths.astype(np.int64).tolist(), None):
+        want = ref.decode_batch(ids, lens)
+        assert port.decode_batch(ids, lens) == want
+    assert port.decode_batch(ids, lengths)[0] == "" and \
+        port.decode_batch(ids, lengths)[1] == port.decode_batch(ids)[1]
+    assert port.decode_batch(ids[:0], lengths[:0]) == ref.decode_batch(ids[:0], lengths[:0])
+
+
+@pytest.mark.parametrize("max_queue", [None, 2])
+def test_prefetch_pool_max_queue_as_fots(max_queue):
+    """One worker fills the queue up to ``max_queue`` items and no further,
+    in both pools (the port's default is its 4, fots's 24)."""
+    import itertools
+    import time
+
+    from fots.data.prefetch import PrefetchPool as JaxPool
+    from fots_torch.data import prefetch
+
+    kw = {} if max_queue is None else {"max_queue": max_queue}
+    for pool_cls, default in ((prefetch.PrefetchPool, prefetch.QUEUE_BATCHES),
+                              (JaxPool, 24)):
+        want = max_queue or default
+        with pool_cls(itertools.repeat, num_workers=1, **kw) as pool:
+            deadline = time.monotonic() + 60
+            while pool._queue.qsize() < want and time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.5)
+            assert pool._queue.qsize() == want, pool_cls
+            assert next(pool) == 0
