@@ -1600,24 +1600,50 @@ def _stage_ms(makes, stages) -> dict:
     return ms
 
 
-def _readers_in_window(trainer, lo: float, hi: float) -> dict:
-    """The data pipeline while ``trainer`` ran its timed window (``lo``,
-    ``hi``], perf_counter seconds between two dispatches: the main
-    thread's wait for each batch it fetched inside the window, how many of
-    those batches the readers had made before it, and their samples/s a
-    reader over the batches made inside it (on the loaded host, queue waits
-    excluded; ``None`` when none was made there) and over every batch the
-    run fetched."""
-    clock = time.time() - time.perf_counter()
-    fetched = trainer.fetch_log[4:]  # batch k is fetched between dispatches k - 2 and k - 1
-    made_in = [m for _, m, at in trainer.fetch_log if lo + clock < at <= hi + clock]
+def _traced_run(args, trainer) -> list:
+    """``train_joint.run(args, trainer)`` with :mod:`fots_torch.tracing`
+    on: the run's spans."""
+    from fots_torch import tracing
+    from fots_torch.cli import train_joint
+
+    tracing.reset()
+    with tracing.enable():
+        train_joint.run(args, trainer)
+    spans = tracing.spans()
+    tracing.reset()
+    return spans
+
+
+def _dispatched_at(spans) -> list:
+    """Unix seconds at which each step's dispatch ended (its last
+    ``step.*`` span), in step order."""
+    ends = {}
+    for s in spans:
+        if s.name.startswith("step."):
+            ends[s.step] = max(ends.get(s.step, 0), s.end_ns)
+    return [ends[k] / 1e9 for k in sorted(ends)]
+
+
+def _readers_in_window(spans, lo: float, hi: float) -> dict:
+    """The data pipeline while a trainer ran its timed window (``lo``,
+    ``hi``], unix seconds between two dispatches, from its ``train.fetch``
+    spans (``spans``): the main thread's wait for each batch it fetched
+    inside the window, how many of those batches the readers had made
+    before it, and their samples/s a reader over the batches made inside it
+    (on the loaded host, queue waits excluded; ``None`` when none was made
+    there) and over every batch the run fetched."""
+    fetches = [s for s in spans if s.name == "train.fetch" and s.attrs]
+    fetched = fetches[4:]  # batch k is fetched between dispatches k - 2 and k - 1
+    made_in = [s.attrs["make_s"] for s in fetches if lo < s.attrs["made_at"] <= hi]
     per_reader = TRAIN_BATCH / statistics.mean(made_in) if made_in else None
-    makes = [m for _, m, _ in trainer.fetch_log]
+    makes = [s.attrs["make_s"] for s in fetches]
+    stages = [tuple(s.attrs[k] for k in ("decode_s", "augment_s", "targets_s")) for s in fetches]
+    waits = [(s.end_ns - s.start_ns) / 1e9 for s in fetched]
     return {"samples_per_s_per_reader_all_fetched": TRAIN_BATCH / statistics.mean(makes),
-            "stage_ms_per_batch_all_fetched": _stage_ms(makes, trainer.stage_log),
-            "main_thread_wait_ms": [round(1e3 * w, 3) for w, _, _ in fetched],
-            "main_thread_wait_share": sum(w for w, _, _ in fetched) / (hi - lo),
-            "fetched_in_window_made_before": sum(at <= lo + clock for _, _, at in fetched),
+            "stage_ms_per_batch_all_fetched": _stage_ms(makes, stages),
+            "main_thread_wait_ms": [round(1e3 * w, 3) for w in waits],
+            "main_thread_wait_share": sum(waits) / (hi - lo),
+            "fetched_in_window_made_before": sum(s.attrs["made_at"] <= lo for s in fetched),
             "fetched_in_window": len(fetched), "made_in_window": len(made_in),
             "samples_per_s_per_reader_in_run": per_reader,
             "readers_samples_per_s_in_run": (None if per_reader is None
@@ -1669,7 +1695,7 @@ def phase_train_joint(targets):
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    train_joint.run(args, trainer)
+    spans = _traced_run(args, trainer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**build.launch_counts, **build.route_counts}
@@ -1692,9 +1718,9 @@ def phase_train_joint(targets):
     print(f"  losses {[round(h['loss'], 4) for h in hist]}")
     check(last < first, f"train_joint: mean loss of steps 16-20 {last} not below steps 1-5 "
           f"{first}")
-    stamps = trainer.dispatch_times
+    stamps = _dispatched_at(spans)
     ips = (len(stamps) - 3) * TRAIN_BATCH / (stamps[-1] - stamps[2])
-    readers = _readers_in_window(trainer, stamps[2], stamps[-1])
+    readers = _readers_in_window(spans, stamps[2], stamps[-1])
 
     # 3. resume from step_10 to JOINT_RESUME_TO
     ckpt = os.path.join(save, f"step_{JOINT_CKPT_EVERY}")
@@ -2610,7 +2636,7 @@ def phase_files(images, eval_result=None, joint_result=None):
          "-input_size", str(JOINT_SIZE), "-checkpoint_every", str(FILES_STEPS), "-seed", "0",
          "-num_readers", str(JOINT_READERS), "-disp_interval", "5",
          "-max_iters", str(FILES_STEPS)])
-    train_joint.run(args, trainer)
+    train_spans = _traced_run(args, trainer)
     t_train = time.perf_counter()
     # (g) eval_ocr over the PNG crops, greedy and beam 8
     ocr_runs = {run: eval_ocr.main(["-model", SNAPSHOT, "-train_list", OCR_PNG_LIST,
@@ -2737,8 +2763,8 @@ def phase_files(images, eval_result=None, joint_result=None):
           f"train_joint from files: steps {[h['step'] for h in hist]}")
     check(all(math.isfinite(h["loss"]) for h in hist), f"train_joint from files: {hist}")
     check(trainer.dropped_samples == 0, "train_joint from files: samples dropped")
-    stamps = trainer.dispatch_times
-    readers = _readers_in_window(trainer, stamps[2], stamps[-1])
+    stamps = _dispatched_at(train_spans)
+    readers = _readers_in_window(train_spans, stamps[2], stamps[-1])
     ocr_out = {}
     for run, ref in ocr_ref.items():
         metrics, crops = ocr_runs[run]
@@ -2977,14 +3003,14 @@ def phase_writers():
          str(JOINT_SIZE), "-checkpoint_every", "1000", "-seed", "0", "-num_readers",
          str(DEBUG_READERS), "-disp_interval", "2", "-max_iters", str(DEBUG_STEPS),
          "-debug", debug_dir, "-debug_every", str(DEBUG_EVERY)])
-    train_joint.run(args, trainer)
+    dumps = [s for s in _traced_run(args, trainer) if s.name == "train.debug_dump"]
     torch.cuda.synchronize()
     launches["train_joint_debug"] = dict(build.launch_counts)
-    dumped = [s for s, _, _ in trainer.debug_log]
+    dumped = [s.step for s in dumps]
     check(dumped == list(range(0, DEBUG_STEPS, DEBUG_EVERY)), f"train_joint -debug at {dumped}")
     files = sorted(os.listdir(debug_dir))
-    check(len(files) == sum(n for _, n, _ in trainer.debug_log) > 0,
-          f"train_joint -debug: {len(files)} files for {trainer.debug_log}")
+    check(len(files) == sum(s.attrs["crops"] for s in dumps) > 0,
+          f"train_joint -debug: {len(files)} files for {dumps}")
     pattern = re.compile(r"crop_(\d{6})_(\d{2})_(pred|gt)_[0-9A-Za-z_-]+\.jpg")
     for name in files:
         m = pattern.fullmatch(name)
@@ -2992,7 +3018,7 @@ def phase_writers():
         im = imageio.imread(os.path.join(debug_dir, name))
         check(im is not None and im.shape[0] == 44, f"train_joint -debug: {name} does not decode")
     check(all(math.isfinite(h["loss"]) for h in trainer.history), "train_joint -debug: losses")
-    dump_ms = [1e3 * t for _, _, t in trainer.debug_log]
+    dump_ms = [(s.end_ns - s.start_ns) / 1e6 for s in dumps]
     print(f"  train_joint -debug, {DEBUG_STEPS} steps at b{TRAIN_BATCH} {JOINT_SIZE}: "
           f"{len(files)} crops at steps {dumped}; a dumped step adds "
           f"{[round(v, 3) for v in dump_ms]} host ms; launches {launches['train_joint_debug']}")

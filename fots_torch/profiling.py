@@ -25,7 +25,15 @@ batches first, then a profiled window of ``--batches`` batches (steps).
 Prints one JSON object: host wall time per batch, device busy time per
 batch (the union of kernel intervals), the device's idle share of the
 window, device time per kernel category and the top kernels by device
-time.  ``export`` (default batch 16): the shipped snapshot exported at
+time.  ``train`` adds the spans of :mod:`fots_torch.tracing`: host ms a
+step by span, self time, on the dispatching and the preparing thread, from
+``--batches`` steps run before the window with the recorder on and no
+profiler (the profiler slows the dispatching thread several times over);
+and the share of the profiled window the card sat idle while the
+dispatching thread waited for the prepared batch (``train.wait_prepared``)
+and while it was inside a ``step.*`` span, readings of the profiled loop.
+This is the way to see what the host does while the card idles.
+``export`` (default batch 16): the shipped snapshot exported at
 704x1280, bf16, into a temporary bundle; its ``ExportedEngine`` beside the
 in-process engine (host letterbox), as images/s in turns on the smoke
 scenes and on the same batch already letterboxed (each engine's letterbox
@@ -54,12 +62,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -69,6 +79,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fots_torch import tracing
 from fots_torch.checkpoint import load_detector
 from fots_torch.pipeline import FOTSInference
 
@@ -159,14 +170,21 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _union_us(intervals):
-    total, end = 0.0, -1.0
-    for s, e in sorted(intervals):
-        if e <= end:
+def _merged(intervals, lo: float = -math.inf, hi: float = math.inf) -> list:
+    """``intervals`` clipped to [lo, hi], sorted and merged."""
+    out = []
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
             continue
-        total += e - max(s, end)
-        end = e
-    return total
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _union_us(intervals):
+    return float(sum(e - s for s, e in _merged(intervals)))
 
 
 def _is_annotation(event) -> bool:
@@ -180,17 +198,25 @@ def _is_annotation(event) -> bool:
             or re.fullmatch(r"[\w.]+#[\w.]+", event.name) is not None)
 
 
+def _profiled(run):
+    """``run()`` under torch.profiler: (the profiler, the unix ns at the
+    start and at the end of ``run()`` and its last kernel)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lo = time.time_ns()
+        run()
+        torch.cuda.synchronize()
+        hi = time.time_ns()
+    return prof, lo, hi
+
+
 def profile_window(run, batches: int, kernel_names: Optional[list] = None):
     """Profile ``run()`` (which works through ``batches`` batches) and
     summarise its device activity per batch; ``kernel_names`` gets the name
     of every device kernel the window ran."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, lo, hi = _profiled(run)
+    wall = (hi - lo) / 1e9
     events = prof.events()
     if kernel_names is not None:
         kernel_names += [e.name for e in events
@@ -300,36 +326,69 @@ def profile_export(model, config, batch, serve_hw, batches: int) -> dict:
     return out
 
 
-def _timed(obj, name: str, log: dict):
-    """Wrap ``obj.name`` so each call's host time lands in ``log[name]``."""
-    fn = getattr(obj, name)
-
-    def wrapper(*args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            log[name].append(1e3 * (time.perf_counter() - t0))
-
-    setattr(obj, name, wrapper)
+def _idle_ns_under(busy, under, lo: int, hi: int) -> int:
+    """Nanoseconds of [lo, hi] inside an interval of ``under`` and outside
+    every interval of ``busy`` (both lists of (start, end))."""
+    busy, under = _merged(busy, lo, hi), _merged(under, lo, hi)
+    total, i = 0, 0
+    for s, e in under:
+        total += e - s
+        while i < len(busy) and busy[i][1] <= s:
+            i += 1
+        j = i
+        while j < len(busy) and busy[j][0] < e:
+            total -= min(e, busy[j][1]) - max(s, busy[j][0])
+            j += 1
+    return total
 
 
 def profile_training(trainer, batch, batches: int, warmup: int = 2) -> dict:
-    """The step's device breakdown, plus the host's, ms per call: ``step``
-    (main thread: upload and the dispatch of forward, backward and Adam);
-    on the prefetch thread ``_prepare_maps`` (image and map packing) and
-    ``_prepare_rois`` (``_build_roi_batch``, which waits for the previous
-    step's candidates and samples rois, and the roi buffer)."""
+    """The step's device breakdown over a profiled window of ``batches``
+    steps, and the host's from the spans of :mod:`fots_torch.tracing`.
+    ``host_ms_per_step``: each span's self time, ms a step, by thread
+    (``dispatch``: the thread that runs :meth:`Trainer.step`; ``prepare``:
+    the prefetch thread), over ``batches`` steps run before the window
+    with the recorder on and no profiler.  ``device_idle_share_prep_wait``
+    and ``device_idle_share_dispatch``: the shares of the profiled window
+    the card sat idle while the dispatching thread was in
+    ``train.wait_prepared`` and in a ``step.*`` span; the profiler slows
+    the dispatching thread, so they describe the profiled loop."""
     trainer.train([batch] * warmup, max_steps=warmup, log_every=0)
-    log = defaultdict(list)
-    for name in ("step", "_prepare_maps", "_prepare_rois", "_build_roi_batch"):
-        _timed(trainer, name, log)
-    out = profile_window(lambda: trainer.train([batch] * batches,
-                                          max_steps=trainer.global_step + batches,
-                                          log_every=0), batches)
-    host = {k: sum(v) / len(v) for k, v in log.items()}
+    dispatcher = threading.get_ident()
+
+    def steps():
+        first = trainer.global_step
+        tracing.reset()
+        trainer.train([batch] * batches, max_steps=first + batches, log_every=0)
+        return [s for s in tracing.spans() if s.step is not None and s.step >= first]
+
+    with tracing.enable():
+        spans = steps()
+    dropped = tracing.dropped()
+    host = {"dispatch": defaultdict(float), "prepare": defaultdict(float)}
+    own = tracing.self_ns(spans)
+    for s in spans:
+        host["dispatch" if s.thread == dispatcher else "prepare"][s.name] += own[s.id] / 1e6
+    profiled = []
+    prof, lo, hi = _profiled(lambda: profiled.extend(steps()))
+    dropped += tracing.dropped()
+    events = prof.events()
+    out = _summary(events, (hi - lo) / 1e9, batches)
+    origin = prof.profiler.kineto_results.trace_start_ns()
+    busy = [(origin + int(1e3 * e.time_range.start), origin + int(1e3 * e.time_range.end))
+            for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e)]
+    main = [s for s in profiled if s.thread == dispatcher]
+    for key, pick in (("device_idle_share_prep_wait", lambda n: n == "train.wait_prepared"),
+                      ("device_idle_share_dispatch", lambda n: n.startswith("step."))):
+        out[key] = _idle_ns_under(busy, [(s.start_ns, s.end_ns) for s in main if pick(s.name)],
+                                  lo, hi) / (hi - lo)
     return {"path": "train", "batch": batch.images.shape[0],
-            "hw": list(batch.images.shape[1:3]), "host_ms_per_call": host, **out}
+            "hw": list(batch.images.shape[1:3]),
+            "host_ms_per_step": {k: {n: ms / batches for n, ms in
+                                     sorted(v.items(), key=lambda kv: -kv[1])}
+                                 for k, v in host.items()},
+            "spans_dropped": dropped, **out}
 
 
 def augmented_smoke_batch(batch_size: int, size: int = 512):

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from fots_torch import tracing
 from fots_torch.codec import LabelCodec
 from fots_torch.data.detection import DetectionBatch
 from fots_torch.device import resolve_device, to_device_async
@@ -63,6 +64,8 @@ from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBat
                                   sample_rois, shard_rois)
 
 METRIC_KEYS = ("loss", "segm_loss", "angle_loss", "iou_loss", "ctc_loss")
+#: what :meth:`Trainer.train`'s ``train.fetch`` span keeps of a batch that has it
+FETCH_ATTRS = ("make_s", "made_at", "decode_s", "augment_s", "targets_s")
 ROI_CANDIDATES_K = 128  # random candidate pixels shipped to the host sampler
 
 
@@ -215,13 +218,16 @@ def train_step(model: FOTSDetector, optimizer: torch.optim.Optimizer,
     """One optimisation step.  Returns (metric vector [5] in
     :data:`METRIC_KEYS` order, next step's roi candidates [B, 8, k] of this
     rank's images), both still on the device."""
-    optimizer.zero_grad(set_to_none=True)
-    total, terms, out = train_losses(model, batch, strip_width, ctc_frames, generator,
-                                     multi_scale, ohem, masked_norm, optax_rows, roi_draw,
-                                     group)
-    total.backward()
-    optimizer.step()
-    with torch.no_grad():
+    with tracing.span("step.forward"):
+        optimizer.zero_grad(set_to_none=True)
+        total, terms, out = train_losses(model, batch, strip_width, ctc_frames, generator,
+                                         multi_scale, ohem, masked_norm, optax_rows, roi_draw,
+                                         group)
+    with tracing.span("step.backward"):
+        total.backward()
+    with tracing.span("step.optimizer"):
+        optimizer.step()
+    with tracing.span("step.candidates"), torch.no_grad():
         cands = extract_roi_candidates(out["segm"][0][..., 0], batch["score_maps"],
                                        out["rbox"][0], out["angle"][0], generator=generator)
         metric_vec = torch.stack([terms[k].detach() for k in METRIC_KEYS])
@@ -316,32 +322,24 @@ class Trainer:
         self.metrics = {k: Averager() for k in METRIC_KEYS}
         #: every recorded step's metrics and step index, in step order
         self.history: List[Dict[str, float]] = []
-        #: host clock (``time.perf_counter``) at each step's dispatch
-        self.dispatch_times: List[float] = []
-        #: per batch :meth:`train` fetched: (seconds the main thread waited
-        #: for it, its ``make_s`` and ``made_at`` where it carries them)
-        self.fetch_log: List[tuple] = []
-        #: per batch fetched: its reader's seconds by stage (decode,
-        #: augment, targets) where it carries them
-        self.stage_log: List[tuple] = []
-        #: per roi crop dump of :meth:`train`: (step index, crops written,
-        #: host seconds)
-        self.debug_log: List[tuple] = []
 
     def _build_roi_batch(self, batch) -> RoiBatch:
-        cands = hw = None
-        if self.use_predicted_rois and self._prev_cands is not None:
-            copy, phw = self._prev_cands
-            pc = copy.numpy()  # waits for the previous step's candidates only
-            if pc.shape[0] == batch.images.shape[0] and phw == batch.score_maps.shape[1:]:
-                cands, hw = pc, phw
-        return sample_rois(self._np_rng, batch.score_maps, batch.gt_idxs, batch.gt_quads,
-                           batch.labels, batch.images.shape[1:3], self.codec,
-                           max_rois=MAX_ROIS, pred_candidates=cands, pred_map_hw=hw)
+        with tracing.span("prep.sample_rois"):
+            cands = hw = None
+            if self.use_predicted_rois and self._prev_cands is not None:
+                copy, phw = self._prev_cands
+                with tracing.span("prep.wait_candidates"):
+                    pc = copy.numpy()  # waits for the previous step's candidates only
+                if pc.shape[0] == batch.images.shape[0] and phw == batch.score_maps.shape[1:]:
+                    cands, hw = pc, phw
+            return sample_rois(self._np_rng, batch.score_maps, batch.gt_idxs, batch.gt_quads,
+                               batch.labels, batch.images.shape[1:3], self.codec,
+                               max_rois=MAX_ROIS, pred_candidates=cands, pred_map_hw=hw)
 
     def _host_tensor(self, a) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.pin_memory() if self.device.type == "cuda" else t
+        with tracing.span("prep.pin"):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory() if self.device.type == "cuda" else t
 
     def _rows(self, b: int) -> slice:
         """This rank's rows of a global batch of ``b``."""
@@ -352,24 +350,27 @@ class Trainer:
     def _prepare_maps(self, batch) -> List[torch.Tensor]:
         """The image and map upload buffers of this rank's rows
         (independent of earlier steps)."""
-        if self.mesh is not None:
-            rows = self._rows(batch.images.shape[0])
-            batch = replace(batch, **{k: getattr(batch, k)[rows] for k in
-                                      ("images", "score_maps", "geo_maps", "training_masks")})
-        return [self._host_tensor(a) for a in pack_host_maps(batch)]
+        with tracing.span("prep.pack_maps"):
+            if self.mesh is not None:
+                rows = self._rows(batch.images.shape[0])
+                batch = replace(batch, **{k: getattr(batch, k)[rows] for k in
+                                          ("images", "score_maps", "geo_maps",
+                                           "training_masks")})
+            return [self._host_tensor(a) for a in pack_host_maps(batch)]
 
     def _prepare_rois(self, batch, maps: List[torch.Tensor]) -> Prepared:
         """Roi sampling on the global batch (waits for the previous step's
         candidates) and the roi buffer of the rois this rank recognises;
         returns what :meth:`step` takes as ``prepared``."""
         roi_batch = self._build_roi_batch(batch)
-        frames = ctc_frame_count(roi_batch.rois, roi_batch.roi_mask, roi_batch.strip_width)
-        rec, index = roi_batch, None
-        if self.mesh is not None:
-            rec, index = shard_rois(roi_batch, self._rows(batch.images.shape[0]))
-        host = maps + [self._host_tensor(pack_rois(rec))]
-        optax_rows = repeat_infeasible_rows(rec.labels, rec.label_lengths,
-                                            np.full(len(rec.roi_mask), frames))
+        with tracing.span("prep.pack_rois"):
+            frames = ctc_frame_count(roi_batch.rois, roi_batch.roi_mask, roi_batch.strip_width)
+            rec, index = roi_batch, None
+            if self.mesh is not None:
+                rec, index = shard_rois(roi_batch, self._rows(batch.images.shape[0]))
+            host = maps + [self._host_tensor(pack_rois(rec))]
+            optax_rows = repeat_infeasible_rows(rec.labels, rec.label_lengths,
+                                                np.full(len(rec.roi_mask), frames))
         return Prepared(roi_batch, host, frames, optax_rows, rec, index)
 
     def _prepare(self, batch):
@@ -390,13 +391,15 @@ class Trainer:
         ``step_idx`` labels the step in the history (default: the applied
         updates before it)."""
         step_idx = self.global_step if step_idx is None else step_idx
+        tracing.set_step(step_idx)
         prep = prepared if prepared is not None else self._prepare(batch)
         rec = prep.recognised
-        dev = [t.to(self.device, non_blocking=True) for t in prep.host]
-        dev_batch = unpack_device_batch(*dev, tuple(batch.images.shape[1:3]),
-                                        max_rois=len(rec.roi_mask))
-        # F.ctc_loss reads the lengths on the host: hand it the host copy
-        dev_batch["label_lengths"] = torch.from_numpy(rec.label_lengths).long()
+        with tracing.span("step.upload"):
+            dev = [t.to(self.device, non_blocking=True) for t in prep.host]
+            dev_batch = unpack_device_batch(*dev, tuple(batch.images.shape[1:3]),
+                                            max_rois=len(rec.roi_mask))
+            # F.ctc_loss reads the lengths on the host: hand it the host copy
+            dev_batch["label_lengths"] = torch.from_numpy(rec.label_lengths).long()
         if self.mesh is None:
             metric_vec, cands = train_step(self.model, self.optimizer, dev_batch,
                                            rec.strip_width, prep.frames, prep.optax_rows,
@@ -411,11 +414,12 @@ class Trainer:
                 roi_draw=pmesh.RowDraw(self._gen, len(prep.roi_batch.roi_mask),
                                        prep.roi_index),
                 group=pmesh.data_group(self.mesh))
-            cands = pmesh.gather_data_rows(cands, self.mesh)
+            with tracing.span("step.candidates"):
+                cands = pmesh.gather_data_rows(cands, self.mesh)
         self.global_step += 1
-        self.dispatch_times.append(time.perf_counter())
-        self._prev_cands = (HostCopy(cands), tuple(batch.score_maps.shape[1:3]))
-        copy = HostCopy(metric_vec)
+        with tracing.span("step.candidates"):
+            self._prev_cands = (HostCopy(cands), tuple(batch.score_maps.shape[1:3]))
+            copy = HostCopy(metric_vec)
         if defer:
             self._pending.append((step_idx, copy))
             return None
@@ -433,9 +437,10 @@ class Trainer:
     def _dump_rois(self, batch, roi_batch, out_dir: str, step_idx: int) -> None:
         from fots_torch.debug_vis import dump_roi_crops
 
-        t = time.perf_counter()
-        n = dump_roi_crops(batch.images, roi_batch, self.codec, out_dir, step_idx)
-        self.debug_log.append((step_idx, n, time.perf_counter() - t))
+        with tracing.span("train.debug_dump", step_idx) as sp:
+            n = dump_roi_crops(batch.images, roi_batch, self.codec, out_dir, step_idx)
+            if sp is not None:
+                sp.attrs["crops"] = n
 
     def train(self, batches, max_steps: int, log_every: int = 5,
               checkpoint_dir: Optional[str] = None, checkpoint_every: int = 10000,
@@ -455,7 +460,13 @@ class Trainer:
         sampled for every step i with i % ``debug_every`` == 0 are cropped
         from its images and written there before the step is dispatched
         (:func:`fots_torch.debug_vis.dump_roi_crops`, host only, as ``fots``
-        does); :attr:`debug_log` keeps (i, crops written, host seconds).
+        does).  While :mod:`fots_torch.tracing` records, each part of step
+        i is a span of step i on the thread that does it: ``train.fetch``
+        (attrs: the batch's ``make_s``, ``made_at``, ``decode_s``,
+        ``augment_s``, ``targets_s`` where it carries them),
+        ``train.wait_prepared``, ``train.debug_dump`` (attr ``crops``), the
+        ``step.*`` spans of :meth:`step`, ``train.drain_metrics`` and
+        ``train.checkpoint``; on the prefetch thread the ``prep.*`` spans.
         Under a mesh every rank iterates the same ``batches`` (see
         :class:`fots_torch.data.prefetch.BroadcastBatches`); rank 0 prints,
         dumps and writes the checkpoints.  There a batch that raises ends
@@ -467,30 +478,32 @@ class Trainer:
 
         it = iter(batches)
         with ThreadPoolExecutor(max_workers=1) as pool:
-            def fetch():
-                t = time.perf_counter()
-                batch = next(it, None)
+            def fetch(step):
+                with tracing.span("train.fetch", step) as sp:
+                    batch = next(it, None)
+                    if sp is not None and batch is not None:
+                        sp.attrs.update((k, getattr(batch, k)) for k in FETCH_ATTRS
+                                        if hasattr(batch, k))
                 if batch is None:
                     return None
-                self.fetch_log.append((time.perf_counter() - t, getattr(batch, "make_s", None),
-                                       getattr(batch, "made_at", None)))
-                self.stage_log.append(tuple(getattr(batch, k, None) for k in
-                                            ("decode_s", "augment_s", "targets_s")))
                 self.dropped_samples += int(getattr(batch, "dropped", 0))
-                return batch, pool.submit(self._prepare_maps, batch)
+                return batch, pool.submit(tracing.at_step, step, self._prepare_maps, batch)
 
-            def sample(batch, maps):  # queued after ``maps`` on the one worker
-                return pool.submit(lambda: self._prepare_rois(batch, maps.result()))
+            def sample(step, batch, maps):  # queued after ``maps`` on the one worker
+                return pool.submit(lambda: tracing.at_step(step, self._prepare_rois, batch,
+                                                           maps.result()))
 
             t0 = time.perf_counter()
-            cur = fetch() if self.global_step < max_steps else None
-            rois = None if cur is None else sample(*cur)
-            for step_idx in range(self.global_step, max_steps):
+            start = self.global_step
+            cur = fetch(start) if start < max_steps else None
+            rois = None if cur is None else sample(start, *cur)
+            for step_idx in range(start, max_steps):
                 if cur is None:
                     break
-                nxt = fetch() if step_idx + 1 < max_steps else None
+                nxt = fetch(step_idx + 1) if step_idx + 1 < max_steps else None
                 try:
-                    prepared = rois.result()
+                    with tracing.span("train.wait_prepared", step_idx):
+                        prepared = rois.result()
                     if debug_dir and step_idx % debug_every == 0 and pmesh.is_main(self.mesh):
                         self._dump_rois(cur[0], prepared[0], debug_dir, step_idx)
                     self.step(cur[0], defer=True, prepared=prepared, step_idx=step_idx)
@@ -500,20 +513,24 @@ class Trainer:
                         raise  # the other ranks may be inside this step's collectives
                     traceback.print_exc()
                     ok = False
-                rois = None if nxt is None else sample(*nxt)
+                rois = None if nxt is None else sample(step_idx + 1, *nxt)
                 cur = nxt
                 if ok and log_every and step_idx % log_every == 0:
-                    self.drain_metrics()
+                    with tracing.span("train.drain_metrics", step_idx):
+                        self.drain_metrics()
                     msg = " ".join(f"{k}: {a.val():.3f}" for k, a in self.metrics.items())
                     if pmesh.is_main(self.mesh):
                         print(f"step {step_idx} {msg} time {time.perf_counter() - t0:.3f}s",
                               flush=True)
                     t0 = time.perf_counter()
                 if checkpoint_dir and (step_idx + 1) % checkpoint_every == 0:
-                    self.drain_metrics()
-                    save_checkpoint(checkpoint_dir, self, self.global_step)
+                    with tracing.span("train.checkpoint", step_idx):
+                        self.drain_metrics()
+                        save_checkpoint(checkpoint_dir, self, self.global_step)
                     for avg in self.metrics.values():
                         avg.reset()
-        self.drain_metrics()
+        with tracing.span("train.drain_metrics"):
+            self.drain_metrics()
         if checkpoint_dir:
-            save_checkpoint(checkpoint_dir, self, self.global_step)
+            with tracing.span("train.checkpoint"):
+                save_checkpoint(checkpoint_dir, self, self.global_step)

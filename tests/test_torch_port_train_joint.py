@@ -40,6 +40,7 @@ from fots.ops.rroi_align import rroi_align as jax_rroi_align
 from fots.roirotate import MAX_LABEL_LEN, MAX_ROIS
 from fots.train import _unpack_device_batch
 from fots_torch import checkpoint as tck
+from fots_torch import tracing
 from fots_torch import train as ttrain
 from fots_torch.cli import train_joint
 from fots_torch.cli.detect import load_engine
@@ -253,15 +254,21 @@ def test_train_joint_cli_from_scratch_checkpoint_resume_and_eval(scene_list, tmp
     common = ["-train_list", scene_list, "-images_npz", SMOKE_IMAGES, "-save_path", save,
               "-batch_size", "2", "-input_size", "128", "-checkpoint_every", "2",
               "-num_readers", "1", "-disp_interval", "1", "-seed", "0", "-device", "cpu"]
-    trainer = train_joint.main(common + ["-max_iters", "3", "-no_masked_norm"])
+    tracing.reset()
+    with tracing.enable():
+        trainer = train_joint.main(common + ["-max_iters", "3", "-no_masked_norm"])
     assert [h["step"] for h in trainer.history] == [0, 1, 2]
     assert trainer.global_step == 3 and trainer.dropped_samples == 0
-    # one entry per fetched batch: the main thread's wait, the reader's time
-    assert len(trainer.fetch_log) == 3
-    assert all(w >= 0 and m > 0 and at > 0 for w, m, at in trainer.fetch_log)
+    # one span per fetched batch: the main thread's wait, the reader's time
+    fetched = [s for s in tracing.spans() if s.name == "train.fetch"]
+    assert len(fetched) == 3
+    assert all(s.end_ns >= s.start_ns and s.attrs["make_s"] > 0 and s.attrs["made_at"] > 0
+               for s in fetched)
     # and its reader's stages: no decode from the archive
-    assert len(trainer.stage_log) == 3
-    assert all(d == 0 and a > 0 and t > 0 for d, a, t in trainer.stage_log)
+    stages = [tuple(s.attrs[k] for k in ("decode_s", "augment_s", "targets_s")) for s in fetched]
+    assert len(stages) == 3
+    assert all(d == 0 and a > 0 and t > 0 for d, a, t in stages)
+    tracing.reset()
     assert all(np.isfinite([h[k] for k in ttrain.METRIC_KEYS]).all() for h in trainer.history)
     assert sorted(os.listdir(save)) == ["step_2", "step_3", "train_config.json"]
     with open(os.path.join(save, "train_config.json")) as f:

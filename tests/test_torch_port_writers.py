@@ -34,7 +34,7 @@ from fots import debug_vis as fots_vis
 from fots.codec import LabelCodec as JaxLabelCodec
 from fots.roirotate import RoiBatch as JaxRoiBatch
 from fots_torch import debug_vis as port_vis
-from fots_torch import imgproc
+from fots_torch import imgproc, tracing
 from fots_torch.codec import LabelCodec
 from fots_torch.data.annotations import load_annotation
 from fots_torch.geometry import quads_to_rrois
@@ -261,12 +261,16 @@ def test_train_joint_debug_dumps_equal_fots_hook(tmp_path, monkeypatch):
 
     monkeypatch.setattr(port_vis, "dump_roi_crops", record)
     debug = tmp_path / "debug"
-    trainer = train_joint.main(["-train_list", str(lst), "-images_npz", SMOKE_IMAGES,
-                                "-save_path", str(tmp_path / "run"), "-batch_size", "2",
-                                "-input_size", "128", "-num_readers", "1", "-max_iters", "2",
-                                "-debug", str(debug), "-debug_every", "1", "-device", "cpu",
-                                "-gt_rois_only"])
-    assert [s for s, _, _ in trainer.debug_log] == [0, 1] == [s for _, _, s in seen]
+    tracing.reset()
+    with tracing.enable():
+        train_joint.main(["-train_list", str(lst), "-images_npz", SMOKE_IMAGES,
+                          "-save_path", str(tmp_path / "run"), "-batch_size", "2",
+                          "-input_size", "128", "-num_readers", "1", "-max_iters", "2",
+                          "-debug", str(debug), "-debug_every", "1", "-device", "cpu",
+                          "-gt_rois_only"])
+    dumps = [s for s in tracing.spans() if s.name == "train.debug_dump"]
+    tracing.reset()
+    assert [s.step for s in dumps] == [0, 1] == [s for _, _, s in seen]
     want = tmp_path / "fots"
     for images, rb, step in seen:
         jax_rb = JaxRoiBatch(rois=rb.rois, labels=rb.labels, label_lengths=rb.label_lengths,
@@ -275,7 +279,7 @@ def test_train_joint_debug_dumps_equal_fots_hook(tmp_path, monkeypatch):
         fots_vis.dump_roi_crops(images, jax_rb, JaxLabelCodec(), str(want), step)
     names = sorted(os.listdir(want))
     assert names and sorted(os.listdir(debug)) == names
-    assert sum(n for _, n, _ in trainer.debug_log) == len(names)
+    assert sum(s.attrs["crops"] for s in dumps) == len(names)
     assert all(n.startswith(("crop_000000_", "crop_000001_")) for n in names)
     for n in names:
         assert (debug / n).read_bytes() == (want / n).read_bytes(), n
