@@ -2,8 +2,15 @@
 
 CUDA kernels (``fots_torch/csrc/*.cu``) compile with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface; the host NMS
-(``csrc/nms_core.cpp``) and the image decoder and encoder
-(``csrc/image_decode.cpp``, ``csrc/image_encode.cpp``) compile with ``g++``.  Outputs go to
+(``csrc/nms_core.cpp``), the image decoders and encoder
+(``csrc/image_decode.cpp``, ``csrc/image_encode.cpp``, ``csrc/decode_*.cpp``)
+and the training batch's packing pass (``csrc/pack_maps.cpp``) compile with
+``g++``.  Host sources take :data:`GXX_FLAGS` unless :data:`SOURCE_FLAGS`
+names their own: the packing pass builds at ``-O3`` with FP contraction off
+and picks its AVX2 + F16C code at run time (``__builtin_cpu_supports``), so
+no ``-march`` enters the build and the library's name, a hash of the source
+and the flags, holds on any x86-64 host; the decoders keep ``-O2``, their
+float results compared with cv2's bit for bit.  Outputs go to
 ``build/fots_torch/`` beside the package, named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Builds start together (one compiler process per source) and a
@@ -50,6 +57,7 @@ SOURCES = {
     "decode_sunras": "decode_sunras.cpp",
     "decode_hdr": "decode_hdr.cpp",
     "decode_jp2": "decode_jp2.cpp",
+    "pack_maps": "pack_maps.cpp",
 }
 #: headers the CUDA sources include (hashed into every CUDA library's name)
 CUDA_HEADERS = ("common.cuh", "cluster.cuh")
@@ -82,6 +90,10 @@ PATH_KERNELS = {
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+#: host sources built with other flags than :data:`GXX_FLAGS`
+SOURCE_FLAGS = {
+    "pack_maps": ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-pthread"),
+}
 
 #: launches of each CUDA kernel wrapper in this process (one per launch of
 #: its kernel; never incremented by the plain versions)
@@ -115,17 +127,23 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    if SOURCES[name].endswith(".cu"):
+        return NVCC_FLAGS
+    return SOURCE_FLAGS.get(name, GXX_FLAGS)
+
+
 def _compile_command(name: str, out: str) -> list:
     src = os.path.join(CSRC_DIR, SOURCES[name])
     if src.endswith(".cu"):
         return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
-    return [shutil.which("g++") or "g++", *GXX_FLAGS, "-o", out, src]
+    return [shutil.which("g++") or "g++", *_flags(name), "-o", out, src]
 
 
 def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, SOURCES[name])
     cuda = src.endswith(".cu")
-    flags = NVCC_FLAGS if cuda else GXX_FLAGS
+    flags = _flags(name)
     h = hashlib.sha256()
     for path in [src] + ([os.path.join(CSRC_DIR, n) for n in CUDA_HEADERS] if cuda else []):
         with open(path, "rb") as f:

@@ -40,6 +40,8 @@ recognises the rois of its own images; ``conv11`` runs column-parallel over
 
 from __future__ import annotations
 
+import ctypes
+import os
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -59,6 +61,7 @@ from fots_torch.models.detector import FOTSDetector, init_detector
 from fots_torch.models.layers import BatchNorm
 from fots_torch.ops.rroi_align import rroi_align
 from fots_torch.device import HostCopy
+from fots_torch.kernels import build
 from fots_torch.parallel import mesh as pmesh
 from fots_torch.roirotate import (MAX_LABEL_LEN, MAX_ROIS, POOLED_HEIGHT, RoiBatch,
                                   sample_rois, shard_rois)
@@ -67,6 +70,9 @@ METRIC_KEYS = ("loss", "segm_loss", "angle_loss", "iou_loss", "ctc_loss")
 #: what :meth:`Trainer.train`'s ``train.fetch`` span keeps of a batch that has it
 FETCH_ATTRS = ("make_s", "made_at", "decode_s", "augment_s", "targets_s")
 ROI_CANDIDATES_K = 128  # random candidate pixels shipped to the host sampler
+#: input bytes of a packing pass for each of its threads, and its most threads
+PACK_BYTES_PER_THREAD = 16 << 20
+PACK_MAX_THREADS = 4
 
 
 def asset_batch(images_u8: np.ndarray, targets, order) -> DetectionBatch:
@@ -99,6 +105,80 @@ def pack_host_maps(batch) -> tuple:
         [np.ascontiguousarray(batch.geo_maps[..., :4], np.float16).reshape(b, -1),
          np.ascontiguousarray(batch.geo_maps[..., 4], np.float16).reshape(b, -1)], axis=1)
     return images_u8, maps_u8, maps_f16
+
+
+def _pack_lib() -> ctypes.CDLL:
+    lib = build.load("pack_maps")
+    if not getattr(lib, "_fots_typed", False):
+        lib.fots_pack_maps.restype = ctypes.c_longlong
+        lib.fots_pack_maps.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ]
+        lib._fots_typed = True
+    return lib
+
+
+def native_map_shapes(batch) -> Optional[tuple]:
+    """The shapes of :func:`pack_host_maps`' three buffers where
+    :func:`pack_maps_into` takes ``batch``: C-contiguous NumPy arrays, f32
+    images [B, H, W, 3], score maps and training masks [B, h, w] of u8 or
+    f32, f32 geometry [B, h, w, 5].  None for any other batch."""
+    arrays = (batch.images, batch.score_maps, batch.training_masks, batch.geo_maps)
+    if not all(isinstance(a, np.ndarray) and a.flags.c_contiguous for a in arrays):
+        return None
+    images, score, mask, geo = arrays
+    if (images.dtype != np.float32 or images.ndim != 4 or geo.dtype != np.float32
+            or score.ndim != 3 or score.shape != mask.shape
+            or geo.shape != (*score.shape, 5) or score.shape[0] != images.shape[0]
+            or score.dtype not in (np.uint8, np.float32)
+            or mask.dtype not in (np.uint8, np.float32)):
+        return None
+    b, n = score.shape[0], score.shape[1] * score.shape[2]
+    return images.shape, (b, 2 * n), (b, 5 * n)
+
+
+def pack_threads(nbytes: int, rows: int) -> int:
+    """Threads for a packing pass over ``nbytes`` of input in ``rows``
+    batch rows: one per :data:`PACK_BYTES_PER_THREAD`, at most
+    :data:`PACK_MAX_THREADS` and no more than the rows, leaving one of the
+    process's CPUs to the dispatching thread."""
+    try:
+        cpus = len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity on this platform
+        cpus = os.cpu_count() or 1
+    return max(1, min(PACK_MAX_THREADS, cpus - 1, rows, nbytes // PACK_BYTES_PER_THREAD))
+
+
+def pack_maps_into(batch, outs: List[torch.Tensor], threads: int, simd: bool = True) -> bool:
+    """Write :func:`pack_host_maps`' bytes into ``outs`` (contiguous CPU
+    tensors: u8 images, u8 maps, f16 maps, of :func:`native_map_shapes`)
+    in one native pass over ``threads`` threads (``simd=False``: the
+    portable code, not AVX2 + F16C).  False, ``outs`` then undefined, where
+    the batch holds a value whose NumPy result the pass does not reproduce:
+    a non-finite image value, a score or mask that is not a whole number in
+    [0, 255], a NaN in the geometry."""
+    shapes = native_map_shapes(batch)
+    if shapes is None:
+        raise ValueError("the native packing pass does not take this batch "
+                         "(see native_map_shapes)")
+    for t, shape, dtype in zip(outs, shapes, (torch.uint8, torch.uint8, torch.float16)):
+        if (t.device.type != "cpu" or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"output buffer {t.dtype} {tuple(t.shape)} on {t.device}: "
+                             f"want a contiguous CPU {dtype} {tuple(shape)}")
+    images, score, mask, geo = (batch.images, batch.score_maps, batch.training_masks,
+                                batch.geo_maps)
+    b = images.shape[0]
+    bad = _pack_lib().fots_pack_maps(
+        images.ctypes.data, b, images[0].size if b else 0,
+        score.ctypes.data, int(score.dtype == np.float32),
+        mask.ctypes.data, int(mask.dtype == np.float32),
+        geo.ctypes.data, score[0].size if b else 0,
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), threads, int(simd))
+    return bad == 0
 
 
 def pack_rois(roi_batch: RoiBatch) -> np.ndarray:
@@ -349,14 +429,36 @@ class Trainer:
 
     def _prepare_maps(self, batch) -> List[torch.Tensor]:
         """The image and map upload buffers of this rank's rows
-        (independent of earlier steps)."""
-        with tracing.span("prep.pack_maps"):
+        (independent of earlier steps): one native pass into fresh buffers
+        (pinned on CUDA, where the caching host allocator hands a block out
+        again only after the upload that read it), or, for a batch that
+        pass does not take, :func:`pack_host_maps` and pinned copies.  The
+        span's attrs: ``route`` ("native" or "numpy") and ``bytes`` (of the
+        three buffers)."""
+        with tracing.span("prep.pack_maps") as sp:
             if self.mesh is not None:
                 rows = self._rows(batch.images.shape[0])
                 batch = replace(batch, **{k: getattr(batch, k)[rows] for k in
                                           ("images", "score_maps", "geo_maps",
                                            "training_masks")})
-            return [self._host_tensor(a) for a in pack_host_maps(batch)]
+            route, host = "native", self._pack_native(batch)
+            if host is None:
+                route, host = "numpy", [self._host_tensor(a) for a in pack_host_maps(batch)]
+            if sp is not None:
+                sp.attrs.update(route=route, bytes=sum(t.nbytes for t in host))
+            return host
+
+    def _pack_native(self, batch) -> Optional[List[torch.Tensor]]:
+        shapes = native_map_shapes(batch)
+        if shapes is None:
+            return None
+        pin = self.device.type == "cuda"
+        host = [torch.empty(shape, dtype=dtype, pin_memory=pin) for shape, dtype in
+                zip(shapes, (torch.uint8, torch.uint8, torch.float16))]
+        nbytes = sum(a.nbytes for a in (batch.images, batch.score_maps,
+                                        batch.training_masks, batch.geo_maps))
+        ok = pack_maps_into(batch, host, pack_threads(nbytes, batch.images.shape[0]))
+        return host if ok else None
 
     def _prepare_rois(self, batch, maps: List[torch.Tensor]) -> Prepared:
         """Roi sampling on the global batch (waits for the previous step's
