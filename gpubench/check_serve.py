@@ -1,9 +1,10 @@
 """Deciding ``correct`` for a serving cell: the served boxes and texts of a
 sample of the window's batches against the plain reference.
 
-The reference letterboxes the same frames, runs the detector, decodes and
-merges the boxes and reads each box's text, all in float32 with TF32 off
-(or in a lower precision, for the control).  Three numbers are compared:
+The reference letterboxes the same frames, runs the detector (the
+reference of the cell's model module), decodes and merges the boxes and
+reads each box's text, all in float32 with TF32 off (or in a lower
+precision, for the control).  Three numbers are compared:
 
 - ``text_gap``: over every served box, the log-probability of the
   reference's best frame path at that box less that of its best path that
@@ -28,8 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpubench.common import Cell
 from gpubench.reference import ops as R
-from gpubench.reference.detector import Detector, Precision, oihw
+from gpubench.reference.detector import oihw
 
 
 def letterbox(frames_u8: np.ndarray, serve_hw, device) -> torch.Tensor:
@@ -46,26 +48,29 @@ def letterbox(frames_u8: np.ndarray, serve_hw, device) -> torch.Tensor:
     return x.permute(0, 2, 3, 1), s
 
 
-def _rois_by_width(boxes: Sequence[np.ndarray], buckets) -> Dict[int, list]:
+def _rois_by_width(boxes: Sequence[np.ndarray], pooled_h: int, buckets) -> Dict[int, list]:
     """{strip width: [(image, box index, roi)]} of every box."""
     out: Dict[int, list] = {}
     for i, bx in enumerate(boxes):
         for j in range(len(bx)):
             roi, w, h = R.roi_of_box(bx[j], i)
-            out.setdefault(R.strip_width(w, h, buckets), []).append((i, j, roi))
+            out.setdefault(R.strip_width(w, h, pooled_h, buckets), []).append((i, j, roi))
     return out
 
 
-def reference_pass(params: Dict[str, torch.Tensor], attention: bool, frames_u8: np.ndarray,
-                   serve_hw, buckets, alphabet: str, precision: str = "f32",
-                   extra_boxes=None, chunk: int = 8, roi_chunk: int = 64, device="cuda",
-                   thresh: float = 0.5, max_candidates: int = 0):
-    """The reference over frames [N, h, w, 3] u8, ``chunk`` frames at a
-    time.  Returns, per frame, its boxes [M, 9] in serving pixels and their
-    texts, and the log-probs [W, K] (f64, NumPy) at each of
-    ``extra_boxes[i]`` (boxes in serving pixels).  ``max_candidates``: the
-    pixels above the threshold an image's NMS takes at most (0: all)."""
-    net = Detector(params, attention, Precision(precision))
+def reference_pass(cell: Cell, params: Dict[str, torch.Tensor], frames_u8: np.ndarray,
+                   precision: str = "f32", extra_boxes=None, chunk: int = 8,
+                   roi_chunk: int = 64, device="cuda", thresh: float = 0.5):
+    """The reference of the cell's configuration over frames [N, h, w, 3]
+    u8 at its traffic's serving size, ``chunk`` frames at a time.  Returns,
+    per frame, its boxes [M, 9] in serving pixels and their texts, and the
+    log-probs [W, K] (f64, NumPy) at each of ``extra_boxes[i]`` (boxes in
+    serving pixels).  An image's NMS takes at most the traffic's
+    ``max_candidates`` pixels above the threshold (0: all)."""
+    cfg, model = cell.config, cell.model
+    serve_hw, max_candidates = tuple(cell.traffic["serve_hw"]), cell.traffic["max_candidates"]
+    buckets, alphabet, ph = tuple(cfg["strip_buckets"]), cfg["alphabet"], model.POOLED_HEIGHT
+    net = model.reference(cfg, params, precision)
     n = len(frames_u8)
     boxes: List[np.ndarray] = []
     texts: List[List[str]] = []
@@ -87,12 +92,13 @@ def reference_pass(params: Dict[str, torch.Tensor], attention: bool, frames_u8: 
                  for b in extra_boxes[c0:c0 + chunk]]
             both = [np.concatenate([own[k], extra[k]]) for k in range(x.shape[0])]
             logps: Dict[tuple, np.ndarray] = {}
-            for width, items in sorted(_rois_by_width(both, buckets).items()):
+            for width, items in sorted(_rois_by_width(both, ph, buckets).items()):
                 for r0 in range(0, len(items), roi_chunk):
                     part = items[r0:r0 + roi_chunk]
                     rois = torch.tensor([it[2] for it in part], dtype=torch.float32, device=device)
-                    strips = R.rroi_align(out["focr"], rois, width)
-                    lp = net.recognize(strips, R.valid_width(rois, width)).double().cpu().numpy()
+                    strips = R.rroi_align(out["focr"], rois, ph, width)
+                    lp = net.recognize(strips, R.valid_width(rois, ph, width))
+                    lp = lp.double().cpu().numpy()
                     for (i, j, _), row in zip(part, lp):
                         logps[(i, j)] = row
         for k in range(x.shape[0]):

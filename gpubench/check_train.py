@@ -17,9 +17,10 @@ Numbers compared:
 
 - ``roi_start``: entries of the first step's rois that differ from the
   reference's own sampling (exact);
-- ``map_gap``: the largest, over the first step's maps (segm, rbox and
-  angle at 1/4 and 1/8 scale, and the shared features focr), of the norm
-  of the program's map less the reference's over the reference's norm;
+- ``map_gap``: the largest, over the first step's maps (the model
+  module's ``MAPS``: here segm, rbox and angle at 1/4 and 1/8 scale, and
+  the shared features focr), of the norm of the program's map less the
+  reference's over the reference's norm;
   ``logp_gap`` the same of the first step's recognition log-probs (the
   valid rois, the CTC frame window);
 - ``loss_gap``: the largest relative gap over the four loss terms (dice,
@@ -33,6 +34,9 @@ Numbers compared:
 
 Leaves whose first reference gradient is under a thousandth of the median
 leaf's are left out of the leaf gaps (their change is round-off).
+
+The architecture comes from the cell's model module (``Cell.model``): its
+reference net, its maps and its pooled height.
 """
 
 from __future__ import annotations
@@ -46,10 +50,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from gpubench.common import Cell, Check
 from gpubench.reference import ops as R
-from gpubench.reference.detector import Detector, Dropouts, Precision, oihw
+from gpubench.reference.detector import Dropouts, oihw
 
-#: the first step's maps compared (the reference's names; NCHW)
-MAPS = ("segm", "rbox", "angle", "segm2", "rbox2", "angle2", "focr")
 TERMS = ("loss", "segm_loss", "angle_loss", "iou_loss", "ctc_loss")
 #: the terms the loss gaps compare: the total is their weighted sum, and
 #: near 0 (dice near -2 against the others) its relative gap is the noise
@@ -102,27 +104,29 @@ def gt_rois(rng: np.random.Generator, rows, alphabet: str, im_hw):
     return out, labels, lengths, mask
 
 
-def strip_width(rois, mask) -> int:
-    """The step's strip bucket: 11 times the largest aspect, rounded up to
-    256 or 512."""
+def strip_width(model, rois, mask) -> int:
+    """The step's strip bucket: the model's pooled height times the largest
+    aspect, rounded up to 256 or 512."""
     valid = mask > 0
     ratio = (rois[valid, 4] / np.maximum(rois[valid, 3], 1e-6)).max() if valid.any() else 1.0
-    need = int(math.ceil(R.POOLED_HEIGHT * float(ratio)))
+    need = int(math.ceil(model.POOLED_HEIGHT * float(ratio)))
     return next((b for b in TRAIN_BUCKETS if need <= b), TRAIN_BUCKETS[-1])
 
 
-def frame_count(rois, mask, width: int) -> int:
-    """The CTC frame window: ceil(11 times the largest aspect of the valid
-    rois), in [1, width] (f32 arithmetic)."""
+def frame_count(model, rois, mask, width: int) -> int:
+    """The CTC frame window: ceil(the model's pooled height times the
+    largest aspect of the valid rois), in [1, width] (f32 arithmetic)."""
     r = rois.astype(np.float32)
     aspect = np.where(mask > 0, r[:, 4] / np.maximum(r[:, 3], np.float32(1e-6)), np.float32(0))
-    return int(np.clip(np.ceil(np.float32(R.POOLED_HEIGHT) * aspect.max()), 1.0, float(width)))
+    return int(np.clip(np.ceil(np.float32(model.POOLED_HEIGHT) * aspect.max()), 1.0,
+                       float(width)))
 
 
 class Steps(NamedTuple):
     """A side's first steps: the loss terms of each, the first gradient and
-    the change after the steps by leaf, and the first step's maps (``MAPS``
-    and ``logp``, the recognition log-probs [rois, W, nclass]) on the host."""
+    the change after the steps by leaf, and the first step's maps (the
+    model's ``MAPS`` and ``logp``, the recognition log-probs [rois, W,
+    nclass]) on the host."""
 
     losses: list
     grad1: Dict[str, torch.Tensor]
@@ -130,9 +134,10 @@ class Steps(NamedTuple):
     maps: Dict[str, torch.Tensor]
 
 
-def step_losses(net: Detector, rows, roi: dict, drop: Dropouts, multi_scale: bool, device):
-    """The five loss terms of one step (a dict of scalars), and its maps
-    (``MAPS`` and ``logp``)."""
+def step_losses(model, net, rows, roi: dict, drop: Dropouts, multi_scale: bool, device):
+    """The five loss terms of one step of ``net`` (the reference of the
+    model module ``model``; a dict of scalars), and its maps (the model's
+    ``MAPS`` and ``logp``)."""
     images = torch.from_numpy(np.stack([r.image for r in rows])).to(device).float() / 128.0 - 1.0
     score = torch.from_numpy(np.stack([r.score for r in rows])).to(device)
     mask = torch.from_numpy(np.stack([r.mask for r in rows])).to(device).float()
@@ -141,10 +146,10 @@ def step_losses(net: Detector, rows, roi: dict, drop: Dropouts, multi_scale: boo
     segm, angle, iou = R.detection_losses(out, score, mask, geo[..., :4].permute(0, 3, 1, 2),
                                           geo[..., 4], multi_scale)
     rois = torch.from_numpy(roi["rois"]).to(device)
-    width = strip_width(roi["rois"], roi["mask"])
-    frames = frame_count(roi["rois"], roi["mask"], width)
-    strips = R.rroi_align(out["focr"], rois, width)
-    logp = net.recognize(strips, R.valid_width(rois, width), drop)
+    width = strip_width(model, roi["rois"], roi["mask"])
+    frames = frame_count(model, roi["rois"], roi["mask"], width)
+    strips = R.rroi_align(out["focr"], rois, model.POOLED_HEIGHT, width)
+    logp = net.recognize(strips, R.valid_width(rois, model.POOLED_HEIGHT, width), drop)
     lengths = torch.from_numpy(roi["lengths"]).long()
     per_row = R.ctc_loss(logp, torch.from_numpy(roi["labels"]), lengths, frames)
     keep = torch.from_numpy(roi["mask"]).to(device) * (lengths <= frames).float().to(device)
@@ -154,23 +159,26 @@ def step_losses(net: Detector, rows, roi: dict, drop: Dropouts, multi_scale: boo
     torch.rand((len(rows), score.shape[1] * score.shape[2]), generator=drop.generator)
     terms = {"loss": total, "segm_loss": segm, "angle_loss": angle, "iou_loss": iou,
              "ctc_loss": ctc}
-    return terms, {**{k: out[k] for k in MAPS}, "logp": logp}
+    return terms, {**{k: out[k] for k in model.MAPS}, "logp": logp}
 
 
-def reference_steps(cfg: dict, flat, pool, rois, seed: int, lr: float, device,
-                    precision: str = "f32", steps: int = 3):
-    """The reference's :class:`Steps` (CPU tensors)."""
+def reference_steps(cell: Cell, flat, pool, rois, seed: int, device, precision: str = "f32",
+                    steps: int = 3):
+    """The reference's :class:`Steps` (CPU tensors) over the cell's
+    configuration, at its traffic's learning rate."""
+    cfg, model = cell.config, cell.model
     with _no_tf32():
         p = oihw({k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
                   for k, v in flat.items()})
         trainable = {k: v.requires_grad_(True) for k, v in p.items() if k.startswith("params/")}
         start = {k: v.detach().clone() for k, v in trainable.items()}
-        net = Detector(p, cfg["attention"], Precision(precision), train=True)
+        net = model.reference(cfg, p, precision, train=True)
         drop = Dropouts(torch.Generator().manual_seed(abs(int(seed)) % (1 << 63)))
-        adam = R.Adam(trainable, lr)
+        adam = R.Adam(trainable, cell.traffic["lr"])
         losses, grad1, maps = [], {}, {}
         for s in range(steps):
-            terms, seen = step_losses(net, pool[s], rois[s], drop, cfg["multi_scale"], device)
+            terms, seen = step_losses(model, net, pool[s], rois[s], drop, cfg["multi_scale"],
+                                      device)
             grads = torch.autograd.grad(terms["loss"], list(trainable.values()))
             grads = dict(zip(trainable, grads))
             if s == 0:
@@ -224,24 +232,27 @@ def _rel_norm(p: torch.Tensor, r: torch.Tensor) -> float:
     return float((p.double() - r.double()).norm() / r.double().norm().clamp_min(1e-30))
 
 
-def map_gaps(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], roi1: dict):
-    """Each first-step map's norm of the difference over the reference's
-    norm; the log-probs over the valid rois and the CTC frame window of the
-    first step's rois ``roi1``.  A map the program did not give reads inf."""
+def map_gaps(model, prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], roi1: dict):
+    """Each first-step map's (the model's ``MAPS``) norm of the difference
+    over the reference's norm; the log-probs over the valid rois and the
+    CTC frame window of the first step's rois ``roi1``.  A map the program
+    did not give reads inf."""
     gaps = {k: (_rel_norm(prog[k], ref[k]) if k in prog and prog[k].shape == ref[k].shape
-                else float("inf")) for k in MAPS}
+                else float("inf")) for k in model.MAPS}
     rows = torch.from_numpy(roi1["mask"] > 0)
-    frames = frame_count(roi1["rois"], roi1["mask"], strip_width(roi1["rois"], roi1["mask"]))
+    frames = frame_count(model, roi1["rois"], roi1["mask"],
+                         strip_width(model, roi1["rois"], roi1["mask"]))
     p, r = prog.get("logp"), ref["logp"]
     ok = p is not None and p.shape == r.shape
     gaps["logp"] = _rel_norm(p[rows, :frames], r[rows, :frames]) if ok else float("inf")
     return gaps
 
 
-def numbers(prog: Steps, ref: Steps, roi1: dict):
+def numbers(model, prog: Steps, ref: Steps, roi1: dict):
     """The gaps of the program's (or the control's) first steps from the
-    reference's; ``roi1`` the first step's rois.  Beside the gaps of norms,
-    the median leaf's norm of the difference."""
+    reference's (of the model module ``model``); ``roi1`` the first step's
+    rois.  Beside the gaps of norms, the median leaf's norm of the
+    difference."""
     def rel(p, r, t):
         return abs(p[t] - r[t]) / max(abs(r[t]), 1e-6)
 
@@ -258,7 +269,7 @@ def numbers(prog: Steps, ref: Steps, roi1: dict):
     update_gap, update_leaf = leaf_gap(pc, rc, rg)
     loss1_gap = max((rel(prog_losses[0], ref_losses[0], t) for t in COMPARED_TERMS),
                     default=float("inf")) if steps else float("inf")
-    gaps = map_gaps(prog.maps, ref.maps, roi1)
+    gaps = map_gaps(model, prog.maps, ref.maps, roi1)
     logp_gap = gaps.pop("logp")
     return {"map_gap": max(gaps.values()), "logp_gap": logp_gap,
             **{f"map_gap.{k}": v for k, v in gaps.items()},
@@ -278,8 +289,8 @@ def check(cell: Cell, seed: int, flat, pool, rois, prog: Steps, device) -> Check
     got = rois[0]
     roi_start = int((start[0] != got["rois"]).sum() + (start[1] != got["labels"]).sum()
                     + (start[2] != got["lengths"]).sum() + (start[3] != got["mask"]).sum())
-    ref = reference_steps(cfg, flat, pool, rois, seed, tr["lr"], device)
-    nums = numbers(prog, ref, rois[0])
+    ref = reference_steps(cell, flat, pool, rois, seed, device)
+    nums = numbers(cell.model, prog, ref, rois[0])
     nums["roi_start"] = roi_start
     for name, limit in tr["limits"].items():
         chk.add(name, nums[name], limit)
@@ -292,20 +303,18 @@ def step_flops(cell: Cell, run: dict, device) -> float:
     image size and a batch of 32 rois at the narrower strip bucket, counted
     over the reference."""
     b, (h, w) = run["batch"], run["shape"]
-    cfg = cell.config
-    from gpubench.reference.detector import param_shapes
-    p = {k: torch.zeros(s, device=device) for k, s in param_shapes(cfg["nclass"],
-                                                                   cfg["attention"]).items()}
-    p = oihw(p)
+    cfg, model = cell.config, cell.model
+    p = oihw({k: torch.zeros(s, device=device) for k, s in model.param_shapes(cfg).items()})
     for k, v in p.items():
         if k.startswith("params/"):
             v.requires_grad_(True)
-    net = Detector(p, cfg["attention"], train=True)
+    net = model.reference(cfg, p, train=True)
     counter = FlopCounterMode(display=False)
     with counter:
         out = net.forward(torch.zeros((b, h, w, 3), device=device))
         rois = torch.tensor([[0, w / 2, h / 2, 32.0, 256.0, 0.0]] * MAX_ROIS, device=device)
-        logp = net.recognize(R.rroi_align(out["focr"], rois, TRAIN_BUCKETS[0]))
+        logp = net.recognize(R.rroi_align(out["focr"], rois, model.POOLED_HEIGHT,
+                                          TRAIN_BUCKETS[0]))
         loss = sum(t.float().mean() for t in (out["segm"], out["rbox"], out["angle"], logp))
         loss.backward()
     return float(counter.get_total_flops())

@@ -34,6 +34,14 @@ class Cell:
     per_layer: List[dict]
     root: str = ROOT        # the checkout whose files the cell's makers come from
 
+    @property
+    def model(self):
+        """The configuration's model module, ``gpubench/models/<model>.py``
+        by the name under its ``"model"`` key: the program's network and the
+        plain reference of that architecture (loaded anew on each read, so a
+        cell stays a plain value that copies)."""
+        return load_file("models", self.config["model"], self.root)
+
 
 def read_benchmark(root: str = ROOT) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as f:

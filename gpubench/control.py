@@ -44,19 +44,15 @@ def serve_readings(cell, seeds, control_seeds, seconds, device):
         frames = serve.Frames(cell.traffic, seed)
         idx = np.concatenate([frames.draw() for _ in range(cell.traffic["check_batches"] + 1)])
         frames_u8 = np.stack(frames.images(idx))
-        cfg, hw = cell.config, tuple(cell.traffic["serve_hw"])
-        flat = serve.cell_weights(cfg, seed, device)
+        flat = serve.cell_weights(cell, seed, device)
         with serve.reference_math(device):
             params = check_serve.reference_params(flat, device)
-            ctl_boxes, ctl_texts, _ = check_serve.reference_pass(
-                params, cfg["attention"], frames_u8, hw, tuple(cfg["strip_buckets"]),
-                cfg["alphabet"], "fp8", device=device,
-                max_candidates=cell.traffic["max_candidates"])
+            ctl_boxes, ctl_texts, _ = check_serve.reference_pass(cell, params, frames_u8, "fp8",
+                                                                 device=device)
         keep = [[t != "" for t in ts] for ts in ctl_texts]
         ctl_boxes = [b[np.asarray(k, bool)] if len(b) else b for b, k in zip(ctl_boxes, keep)]
         ctl_texts = [[t for t in ts if t] for ts in ctl_texts]
-        nums = serve.compare_to_reference(cfg, cell.traffic, flat, frames_u8, ctl_boxes,
-                                          ctl_texts, device)
+        nums = serve.compare_to_reference(cell, flat, frames_u8, ctl_boxes, ctl_texts, device)
         out.append({"seed": seed, "side": "control_fp8", **nums,
                     "frames_checked": len(frames_u8)})
         print(json.dumps(out[-1]), flush=True)
@@ -77,11 +73,10 @@ def train_readings(cell, seeds, control_seeds, device, tf32_off_seeds=0):
         print(json.dumps(out[-1]), flush=True)
         if i >= control_seeds:
             continue
-        cfg, tr = cell.config, cell.traffic
-        ref = check_train.reference_steps(cfg, flat, pool, rois, seed, tr["lr"], device)
-        ctl = check_train.reference_steps(cfg, flat, pool, rois, seed, tr["lr"], device, "bf16")
+        ref = check_train.reference_steps(cell, flat, pool, rois, seed, device)
+        ctl = check_train.reference_steps(cell, flat, pool, rois, seed, device, "bf16")
         out.append({"seed": seed, "side": "control_bf16",
-                    **check_train.numbers(ctl, ref, rois[0])})
+                    **check_train.numbers(cell.model, ctl, ref, rois[0])})
         print(json.dumps(out[-1]), flush=True)
         nums, *_ = _program_steps(cell, seed, device, fault="half_batch")
         out.append({"seed": seed, "side": "fault_half_batch", **nums})

@@ -24,8 +24,6 @@ import torch
 
 from gpubench import check_serve, common, inputs
 from gpubench.common import Cell, Check, Phases, percentile, window_rate
-from gpubench.drivers import program_model
-from gpubench.reference.detector import param_shapes
 from gpubench.trace import Span
 from gpubench.weights import cell_weights
 
@@ -102,8 +100,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     phases.mark("start")  # interpreter, imports and the kernel build
     frames = Frames(tr, seed, cell.root)
     phases.mark("inputs")
-    flat = cell_weights(cfg, seed, device)
-    engine = FOTSInference(program_model(cfg, flat), masked_norm=cfg["masked_norm"],
+    flat = cell_weights(cell, seed, device)
+    engine = FOTSInference(cell.model.program_model(cfg, flat), masked_norm=cfg["masked_norm"],
                            mixed_precision=MIXED_PRECISION,
                            max_candidates=tr["max_candidates"], device=device)
     phases.mark("weights")
@@ -218,7 +216,7 @@ def served_in_serving_pixels(res, frames_u8, serve_hw):
 
 
 def check(cell: Cell, seed: int, frames: Frames, drawn, done, deadline, flat, device) -> Check:
-    tr, cfg = cell.traffic, cell.config
+    tr = cell.traffic
     chk = Check()
     picks = sample_batches(seed, done, deadline, tr["check_batches"])
     if not picks:
@@ -227,7 +225,7 @@ def check(cell: Cell, seed: int, frames: Frames, drawn, done, deadline, flat, de
     frames_u8 = np.stack([frames.frames[i] for p in picks for i in drawn[done[p][0]]])
     res = [r for p in picks for r in done[p][3]]
     served_boxes, served_texts = served_in_serving_pixels(res, frames_u8, tuple(tr["serve_hw"]))
-    nums = compare_to_reference(cfg, tr, flat, frames_u8, served_boxes, served_texts, device)
+    nums = compare_to_reference(cell, flat, frames_u8, served_boxes, served_texts, device)
     for name, limit in tr["limits"].items():
         chk.add(name, nums[name], limit)
     chk.notes = {"frames_checked": len(frames_u8),
@@ -235,16 +233,14 @@ def check(cell: Cell, seed: int, frames: Frames, drawn, done, deadline, flat, de
     return chk
 
 
-def compare_to_reference(cfg, tr, flat, frames_u8, served_boxes, served_texts, device):
+def compare_to_reference(cell: Cell, flat, frames_u8, served_boxes, served_texts, device):
     """The compared numbers of served boxes and texts over ``frames_u8``."""
     with reference_math(device):
         params = check_serve.reference_params(flat, device)
         ref_boxes, ref_texts, logp = check_serve.reference_pass(
-            params, cfg["attention"], frames_u8, tuple(tr["serve_hw"]),
-            tuple(cfg["strip_buckets"]), cfg["alphabet"], extra_boxes=served_boxes,
-            device=device, max_candidates=tr["max_candidates"])
+            cell, params, frames_u8, extra_boxes=served_boxes, device=device)
     return check_serve.compare(served_boxes, served_texts, logp, ref_boxes, ref_texts,
-                               cfg["alphabet"])
+                               cell.config["alphabet"])
 
 
 class reference_math:
@@ -271,12 +267,11 @@ def model_flops(cell: Cell, run: dict, device) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
     from gpubench.reference import ops as R
-    from gpubench.reference.detector import Detector, oihw
+    from gpubench.reference.detector import oihw
 
-    cfg = cell.config
-    p = oihw({k: torch.zeros(s, device=device)
-              for k, s in param_shapes(cfg["nclass"], cfg["attention"]).items()})
-    net = Detector(p, cfg["attention"])
+    cfg, model = cell.config, cell.model
+    p = oihw({k: torch.zeros(s, device=device) for k, s in model.param_shapes(cfg).items()})
+    net = model.reference(cfg, p)
     h, w = run["serve_hw"]
 
     def count(fn) -> float:
@@ -285,11 +280,12 @@ def model_flops(cell: Cell, run: dict, device) -> float:
             fn()
         return float(counter.get_total_flops())
 
-    det = count(lambda: net.forward(torch.zeros((1, h, w, 3), device=device)))
-    focr = torch.zeros((1, 64, h // 4, w // 4), device=device)
+    out = {}
+    det = count(lambda: out.update(net.forward(torch.zeros((1, h, w, 3), device=device))))
     rec = 0.0
     for width, n in run["hooks"].roi_widths.items():
         roi = torch.tensor([[0, w / 8, h / 8, 32.0, 8.0 * width, 0.0]], device=device)
-        rec += n * count(lambda: net.recognize(R.rroi_align(focr, roi, width)))
+        rec += n * count(lambda: net.recognize(
+            R.rroi_align(out["focr"], roi, model.POOLED_HEIGHT, width)))
     seen = max(1, run["attempted"] * run["batch"])
     return run["images"] * (det + rec / seen)

@@ -24,9 +24,8 @@ import torch
 
 from gpubench import check_train, common
 from gpubench.common import Cell, Phases
-from gpubench.drivers import program_model
 from gpubench.trace import Span
-from gpubench.weights import cell_weights, program_leaves
+from gpubench.weights import cell_weights
 
 CHECKED_STEPS = 3
 
@@ -63,7 +62,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     from fots_torch.kernels import build
     from fots_torch.train import Trainer
 
-    tr, cfg = cell.traffic, cell.config
+    tr, cfg, model = cell.traffic, cell.config, cell.model
     phases = Phases(t_start)
     if device == "cuda":
         build.build(["instance_norm", "instance_norm_bwd", "spatial_norm", "pack_neighbors"])
@@ -71,8 +70,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     pool = make_pool(tr, seed, cell.root)
     batches = [detection_batch(rows) for rows in pool]
     phases.mark("inputs")
-    flat = cell_weights(cfg, seed, device)
-    trainer = Trainer(model=program_model(cfg, flat),
+    flat = cell_weights(cell, seed, device)
+    trainer = Trainer(model=model.program_model(cfg, flat),
                       codec=LabelCodec(alphabet=cfg["alphabet"]), learning_rate=tr["lr"],
                       seed=trainer_seed(seed), masked_norm=cfg["masked_norm"], device=device)
     phases.mark("weights")
@@ -94,12 +93,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     # the checked steps: the window's own call and feed; the first step's
     # maps and log-probs kept as the program's forward gives them
     maps: Dict[str, torch.Tensor] = {}
-    hooks = [trainer.model.register_forward_hook(_keep(maps, _detector_maps)),
-             trainer.model.ocr.register_forward_hook(_keep(maps, lambda o: {"logp": o}))]
+    hooks = [trainer.model.register_forward_hook(_keep(maps, model.program_maps)),
+             model.recognition(trainer.model).register_forward_hook(
+                 _keep(maps, lambda o: {"logp": o}))]
     trainer.train(cycle, max_steps=1, log_every=0)
     for h in hooks:
         h.remove()
-    leaves = program_leaves(trainer.model)
+    leaves = model.program_leaves(trainer.model)
     b1 = trainer.optimizer.param_groups[0]["betas"][0]
     # a state with no first moment (a step that left it unchanged) reads 0
     grad1 = {k: (trainer.optimizer.state[p].get("exp_avg", torch.zeros_like(p)) / (1.0 - b1))
@@ -182,14 +182,6 @@ def _keep(store: dict, pick):
             if k not in store:
                 store[k] = v.detach().float().cpu()
     return hook
-
-
-def _detector_maps(out: dict) -> Dict[str, torch.Tensor]:
-    """The detector's outputs under the reference's names, NCHW."""
-    maps = {"focr": out["focr"]}
-    for k in ("segm", "rbox", "angle"):
-        maps[k], maps[k + "2"] = out[k]
-    return {k: v.permute(0, 3, 1, 2) for k, v in maps.items()}
 
 
 def _oihw(w: torch.Tensor) -> torch.Tensor:

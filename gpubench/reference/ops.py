@@ -17,7 +17,6 @@ import torch
 import torch.nn.functional as F
 
 PI = 3.1415926535  # the reference kernel's literal
-POOLED_HEIGHT = 11
 
 
 # --------------------------------------------------------------------------
@@ -28,8 +27,7 @@ def _round_half_away(x):
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
 
 
-def rroi_align(features, rois, pooled_w: int, spatial_scale: float = 0.25,
-               pooled_h: int = POOLED_HEIGHT):
+def rroi_align(features, rois, pooled_h: int, pooled_w: int, spatial_scale: float = 0.25):
     """Rotated crops of NCHW ``features`` [B, C, H, W] -> [N, C, ph, pw].
 
     ``rois`` [N, 6] = (batch index, cx, cy, h, w, angle in degrees).  Each
@@ -77,10 +75,11 @@ def rroi_align(features, rois, pooled_w: int, spatial_scale: float = 0.25,
     return out.permute(0, 3, 1, 2)
 
 
-def valid_width(rois, pooled_w: int):
-    """Content frames of each roi's strip: ceil(11 * w / h), in [1, pooled_w]."""
+def valid_width(rois, pooled_h: int, pooled_w: int):
+    """Content frames of each roi's strip: ceil(pooled_h * w / h), in
+    [1, pooled_w]."""
     aspect = rois[:, 4] / torch.clamp_min(rois[:, 3], 1e-6)
-    return torch.clamp(torch.ceil(POOLED_HEIGHT * aspect), 1, pooled_w).long()
+    return torch.clamp(torch.ceil(pooled_h * aspect), 1, pooled_w).long()
 
 
 # --------------------------------------------------------------------------
@@ -245,10 +244,11 @@ def roi_of_box(box, batch_index: int):
     return [batch_index, int(center[0]), int(center[1]), h, w, angle], w, h
 
 
-def strip_width(w: float, h: float, buckets: Sequence[int]) -> int:
-    """Strip width of a box at height 11: 11 * w / h + 11, down to a multiple
-    of 32 (at least 64), up to the first bucket that holds it."""
-    gw = max(2, (int(w * POOLED_HEIGHT / max(1.0, h)) + POOLED_HEIGHT) // 32) * 32
+def strip_width(w: float, h: float, pooled_h: int, buckets: Sequence[int]) -> int:
+    """Strip width of a box at height ``pooled_h``: pooled_h * w / h +
+    pooled_h, down to a multiple of 32 (at least 64), up to the first bucket
+    that holds it."""
+    gw = max(2, (int(w * pooled_h / max(1.0, h)) + pooled_h) // 32) * 32
     for b in buckets:
         if gw <= b:
             return b

@@ -30,17 +30,14 @@ def test_serving_control_fails_the_limits(traffic):
     cell.traffic.update(SMALL_SERVE[traffic])
     frames = serve.Frames(cell.traffic, 4_000_000_007)
     frames_u8 = np.stack(frames.images(frames.draw()))
-    cfg, hw = cell.config, tuple(cell.traffic["serve_hw"])
-    flat = serve.cell_weights(cfg, 0, "cpu")
+    flat = serve.cell_weights(cell, 0, "cpu")
     with serve.reference_math("cpu"):
         boxes, texts, _ = check_serve.reference_pass(
-            check_serve.reference_params(flat, "cpu"), cfg["attention"], frames_u8, hw,
-            tuple(cfg["strip_buckets"]), cfg["alphabet"], "fp8", device="cpu",
-            max_candidates=cell.traffic["max_candidates"])
+            cell, check_serve.reference_params(flat, "cpu"), frames_u8, "fp8", device="cpu")
     keep = [np.asarray([t != "" for t in ts], bool) for ts in texts]
     boxes = [b[k] if len(b) else b for b, k in zip(boxes, keep)]
     texts = [[t for t in ts if t] for ts in texts]
-    nums = serve.compare_to_reference(cfg, cell.traffic, flat, frames_u8, boxes, texts, "cpu")
+    nums = serve.compare_to_reference(cell, flat, frames_u8, boxes, texts, "cpu")
     assert control.over_limits(cell, nums), nums
 
 
@@ -55,10 +52,9 @@ def test_training_control(name):
     seed = 4_000_000_009
     run = train.run(cell, seed, 0.0, False, time.perf_counter(), "cpu")
     assert run["check"].ok, run["check"].line()
-    args = (cell.config, run["check_weights"], run["check_pool"], run["check_rois"], seed,
-            cell.traffic["lr"], "cpu")
+    args = (cell, run["check_weights"], run["check_pool"], run["check_rois"], seed, "cpu")
     ref = check_train.reference_steps(*args)
-    ctl = check_train.numbers(check_train.reference_steps(*args, "bf16"), ref,
+    ctl = check_train.numbers(cell.model, check_train.reference_steps(*args, "bf16"), ref,
                               run["check_rois"][0])
     assert control.over_limits(cell, ctl), (ctl, run["check"].line())
 

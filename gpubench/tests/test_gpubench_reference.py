@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpubench import check_train, inputs, weights
+from gpubench import check_train, common, inputs, weights
 from gpubench.drivers import train
 from gpubench.common import ROOT
 from gpubench.reference import ops as R
@@ -23,6 +23,10 @@ CONFIGS = ("fots-icdar15-gated", "fots-icdar15-gateless")
 def _config(name):
     with open(os.path.join(ROOT, "gpubench", "configs", name + ".json")) as f:
         return json.load(f)
+
+
+def _model(cfg):
+    return common.load_file("models", cfg["model"])
 
 
 def _program(cfg, flat):
@@ -44,7 +48,8 @@ def test_maps_and_recognition(name, scenes):
     from fots_torch.ops.rroi_align import rroi_align
 
     cfg = _config(name)
-    flat = weights.to_numpy(weights.seeded(cfg["nclass"], cfg["attention"], 7, "cpu"))
+    model_module = _model(cfg)
+    flat = weights.to_numpy(model_module.seeded(cfg, 7, "cpu"))
     model = _program(cfg, flat).eval()
     net = Detector(oihw({k: torch.tensor(v) for k, v in flat.items()}), cfg["attention"])
     x = torch.from_numpy(scenes[0].pixels[:192, :256].astype(np.float32) / 128.0 - 1.0)[None]
@@ -61,9 +66,10 @@ def test_maps_and_recognition(name, scenes):
         assert torch.allclose(got["focr"], want["focr"].permute(0, 2, 3, 1), atol=1e-4)
         rois = torch.tensor([[0, 100.0, 60.0, 20.0, 90.0, 5.0], [0, 150.0, 100.0, 16.0, 40.0, -10.0],
                              [0, 8.0, 8.0, 8.0, 8.0, 0.0]])
-        vw = R.valid_width(rois, 64)
-        lp_got = model.recognize(rroi_align(got["focr"], rois, 11, 64, 0.25), vw.int())
-        lp_want = net.recognize(R.rroi_align(want["focr"], rois, 64), vw)
+        ph = model_module.POOLED_HEIGHT
+        vw = R.valid_width(rois, ph, 64)
+        lp_got = model.recognize(rroi_align(got["focr"], rois, ph, 64, 0.25), vw.int())
+        lp_want = net.recognize(R.rroi_align(want["focr"], rois, ph, 64), vw)
         assert torch.allclose(lp_got, lp_want, atol=2e-3)
 
 
@@ -99,11 +105,12 @@ def test_training_losses(name):
     cfg = _config(name)
     tr = {"batch": 2, "frames": "crops", "crop": 128, "scale": [0.8, 1.2], "pool_batches": 1}
     rows = train.make_pool(tr, 11)[0]
-    flat = weights.to_numpy(weights.seeded(cfg["nclass"], cfg["attention"], 11, "cpu"))
+    model_module = _model(cfg)
+    flat = weights.to_numpy(model_module.seeded(cfg, 11, "cpu"))
     rois, labels, lengths, mask = check_train.gt_rois(np.random.default_rng(5), rows,
                                                       cfg["alphabet"], (128, 128))
-    width = check_train.strip_width(rois, mask)
-    frames = check_train.frame_count(rois, mask, width)
+    width = check_train.strip_width(model_module, rois, mask)
+    frames = check_train.frame_count(model_module, rois, mask, width)
     batch = train.detection_batch(rows)
     rb = RoiBatch(rois, labels, lengths, mask, width, 0, int(mask.sum()))
     dev = unpack_device_batch(*[torch.from_numpy(np.ascontiguousarray(a))
@@ -115,10 +122,11 @@ def test_training_losses(name):
                              repeat_infeasible_rows(labels, lengths, np.full(32, frames)))
     net = Detector(oihw({k: torch.tensor(v) for k, v in flat.items()}), cfg["attention"],
                    train=True)
-    want, _ = check_train.step_losses(net, rows, {"rois": rois, "labels": labels,
-                                               "lengths": lengths, "mask": mask},
-                                   Dropouts(torch.Generator().manual_seed(3)),
-                                   cfg["multi_scale"], "cpu")
+    want, _ = check_train.step_losses(model_module, net, rows,
+                                      {"rois": rois, "labels": labels, "lengths": lengths,
+                                       "mask": mask},
+                                      Dropouts(torch.Generator().manual_seed(3)),
+                                      cfg["multi_scale"], "cpu")
     for k in check_train.TERMS:
         assert float(got[k].detach()) == pytest.approx(float(want[k].detach()), rel=1e-4,
                                                        abs=1e-5), k

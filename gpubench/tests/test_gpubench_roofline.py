@@ -4,7 +4,7 @@ each output written once)."""
 
 import pytest
 
-from gpubench import roofline
+from gpubench import check_train, common, roofline
 
 BF16 = "c10::BFloat16"
 
@@ -49,3 +49,15 @@ def test_share_is_bound_over_time_and_none_without_kernels():
 ])
 def test_kernel_names(name, kernel):
     assert roofline.kernel_of(name) == kernel
+
+
+@pytest.mark.parametrize("name,shape,flops", [
+    ("train-gateless-crops512-b32", (512, 512), 1146985381888),
+    ("train-gated-frames640x960-b16", (640, 960), 1516490612736),
+])
+def test_step_flops_of_each_configuration(name, shape, flops):
+    """``mfu.train``'s FLOPs of a step at the cell's image size, a batch of
+    2, counted over the reference of the cell's model module: the counts
+    the harness gave before the architecture was found by name."""
+    cell = common.find_cell(name)
+    assert check_train.step_flops(cell, {"batch": 2, "shape": shape}, "cpu") == flops

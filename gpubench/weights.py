@@ -16,22 +16,24 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gpubench.common import Cell
 from gpubench.inputs import ROOT
-from gpubench.reference.detector import param_shapes
 
 #: std of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
 
-def cell_weights(config: dict, seed: int, device) -> Dict[str, np.ndarray]:
+def cell_weights(cell: Cell, seed: int, device) -> Dict[str, np.ndarray]:
     """The weights of a cell's configuration as a flat dict of f32 arrays:
-    its snapshot, or drawn on the device from ``seed``."""
+    its snapshot, or drawn on the device from ``seed`` by its model
+    module's ``seeded``."""
+    config, model = cell.config, cell.model
     if config["weights"]["kind"] == "snapshot":
         flat = load_snapshot(os.path.join(ROOT, config["weights"]["file"]))
-        if set(flat) != set(param_shapes(config["nclass"], config["attention"])):
+        if set(flat) != set(model.param_shapes(config)):
             raise RuntimeError("the snapshot's leaves differ from the configuration's")
         return flat
-    return to_numpy(seeded(config["nclass"], config["attention"], seed, device))
+    return to_numpy(model.seeded(config, seed, device))
 
 
 def load_snapshot(path: str) -> Dict[str, np.ndarray]:
@@ -40,12 +42,11 @@ def load_snapshot(path: str) -> Dict[str, np.ndarray]:
         return {k: np.asarray(z[k], np.float32) for k in z.files if not k.startswith("__")}
 
 
-def seeded(nclass: int, attention: bool, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Fresh weights on ``device`` from ``seed``, as the model is initialised
-    from scratch: conv kernels truncated normal (+-2 std) with std
-    sqrt(1 / fan_in) (fan_in = kh kw in), biases 0, norm scales 1, running
+def draw(shapes: Dict[str, tuple], seed: int, device) -> Dict[str, torch.Tensor]:
+    """Fresh leaves of ``shapes`` on ``device`` from ``seed``: every
+    ``/kernel`` a conv kernel (HWIO), truncated normal (+-2 std) with std
+    sqrt(1 / fan_in) (fan_in = kh kw in); biases 0, norm scales 1, running
     mean 0 and variance 1.  All kernels are drawn in one call."""
-    shapes = param_shapes(nclass, attention)
     kernels = [k for k in shapes if k.endswith("/kernel")]
     sizes = [math.prod(shapes[k]) for k in kernels]
     gen = torch.Generator(device=device).manual_seed(abs(int(seed)) % (1 << 63))
@@ -65,40 +66,3 @@ def seeded(nclass: int, attention: bool, seed: int, device) -> Dict[str, torch.T
 
 def to_numpy(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().float().cpu().numpy() for k, v in flat.items()}
-
-
-def flat_key(torch_name: str) -> str:
-    """A parameter or buffer name of the program's module tree -> the
-    snapshot key of the same leaf (``layer2.0.down_bn.weight`` ->
-    ``params/layer2_0/down_bn/bn/scale``, a conv weight -> ``.../kernel``)."""
-    parts = torch_name.split(".")
-    leaf, path = parts[-1], []
-    i = 0
-    while i < len(parts) - 1:
-        seg = parts[i]
-        if re.fullmatch(r"layer\d", seg) and i + 1 < len(parts) - 1 and parts[i + 1].isdigit():
-            path.append(f"{seg}_{parts[i + 1]}")
-            i += 2
-            continue
-        path.append("in" if seg == "norm" else seg)
-        i += 1
-    if path and path[-1] == "down_bn":
-        path.append("bn")
-    if leaf in ("running_mean", "running_var"):
-        return "batch_stats/" + "/".join(path) + ("/mean" if leaf == "running_mean" else "/var")
-    if leaf == "bias":
-        return "params/" + "/".join(path) + "/bias"
-    return "params/" + "/".join(path) + "/" + leaf
-
-
-def program_leaves(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """The program's parameters by snapshot key, conv kernels left OIHW
-    (the reference's layout); a weight that is a conv kernel is keyed
-    ``kernel``, a norm's ``scale``."""
-    out = {}
-    for name, p in model.named_parameters():
-        key = flat_key(name)
-        if key.endswith("/weight"):
-            key = key[: -len("weight")] + ("kernel" if p.ndim == 4 else "scale")
-        out[key] = p
-    return out
